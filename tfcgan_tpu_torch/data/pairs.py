@@ -1,0 +1,74 @@
+"""Paired side-by-side image dataset, port of ``tfcgan_tpu.data.pairs``.
+
+Each file holds A|B side by side; it is split at w/2 and bicubic-resized with
+PIL, which is imported where an image is read (the package imports without
+it). The native C++ decode path of the JAX package is not ported yet.
+
+Batches: {"A": (N,H,W,3) float32 in [-1,1], "B": same, "T_B": (N,H,W) float32
+Celsius}.
+"""
+
+from __future__ import annotations
+
+import glob
+import os
+
+import numpy as np
+
+from tfcgan_tpu_torch.data.synth import TEMP_MAX_C, TEMP_MIN_C
+
+
+def load_pair(path: str, image_size: int = 256) -> tuple[np.ndarray, np.ndarray]:
+    """One A|B image -> (A_u8, B_u8), each (H, W, 3) uint8."""
+    from PIL import Image
+
+    with Image.open(path) as f:
+        img = f.convert("RGB")
+    w, h = img.size
+    size = (image_size, image_size)
+    a = img.crop((0, 0, w / 2, h)).resize(size, Image.Resampling.BICUBIC)
+    b = img.crop((w / 2, 0, w, h)).resize(size, Image.Resampling.BICUBIC)
+    return np.asarray(a, dtype=np.uint8), np.asarray(b, dtype=np.uint8)
+
+
+def _normalize(u8: np.ndarray) -> np.ndarray:
+    # ToTensor + Normalize(0.5, 0.5): uint8/255 -> [-1, 1]
+    return (u8.astype(np.float32) / 255.0 - 0.5) / 0.5
+
+
+class PairedImageDataset:
+    """File-list dataset over a ``root/mode`` directory of A|B pair images."""
+
+    def __init__(self, root: str, mode: str = "train", image_size: int = 256,
+                 direction: str = "AtoB"):
+        self.files = sorted(glob.glob(os.path.join(root, mode, "*.*")))
+        if not self.files:
+            raise FileNotFoundError(f"no images under {os.path.join(root, mode)}")
+        self.image_size = image_size
+        self.direction = direction
+
+    def __len__(self) -> int:
+        return len(self.files)
+
+    def __getitem__(self, idx: int) -> dict[str, np.ndarray]:
+        a_u8, b_u8 = load_pair(self.files[idx % len(self.files)], self.image_size)
+        if self.direction == "BtoA":
+            a_u8, b_u8 = b_u8, a_u8
+        t_b = TEMP_MIN_C + b_u8[..., 0].astype(np.float32) * ((TEMP_MAX_C - TEMP_MIN_C) / 255.0)
+        return {"A": _normalize(a_u8), "B": _normalize(b_u8), "T_B": t_b}
+
+
+def batch_iterator(dataset, batch_size: int, shuffle: bool = True, seed: int = 42,
+                   drop_last: bool = True, epochs: int | None = None):
+    """Host-side batcher; the same order as the JAX package for one seed."""
+    rng = np.random.RandomState(seed)
+    epoch = 0
+    while epochs is None or epoch < epochs:
+        order = np.arange(len(dataset))
+        if shuffle:
+            rng.shuffle(order)
+        n_full = len(order) // batch_size if drop_last else -(-len(order) // batch_size)
+        for i in range(n_full):
+            items = [dataset[int(j)] for j in order[i * batch_size:(i + 1) * batch_size]]
+            yield {k: np.stack([it[k] for it in items]) for k in items[0]}
+        epoch += 1

@@ -1,0 +1,37 @@
+"""Grayscale conversion of normalized images, port of ``tfcgan_tpu.ops.quantize``.
+
+The serve and eval path uses two modes: ``eval`` (the image as saved to PNG
+and re-read, then PIL's fixed-point ITU-R 601 luma) and ``smooth`` (float
+luma without quantization). The training losses' ``exact`` mode comes with
+the training slice.
+"""
+
+from __future__ import annotations
+
+import torch
+
+_LUMA_R, _LUMA_G, _LUMA_B = 19595.0, 38470.0, 7471.0  # /65536 fixed point
+
+
+def luma_pil(rgb_uint8: torch.Tensor) -> torch.Tensor:
+    """uint8-valued float RGB (..., 3) -> PIL-exact L values (...,) in [0, 255].
+    Every partial sum stays below 2^24, so float32 holds it exactly."""
+    r, g, b = rgb_uint8[..., 0], rgb_uint8[..., 1], rgb_uint8[..., 2]
+    acc = r * _LUMA_R + g * _LUMA_G + b * _LUMA_B + 32768.0
+    return torch.floor(acc / 65536.0)
+
+
+def rgb_to_luma_uint8(x: torch.Tensor, mode: str = "eval") -> torch.Tensor:
+    """Normalized image (N, H, W, 3) in [-1, 1] -> grayscale plane (N, H, W).
+
+    mode="eval":   round-and-clip to the on-disk uint8, then PIL luma.
+    mode="smooth": [-1, 1] -> [0, 255] floats with the luma weights, no
+                   quantization.
+    """
+    v = (x.float() * 0.5 + 0.5) * 255.0
+    if mode == "eval":
+        return luma_pil(torch.clamp(torch.round(v), 0.0, 255.0))
+    if mode == "smooth":
+        return (v[..., 0] * (_LUMA_R / 65536.0) + v[..., 1] * (_LUMA_G / 65536.0)
+                + v[..., 2] * (_LUMA_B / 65536.0))
+    raise ValueError(f"unknown mode {mode!r} (the port has 'eval' and 'smooth')")
