@@ -1,12 +1,15 @@
-"""Blur-pool of the port (CPU: its plain version) against the JAX package.
+"""Blur-pool of the port (CPU: its plain version) against the JAX package,
+forward and backward.
 
 The JAX side runs ``blur_pool_padded`` (the XLA form) and the Pallas kernel
 ``blur_pool_fast`` in interpret mode (conftest pins JAX to the CPU, where
-``default_interpret()`` is true). Tolerances: float32 atol 1e-5 (summation
-order only), bfloat16 atol 3e-2 (a few bf16 ulps at |y| ~ 2, as the JAX
-package's own bf16 kernel test).
+``default_interpret()`` is true); the backward is ``jax.grad`` of the first
+and ``jax.vjp`` of the second (its hand-written adjoint). Tolerances: float32
+atol 1e-5 (summation order only), bfloat16 atol 3e-2 (a few bf16 ulps at
+|y| ~ 2, as the JAX package's own bf16 kernel test).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,6 +20,11 @@ from tfcgan_tpu.ops.pallas_kernels.blurpool import _reflect, blur_pool_fast
 from tfcgan_tpu_torch.ops import blurpool
 from tfcgan_tpu_torch.ops.kernels import blurpool as kernel
 
+# the cases of tests/test_pallas_kernels.py's blur-pool tests
+KERNEL_CASES = [(2, 32, 32, 16), (1, 16, 16, 64), (1, 15, 17, 5), (1, 255, 9, 2),
+                (2, 31, 31, 8), (1, 8, 8, 256)]
+# blur inputs of the 256² discriminator at batch 1, all stride 2
+D_SHAPES = [(1, 255, 255, 64), (1, 127, 127, 128), (1, 63, 63, 256), (1, 31, 31, 512)]
 # blur inputs of the 256² generator at batch 1: (shape, stride on the path)
 MAIN_PATH = [
     ((1, 255, 255, 64), 2), ((1, 127, 127, 128), 2), ((1, 63, 63, 256), 2),
@@ -35,8 +43,7 @@ def _port(x, stride):
 
 
 @pytest.mark.parametrize("stride", [1, 2])
-@pytest.mark.parametrize("shape", [(2, 32, 32, 16), (1, 16, 16, 64), (1, 15, 17, 5),
-                                   (1, 255, 9, 2), (2, 31, 31, 8), (1, 8, 8, 256)])
+@pytest.mark.parametrize("shape", KERNEL_CASES)
 def test_matches_jax_padded_and_pallas(shape, stride):
     x = _x(shape, 6)
     got = _port(x, stride)
@@ -96,3 +103,55 @@ def test_kernel_wrapper_refuses_cpu_tensor():
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernel.blur_pool_fwd(torch.randn(1, 8, 8, 4), 2)
     assert kernel.LAUNCHES == launches
+
+
+def _port_grad(x, dy, stride):
+    xt = torch.from_numpy(x).requires_grad_()
+    (g,) = torch.autograd.grad(blurpool.blur_pool(xt, stride), xt, torch.from_numpy(dy))
+    return g.numpy()
+
+
+def _grads(shape, stride, seed):
+    """(port gradient, jax.grad of blur_pool_padded, the Pallas kernel's VJP)
+    for one random input and output gradient."""
+    x = _x(shape, seed)
+    dy = _x((shape[0], kernel.out_len(shape[1], stride), kernel.out_len(shape[2], stride),
+             shape[3]), seed + 1)
+    xj, dyj = jnp.asarray(x), jnp.asarray(dy)
+    _, vjp_padded = jax.vjp(lambda v: jax_blur_pool_padded(v, stride), xj)
+    _, vjp_fast = jax.vjp(lambda v: blur_pool_fast(v, stride), xj)
+    return (_port_grad(x, dy, stride), np.asarray(vjp_padded(dyj)[0]),
+            np.asarray(vjp_fast(dyj)[0]))
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("shape", KERNEL_CASES)
+def test_backward_matches_jax_padded_and_pallas(shape, stride):
+    # the odd lengths fold the right-edge taps j = n, n + 1 onto n - 2, n - 3
+    got, want_padded, want_fast = _grads(shape, stride, 11)
+    np.testing.assert_allclose(got, want_padded, atol=1e-5)
+    np.testing.assert_allclose(got, want_fast, atol=1e-5)
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("n", [1, 2, 3])
+def test_backward_tiny_maps(n, stride):
+    # one input collects up to four reads here. Held to jax.grad of the padded
+    # form only: the Pallas kernel does not take these shapes
+    # (blur_pool_supported is false) and its adjoint is off at n = 1
+    got, want_padded, _ = _grads((2, n, n, 8), stride, 11)
+    np.testing.assert_allclose(got, want_padded, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", D_SHAPES)
+def test_backward_discriminator_shapes(shape):
+    got, want_padded, want_fast = _grads(shape, 2, 12)
+    np.testing.assert_allclose(got, want_padded, atol=1e-5)
+    np.testing.assert_allclose(got, want_fast, atol=1e-5)
+
+
+def test_backward_kernel_wrapper_refuses_cpu_tensor():
+    launches = kernel.BWD_LAUNCHES
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernel.blur_pool_bwd(torch.randn(1, 4, 4, 4), 8, 8, 2)
+    assert kernel.BWD_LAUNCHES == launches

@@ -54,8 +54,9 @@ def test_luma_pil_is_exact_on_all_corners():
 
 
 def test_unknown_luma_mode_raises():
+    # "exact" is a mode now (the training losses' quantization)
     with pytest.raises(ValueError, match="unknown mode"):
-        quantize.rgb_to_luma_uint8(torch.zeros(1, 2, 2, 3), mode="exact")
+        quantize.rgb_to_luma_uint8(torch.zeros(1, 2, 2, 3), mode="round")
 
 
 @pytest.mark.parametrize("kind", ["random", "constant"])

@@ -106,9 +106,60 @@ def test_upsample2x_conv_matches_jax():
 
 
 def test_dropout_blocks_refuse_training_mode():
+    # training mode runs dropout only with explicit keep-masks
     g = GeneratorUNet().train()
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(ValueError, match="needs dropout_masks"):
         g(torch.zeros(1, 64, 64, 3))
+    masks = g.draw_dropout_masks(1, 64, 64, torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="eval mode"):
+        g.eval()(torch.zeros(1, 64, 64, 3), masks)
+
+
+def _keep_mask(shape, seed):
+    """A p = 0.5 keep-mask, scaled by 1/(1-p) = 2."""
+    return torch.from_numpy((np.random.RandomState(seed).rand(*shape) < 0.5) * 2.0).float()
+
+
+def test_unet_down_dropout_is_jax_output_times_mask():
+    # dropout is the block's last op, so the JAX block's deterministic output
+    # times the mask is exactly the JAX block with that keep-mask
+    x = np.random.RandomState(20).randn(2, 17, 17, 6).astype(np.float32)
+    m = jax_layers.UNetDown(8, dropout=0.5)
+    params = m.init(jax.random.PRNGKey(0), jnp.asarray(x))["params"]
+    port = layers.UNetDown(6, 8, dropout=0.5).train()
+    port.conv.weight.data = _flax_to_torch_conv(params["conv"]["kernel"])
+    keep = _keep_mask((2, 8, 8, 8), 21)
+    got = port(torch.from_numpy(x), keep).detach().numpy()
+    want = np.asarray(jax.jit(m.apply)({"params": params}, jnp.asarray(x))) * keep.numpy()
+    np.testing.assert_allclose(got, want, atol=2e-5)
+
+
+def test_unet_up_dropout_comes_before_the_skip_concat():
+    rng = np.random.RandomState(22)
+    x = rng.randn(2, 5, 5, 8).astype(np.float32)
+    skip = rng.randn(2, 10, 10, 4).astype(np.float32)
+    m = jax_layers.UNetUp(6, dropout=0.5)
+    params = m.init(jax.random.PRNGKey(0), jnp.asarray(x), jnp.asarray(skip))["params"]
+    port = layers.UNetUp(8, 6, dropout=0.5).train()
+    port.conv.weight.data = _flax_to_torch_convT(params["conv"]["kernel"])
+    keep = _keep_mask((2, 10, 10, 6), 23)
+    got = port(torch.from_numpy(x), torch.from_numpy(skip), keep).detach().numpy()
+    want = np.array(jax.jit(m.apply)({"params": params}, jnp.asarray(x), jnp.asarray(skip)))
+    want[..., :6] *= keep.numpy()
+    np.testing.assert_allclose(got, want, atol=2e-5)
+
+
+def test_drawn_masks_keep_half_and_reach_every_dropout_block():
+    g = GeneratorUNet().train()
+    masks = g.draw_dropout_masks(2, 64, 64, torch.Generator().manual_seed(1))
+    assert set(masks) == {"down3", "down4", "up2", "up3"}
+    assert masks["down3"].shape == (2, 8, 8, 256) and masks["up2"].shape == (2, 4, 4, 512)
+    kept = torch.cat([m.flatten() for m in masks.values()])
+    assert set(kept.unique().tolist()) == {0.0, 2.0}
+    assert abs(float((kept > 0).float().mean()) - 0.5) < 0.02
+    zeros = {k: torch.zeros_like(v) for k, v in masks.items()}
+    x = torch.randn(2, 64, 64, 3)
+    assert not torch.equal(g(x, masks), g(x, zeros))
 
 
 def test_init_seed_is_reproducible_and_normal():

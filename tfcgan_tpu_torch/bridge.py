@@ -1,11 +1,18 @@
-"""Weights from the JAX package to the port.
+"""Weights and train states from the JAX package to the port.
 
 ``generator_from_flax`` turns the JAX ``params["G"]`` tree of
 ``GeneratorUNet`` (a nested dict, or a flat dict with "/"-joined keys as
 ``tools/export_g_params.py`` writes to ``g_params.npz``) into the state dict of
-``tfcgan_tpu_torch.models.unet.GeneratorUNet``. Flax stores every conv kernel
-as ``(kh, kw, in, out)``; torch wants ``(out, in, kh, kw)`` for a conv and
-``(in, out, kh, kw)`` for a transposed conv (the up blocks' ``conv``).
+``tfcgan_tpu_torch.models.unet.GeneratorUNet``; ``discriminator_from_flax``
+and ``lpips_from_flax`` do the same for ``PatchDiscriminator`` (with its
+spectral u/v) and ``LPIPS``, and ``train_state_from_flax`` for a whole
+``GANTrainState`` of the tfcgan recipe. Flax stores every conv kernel as
+``(kh, kw, in, out)``; torch wants ``(out, in, kh, kw)`` for a conv and
+``(in, out, kh, kw)`` for a transposed conv (the up blocks' ``conv``). The
+spectral v is W's right singular vector over W flattened as (kh, kw, in) in
+flax and as (in, kh, kw) in torch, so it is reordered.
+
+The bridge takes numpy-convertible leaves and never imports JAX.
 """
 
 from __future__ import annotations
@@ -14,6 +21,8 @@ from collections.abc import Mapping
 
 import numpy as np
 import torch
+
+from tfcgan_tpu_torch.train.state import TrainState, make_optimizers
 
 
 def flatten_params(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
@@ -43,16 +52,89 @@ def _generator_key(path: str) -> tuple[str, tuple[int, ...] | None]:
     raise KeyError(f"no GeneratorUNet parameter for flax path {path!r}")
 
 
+def _tensor(value, axes: tuple[int, ...] | None = None) -> torch.Tensor:
+    """A float32 tensor that owns a copy of ``value`` (JAX arrays read as
+    read-only numpy), its axes in the order ``axes``."""
+    arr = np.asarray(value, dtype=np.float32)
+    if axes is not None:
+        arr = arr.transpose(axes)
+    return torch.from_numpy(np.array(arr, order="C"))
+
+
 def generator_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
     """JAX ``GeneratorUNet`` params -> float32 state dict of the port's G."""
     state = {}
     for path, value in flatten_params(params).items():
         key, axes = _generator_key(path)
-        arr = np.asarray(value, dtype=np.float32)
-        if axes is not None:
-            arr = arr.transpose(axes)
-        state[key] = torch.from_numpy(np.ascontiguousarray(arr))
+        state[key] = _tensor(value, axes)
     return state
+
+
+def discriminator_from_flax(params: Mapping, spectral: Mapping | None = None
+                            ) -> dict[str, torch.Tensor]:
+    """JAX ``PatchDiscriminator`` params (and its ``spectral`` collection, for
+    the u/v buffers) -> state dict of the port's D. Without ``spectral`` only
+    the parameters come over (as for optimizer moments)."""
+    state = {}
+    for path, value in flatten_params(params).items():
+        module, leaf = path.split("/")
+        if leaf == "kernel":
+            state[f"{module}.weight"] = _tensor(value, (3, 2, 0, 1))
+        elif leaf == "bias":
+            state[f"{module}.bias"] = _tensor(value)
+        else:
+            raise KeyError(f"no PatchDiscriminator parameter for flax path {path!r}")
+    for module, uv in (spectral or {}).items():
+        kh, kw, cin, _ = np.shape(params[module]["kernel"])
+        state[f"{module}.u"] = _tensor(uv["u"])
+        state[f"{module}.v"] = _tensor(np.asarray(uv["v"]).reshape(kh, kw, cin), (2, 0, 1)
+                                       ).reshape(-1)
+    return state
+
+
+def lpips_from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """JAX ``LPIPS`` variables ({"params": ...}, or the params alone) ->
+    state dict of the port's LPIPS."""
+    params = variables.get("params", variables)
+    state = {}
+    for path, value in flatten_params(params).items():
+        parts = path.split("/")
+        if parts[0] == "vgg" and parts[2] == "kernel":
+            state[f"vgg.{parts[1]}.weight"] = _tensor(value, (3, 2, 0, 1))
+        elif parts[0] == "vgg" and parts[2] == "bias":
+            state[f"vgg.{parts[1]}.bias"] = _tensor(value)
+        elif len(parts) == 1 and parts[0].startswith("lin"):
+            state[parts[0]] = _tensor(value)
+        else:
+            raise KeyError(f"no LPIPS parameter for flax path {path!r}")
+    return state
+
+
+def _load_adam(opt: torch.optim.Adam, module: torch.nn.Module, adam_state,
+               to_state_dict) -> None:
+    """optax ``ScaleByAdamState`` (count, mu, nu) -> the torch Adam's state."""
+    count = int(np.asarray(adam_state.count))
+    if count == 0:
+        return
+    mu, nu = to_state_dict(adam_state.mu), to_state_dict(adam_state.nu)
+    for name, p in module.named_parameters():
+        opt.state[p] = {"step": torch.tensor(float(count)),
+                        "exp_avg": mu[name].to(p.device), "exp_avg_sq": nu[name].to(p.device)}
+
+
+def train_state_from_flax(state, recipe, generator: torch.Generator):
+    """A JAX ``GANTrainState`` of the tfcgan recipe (constant-lr Adams) ->
+    a port ``TrainState`` over ``recipe``'s modules: weights, spectral u/v,
+    LPIPS, both Adams' moments and the step. Draws come from ``generator``."""
+    recipe.G.load_state_dict(generator_from_flax(state.g_params["G"]))
+    recipe.D.load_state_dict(discriminator_from_flax(state.d_params["D"], state.spectral["D"]))
+    if recipe.lpips is not None:
+        recipe.lpips.load_state_dict(lpips_from_flax(state.frozen["lpips"]))
+    opt_g, opt_d = make_optimizers(recipe.cfg, recipe)
+    _load_adam(opt_g, recipe.G, state.g_opt_state[0], lambda t: generator_from_flax(t["G"]))
+    _load_adam(opt_d, recipe.D, state.d_opt_state[0], lambda t: discriminator_from_flax(t["D"]))
+    return TrainState(step=int(np.asarray(state.step)), generator=generator, G=recipe.G,
+                      D=recipe.D, lpips=recipe.lpips, opt_g=opt_g, opt_d=opt_d)
 
 
 def load_generator_npz(path: str) -> dict[str, torch.Tensor]:

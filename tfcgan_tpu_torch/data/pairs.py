@@ -15,7 +15,7 @@ import os
 
 import numpy as np
 
-from tfcgan_tpu_torch.data.synth import TEMP_MAX_C, TEMP_MIN_C
+from tfcgan_tpu_torch.ops.temperature import TEMP_MAX_C, TEMP_MIN_C
 
 
 def load_pair(path: str, image_size: int = 256) -> tuple[np.ndarray, np.ndarray]:

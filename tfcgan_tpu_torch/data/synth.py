@@ -1,6 +1,6 @@
 """Synthetic paired data, port of ``tfcgan_tpu.data.synth.synthetic_batch``.
 
-numpy only, with the same ``RandomState`` stream, so one seed gives the JAX
+numpy arrays from the same ``RandomState`` stream, so one seed gives the JAX
 package and the port the same batch.
 """
 
@@ -8,9 +8,7 @@ from __future__ import annotations
 
 import numpy as np
 
-# the reference's temperature LUT range, linspace(24, 38, 256) over the red channel
-TEMP_MIN_C = 24.0
-TEMP_MAX_C = 38.0
+from tfcgan_tpu_torch.ops.temperature import TEMP_MAX_C, TEMP_MIN_C
 
 
 def synthetic_batch(batch_size: int = 8, image_size: int = 64, channels: int = 3,

@@ -6,8 +6,12 @@ Activations between layers are NHWC-contiguous tensors (the memory of NCHW
 cuDNN keeps that layout. Parameters are float32 in torch's own layouts (conv
 ``(out, in, kh, kw)``, transposed conv ``(in, out, kh, kw)``) and each layer
 casts them to its compute dtype, as the JAX ``dtype`` field does.
-``SpectralConv`` and the power iteration belong to the discriminator and
-come with the training slice.
+
+Dropout takes its keep-masks as arguments (drawn by the recipe, already
+scaled by 1/(1-p)), so one set of draws can be fed to the port and, rebuilt
+from the same keys, held against the JAX package. ``SpectralConv`` keeps the
+power-iteration vectors u and v as buffers, which
+``spectral_power_iteration`` advances.
 """
 
 from __future__ import annotations
@@ -83,15 +87,64 @@ class TorchConvTranspose(nn.Module):
         return y.permute(0, 2, 3, 1)
 
 
-def _no_dropout(module: nn.Module, rate: float) -> None:
-    if module.training and rate > 0:
-        raise NotImplementedError(
-            "dropout in training mode comes with the training slice; call .eval()")
+def _l2_normalize(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    return v / torch.clamp_min(torch.linalg.vector_norm(v), eps)
+
+
+class SpectralConv(nn.Module):
+    """Spectrally normalized conv(k4, s1, p1) with bias: the conv runs with
+    W / sigma, sigma = u . (W v) differentiable through W only (u and v are
+    buffers, advanced by ``spectral_power_iteration``). W is flattened as
+    (out, in * kh * kw), torch's order; the bridge reorders v from flax's."""
+
+    def __init__(self, in_channels: int, features: int, dtype: torch.dtype = torch.float32,
+                 device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(features, in_channels, 4, 4, device=device))
+        self.bias = nn.Parameter(torch.zeros(features, device=device))
+        self.register_buffer("u", torch.empty(features, device=device))
+        self.register_buffer("v", torch.empty(in_channels * 16, device=device))
+
+    def w_mat(self) -> torch.Tensor:
+        return self.weight.reshape(self.weight.shape[0], -1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        sigma = torch.dot(self.u, torch.mv(self.w_mat(), self.v))
+        return _conv_nhwc(x, self.weight / sigma, self.bias, 1, ((1, 1), (1, 1)), self.dtype)
+
+
+@torch.no_grad()
+def spectral_power_iteration(module: nn.Module, order: str = "vu") -> None:
+    """One power iteration for every ``SpectralConv`` in ``module``.
+
+    ``"vu"``: v <- normalize(W^T u); u <- normalize(W v), the per-step
+    cadence's order. ``"uv"``: u <- normalize(W v); v <- normalize(W^T u),
+    what torch's parametrizations.spectral_norm runs before each forward (the
+    per-forward cadence). New tensors replace the buffers rather than being
+    written in place: a forward earlier in the same step may have saved the
+    old u and v for its backward."""
+    if order not in ("vu", "uv"):
+        raise ValueError(f"order must be 'vu' or 'uv', got {order!r}")
+    for m in module.modules():
+        if isinstance(m, SpectralConv):
+            w = m.w_mat()
+            if order == "uv":
+                m.u = _l2_normalize(torch.mv(w, m.v))
+                m.v = _l2_normalize(torch.mv(w.t(), m.u))
+            else:
+                m.v = _l2_normalize(torch.mv(w.t(), m.u))
+                m.u = _l2_normalize(torch.mv(w, m.v))
+
+
+def _dropout(x: torch.Tensor, keep: torch.Tensor | None) -> torch.Tensor:
+    """x times a keep-mask of x's shape holding 0 or 1/(1-p)."""
+    return x if keep is None else x * keep.to(x.dtype)
 
 
 class UNetDown(nn.Module):
     """conv(k4, s1, p1, no bias) -> [instance norm] -> leaky_relu(0.2) ->
-    blur_pool(stride 2) -> [dropout, identity in eval mode]."""
+    blur_pool(stride 2) -> [dropout: times ``keep``, when given]."""
 
     def __init__(self, in_channels: int, features: int, normalize: bool = True,
                  dropout: float = 0.0, dtype: torch.dtype = torch.float32, device=None):
@@ -99,18 +152,17 @@ class UNetDown(nn.Module):
         self.normalize, self.dropout = normalize, dropout
         self.conv = TorchConv(in_channels, features, use_bias=False, dtype=dtype, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        _no_dropout(self, self.dropout)
+    def forward(self, x: torch.Tensor, keep: torch.Tensor | None = None) -> torch.Tensor:
         x = self.conv(x)
         if self.normalize:
             x = instance_norm(x)
         x = F.leaky_relu(x, 0.2)
-        return blur_pool(x, stride=2)
+        return _dropout(blur_pool(x, stride=2), keep)
 
 
 class UNetUp(nn.Module):
     """convT(k4, s2, p1, no bias) -> blur_pool(stride 1) -> instance norm ->
-    relu -> [dropout, identity in eval mode] -> concat(skip) on channels."""
+    relu -> [dropout: times ``keep``, when given] -> concat(skip) on channels."""
 
     def __init__(self, in_channels: int, features: int, dropout: float = 0.0,
                  dtype: torch.dtype = torch.float32, device=None):
@@ -118,10 +170,10 @@ class UNetUp(nn.Module):
         self.dropout = dropout
         self.conv = TorchConvTranspose(in_channels, features, dtype=dtype, device=device)
 
-    def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
-        _no_dropout(self, self.dropout)
+    def forward(self, x: torch.Tensor, skip: torch.Tensor,
+                keep: torch.Tensor | None = None) -> torch.Tensor:
         x = blur_pool(self.conv(x), stride=1)
-        x = F.relu(instance_norm(x))
+        x = _dropout(F.relu(instance_norm(x)), keep)
         return torch.cat([x, skip.to(x.dtype)], dim=-1)
 
 

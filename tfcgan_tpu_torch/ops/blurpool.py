@@ -3,9 +3,11 @@
 ``antialiased_cnns.BlurPool(filt_size=4)``: ReflectionPad2d((1, 2, 1, 2)),
 then a depthwise [1,3,3,1]⊗[1,3,3,1]/64 filter at stride 1 or 2.
 
-``blur_pool`` sends a CUDA tensor to the hand-written kernel
-(``ops/kernels/blurpool.py``) and a CPU tensor to ``blur_pool_padded``, the
-plain PyTorch version that the tests and ``chip_smoke.py`` hold the kernel to.
+``blur_pool`` sends a CUDA tensor through ``BlurPool``, an autograd function
+whose forward and backward are the hand-written kernels
+(``ops/kernels/blurpool.py``), and a CPU tensor to ``blur_pool_padded``, the
+plain PyTorch version that the tests and ``chip_smoke.py`` hold the kernels
+to (autograd of it is the plain backward).
 """
 
 from __future__ import annotations
@@ -50,14 +52,25 @@ def blur_pool_padded(x: torch.Tensor, stride: int = 2) -> torch.Tensor:
     return y.permute(0, 2, 3, 1).contiguous()
 
 
+class BlurPool(torch.autograd.Function):
+    """The kernel pair as one differentiable op. The op is linear, so the
+    backward needs only the input's height, width and the stride."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, stride: int) -> torch.Tensor:
+        ctx.hw_stride = (x.shape[1], x.shape[2], stride)
+        return _kernel.blur_pool_fwd(x, stride)
+
+    @staticmethod
+    def backward(ctx, dy: torch.Tensor):
+        # the gradient of a sliced or padded consumer (the discriminator's
+        # last conv) can arrive strided; the kernel reads NHWC-contiguous
+        return _kernel.blur_pool_bwd(dy.contiguous(), *ctx.hw_stride), None
+
+
 def blur_pool(x: torch.Tensor, stride: int = 2) -> torch.Tensor:
-    """Blur + subsample of an NHWC tensor: the kernel on CUDA, the plain form
-    on the CPU. The kernel has no backward yet, so a CUDA input that needs a
-    gradient raises."""
+    """Blur + subsample of an NHWC tensor: the kernels on CUDA (forward and,
+    where autograd needs it, backward), the plain form on the CPU."""
     if x.device.type == "cpu":
         return blur_pool_padded(x, stride)
-    if x.requires_grad:
-        raise NotImplementedError(
-            "blur_pool has no CUDA backward yet: it comes with the training slice "
-            "(run the forward under torch.inference_mode() or torch.no_grad())")
-    return _kernel.blur_pool_fwd(x, stride)
+    return BlurPool.apply(x, stride)

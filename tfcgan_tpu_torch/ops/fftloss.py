@@ -1,7 +1,10 @@
-"""Fourier log-magnitude spectra, port of ``tfcgan_tpu.ops.fftloss``.
+"""Fourier spectra and the FFT loss, port of ``tfcgan_tpu.ops.fftloss``.
 
-Only ``fft_log_magnitude`` (the serve path's spectra and the FFT metrics) is
-ported here; the amplitude/phase loss comes with the training slice.
+``fft_log_magnitude`` gives the serve path's spectra and the FFT metrics;
+``fft_amp_phase`` and ``fft_l1_loss`` the training loss: rfft2 of the
+grayscale plane, fftshifted on both axes (numpy's default, so the half axis
+of odd length W//2 + 1 rolls by (W//2 + 1)//2), amplitude and
+phase = atan2(imag, real).
 """
 
 from __future__ import annotations
@@ -20,3 +23,21 @@ def fft_log_magnitude(x: torch.Tensor, mode: str = "eval") -> torch.Tensor:
     gray = rgb_to_luma_uint8(x, mode=mode)
     f = torch.fft.fftshift(torch.fft.fft2(gray), dim=(-2, -1))
     return torch.log(torch.clamp_min(f.abs(), torch.finfo(torch.float32).tiny))
+
+
+def fft_amp_phase(x: torch.Tensor, mode: str = "exact") -> tuple[torch.Tensor, torch.Tensor]:
+    """(N, H, W, 3) in [-1, 1] -> (amp, phase), each (N, H, W//2 + 1)."""
+    gray = rgb_to_luma_uint8(x, mode=mode)
+    f = torch.fft.fftshift(torch.fft.rfft2(gray.float()), dim=(-2, -1))
+    return f.abs(), torch.atan2(f.imag, f.real)
+
+
+def fft_l1_loss(fake: torch.Tensor, real: torch.Tensor, mode: str = "exact"
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The reference FFT loss: (0.5 * (amp + phase), amp, phase), each an L1
+    mean between fake and real."""
+    amp_f, pha_f = fft_amp_phase(fake, mode)
+    amp_r, pha_r = fft_amp_phase(real, mode)
+    loss_amp = (amp_f - amp_r).abs().mean()
+    loss_pha = (pha_f - pha_r).abs().mean()
+    return 0.5 * (loss_amp + loss_pha), loss_amp, loss_pha

@@ -1,0 +1,26 @@
+"""Relativistic adversarial losses of the TFC-GAN family, port of
+``tfcgan_tpu.ops.gan_losses`` (BCE-with-logits, label smoothing 0.9)."""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def bce_with_logits(logits: torch.Tensor, target: float) -> torch.Tensor:
+    """Mean BCE-with-logits against a constant target, in float32."""
+    x = logits.float()
+    return (F.relu(x) - x * target + torch.log1p(torch.exp(-x.abs()))).mean()
+
+
+def relativistic_g_loss(pred_fake: torch.Tensor, pred_real: torch.Tensor,
+                        smooth: float = 0.9) -> torch.Tensor:
+    """BCE(pred_fake - pred_real.detach(), smooth)."""
+    return bce_with_logits(pred_fake - pred_real.detach(), smooth)
+
+
+def relativistic_d_loss(pred_real: torch.Tensor, pred_fake: torch.Tensor,
+                        smooth: float = 0.9, weight: float = 0.5) -> torch.Tensor:
+    """weight * (BCE(real - fake, smooth) + BCE(fake - real, 0))."""
+    return weight * (bce_with_logits(pred_real - pred_fake, smooth)
+                     + bce_with_logits(pred_fake - pred_real, 0.0))

@@ -1,0 +1,42 @@
+"""The recipe protocol of the port, after ``tfcgan_tpu.recipes.base``.
+
+A recipe owns its modules (``G``, ``D`` and any frozen loss network) on one
+device and exposes the two losses; the trainer (``train/trainer.py``)
+differentiates them and steps the optimizers. Every random draw of a step
+comes in as one argument (``draws``), made by ``draw`` from a
+``torch.Generator`` or handed in by a caller that needs other draws (the
+tests rebuild the JAX package's). ``g_loss`` returns the generated images
+detached in ``aux``, and ``d_loss`` reuses them: G runs once per step.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Protocol
+
+import torch
+import torch.nn as nn
+
+Batch = dict[str, torch.Tensor]
+
+
+class GANRecipe(Protocol):
+    name: str
+    device: torch.device
+    G: nn.Module
+    D: nn.Module
+
+    def init(self, generator: torch.Generator) -> None:
+        """Draw every module's weights from ``generator``."""
+        ...
+
+    def draw(self, generator: torch.Generator, batch: Batch) -> Any:
+        """Every random draw of one step."""
+        ...
+
+    def g_loss(self, batch: Batch, draws: Any) -> tuple[torch.Tensor, dict, dict]:
+        """(loss_G, aux, metrics)."""
+        ...
+
+    def d_loss(self, batch: Batch, aux: dict) -> tuple[torch.Tensor, dict]:
+        """(loss_D, metrics)."""
+        ...

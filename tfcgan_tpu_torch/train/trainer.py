@@ -1,0 +1,110 @@
+"""The alternating G/D train step and the loop that runs it, port of
+``tfcgan_tpu.train.trainer`` (g_first order, one device).
+
+One step, in the order of the JAX step: one spectral power iteration (per-step
+cadence); the G phase (G forward, D(fake), D(real), G loss) with gradients
+to G's parameters only, D frozen for the phase; the G Adam step; the D phase
+on the detached fake of the same G forward, against the pre-update D; the D
+Adam step. The step's random draws come from ``draw_fn(state, batch)``, by
+default the recipe's draws on ``state.generator``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import math
+import time
+from collections.abc import Callable, Iterable
+
+import torch
+import torch.nn as nn
+
+from tfcgan_tpu_torch.config import ExperimentConfig
+from tfcgan_tpu_torch.models.layers import spectral_power_iteration
+from tfcgan_tpu_torch.train.state import TrainState, create_state
+
+
+@contextlib.contextmanager
+def _frozen(module: nn.Module):
+    """No parameter gradient of ``module`` is computed inside the block."""
+    module.requires_grad_(False)
+    try:
+        yield
+    finally:
+        module.requires_grad_(True)
+
+
+def make_train_step(cfg: ExperimentConfig, recipe) -> Callable:
+    """``train_step(state, batch, draws) -> metrics``; updates ``state`` in place."""
+    if getattr(recipe, "update_order", "g_first") != "g_first":
+        raise NotImplementedError("d_first order is not ported yet (it comes with NeMAR)")
+    per_forward = cfg.extra.get("spectral_cadence", "per_step") == "per_forward"
+
+    def train_step(state: TrainState, batch: dict, draws) -> dict[str, torch.Tensor]:
+        if not per_forward:
+            spectral_power_iteration(recipe.D, order="vu")
+        with _frozen(recipe.D):
+            loss_g, aux, g_metrics = recipe.g_loss(batch, draws)
+            state.opt_g.zero_grad(set_to_none=True)
+            loss_g.backward()
+        state.opt_g.step()
+        loss_d, d_metrics = recipe.d_loss(batch, aux)
+        state.opt_d.zero_grad(set_to_none=True)
+        loss_d.backward()
+        state.opt_d.step()
+        state.step += 1
+        return {k: v.detach() for k, v in {**g_metrics, **d_metrics}.items()}
+
+    return train_step
+
+
+def assert_finite(metrics: dict, step: int) -> None:
+    values = {k: float(v) for k, v in metrics.items()}
+    bad = [k for k, v in values.items() if not math.isfinite(v)]
+    if bad:
+        raise FloatingPointError(
+            f"non-finite metrics at step {step}: {bad} = {[values[k] for k in bad]}")
+
+
+class Trainer:
+    """Runs the step on the recipe's device. ``draw_fn(state, batch)`` gives
+    each step's draws (default: ``recipe.draw(state.generator, batch)``);
+    ``logger`` is anything with ``write(dict)``."""
+
+    def __init__(self, cfg: ExperimentConfig, recipe, draw_fn: Callable | None = None,
+                 logger=None):
+        self.cfg, self.recipe, self.logger = cfg, recipe, logger
+        self.draw_fn = draw_fn or (lambda state, batch: recipe.draw(state.generator, batch))
+        self._step_fn = make_train_step(cfg, recipe)
+        self.last_metrics = None
+
+    def init_state(self, seed: int) -> TrainState:
+        return create_state(self.cfg, self.recipe, seed)
+
+    def step(self, state: TrainState, batch: dict) -> dict[str, torch.Tensor]:
+        """One step on ``batch`` ({"A", "B", "T_B"}, numpy or tensors);
+        returns the metrics as 0-dim tensors on the device."""
+        dev = self.recipe.device
+        batch = {k: torch.as_tensor(v).to(dev, torch.float32) for k, v in batch.items()
+                 if k in ("A", "B", "T_B")}
+        metrics = self._step_fn(state, batch, self.draw_fn(state, batch))
+        self.last_metrics = metrics
+        return metrics
+
+    def fit(self, state: TrainState, batches: Iterable[dict], num_steps: int | None = None,
+            log_every: int | None = None, check_finite: bool = False) -> TrainState:
+        """Steps over ``batches`` (at most ``num_steps``); ``check_finite``
+        raises on a NaN/Inf metric; every ``log_every`` steps the metrics go to
+        the logger."""
+        log_every = log_every or self.cfg.train.log_interval
+        t0 = time.time()
+        for i, batch in enumerate(batches):
+            if num_steps is not None and i >= num_steps:
+                break
+            metrics = self.step(state, batch)
+            if check_finite:
+                assert_finite(metrics, state.step)
+            if self.logger is not None and i % log_every == 0:
+                self.logger.write({**{k: float(v) for k, v in metrics.items()},
+                                   "step": state.step, "wall_s": time.time() - t0})
+        return state
