@@ -1,49 +1,80 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's fft_glo serve path and train step on one CUDA card.
+"""Drive the PyTorch port's fft_glo and stn_newmodel3 serve paths and train steps
+on one CUDA card.
 
     python3 chip_smoke.py [--params g_params.npz] [--init-seed 0]
 
 Phases, one line or more each; any failure raises and exits non-zero:
 
 1. environment: torch/CUDA versions, the card, its power limit; TF32 off.
-2. build: nvcc builds ``tfcgan_tpu_torch/csrc/blurpool.cu``, which holds both
-   kernels of the path (blur-pool forward and backward); the build seconds.
-3. kernel vs plain: the blur-pool forward kernel against ``blur_pool_padded``
-   and the backward kernel against ``torch.autograd.grad`` of it, at the 11
-   blur shapes of the 256² generator at batch 8 (both strides; the first four
-   stride-2 shapes are also the discriminator's), odd shapes and 1-3 pixel
-   maps, float32 (atol 1e-5) and bfloat16 (against the plain version in
-   float32 from the same bf16 input or output gradient, rounded: atol = rtol
-   = 8e-3, one bf16 ulp), with kernel and plain times at the path's shapes.
-4. serve: the full-width ``GeneratorUNet`` (random weights from --init-seed,
-   or --params) through ``Inferencer`` and ``run_test_set(save_spectra=True)``
-   on 4 synthetic batches of 8 at 256² in bfloat16, and ``pair_metrics`` on
-   the card.
-5. cli: ``python -m tfcgan_tpu_torch.cli`` ``test`` (8 A|B PNG pairs at 256²,
-   batch 4, bfloat16, spectra), ``prep-crop`` and ``eval``, in-process on the
-   card. The forward kernel's launch count of phases 4 and 5 is 11 per G
-   forward.
-6. compare: the same G weights in float32 through the kernel and through the
-   plain path on the card (atol 1e-4), and G-forward images/s at batch 8, 32
-   and 128.
-7. train: the full-width fft_glo recipe (G, spectral-norm D, random-weight
-   LPIPS-VGG16, every loss term, two Adams) in bfloat16 on the card,
-   ``Trainer.fit`` for 3 steps at batch 8, 256², draws from a CUDA
-   ``torch.Generator``: finite losses that move, and exactly 27 forward and
-   23 backward blur-pool launches per step.
-8. train compare: one step's losses and G- and D-phase gradients in float32
-   at batch 2, 256², through the kernels and through the plain blur, from one
-   set of weights and draws (loss terms rtol 1e-4; every gradient within
-   1e-3 x max|g_plain| + 1e-7).
-9. train rate: train-step images/s and peak memory at batch 32 and 128
-   (bfloat16, 2 warm-up and 5 timed steps, CUDA events), kernel and plain path.
-10. the card's ``nvidia-smi`` line, one JSON line per kernel, and last
+2. build: nvcc builds ``tfcgan_tpu_torch/csrc/blurpool.cu`` (blur-pool forward
+   and backward) and ``csrc/resample.cu`` (1-D affine resampling: forward,
+   adjoint, position gradient), both started together; the build seconds.
+3. blur-pool vs plain: the forward kernel against ``blur_pool_padded`` and the
+   backward kernel against ``torch.autograd.grad`` of it, at the 11 blur shapes
+   of the 256² generator at batch 8 (both strides; the first four stride-2
+   shapes are also the discriminator's), odd shapes and 1-3 pixel maps,
+   float32 (atol 1e-5) and bfloat16 (against the plain version in float32
+   from the same bf16 input or output gradient, rounded: atol = rtol = 8e-3,
+   one bf16 ulp), with kernel and plain times at the path's shapes.
+4. resampling vs plain: the three kernels against ``resample_axis_plain`` and
+   autograd of it (outputs and the gradient to x within 2e-5, the gradients to
+   p and q within 2e-4, each x max(1, max|plain|): the reductions run in
+   another order), float32 and bfloat16 input: the two passes of the path's
+   warp at (8|32, 256, 256, 3) cubic with near-identity thetas, then linear,
+   ``border=False``, channel strides 1, 3 and 5, other output lengths, odd
+   shapes and lengths 1-3, with lines at p = 0.5, 4, 0.25, 0 and -1 and lines
+   pushed wholly off either end; ``warp_affine_separable`` forward and
+   gradients through the kernels against the plain path; kernel, plain and
+   library (``F.grid_sample``) times at (32, 256, 256, 3).
+5. fft_glo serve: the full-width ``GeneratorUNet`` (random weights from
+   --init-seed, or --params) through ``Inferencer`` and
+   ``run_test_set(save_spectra=True)`` on 4 synthetic batches of 8 at 256² in
+   bfloat16, ``pair_metrics`` on the card, and the CLI (``test`` over 8 A|B PNG
+   pairs, ``prep-crop``, ``eval``): 11 blur-pool forward launches per G
+   forward, no other kernel.
+6. fft_glo compare: the same G weights in float32 through the kernel and
+   through the plain path on the card (atol 1e-4), and G-forward images/s at
+   batch 8, 32 and 128.
+7. fft_glo train: the full-width recipe (G, spectral-norm D, random-weight
+   LPIPS-VGG16, every loss term, two Adams) in bfloat16, ``Trainer.fit`` for 3
+   steps at batch 8, 256²: finite losses that move, exactly 27 forward and 23
+   backward blur-pool launches per step; one float32 step at batch 2 through
+   the kernels and through the plain path (loss terms rtol 1e-4; every
+   gradient within 1e-3 x max|g_plain| + 1e-7); train-step images/s and peak
+   memory at batch 32 and 128 (2 warm-up and 5 timed steps, CUDA events).
+8. stn_newmodel3 serve at full width (two U-Nets, ViT-Base localizer, bf16):
+   ``Inferencer`` on 2 batches of 8 at 256², ``run_test_set`` writing 6-image
+   stacks, ``cli test --config stn_newmodel3`` and ``prep-crop``: 33 blur-pool
+   forward and 2 resampling forward launches a batch, no backward launch;
+   float32 kernel path against plain resampling alone and against the plain
+   path (atol 1e-4; 1e-3 for the two outputs behind the warp, where one
+   float32 ulp of theta moves a sample); serve images/s at batch 8 and 32.
+   The dtheta head gets small random weights here and in phase 9's float32
+   step: at its zero init theta is the identity and the warp's gradients to
+   the localizer vanish.
+9. stn_newmodel3 train: 3 bf16 steps at batch 8 through ``Trainer.fit`` (every
+   term finite, loss_G moving, theta_t printed; per step 65 forward and 57
+   backward blur-pool launches, 2 resampling forward, 1 adjoint and 2 position
+   gradient launches); one float32 step at batch 2 on the kernel path against
+   itself, against plain resampling alone and against the whole plain path
+   (loss terms rtol 1e-4; every gradient within 6e-2 x max|g| + 1e-7 and 1e-2 of
+   its L2 norm: a few times what two identical runs of this step differ by, see
+   ``main``); train-step images/s and peak memory at batch 32 on the kernel
+   path, with plain resampling alone, and on the plain path.
+10. the card's ``nvidia-smi`` line, one JSON line for the kernels, and last
    ``{"ok": true, "device": {...}}``.
 
-In the kernel JSON, ``launches`` is the count of phase 7 (the train step, the
-path this script drives last); ``ms``/``plain_ms`` are sums over the 11
-bfloat16 blur calls of one batch-8 G forward (for the backward: of one G
-backward); ``max_abs_err`` is the largest error of phase 3.
+In the kernels' JSON, ``launches`` is the count of phase 9's three train steps
+(the path this script drives last, which runs all five kernels);
+``launches_by_path`` gives each driven path's count. For blur-pool,
+``ms``/``plain_ms``/``bound_ms`` are sums over the 11 bfloat16 blur calls of
+one batch-8 G forward (for the backward: of one G backward); for resampling,
+over the calls of one warp at (32, 256, 256, 3) float32 (forward: both passes;
+adjoint: the y-pass; position gradient: both). ``bound_ms`` is the larger of
+bytes / 3.35 TB/s (inputs read once, outputs written once) and operations /
+67 TFLOP/s (float32 outside the tensor cores). ``max_abs_err`` is the largest
+error of phase 3 or 4.
 """
 
 from __future__ import annotations
@@ -62,6 +93,7 @@ from unittest import mock
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from tfcgan_tpu_torch import cli
 from tfcgan_tpu_torch.bridge import load_generator_npz
@@ -72,10 +104,13 @@ from tfcgan_tpu_torch.infer import Inferencer
 from tfcgan_tpu_torch.models import discriminator, layers
 from tfcgan_tpu_torch.models.layers import spectral_power_iteration
 from tfcgan_tpu_torch.models.unet import GeneratorUNet
+from tfcgan_tpu_torch.ops import resample
 from tfcgan_tpu_torch.ops.blurpool import blur_pool_padded
 from tfcgan_tpu_torch.ops.kernels import _build
 from tfcgan_tpu_torch.ops.kernels import blurpool as kernel
+from tfcgan_tpu_torch.ops.kernels import resample as rkernel
 from tfcgan_tpu_torch.recipes import build_recipe
+from tfcgan_tpu_torch.recipes.stn import build_generators
 from tfcgan_tpu_torch.recipes.tfcgan import build_generator
 from tfcgan_tpu_torch.train.trainer import Trainer
 
@@ -88,10 +123,75 @@ EXTRA_SHAPES = [(1, 15, 17, 5), (1, 255, 9, 2), (2, 31, 31, 8),
 THROUGHPUT_BATCHES = (8, 32, 128)
 TRAIN_RATE_BATCHES = (32, 128)
 TRAIN_TERMS = ("g_adv", "g_triplet", "g_temp", "g_lpips", "g_fft", "loss_G", "loss_D")
-# blur-pool launches of one default fft_glo step: G 11 + 4 D forwards x 4
-# forward; G 11 + D(fake) 4 in the G phase and 4 + 4 in the D phase backward
-# (D(real) of the G phase is detached)
-FWD_PER_STEP, BWD_PER_STEP = 27, 23
+STN_TERMS = ("g_adv", "g_recon", "g_lpips", "g_morph", "loss_G", "theta_t", "loss_D", "d1",
+             "d2")
+KERNELS = ("blurpool_fwd", "blurpool_bwd", "resample_fwd", "resample_adjoint",
+           "resample_gradpos")
+# launches of one default fft_glo step: blur-pool forward G 11 + 4 D forwards x
+# 4; backward G 11 + D(fake) 4 in the G phase and 4 + 4 in the D phase (D(real)
+# of the G phase is detached); no resampling
+FFT_GLO_STEP = {"blurpool_fwd": 27, "blurpool_bwd": 23, "resample_fwd": 0,
+                "resample_adjoint": 0, "resample_gradpos": 0}
+# of one stn_newmodel3 step: blur-pool forward 3 G passes x 11 + 8 D forwards x
+# 4; backward 33 + D(fake) of both heads in the G phase 8 + 16 in the D phase.
+# The warp runs the forward kernel twice (x-pass, y-pass); its backward runs
+# the position gradient of both passes and the adjoint of the y-pass only: the
+# x-pass reads the batch's B, which needs no gradient
+STN_STEP = {"blurpool_fwd": 65, "blurpool_bwd": 57, "resample_fwd": 2,
+            "resample_adjoint": 1, "resample_gradpos": 2}
+# of one stn_newmodel3 serve batch: 3 G forwards, one warp
+STN_SERVE_BATCH = {"blurpool_fwd": 33, "blurpool_bwd": 0, "resample_fwd": 2,
+                   "resample_adjoint": 0, "resample_gradpos": 0}
+SIZE = 256  # image side of every path (the reference trains and serves at 256²)
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
+FP32_FLOP_PER_S = 67e12    # H100 SXM float32 rate outside the tensor cores
+# operations per tap of the resampling kernels: the weight polynomial and one
+# multiply-add; 4 more per element for the position
+OPS_PER_TAP = {"cubic": 12, "linear": 5}
+TAPS = {"cubic": 4, "linear": 2}
+
+
+def reset_counts() -> None:
+    kernel.LAUNCHES = kernel.BWD_LAUNCHES = 0
+    rkernel.FWD_LAUNCHES = rkernel.ADJOINT_LAUNCHES = rkernel.GRADPOS_LAUNCHES = 0
+
+
+def counts() -> dict[str, int]:
+    return dict(zip(KERNELS, (kernel.LAUNCHES, kernel.BWD_LAUNCHES, rkernel.FWD_LAUNCHES,
+                              rkernel.ADJOINT_LAUNCHES, rkernel.GRADPOS_LAUNCHES)))
+
+
+def expect_counts(what: str, per_unit: dict[str, int], units: int) -> dict[str, int]:
+    """The counts now, which must be ``per_unit`` x ``units`` for every kernel
+    (and so at least one launch of every kernel the path runs)."""
+    torch.cuda.synchronize()
+    got = counts()
+    want = {k: v * units for k, v in per_unit.items()}
+    if got != want:
+        raise AssertionError(f"{what}: kernel launches {got}, want {want}")
+    return got
+
+
+@contextlib.contextmanager
+def plain_path():
+    """The port with every kernel replaced by its plain PyTorch version."""
+    with mock.patch.object(layers, "blur_pool", blur_pool_padded), \
+            mock.patch.object(discriminator, "blur_pool", blur_pool_padded), \
+            mock.patch.object(resample, "resample_axis", resample.resample_axis_plain):
+        yield
+
+
+@contextlib.contextmanager
+def plain_resample():
+    """Only the resampling kernels replaced by their plain version."""
+    with mock.patch.object(resample, "resample_axis", resample.resample_axis_plain):
+        yield
+
+
+def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """The least time the card could take: (ms, "bytes" or "operations")."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / FP32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def cuda_ms(fn, iters: int = 20) -> float:
@@ -144,10 +244,12 @@ def in_turns(plain, kern, iters: int = 20) -> tuple[float, float]:
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-def phase_kernels(device) -> tuple[tuple[float, float, float], tuple[float, float, float]]:
-    """Forward and backward kernel vs plain; ((max_err, ms, plain_ms) fwd, bwd)."""
+def phase_kernels(device) -> tuple[dict, dict]:
+    """Blur-pool forward and backward kernel vs plain; one result dict each
+    (max_abs_err, ms, plain_ms, bound_ms, bound_by)."""
     gen = torch.Generator(device=device).manual_seed(0)
     fwd, bwd = [0.0, 0.0, 0.0], [0.0, 0.0, 0.0]
+    n_bytes = n_ops = 0
     path = [(s, 2) for s in STRIDE2_SHAPES] + [(s, 1) for s in STRIDE1_SHAPES]
     for dtype in (torch.float32, torch.bfloat16):
         name = "fp32" if dtype == torch.float32 else "bf16"
@@ -167,6 +269,10 @@ def phase_kernels(device) -> tuple[tuple[float, float, float], tuple[float, floa
                               lambda: kernel.blur_pool_bwd(dy, h, w, stride))
             if dtype == torch.bfloat16:
                 fwd[1], fwd[2], bwd[1], bwd[2] = fwd[1] + k, fwd[2] + p, bwd[1] + kb, bwd[2] + pb
+                # the forward reads x and writes y, 16 multiply-adds an output;
+                # the backward reads dy and writes dx: the same bytes and products
+                n_bytes += (x.numel() + dy.numel()) * x.element_size()
+                n_ops += 2 * 16 * dy.numel()
             print(f"kernel blurpool {name} s{stride} {shape}: max_abs_err fwd s1 {errs[0]:.3g} "
                   f"s2 {errs[1]:.3g}, bwd s1 {errs_b[0]:.3g} s2 {errs_b[1]:.3g}; "
                   f"fwd kernel {k:.4f} ms, plain {p:.4f} ms ({p / k:.2f}x); "
@@ -178,13 +284,219 @@ def phase_kernels(device) -> tuple[tuple[float, float, float], tuple[float, floa
             fwd[0], bwd[0] = max(fwd[0], *errs), max(bwd[0], *errs_b)
             print(f"kernel blurpool {name} {shape}: max_abs_err fwd s1 {errs[0]:.3g} "
                   f"s2 {errs[1]:.3g}, bwd s1 {errs_b[0]:.3g} s2 {errs_b[1]:.3g}")
+    bound, by = bound_ms(n_bytes, n_ops)
     print(f"kernel blurpool: all cases within tolerance, max_abs_err fwd {fwd[0]:.3g}, "
           f"bwd {bwd[0]:.3g}; one bf16 B=8 G forward's 11 calls: kernel {fwd[1]:.4f} ms, "
           f"plain {fwd[2]:.4f} ms; their backward: kernel {bwd[1]:.4f} ms, "
-          f"plain {bwd[2]:.4f} ms")
-    return tuple(fwd), tuple(bwd)
+          f"plain {bwd[2]:.4f} ms; bound {bound:.4f} ms each way ({by}: "
+          f"{n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.2f} GFLOP)")
+    keys = ("max_abs_err", "ms", "plain_ms")
+    extra = {"bound_ms": bound, "bound_by": by, "library_ms": None}
+    return {**dict(zip(keys, fwd)), **extra}, {**dict(zip(keys, bwd)), **extra}
 
 
+# ------------------------------------------------------------ resampling (K2)
+def _within(got: torch.Tensor, want: torch.Tensor, tol: float, what: str) -> float:
+    """max|got - want|, which must be within ``tol`` x max(1, max|want|)."""
+    torch.cuda.synchronize()
+    err, scale = float((got.float() - want.float()).abs().max()), float(want.abs().max())
+    if not err <= tol * max(1.0, scale):
+        raise AssertionError(f"{what}: max abs err {err:.3g} at max|plain| {scale:.3g}, "
+                             f"tolerance {tol} x max(1, max|plain|)")
+    return err
+
+
+def check_resample(x, p, q, g, mode: str, border: bool, channels: int, what: str
+                   ) -> tuple[float, float, float]:
+    """The three kernels on one case against the plain version and its
+    autograd gradients; x (outer, l_in, inner), g (outer, l_out, inner)."""
+    l_in, l_out = x.shape[1], g.shape[1]
+    out = rkernel.resample_fwd(x, p, q, l_out, mode, border, channels)
+    gx = rkernel.resample_adjoint(g, p, q, l_in, mode, border, channels)
+    gp, gq = rkernel.resample_gradpos(x, g, p, q, mode, border, channels)
+    xp = x.float().requires_grad_()
+    pp, qp = p.clone().requires_grad_(), q.clone().requires_grad_()
+    want = resample.resample_axis_plain(xp, pp, qp, l_out, mode, border, channels)
+    wx, wp, wq = torch.autograd.grad(want, (xp, pp, qp), g)
+    return (_within(out, want.detach(), 2e-5, f"{what} forward"),
+            _within(gx, wx, 2e-5, f"{what} adjoint"),
+            max(_within(gp, wp, 2e-4, f"{what} gp"), _within(gq, wq, 2e-4, f"{what} gq")))
+
+
+def _hard_lines(outer: int, lines: int, l_in: int, gen) -> tuple[torch.Tensor, torch.Tensor]:
+    """p in [0.5, 4] and q in [-3, 3], the first lines replaced by the corner
+    cases: p = 0.5 and 4 (the ends of the TPU adjoint's domain), the identity,
+    lines wholly below and above the axis, p = 0.25 and 0 (outside that
+    domain) and a flip."""
+    dev = gen.device
+    p = torch.empty(outer * lines, device=dev).uniform_(0.5, 4.0, generator=gen)
+    q = torch.empty(outer * lines, device=dev).uniform_(-3.0, 3.0, generator=gen)
+    corner = [(0.5, 0.3), (4.0, -1.7), (1.0, 0.0), (1.0, -3.0 * l_in - 5.0),
+              (1.0, 3.0 * l_in + 5.0), (0.25, 0.4), (0.0, 0.5 * (l_in - 1)), (-1.0, l_in - 1.0)]
+    for i, (pv, qv) in enumerate(corner[:outer * lines]):
+        p[i], q[i] = pv, qv
+    return p.view(outer, lines), q.view(outer, lines)
+
+
+def record_passes(src: torch.Tensor, theta: torch.Tensor, mode: str = "bicubic") -> list:
+    """The arguments ``warp_affine_separable`` hands to ``resample_axis`` in its
+    two passes: (x, p, q, l_out, mode, border, channels) each."""
+    calls = []
+
+    def rec(x, p, q, *rest):
+        calls.append((x.detach(), p.detach().float().contiguous(),
+                      q.detach().float().contiguous(), *rest))
+        return resample.resample_axis_plain(x, p, q, *rest)
+
+    with mock.patch.object(resample, "resample_axis", rec), torch.no_grad():
+        resample.warp_affine_separable(src, theta, mode)
+    return calls
+
+
+def _near_identity_theta(n: int, gen) -> torch.Tensor:
+    """Rotations up to 0.1 rad, scales 0.9-1.1, shifts up to 0.1: what the STN
+    predicts in training."""
+    u = torch.rand((n, 5), device=gen.device, generator=gen) * 2 - 1
+    ang, sx, sy = 0.1 * u[:, 0], 1 + 0.1 * u[:, 1], 1 + 0.1 * u[:, 2]
+    return torch.stack([torch.stack([torch.cos(ang) * sx, -torch.sin(ang), 0.1 * u[:, 3]], 1),
+                        torch.stack([torch.sin(ang), torch.cos(ang) * sy, 0.1 * u[:, 4]], 1)], 1)
+
+
+def _time_pass(x, p, q, g, mode, border, channels) -> dict[str, tuple[float, float]]:
+    """(kernel ms, plain ms) of each of the three kernels on one pass."""
+    l_in, l_out = x.shape[1], g.shape[1]
+    args = (mode, border, channels)
+    xp = x.float().requires_grad_()
+    pp, qp = p.clone().requires_grad_(), q.clone().requires_grad_()
+    want = resample.resample_axis_plain(xp, pp, qp, l_out, *args)
+
+    def plain_fwd():
+        with torch.no_grad():
+            return resample.resample_axis_plain(x, p, q, l_out, *args)
+
+    return {
+        "resample_fwd": in_turns(plain_fwd, lambda: rkernel.resample_fwd(x, p, q, l_out, *args)),
+        "resample_adjoint": in_turns(
+            lambda: torch.autograd.grad(want, xp, g, retain_graph=True),
+            lambda: rkernel.resample_adjoint(g, p, q, l_in, *args)),
+        "resample_gradpos": in_turns(
+            lambda: torch.autograd.grad(want, (pp, qp), g, retain_graph=True),
+            lambda: rkernel.resample_gradpos(x, g, p, q, *args)),
+    }
+
+
+def _pass_bounds(x, p, g, mode) -> dict[str, tuple[float, float]]:
+    """(bytes, operations) of each kernel on one pass: inputs read once,
+    outputs written once; one window of taps per output element, which is also
+    every product the adjoint needs for these lines."""
+    lines = 2 * p.numel() * 4
+    x_bytes, g_bytes = x.numel() * x.element_size(), g.numel() * 4
+    ops = g.numel() * (TAPS[mode] * OPS_PER_TAP[mode] + 4)
+    return {"resample_fwd": (x_bytes + g_bytes + lines, ops),
+            "resample_adjoint": (g_bytes + x.numel() * 4 + lines, ops),
+            "resample_gradpos": (x_bytes + g_bytes + 2 * lines, ops + 3 * g.numel())}
+
+
+def phase_resample(device, card: str) -> dict[str, dict]:
+    """The resampling kernels vs plain; one result dict per kernel."""
+    gen = torch.Generator(device=device).manual_seed(2)
+    names = KERNELS[2:]
+    worst = dict.fromkeys(names, 0.0)
+
+    def run(x, p, q, l_out, mode, border, channels, what):
+        g = torch.randn((x.shape[0], l_out, x.shape[2]), device=device, generator=gen)
+        errs = check_resample(x, p, q, g, mode, border, channels, what)
+        for k, e in zip(names, errs):
+            worst[k] = max(worst[k], e)
+        print(f"kernel resample {what}: max abs err fwd {errs[0]:.3g}, adjoint {errs[1]:.3g}, "
+              f"gradpos {errs[2]:.3g} (max abs)")
+
+    # the path's two passes, near-identity thetas, cubic and border
+    for n in (8, 32):
+        src = torch.rand((n, SIZE, SIZE, 3), device=device, generator=gen) * 2 - 1
+        theta = _near_identity_theta(n, gen)
+        for dtype in (torch.float32, torch.bfloat16):
+            for i, (x, p, q, l_out, *rest) in enumerate(record_passes(src.to(dtype), theta)):
+                run(x, p, q, l_out, *rest, f"path B={n} {'xy'[i]}-pass "
+                    f"{tuple(x.shape)} {str(x.dtype).split('.')[1]} cubic border")
+    # the same views with hard lines, then every other mode, stride and shape
+    cases = [((2 * 256, 256, 3), 256, 3), ((2, 256, 768), 256, 3),  # the path's views
+             ((64, 100, 1), 100, 1), ((16, 40, 6), 57, 3), ((7, 33, 10), 20, 5),
+             ((15, 17, 5), 17, 5), ((1, 15, 85), 15, 5),            # (1, 15, 17, 5)
+             ((4, 1, 6), 1, 3), ((4, 2, 6), 5, 3), ((4, 3, 6), 3, 3), ((3, 1, 1), 4, 1)]
+    for shape, l_out, channels in cases:
+        for mode in ("cubic", "linear"):
+            for border in (True, False):
+                for dtype in (torch.float32, torch.bfloat16):
+                    x = torch.randn(shape, device=device, generator=gen).to(dtype)
+                    p, q = _hard_lines(shape[0], shape[2] // channels, shape[1], gen)
+                    run(x, p, q, l_out, mode, border, channels,
+                        f"{shape}->{l_out} c{channels} {str(dtype).split('.')[1]} {mode} "
+                        f"{'border' if border else 'zeros'}")
+
+    # the separable warp through the kernels against the plain path
+    for shape, mode, padding in (((2, 64, 48, 3), "bicubic", "border"),
+                                 ((1, 15, 17, 5), "bilinear", "zeros")):
+        src = torch.randn(shape, device=device, generator=gen)
+        theta = _near_identity_theta(shape[0], gen)
+        ct = torch.randn(shape, device=device, generator=gen)
+        results = []
+        for ctx in (contextlib.nullcontext(), plain_path()):
+            s, t = src.clone().requires_grad_(), theta.clone().requires_grad_()
+            with ctx:
+                out = resample.warp_affine_separable(s, t, mode, padding)
+                results.append((out.detach(), *torch.autograd.grad(out, (s, t), ct)))
+        errs = [_within(a, b, tol, f"warp_affine_separable {shape} {mode} {padding} {what}")
+                for a, b, tol, what in zip(*results, (2e-5, 2e-5, 2e-4),
+                                           ("output", "d/dsrc", "d/dtheta"))]
+        print(f"warp_affine_separable {shape} {mode} {padding}, kernels vs plain path: max abs err "
+              f"output {errs[0]:.3g}, d/dsrc {errs[1]:.3g}, d/dtheta {errs[2]:.3g}")
+
+    # times and bounds at the path's shape: one warp at (32, 256, 256, 3) float32
+    src = torch.rand((32, SIZE, SIZE, 3), device=device, generator=gen) * 2 - 1
+    theta = _near_identity_theta(32, gen)
+    used = {"resample_fwd": (0, 1), "resample_adjoint": (1,), "resample_gradpos": (0, 1)}
+    total = {k: [0.0, 0.0, 0.0, 0.0] for k in names}  # kernel ms, plain ms, bytes, operations
+    for i, (x, p, q, l_out, mode, border, channels) in enumerate(record_passes(src, theta)):
+        g = torch.randn((x.shape[0], l_out, x.shape[2]), device=device, generator=gen)
+        times, bounds = _time_pass(x, p, q, g, mode, border, channels), _pass_bounds(x, p, g, mode)
+        for k in names:
+            b, by = bound_ms(*bounds[k])
+            print(f"kernel {k} {'xy'[i]}-pass {tuple(x.shape)} fp32 cubic: kernel "
+                  f"{times[k][0]:.4f} ms, plain {times[k][1]:.4f} ms "
+                  f"({times[k][1] / times[k][0]:.1f}x), bound {b:.4f} ms ({by}) [{card}]")
+            if i in used[k]:
+                for j, v in enumerate((*times[k], *bounds[k])):
+                    total[k][j] += v
+    # the library yardstick: the direct 2-D warp, equal to the separable one
+    # only without rotation or shear; timed here, called nowhere in the port
+    src_n = src.permute(0, 3, 1, 2).contiguous().requires_grad_()
+    th = theta.clone().requires_grad_()
+    ct = torch.randn_like(src_n)
+
+    def library():
+        grid = F.affine_grid(th, src_n.shape, align_corners=True)
+        return F.grid_sample(src_n, grid, mode="bicubic", padding_mode="border",
+                             align_corners=True)
+
+    out = library()
+    lib = {"resample_fwd": cuda_ms(lambda: library().detach()),
+           "resample_adjoint": cuda_ms(
+               lambda: torch.autograd.grad(out, src_n, ct, retain_graph=True)),
+           "resample_gradpos": cuda_ms(lambda: torch.autograd.grad(out, th, ct, retain_graph=True))}
+    results = {}
+    for k in names:
+        b, by = bound_ms(total[k][2], total[k][3])
+        results[k] = {"max_abs_err": worst[k], "ms": total[k][0], "plain_ms": total[k][1],
+                      "bound_ms": b, "bound_by": by, "library_ms": lib[k]}
+        print(f"kernel {k}: all cases within tolerance, worst {worst[k]:.3g}; one warp at "
+              f"(32,256,256,3) fp32 (passes {[('x', 'y')[i] for i in used[k]]}): kernel "
+              f"{total[k][0]:.4f} ms, plain {total[k][1]:.4f} ms, bound {b:.4f} ms ({by}, "
+              f"{total[k][2] / 1e6:.1f} MB), F.grid_sample {lib[k]:.4f} ms [{card}]")
+    return results
+
+
+# ------------------------------------------------------------------- fft_glo
 def phase_serve(device, args) -> tuple[GeneratorUNet, list, int]:
     """Inferencer + run_test_set + pair_metrics; returns G, its batches and G forwards."""
     cfg = get_experiment("fft_glo")
@@ -193,14 +505,14 @@ def phase_serve(device, args) -> tuple[GeneratorUNet, list, int]:
     if args.params:
         g.load_state_dict(load_generator_npz(args.params))
     inf = Inferencer(cfg, g)
-    batches = [synthetic_batch(batch_size=8, image_size=256, seed=i) for i in range(4)]
+    batches = [synthetic_batch(batch_size=8, image_size=SIZE, seed=i) for i in range(4)]
 
     t0 = time.perf_counter()
     metrics, forwards = [], 0
     for b in batches:
         fake = inf(b)
         forwards += 1
-        if fake.shape != (8, 256, 256, 3) or fake.dtype != torch.bfloat16:
+        if fake.shape != (8, SIZE, SIZE, 3) or fake.dtype != torch.bfloat16:
             raise AssertionError(f"G output {tuple(fake.shape)} {fake.dtype}")
         if not bool(torch.isfinite(fake).all()) or float(fake.abs().max()) > 1.0:
             raise AssertionError("G output not finite or outside [-1, 1]")
@@ -219,24 +531,29 @@ def phase_serve(device, args) -> tuple[GeneratorUNet, list, int]:
         if not bool(torch.isfinite(v).all()):
             raise AssertionError(f"metric {k} not finite")
         means[k] = float(v.mean())
-    print(f"serve: 4 batches x 8 at 256² bf16 in {seconds:.2f} s: {forwards} G forwards, "
+    print(f"serve: 4 batches x 8 at {SIZE}² bf16 in {seconds:.2f} s: {forwards} G forwards, "
           f"{len(stacks)} stacks, {len(spectra)} spectra; metric means "
           + ", ".join(f"{k} {v:.4f}" for k, v in means.items()))
     return g, batches, forwards
 
 
+def _write_pairs(root: str, seed: int, count: int = 8) -> None:
+    """``count`` synthetic A|B PNG pairs at 256² under ``root``/test."""
+    pairs = synthetic_batch(batch_size=count, image_size=SIZE, seed=seed)
+    for i in range(count):
+        save_image_grid([pairs["A"][i], pairs["B"][i]],
+                        os.path.join(root, "test", f"{i:03d}.png"), axis=1)
+
+
 def phase_cli(args) -> int:
     """The user's commands on the card: ``cli test`` over 8 A|B PNG pairs at 256²
     (batch 4, bf16, spectra), then ``prep-crop`` and ``eval``; returns G forwards."""
-    pairs = synthetic_batch(batch_size=8, image_size=256, seed=10)
     weights = ["--params", args.params] if args.params else ["--init-seed", str(args.init_seed)]
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         data, out, crops = (os.path.join(tmp, d) for d in ("data", "out", "crops"))
-        for i in range(8):
-            save_image_grid([pairs["A"][i], pairs["B"][i]],
-                            os.path.join(data, "test", f"{i:03d}.png"), axis=1)
-        cli.main(["test", "--experiment", "fft_glo", "--data-root", data, "--image-size", "256",
+        _write_pairs(data, seed=10)
+        cli.main(["test", "--experiment", "fft_glo", "--data-root", data, "--image-size", str(SIZE),
                   "--batch-size", "4", "--dtype", "bfloat16", "--out-dir", out, "--spectra",
                   "--device", "cuda", *weights])
         cli.main(["prep-crop", "--stack-dir", out, "--out-root", crops])
@@ -260,6 +577,20 @@ def phase_cli(args) -> int:
     return 2
 
 
+def _serve_rate(what: str, fwd, batch: int, card: str) -> None:
+    """Images/s of ``fwd`` on the kernel path and on the plain path, in turns."""
+    with torch.inference_mode():
+        with plain_path():
+            p1 = cuda_ms(fwd, 10)
+        k1 = cuda_ms(fwd, 10)
+        k2 = cuda_ms(fwd, 10)
+        with plain_path():
+            p2 = cuda_ms(fwd, 10)
+    k, p = (k1 + k2) / 2, (p1 + p2) / 2
+    print(f"{what} bf16 B={batch}: kernel path {k:.3f} ms = {batch * 1000 / k:.1f} img/s, "
+          f"plain path {p:.3f} ms = {batch * 1000 / p:.1f} img/s [{card}]")
+
+
 def phase_compare(device, g: GeneratorUNet, batches: list, card: str) -> None:
     """The same weights in float32, kernel path vs plain path; G-forward img/s."""
     # float32, the same weights: kernel path vs plain path on the card, and vs the CPU
@@ -268,7 +599,7 @@ def phase_compare(device, g: GeneratorUNet, batches: list, card: str) -> None:
     x = torch.as_tensor(batches[0]["A"][:2], device=device)
     with torch.inference_mode():
         y_kernel = g32(x)
-        with mock.patch.object(layers, "blur_pool", blur_pool_padded):
+        with plain_path():
             y_plain = g32(x)
         g32_cpu = GeneratorUNet(dtype=torch.float32).eval()
         g32_cpu.load_state_dict(g32.state_dict())
@@ -279,73 +610,64 @@ def phase_compare(device, g: GeneratorUNet, batches: list, card: str) -> None:
         raise AssertionError(f"fp32 G: kernel path vs plain path max abs err {err}")
     if err_cpu > 2e-3:
         raise AssertionError(f"fp32 G: card vs CPU max abs err {err_cpu}")
-    print(f"serve fp32 G (2 x 256²): kernel path vs plain path on the card max abs err "
+    print(f"serve fp32 G (2 x {SIZE}²): kernel path vs plain path on the card max abs err "
           f"{err:.3g} (atol 1e-4); card vs CPU {err_cpu:.3g} (atol 2e-3, cuDNN vs CPU convs)")
 
     gen = torch.Generator(device=device).manual_seed(1)
     for bsz in THROUGHPUT_BATCHES:
-        xb = torch.rand((bsz, 256, 256, 3), device=device, generator=gen) * 2 - 1
-        with torch.inference_mode():
-            def fwd():
-                return g(xb)
-            with mock.patch.object(layers, "blur_pool", blur_pool_padded):
-                p1 = cuda_ms(fwd, 10)
-            k1 = cuda_ms(fwd, 10)
-            k2 = cuda_ms(fwd, 10)
-            with mock.patch.object(layers, "blur_pool", blur_pool_padded):
-                p2 = cuda_ms(fwd, 10)
-        k, p = (k1 + k2) / 2, (p1 + p2) / 2
-        print(f"G forward bf16 B={bsz}: kernel path {k:.3f} ms = {bsz * 1000 / k:.1f} img/s, "
-              f"plain path {p:.3f} ms = {bsz * 1000 / p:.1f} img/s [{card}]")
+        xb = torch.rand((bsz, SIZE, SIZE, 3), device=device, generator=gen) * 2 - 1
+        _serve_rate("G forward", lambda: g(xb), bsz, card)
 
 
-def _fft_glo(dtype: str):
-    cfg = get_experiment("fft_glo")
+# --------------------------------------------------------------- train steps
+def _cfg(name: str, dtype: str):
+    cfg = get_experiment(name)
     return cfg.replace(train=dataclasses.replace(cfg.train, compute_dtype=dtype))
 
 
 def _device_batch(batch_size: int, seed: int, device) -> dict[str, torch.Tensor]:
     return {k: torch.as_tensor(v, device=device)
-            for k, v in synthetic_batch(batch_size=batch_size, image_size=256, seed=seed).items()}
+            for k, v in synthetic_batch(batch_size=batch_size, image_size=SIZE, seed=seed).items()}
 
 
 class _Rows:
-    """Trainer logger: each step's metrics with the blur-pool launch counts."""
+    """Trainer logger: each step's metrics with the kernels' launch counts."""
 
     def __init__(self):
         self.rows = []
 
     def write(self, row: dict) -> None:
-        self.rows.append({**row, "fwd": kernel.LAUNCHES, "bwd": kernel.BWD_LAUNCHES})
+        self.rows.append({**row, "counts": counts()})
 
 
-def phase_train(device, args) -> tuple[int, int]:
-    """3 bf16 steps of the full-width fft_glo recipe at B=8, 256²; returns the
-    blur-pool forward and backward launches of the run."""
-    cfg = _fft_glo("bfloat16")
+def phase_train(device, args, name: str, terms, per_step: dict[str, int]) -> dict[str, int]:
+    """3 bf16 steps of the full-width recipe ``name`` at B=8, 256²; returns
+    the run's launch counts."""
+    cfg = _cfg(name, "bfloat16")
     recipe = build_recipe(cfg, device)
     log = _Rows()
     trainer = Trainer(cfg, recipe, logger=log)
     state = trainer.init_state(args.init_seed)
     batches = [_device_batch(8, 20 + i, device) for i in range(3)]
-    kernel.LAUNCHES = kernel.BWD_LAUNCHES = 0
+    reset_counts()
     t0 = time.perf_counter()
     trainer.fit(state, batches, num_steps=3, log_every=1, check_finite=True)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    fwd, bwd = kernel.LAUNCHES, kernel.BWD_LAUNCHES
     for i, row in enumerate(log.rows, 1):
-        if (row["fwd"], row["bwd"]) != (FWD_PER_STEP * i, BWD_PER_STEP * i):
-            raise AssertionError(f"after step {i}: blurpool launches fwd {row['fwd']}, bwd "
-                                 f"{row['bwd']}; want {FWD_PER_STEP} and {BWD_PER_STEP} a step")
-        print(f"train step {row['step']}: " + ", ".join(f"{k} {row[k]:.5g}" for k in TRAIN_TERMS))
+        if row["counts"] != {k: v * i for k, v in per_step.items()}:
+            raise AssertionError(f"{name} after step {i}: launches {row['counts']}; want "
+                                 f"{per_step} a step")
+        print(f"{name} train step {row['step']}: "
+              + ", ".join(f"{k} {row[k]:.5g}" for k in terms))
     losses = [row["loss_G"] for row in log.rows]
     if len(log.rows) != 3 or state.step != 3 or len(set(losses)) != 3:
-        raise AssertionError(f"train: {len(log.rows)} rows, step {state.step}, loss_G {losses}")
-    print(f"train: 3 bf16 fft_glo steps at B=8, 256² in {seconds:.2f} s (first steps include "
-          f"set-up), all terms finite, loss_G moves; blurpool launches fwd {fwd} "
-          f"({FWD_PER_STEP} a step), bwd {bwd} ({BWD_PER_STEP} a step)")
-    return fwd, bwd
+        raise AssertionError(f"{name} train: {len(log.rows)} rows, step {state.step}, "
+                             f"loss_G {losses}")
+    run = expect_counts(f"{name} train", per_step, 3)
+    print(f"{name} train: 3 bf16 steps at B=8, {SIZE}² in {seconds:.2f} s (first steps include "
+          f"set-up), all terms finite, loss_G moves; launches a step {per_step}")
+    return run
 
 
 def _step_terms_and_grads(recipe, batch, draws) -> tuple[dict, dict]:
@@ -363,55 +685,84 @@ def _step_terms_and_grads(recipe, batch, draws) -> tuple[dict, dict]:
     return {k: float(v.detach()) for k, v in {**terms, **d_terms}.items()}, grads
 
 
-def phase_train_compare(device, args) -> None:
+def _random_dtheta_head(stn, seed: int) -> None:
+    """Small random weights for the STN's zero-initialized dtheta head: a warp
+    a few hundredths off the identity, so that it and its gradients do work."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        stn.fc4.weight.copy_(torch.randn(stn.fc4.weight.shape, generator=gen) * 0.004)
+        stn.fc4.bias.copy_(torch.randn(stn.fc4.bias.shape, generator=gen) * 0.01)
+
+
+def phase_train_compare(device, args, name: str, terms, per_step: dict[str, int],
+                        references) -> None:
     """fp32, TF32 off: one step's losses and gradients at B=2, 256², through the
-    kernels and through the plain blur, from one set of weights and draws."""
-    cfg = _fft_glo("float32")
+    kernels and through each of ``references`` (label, context manager,
+    elementwise tolerance, L2 tolerance or None), from one set of weights and
+    draws. Loss terms rtol 1e-4; every gradient within the elementwise
+    tolerance x max|g_reference| + 1e-7 and, where given, within the L2
+    tolerance x its norm."""
+    cfg = _cfg(name, "float32")
     recipe = build_recipe(cfg, device)
     recipe.init(torch.Generator().manual_seed(args.init_seed))
+    if cfg.recipe == "stn":
+        _random_dtheta_head(recipe.STN, args.init_seed)
     batch = _device_batch(2, 30, device)
     draws = recipe.draw(torch.Generator(device).manual_seed(args.init_seed), batch)
     spectral_power_iteration(recipe.D, order="vu")
+    reset_counts()
     k_terms, k_grads = _step_terms_and_grads(recipe, batch, draws)
-    launches = (kernel.LAUNCHES, kernel.BWD_LAUNCHES)
-    with mock.patch.object(layers, "blur_pool", blur_pool_padded), \
-            mock.patch.object(discriminator, "blur_pool", blur_pool_padded):
-        p_terms, p_grads = _step_terms_and_grads(recipe, batch, draws)
-    torch.cuda.synchronize()
-    if (kernel.LAUNCHES, kernel.BWD_LAUNCHES) != launches:
-        raise AssertionError("the plain path launched a blur-pool kernel")
-    for k in TRAIN_TERMS:
-        if abs(k_terms[k] - p_terms[k]) > 1e-4 * abs(p_terms[k]):
-            raise AssertionError(f"train fp32 {k}: kernel path {k_terms[k]}, plain {p_terms[k]}")
-    worst, worst_name = 0.0, ""
-    for name, g in p_grads.items():
-        bound = 1e-3 * float(g.abs().max()) + 1e-7
-        ratio = float((k_grads[name] - g).abs().max()) / bound
-        if ratio > worst:
-            worst, worst_name = ratio, name
-    if worst > 1.0:
-        raise AssertionError(f"train fp32 gradient {worst_name}: max|diff| is {worst:.3g} x "
-                             "(1e-3 max|g_plain| + 1e-7)")
-    print(f"train compare fp32 (B=2, 256², TF32 off), kernel path vs plain path: "
-          f"{len(TRAIN_TERMS)} loss terms within rtol 1e-4 (max rel "
-          f"{max(abs(k_terms[k] - p_terms[k]) / abs(p_terms[k]) for k in TRAIN_TERMS):.3g}); "
-          f"{len(p_grads)} gradients within 1e-3 max|g_plain| + 1e-7, worst "
-          f"{worst:.3g} of the bound ({worst_name})")
+    expect_counts(f"{name} fp32 step", per_step, 1)
+    # exactly zero in exact arithmetic (softmax is shift-invariant): rounding noise
+    skip = [n for n in k_grads if n.endswith("attn.key.bias")]
+    zero = [n for n, g in k_grads.items() if n not in skip and not bool(g.any())]
+    if zero:
+        raise AssertionError(f"{name} fp32 step: all-zero gradients for {zero}")
+    for label, context, tol, tol_l2 in references:
+        before = counts()
+        with context():
+            p_terms, p_grads = _step_terms_and_grads(recipe, batch, draws)
+        torch.cuda.synchronize()
+        launched = {k: v - before[k] for k, v in counts().items() if v != before[k]}
+        for k in terms:
+            if abs(k_terms[k] - p_terms[k]) > 1e-4 * abs(p_terms[k]):
+                raise AssertionError(f"{name} fp32 {k}: kernel path {k_terms[k]}, "
+                                     f"{label} {p_terms[k]}")
+        worst, worst_name = 0.0, ""
+        for pname, g in p_grads.items():
+            if pname in skip:
+                continue
+            diff = k_grads[pname] - g
+            ratio = float(diff.abs().max()) / (tol * float(g.abs().max()) + 1e-7)
+            if tol_l2 is not None:
+                ratio = max(ratio, float(diff.norm()) / (tol_l2 * float(g.norm()) + 1e-7))
+            if ratio > worst:
+                worst, worst_name = ratio, pname
+        if worst > 1.0:
+            raise AssertionError(f"{name} fp32 gradient {worst_name} against the {label}: "
+                                 f"{worst:.3g} x its bound ({tol} max|g| + 1e-7 elementwise, "
+                                 f"{tol_l2} x the norm)")
+        print(f"{name} train compare fp32 (B=2, {SIZE}², TF32 off), kernel path vs {label} "
+              f"(which launched {launched or 'no kernel'}): {len(terms)} loss terms within "
+              f"rtol 1e-4 (max rel "
+              f"{max(abs(k_terms[k] - p_terms[k]) / abs(p_terms[k]) for k in terms):.3g}); "
+              f"{len(p_grads) - len(skip)} gradients, none all-zero, within {tol} max|g| + "
+              f"1e-7" + (f" and {tol_l2} of their L2 norm" if tol_l2 else "")
+              + f", worst {worst:.3g} of the bound ({worst_name})")
 
 
-def phase_train_rate(device, args, card: str) -> None:
-    """Train-step img/s and peak memory, bf16, kernel path and plain path."""
-    cfg = _fft_glo("bfloat16")
-    for bsz in TRAIN_RATE_BATCHES:
+def phase_train_rate(device, args, card: str, name: str, batch_sizes, paths=None) -> None:
+    """Train-step img/s and peak memory, bf16, on each of ``paths`` (label ->
+    context manager; the kernel path and the plain path unless given)."""
+    paths = paths or {"kernel": contextlib.nullcontext, "plain": plain_path}
+    cfg = _cfg(name, "bfloat16")
+    for bsz in batch_sizes:
         recipe = build_recipe(cfg, device)
         trainer = Trainer(cfg, recipe)
         state = trainer.init_state(args.init_seed)
         batch = _device_batch(bsz, 40, device)
-        for path in ("kernel", "plain"):
-            with contextlib.ExitStack() as stack:
-                if path == "plain":
-                    for mod in (layers, discriminator):
-                        stack.enter_context(mock.patch.object(mod, "blur_pool", blur_pool_padded))
+        for path, context in paths.items():
+            with context():
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
                 for _ in range(2):
@@ -425,12 +776,103 @@ def phase_train_rate(device, args, card: str) -> None:
                 end.synchronize()
             ms = start.elapsed_time(end) / 5
             if not all(bool(torch.isfinite(v)) for v in metrics.values()):
-                raise AssertionError(f"train rate B={bsz} {path}: a loss is not finite")
+                raise AssertionError(f"{name} train rate B={bsz} {path}: a loss is not finite")
             peak = torch.cuda.max_memory_allocated() / 2**30
-            print(f"train step bf16 B={bsz} {path} path: {ms:.2f} ms = {bsz * 1000 / ms:.1f} "
-                  f"img/s, peak memory {peak:.2f} GiB [{card}]")
+            print(f"{name} train step bf16 B={bsz} {path} path: {ms:.2f} ms = "
+                  f"{bsz * 1000 / ms:.1f} img/s, peak memory {peak:.2f} GiB [{card}]")
         del recipe, trainer, state, batch, metrics
         torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------- stn_newmodel3
+STN_OUTPUTS = {"fake_B": torch.bfloat16, "fake_A1": torch.bfloat16,
+               "warped_B": torch.float32, "fake_A2": torch.bfloat16}
+
+
+def phase_stn_serve(device, args, card: str) -> dict[str, int]:
+    """The full-width stn_newmodel3 serve path through ``Inferencer``,
+    ``run_test_set`` and the CLI; returns the run's launch counts."""
+    from PIL import Image
+
+    cfg = _cfg("stn_newmodel3", "bfloat16")
+    nets = build_generators(cfg, device, torch.Generator().manual_seed(args.init_seed))
+    _random_dtheta_head(nets["STN"], args.init_seed)
+    n_params = {k: sum(p.numel() for p in m.parameters()) for k, m in nets.items()}
+    inf = Inferencer(cfg, nets)
+    batches = [synthetic_batch(batch_size=8, image_size=SIZE, seed=50 + i) for i in range(2)]
+    reset_counts()
+    t0 = time.perf_counter()
+    served = 0
+    for b in batches:
+        out = inf(b)
+        served += 1
+        for k, dtype in STN_OUTPUTS.items():
+            if out[k].shape != (8, SIZE, SIZE, 3) or out[k].dtype != dtype:
+                raise AssertionError(f"stn serve {k}: {tuple(out[k].shape)} {out[k].dtype}")
+            if not bool(torch.isfinite(out[k]).all()):
+                raise AssertionError(f"stn serve {k} is not finite")
+        moved = float((out["warped_B"] - torch.as_tensor(b["B"], device=device)).abs().max())
+        if not 1e-3 < moved < 2.5:  # bicubic overshoot stays near [-1, 1]
+            raise AssertionError(f"stn serve: warped_B differs from B by {moved}")
+    with tempfile.TemporaryDirectory() as tmp:
+        data, out_dir, cli_out, crops = (os.path.join(tmp, d)
+                                         for d in ("data", "out", "cli_out", "crops"))
+        written = inf.run_test_set(batches, out_dir)
+        served += len(batches)
+        stacks = sorted(f for f in os.listdir(out_dir) if f.endswith(".png"))
+        with Image.open(os.path.join(out_dir, stacks[0])) as img:
+            size = img.size
+        _write_pairs(data, seed=11)
+        cli.main(["test", "--config", "stn_newmodel3", "--data-root", data, "--image-size",
+                  str(SIZE), "--batch-size", "4", "--dtype", "bfloat16", "--out-dir", cli_out,
+                  "--device", "cuda", "--init-seed", str(args.init_seed)])
+        served += 2
+        roles = "real_A,real_B,warped_B,fake_A1,fake_A2,fake_B"
+        cli.main(["prep-crop", "--stack-dir", cli_out, "--out-root", crops, "--roles", roles])
+        cli_stacks = [f for f in os.listdir(cli_out) if f.endswith(".png")]
+        cropped = {r: len(os.listdir(os.path.join(crops, r))) for r in roles.split(",")}
+    seconds = time.perf_counter() - t0
+    if written != 16 or len(stacks) != 16 or size != (SIZE, 6 * SIZE):
+        raise AssertionError(f"stn serve wrote {written} ({len(stacks)} stacks of size {size})")
+    if len(cli_stacks) != 8 or set(cropped.values()) != {8}:
+        raise AssertionError(f"stn cli: {len(cli_stacks)} stacks, crops {cropped}")
+    run = expect_counts("stn serve", STN_SERVE_BATCH, served)
+    print(f"stn serve: G1 {n_params['G1']:,} + G2 {n_params['G2']:,} + STN (ViT-Base) "
+          f"{n_params['STN']:,} parameters, bf16; {served} batches (2 x 8 through Inferencer, "
+          f"2 x 8 through run_test_set, 2 x 4 through cli test) in {seconds:.2f} s: "
+          f"{len(stacks)} + {len(cli_stacks)} six-image stacks of {size[0]}x{size[1]}, "
+          f"prep-crop {cropped}; launches a batch {STN_SERVE_BATCH}")
+
+    # float32, the same weights: kernel path vs plain path on the card
+    cfg32 = _cfg("stn_newmodel3", "float32")
+    nets32 = build_generators(cfg32, device)
+    nets32.load_state_dict(nets.state_dict())
+    inf32 = Inferencer(cfg32, nets32)
+    small = {k: v[:2] for k, v in batches[0].items()}
+    y_kernel = inf32(small)
+    # fake_B and fake_A1 do not pass the warp: 1e-4. The two outputs behind it
+    # get 1e-3: cuDNN's float32 results differ by 1e-6 between two identical
+    # calls, that reaches theta, and one float32 ulp of theta moves a sample by
+    # 1.5e-5 pixel (warped_B measured 4e-5 against the same kernels upstream)
+    for label, context, behind_warp in (("plain resampling with the blur-pool kernels",
+                                         plain_resample, 1e-3), ("plain path", plain_path, 1e-3)):
+        with context():
+            y_plain = inf32(small)
+        errs = {k: float((y_kernel[k] - y_plain[k]).abs().max()) for k in STN_OUTPUTS}
+        tols = {"fake_B": 1e-4, "fake_A1": 1e-4, "warped_B": behind_warp, "fake_A2": behind_warp}
+        if any(errs[k] > tols[k] for k in errs):
+            raise AssertionError(f"stn serve fp32: kernel path vs {label} max abs err {errs}, "
+                                 f"tolerances {tols}")
+        print(f"stn serve fp32 (2 x {SIZE}²): kernel path vs {label} on the card max abs err "
+              + ", ".join(f"{k} {v:.3g} (atol {tols[k]})" for k, v in errs.items()))
+    del nets32, inf32
+
+    gen = torch.Generator(device=device).manual_seed(3)
+    for bsz in (8, 32):
+        batch = {k: torch.rand((bsz, SIZE, SIZE, 3), device=device, generator=gen) * 2 - 1
+                 for k in ("A", "B")}
+        _serve_rate("stn serve (3 G forwards, ViT-Base, warp)", lambda: inf(batch), bsz, card)
+    return run
 
 
 def main(argv=None) -> int:
@@ -442,6 +884,7 @@ def main(argv=None) -> int:
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this script needs a CUDA card")
 
     # 1. environment
+    t_start = time.perf_counter()
     device = torch.device("cuda", 0)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -453,53 +896,82 @@ def main(argv=None) -> int:
           f"count {torch.cuda.device_count()}; TF32 off")
     print(card)
 
-    # 2. build: one library holds the forward and the backward kernel
+    # 2. build: both sources at once, one nvcc each
     t0 = time.perf_counter()
-    lib = _build.load_library("blurpool")
-    for symbol in ("tfcgan_blurpool_fwd", "tfcgan_blurpool_bwd"):
-        getattr(lib, symbol)
-    print(f"build: blurpool.cu (tfcgan_blurpool_fwd, tfcgan_blurpool_bwd) in "
-          f"{time.perf_counter() - t0:.2f} s -> {_build.library_path('blurpool')}")
+    _build.build_libraries(["blurpool", "resample"])
+    symbols = {"blurpool": ("tfcgan_blurpool_fwd", "tfcgan_blurpool_bwd"),
+               "resample": ("tfcgan_resample_fwd", "tfcgan_resample_adjoint",
+                            "tfcgan_resample_gradpos")}
+    for name, functions in symbols.items():
+        lib = _build.load_library(name)
+        for symbol in functions:
+            getattr(lib, symbol)
+    print(f"build: blurpool.cu and resample.cu ({', '.join(sum(symbols.values(), ()))}) in "
+          f"{time.perf_counter() - t0:.2f} s -> {_build.BUILD_DIR}")
 
-    # 3. kernel vs plain, forward and backward
-    fwd, bwd = phase_kernels(device)
+    # 3. and 4. every kernel against its plain version
+    results = dict(zip(KERNELS[:2], phase_kernels(device)))
+    results.update(phase_resample(device, card))
 
-    # 4. serve and 5. the CLI: the serve path, with the forward kernel's launches counted
-    kernel.LAUNCHES = kernel.BWD_LAUNCHES = 0
+    # 5. the fft_glo serve path and its CLI
+    by_path = {}
+    reset_counts()
     g, batches, forwards = phase_serve(device, args)
     forwards += phase_cli(args)
-    torch.cuda.synchronize()
-    launches = kernel.LAUNCHES
-    if launches != 11 * forwards or kernel.BWD_LAUNCHES != 0:
-        raise AssertionError(f"blurpool launches {launches} != 11 x {forwards} G forwards "
-                             f"(backward {kernel.BWD_LAUNCHES})")
-    print(f"serve path: {forwards} G forwards, blurpool launches {launches} (11 per forward)")
+    by_path["fft_glo_serve"] = expect_counts(
+        "fft_glo serve", {**dict.fromkeys(KERNELS, 0), "blurpool_fwd": 11}, forwards)
+    print(f"fft_glo serve path: {forwards} G forwards, blurpool launches "
+          f"{by_path['fft_glo_serve']['blurpool_fwd']} (11 per forward), no other kernel")
 
     # 6. float32 kernel path vs plain path, and G-forward img/s
     phase_compare(device, g, batches, card)
     del g, batches
     torch.cuda.empty_cache()
 
-    # 7. the train step, with both kernels' launches counted
-    fwd_launches, bwd_launches = phase_train(device, args)
+    # 7. the fft_glo train step
+    by_path["fft_glo_train"] = phase_train(device, args, "fft_glo", TRAIN_TERMS, FFT_GLO_STEP)
+    phase_train_compare(device, args, "fft_glo", TRAIN_TERMS, FFT_GLO_STEP,
+                        [("plain path", plain_path, 1e-3, None)])
+    phase_train_rate(device, args, card, "fft_glo", TRAIN_RATE_BATCHES)
 
-    # 8. float32 train step, kernel path vs plain path
-    phase_train_compare(device, args)
+    # 8. the stn_newmodel3 serve path
+    by_path["stn_serve"] = phase_stn_serve(device, args, card)
+    torch.cuda.empty_cache()
 
-    # 9. train-step img/s
-    phase_train_rate(device, args, card)
+    # 9. the stn_newmodel3 train step
+    # This step's gradients do not repeat from run to run: cuDNN's float32
+    # algorithms differ by 1e-6 between two identical calls, one float32 ulp of
+    # theta moves a sample by 1.5e-5 pixel, and G2's deep instance norms
+    # (random weights, small variances) amplify that. The first reference is
+    # therefore the kernel path itself, which measured up to 3.3e-3 in L2 norm
+    # and 2.0e-2 of max|g| elementwise over several runs on an NVIDIA H100 80GB
+    # HBM3; every reference is held to three times that floor. The resampling
+    # kernels themselves are held tightly in phase 4.
+    phase_train_compare(device, args, "stn_newmodel3", STN_TERMS, STN_STEP,
+                        [("kernel path again", contextlib.nullcontext, 6e-2, 1e-2),
+                         ("plain resampling with the blur-pool kernels", plain_resample,
+                          6e-2, 1e-2),
+                         ("plain path", plain_path, 6e-2, 1e-2)])
+    phase_train_rate(device, args, card, "stn_newmodel3", (32,),
+                     {"kernel": contextlib.nullcontext, "plain-resampling": plain_resample,
+                      "plain": plain_path})
+    by_path["stn_train"] = phase_train(device, args, "stn_newmodel3", STN_TERMS, STN_STEP)
 
     # 10. result
+    print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(card)
-    source = "tfcgan_tpu_torch/csrc/blurpool.cu"
+    sources = {"blurpool": "tfcgan_tpu_torch/csrc/blurpool.cu",
+               "resample": "tfcgan_tpu_torch/csrc/resample.cu"}
+    replaces = {"blurpool_fwd": "tfcgan_tpu/ops/pallas_kernels/blurpool.py:158",
+                "blurpool_bwd": "tfcgan_tpu/ops/pallas_kernels/blurpool.py:266",
+                "resample_fwd": "tfcgan_tpu/ops/pallas_kernels/resample.py:115",
+                "resample_adjoint": "tfcgan_tpu/ops/pallas_kernels/resample.py:155",
+                "resample_gradpos": "tfcgan_tpu/ops/pallas_kernels/resample.py:134"}
     print(json.dumps({"kernels": [
-        {"name": "blurpool_fwd", "route": "cuda", "source": source,
-         "replaces": "tfcgan_tpu/ops/pallas_kernels/blurpool.py:158", "launches": fwd_launches,
-         "max_abs_err": fwd[0], "ms": fwd[1], "plain_ms": fwd[2]},
-        {"name": "blurpool_bwd", "route": "cuda", "source": source,
-         "replaces": "tfcgan_tpu/ops/pallas_kernels/blurpool.py:266", "launches": bwd_launches,
-         "max_abs_err": bwd[0], "ms": bwd[1], "plain_ms": bwd[2]},
-    ]}))
+        {"name": k, "route": "cuda", "source": sources[k.split("_")[0]],
+         "replaces": replaces[k], "launches": by_path["stn_train"][k],
+         "launches_by_path": {path: c[k] for path, c in by_path.items()}, **results[k]}
+        for k in KERNELS]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

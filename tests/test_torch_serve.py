@@ -185,12 +185,13 @@ def test_port_imports_without_jax():
                                                      "tfcgan_tpu_torch.")]
     assert "tfcgan_tpu_torch.ops.kernels.blurpool" in modules and len(modules) >= 20
     code = ("import sys, importlib\n"
-            "for name in ('jax', 'jaxlib', 'flax', 'optax', 'orbax'):\n"
+            "for name in ('tfcgan_tpu', 'jax', 'jaxlib', 'flax', 'optax', 'orbax'):\n"
             "    sys.modules[name] = None\n"
             f"for m in {['tfcgan_tpu_torch', *modules]!r}:\n"
             "    importlib.import_module(m)\n"
-            "loaded = [m for m in sys.modules if m.startswith('tfcgan_tpu.')]\n"
-            "assert loaded == ['tfcgan_tpu.config'], loaded\n")
+            "loaded = [m for m in sys.modules if m.startswith('tfcgan_tpu')\n"
+            "          and not m.startswith('tfcgan_tpu_torch') and sys.modules[m] is not None]\n"
+            "assert loaded == [], loaded\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr

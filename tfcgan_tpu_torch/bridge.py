@@ -5,12 +5,16 @@
 ``tools/export_g_params.py`` writes to ``g_params.npz``) into the state dict of
 ``tfcgan_tpu_torch.models.unet.GeneratorUNet``; ``discriminator_from_flax``
 and ``lpips_from_flax`` do the same for ``PatchDiscriminator`` (with its
-spectral u/v) and ``LPIPS``, and ``train_state_from_flax`` for a whole
-``GANTrainState`` of the tfcgan recipe. Flax stores every conv kernel as
+spectral u/v), ``LPIPS``, ``ViT`` (``vit_from_flax``) and the affine STN
+(``stn_from_flax``), and ``train_state_from_flax`` for a whole
+``GANTrainState`` of the tfcgan or the stn recipe. Flax stores every conv kernel as
 ``(kh, kw, in, out)``; torch wants ``(out, in, kh, kw)`` for a conv and
 ``(in, out, kh, kw)`` for a transposed conv (the up blocks' ``conv``). The
 spectral v is W's right singular vector over W flattened as (kh, kw, in) in
-flax and as (in, kh, kw) in torch, so it is reordered.
+flax and as (in, kh, kw) in torch, so it is reordered. A flax ``Dense`` kernel
+is ``(in, out)`` and torch's ``(out, in)``; the attention's q/k/v kernels are
+``(dim, heads, head_dim)`` and its out kernel ``(heads, head_dim, dim)``, both
+flattened to ``(dim, dim)`` before the transpose.
 
 The bridge takes numpy-convertible leaves and never imports JAX.
 """
@@ -110,6 +114,86 @@ def lpips_from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
     return state
 
 
+def _dense(kernel, in_axes: int) -> torch.Tensor:
+    """A flax Dense/DenseGeneral kernel, its first ``in_axes`` axes the input,
+    -> torch's (out, in) weight."""
+    k = np.asarray(kernel, dtype=np.float32)
+    return _tensor(k.reshape(int(np.prod(k.shape[:in_axes])), -1), (1, 0))
+
+
+def vit_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
+    """JAX ``ViT`` params -> state dict of the port's ``models.vit.ViT``."""
+    state = {}
+    for path, value in flatten_params(params).items():
+        parts = path.split("/")
+        leaf = parts[-1]
+        if parts[0].startswith("block"):
+            prefix = f"blocks.{int(parts[0][5:])}." + ".".join(parts[1:-1])
+        else:
+            prefix = ".".join(parts[:-1])
+        if path in ("cls_token", "pos_embed"):
+            state[path] = _tensor(value)
+        elif parts[0] == "patch_embed" and leaf == "kernel":
+            state["patch_embed.weight"] = _tensor(value, (3, 2, 0, 1))
+        elif leaf == "kernel":  # the out projection's input is (heads, head_dim)
+            state[f"{prefix}.weight"] = _dense(value, 2 if parts[-2] == "out" else 1)
+        elif leaf == "scale":
+            state[f"{prefix}.weight"] = _tensor(value)
+        elif leaf == "bias":
+            state[f"{prefix}.bias"] = _tensor(value).reshape(-1)
+        else:
+            raise KeyError(f"no ViT parameter for flax path {path!r}")
+    return state
+
+
+def stn_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
+    """JAX affine-STN params (``AffineSTN``: the ViT under
+    ``localization/vit``; the recipe's ``_STNNet``: under ``vit``) -> state
+    dict of the port's ``models.stn.AffineSTN``."""
+    flat = flatten_params(params)
+    vit, state = {}, {}
+    for path, value in flat.items():
+        parts = path.split("/")
+        if parts[0] == "localization":
+            parts = parts[1:]
+        if parts[0] == "vit":
+            vit["/".join(parts[1:])] = value
+        elif len(parts) == 2 and parts[0] in ("fc1", "fc2", "fc3", "fc4"):
+            if parts[1] == "kernel":
+                state[f"{parts[0]}.weight"] = _dense(value, 1)
+            else:
+                state[f"{parts[0]}.bias"] = _tensor(value)
+        else:
+            raise KeyError(f"no AffineSTN parameter for flax path {path!r}")
+    state.update({f"vit.{k}": v for k, v in vit_from_flax(vit).items()})
+    return state
+
+
+def stn_generators_from_flax(g_params: Mapping) -> dict[str, torch.Tensor]:
+    """The stn recipe's ``g_params`` {"G1", "G2", "STN"} (nested, or flat with
+    "/"-joined keys) -> state dict of the port's ``recipe.G`` container."""
+    groups: dict[str, dict] = {"G1": {}, "G2": {}, "STN": {}}
+    for path, value in flatten_params(g_params).items():
+        head, rest = path.split("/", 1)
+        groups[head][rest] = value
+    state = {}
+    for name, convert in (("G1", generator_from_flax), ("G2", generator_from_flax),
+                          ("STN", stn_from_flax)):
+        state.update({f"{name}.{k}": v for k, v in convert(groups[name]).items()})
+    return state
+
+
+def stn_discriminators_from_flax(d_params: Mapping, spectral: Mapping | None = None
+                                 ) -> dict[str, torch.Tensor]:
+    """The stn recipe's ``d_params`` {"D1", "D2"} (and their ``spectral``
+    collections) -> state dict of the port's ``recipe.D`` container."""
+    state = {}
+    for name in ("D1", "D2"):
+        head = discriminator_from_flax(d_params[name], spectral[name] if spectral else None)
+        state.update({f"{name}.{k}": v for k, v in head.items()})
+    return state
+
+
 def _load_adam(opt: torch.optim.Adam, module: torch.nn.Module, adam_state,
                to_state_dict) -> None:
     """optax ``ScaleByAdamState`` (count, mu, nu) -> the torch Adam's state."""
@@ -123,16 +207,25 @@ def _load_adam(opt: torch.optim.Adam, module: torch.nn.Module, adam_state,
 
 
 def train_state_from_flax(state, recipe, generator: torch.Generator):
-    """A JAX ``GANTrainState`` of the tfcgan recipe (constant-lr Adams) ->
-    a port ``TrainState`` over ``recipe``'s modules: weights, spectral u/v,
-    LPIPS, both Adams' moments and the step. Draws come from ``generator``."""
-    recipe.G.load_state_dict(generator_from_flax(state.g_params["G"]))
-    recipe.D.load_state_dict(discriminator_from_flax(state.d_params["D"], state.spectral["D"]))
+    """A JAX ``GANTrainState`` of the tfcgan or the stn recipe (constant-lr
+    Adams) -> a port ``TrainState`` over ``recipe``'s modules: weights,
+    spectral u/v, LPIPS, both Adams' moments and the step. Draws come from
+    ``generator``."""
+    if recipe.name == "stn":
+        g_from_flax, d_from_flax = stn_generators_from_flax, stn_discriminators_from_flax
+    else:
+        def g_from_flax(tree):
+            return generator_from_flax(tree["G"])
+
+        def d_from_flax(tree, spectral=None):
+            return discriminator_from_flax(tree["D"], spectral["D"] if spectral else None)
+    recipe.G.load_state_dict(g_from_flax(state.g_params))
+    recipe.D.load_state_dict(d_from_flax(state.d_params, state.spectral))
     if recipe.lpips is not None:
         recipe.lpips.load_state_dict(lpips_from_flax(state.frozen["lpips"]))
     opt_g, opt_d = make_optimizers(recipe.cfg, recipe)
-    _load_adam(opt_g, recipe.G, state.g_opt_state[0], lambda t: generator_from_flax(t["G"]))
-    _load_adam(opt_d, recipe.D, state.d_opt_state[0], lambda t: discriminator_from_flax(t["D"]))
+    _load_adam(opt_g, recipe.G, state.g_opt_state[0], g_from_flax)
+    _load_adam(opt_d, recipe.D, state.d_opt_state[0], d_from_flax)
     return TrainState(step=int(np.asarray(state.step)), generator=generator, G=recipe.G,
                       D=recipe.D, lpips=recipe.lpips, opt_g=opt_g, opt_d=opt_d)
 
@@ -141,3 +234,10 @@ def load_generator_npz(path: str) -> dict[str, torch.Tensor]:
     """``g_params.npz`` (from ``tools/export_g_params.py``) -> state dict."""
     with np.load(path) as npz:
         return generator_from_flax({k: npz[k] for k in npz.files})
+
+
+def load_stn_generators_npz(path: str) -> dict[str, torch.Tensor]:
+    """The stn recipe's ``g_params.npz`` (G1, G2 and STN, from
+    ``tools/export_g_params.py``) -> state dict of ``recipes.stn.build_generators``."""
+    with np.load(path) as npz:
+        return stn_generators_from_flax({k: npz[k] for k in npz.files})

@@ -1,12 +1,17 @@
-"""Command-line interface of the port (the fft_glo serve and eval chain):
+"""Command-line interface of the port (the serve and eval chain of the tfcgan
+and stn recipes):
 
     python -m tfcgan_tpu_torch.cli test --experiment fft_glo --data-root DATA \
         --params g_params.npz --out-dir results/ --spectra
+    python -m tfcgan_tpu_torch.cli test --config stn_newmodel3 --data-root DATA \
+        --params g_params.npz --out-dir results/
     python -m tfcgan_tpu_torch.cli prep-crop --stack-dir results/ --out-root crops/
     python -m tfcgan_tpu_torch.cli eval --fake-dir crops/fake_B --real-dir crops/real_B
 
-``g_params.npz`` comes from a JAX checkpoint through ``tools/export_g_params.py``;
-``--init-seed N`` serves random normal(0, 0.02) weights instead. ``--device``
+``g_params.npz`` comes from a JAX checkpoint through ``tools/export_g_params.py``
+(for stn it holds G1, G2 and the STN); ``--init-seed N`` serves random weights
+instead. The stn stacks are real_A | real_B | warped_B | fake_A1 | fake_A2 |
+fake_B (``prep-crop --roles real_A,real_B,warped_B,fake_A1,fake_A2,fake_B``). ``--device``
 defaults to ``cuda``, and the commands refuse to run when CUDA is absent
 unless ``--device cpu`` is given.
 """
@@ -43,9 +48,10 @@ def _cfg_from_args(args):
 
 
 def cmd_test(args):
-    from tfcgan_tpu_torch.bridge import load_generator_npz
+    from tfcgan_tpu_torch.bridge import load_generator_npz, load_stn_generators_npz
     from tfcgan_tpu_torch.data.pairs import PairedImageDataset, batch_iterator
     from tfcgan_tpu_torch.infer import Inferencer
+    from tfcgan_tpu_torch.recipes.stn import build_generators
     from tfcgan_tpu_torch.recipes.tfcgan import build_generator
 
     if (args.params is None) == (args.init_seed is None):
@@ -53,9 +59,11 @@ def cmd_test(args):
     device = _device(args.device)
     cfg = _cfg_from_args(args)
     seed = 0 if args.init_seed is None else args.init_seed
-    g = build_generator(cfg, device, torch.Generator().manual_seed(seed))
+    build, load = ((build_generators, load_stn_generators_npz) if cfg.recipe == "stn"
+                   else (build_generator, load_generator_npz))
+    g = build(cfg, device, torch.Generator().manual_seed(seed))
     if args.params is not None:
-        g.load_state_dict(load_generator_npz(args.params))
+        g.load_state_dict(load(args.params))
     ds = PairedImageDataset(cfg.data.root, "test", cfg.data.image_size, cfg.data.direction)
     # drop_last=False: every test image is served
     batches = batch_iterator(ds, args.batch_size or 8, shuffle=False, epochs=1, drop_last=False)
@@ -88,7 +96,7 @@ def main(argv=None):
     sub = p.add_subparsers(dest="cmd", required=True)
 
     sp = sub.add_parser("test")
-    sp.add_argument("--experiment", default="fft_glo")
+    sp.add_argument("--experiment", "--config", dest="experiment", default="fft_glo")
     sp.add_argument("--data-root", default=None)
     sp.add_argument("--batch-size", type=int, default=None)
     sp.add_argument("--image-size", type=int, default=None)
@@ -97,7 +105,7 @@ def main(argv=None):
     sp.add_argument("--out-dir", default="runs")
     sp.add_argument("--params", default=None, help="g_params.npz from tools/export_g_params.py")
     sp.add_argument("--init-seed", type=int, default=None,
-                    help="serve random normal(0, 0.02) weights from this seed")
+                    help="serve random weights drawn from this seed")
     sp.add_argument("--spectra", action="store_true")
     sp.add_argument("--device", default="cuda")
     sp.set_defaults(fn=cmd_test)

@@ -1,1 +1,2 @@
-"""Models of the port: the U-Net generator and its layers."""
+"""Models of the port: the U-Net generator and its layers, the PatchGAN
+discriminator, LPIPS, the ViT and the affine STN."""

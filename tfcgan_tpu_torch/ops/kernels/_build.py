@@ -44,20 +44,38 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 
 
-@functools.cache
-def load_library(name: str) -> ctypes.CDLL:
-    """Compile ``csrc/<name>.cu`` if its build is missing, then load it."""
-    out = library_path(name)
-    if not out.exists():
+def build_libraries(names) -> None:
+    """Compile every ``csrc/<name>.cu`` whose build is missing, one nvcc each,
+    all started together."""
+    missing = [(name, library_path(name)) for name in names]
+    missing = [(name, out) for name, out in missing if not out.exists()]
+    if not missing:
+        return
+    nvcc = _nvcc()
+    running = []
+    for name, out in missing:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         # build into a private name and rename: concurrent builders never load
         # a half-written library
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")]
+        running.append((name, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failures = []
+    for name, out, tmp, proc in running:
+        log, _ = proc.communicate()
         if proc.returncode != 0:
             os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)
-    return ctypes.CDLL(str(out))
+            failures.append(f"nvcc failed for {name}.cu:\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failures:
+        raise RuntimeError("\n".join(failures))
+
+
+@functools.cache
+def load_library(name: str) -> ctypes.CDLL:
+    """Compile ``csrc/<name>.cu`` if its build is missing, then load it."""
+    build_libraries([name])
+    return ctypes.CDLL(str(library_path(name)))

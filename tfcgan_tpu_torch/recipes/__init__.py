@@ -3,11 +3,15 @@
 from __future__ import annotations
 
 from tfcgan_tpu_torch.config import ExperimentConfig
+from tfcgan_tpu_torch.recipes.stn import STNRecipe
 from tfcgan_tpu_torch.recipes.tfcgan import TFCGANRecipe
 
+_RECIPES = {"tfcgan": TFCGANRecipe, "stn": STNRecipe}
 
-def build_recipe(cfg: ExperimentConfig, device):
-    """The recipe named by ``cfg.recipe``, its modules on ``device``."""
-    if cfg.recipe != "tfcgan":
+
+def build_recipe(cfg: ExperimentConfig, device="cuda"):
+    """The recipe named by ``cfg.recipe``, its modules on ``device`` (the
+    card, unless the caller names another)."""
+    if cfg.recipe not in _RECIPES:
         raise NotImplementedError(f"recipe {cfg.recipe!r} is not ported yet (ROADMAP Queue 1)")
-    return TFCGANRecipe(cfg, device)
+    return _RECIPES[cfg.recipe](cfg, device)

@@ -1,7 +1,9 @@
 """The recipe protocol of the port, after ``tfcgan_tpu.recipes.base``.
 
-A recipe owns its modules (``G``, ``D`` and any frozen loss network) on one
-device and exposes the two losses; the trainer (``train/trainer.py``)
+A recipe owns its modules on one device: ``G``, everything the G optimizer
+steps, and ``D``, everything the D optimizer steps (a single network, or an
+``nn.ModuleDict`` of several, as the STN family's G1, G2, STN and D1, D2),
+and any frozen loss network. It exposes the two losses; the trainer (``train/trainer.py``)
 differentiates them and steps the optimizers. Every random draw of a step
 comes in as one argument (``draws``), made by ``draw`` from a
 ``torch.Generator`` or handed in by a caller that needs other draws (the

@@ -90,10 +90,11 @@ def fft_loss(fake: torch.Tensor, real: torch.Tensor, lc) -> torch.Tensor:
 
 class TFCGANRecipe:
     name = "tfcgan"
+    supports_per_forward_spectral = True
 
     def __init__(self, cfg: ExperimentConfig, device, generator: torch.Generator | None = None):
         lc = cfg.loss
-        step4 = "is not ported yet (ROADMAP Queue 1 step 4, FFT-family breadth)"
+        step4 = "is not ported yet (ROADMAP Queue 1, FFT-family breadth)"
         if lc.conditional:
             raise NotImplementedError(f"the conditional (debiased) recipe {step4}")
         if lc.use_mask:
@@ -116,8 +117,8 @@ class TFCGANRecipe:
             mode = resolve_perceptual(lc)
             if mode != "lpips":
                 raise NotImplementedError(
-                    f"perceptual={mode!r} is not ported yet (msrecon comes with the STN "
-                    "family, ROADMAP Queue 1 step 5)")
+                    f"perceptual={mode!r} is not ported for the tfcgan recipe (the JAX "
+                    "package uses msrecon in the STN family only)")
             if resolve_lpips_weights(lc):
                 raise NotImplementedError(
                     f"converted LPIPS weights were found ({resolve_lpips_weights(lc)}); "

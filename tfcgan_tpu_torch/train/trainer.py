@@ -1,9 +1,10 @@
 """The alternating G/D train step and the loop that runs it, port of
 ``tfcgan_tpu.train.trainer`` (g_first order, one device).
 
-One step, in the order of the JAX step: one spectral power iteration (per-step
-cadence); the G phase (G forward, D(fake), D(real), G loss) with gradients
-to G's parameters only, D frozen for the phase; the G Adam step; the D phase
+One step, in the order of the JAX step: one spectral power iteration over
+every discriminator head of ``recipe.D`` (per-step cadence); the G phase (G
+forward, D(fake), D(real), G loss) with gradients to G's parameters only (for
+the STN family: G1, G2 and the STN), D frozen for the phase; the G Adam step; the D phase
 on the detached fake of the same G forward, against the pre-update D; the D
 Adam step. The step's random draws come from ``draw_fn(state, batch)``, by
 default the recipe's draws on ``state.generator``.
@@ -39,6 +40,9 @@ def make_train_step(cfg: ExperimentConfig, recipe) -> Callable:
     if getattr(recipe, "update_order", "g_first") != "g_first":
         raise NotImplementedError("d_first order is not ported yet (it comes with NeMAR)")
     per_forward = cfg.extra.get("spectral_cadence", "per_step") == "per_forward"
+    if per_forward and not getattr(recipe, "supports_per_forward_spectral", False):
+        raise ValueError(f"recipe {getattr(recipe, 'name', recipe)!r} does not implement "
+                         "spectral_cadence='per_forward'")
 
     def train_step(state: TrainState, batch: dict, draws) -> dict[str, torch.Tensor]:
         if not per_forward:

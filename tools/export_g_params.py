@@ -7,7 +7,8 @@ weights file of the PyTorch port (``tfcgan_tpu_torch.cli test --params``).
 The checkpoint is restored as ``tfcgan_tpu.cli test`` restores it; the npz
 holds the ``params["G"]`` tree as float32 arrays under "/"-joined keys
 ("down1/conv/kernel", ...), which ``tfcgan_tpu_torch.bridge`` maps to the
-port's state dict.
+port's state dict. For an stn experiment (``--experiment stn_newmodel3``) it
+holds the whole generator side, "G1/...", "G2/..." and "STN/...".
 """
 
 from __future__ import annotations
@@ -55,7 +56,8 @@ def restore_g_params(experiment: str, checkpoint: str) -> Mapping:
                             with_labels=cfg.loss.conditional)
     template = trainer.init_state(jax.random.PRNGKey(0), first)
     state = restore_checkpoint(checkpoint, jax.device_get(template))
-    return jax.device_get(state.g_params["G"])
+    g_params = jax.device_get(state.g_params)
+    return g_params if cfg.recipe == "stn" else g_params["G"]
 
 
 def main(argv=None):
