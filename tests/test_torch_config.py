@@ -52,7 +52,7 @@ def test_resample_source_ships_with_the_package():
         data = tomllib.load(f)["tool"]["setuptools"]["package-data"]["tfcgan_tpu_torch"]
     assert "csrc/*.cu" in data
     csrc = os.path.join(REPO, "tfcgan_tpu_torch", "csrc")
-    assert sorted(os.listdir(csrc)) == ["blurpool.cu", "resample.cu"]
+    assert sorted(os.listdir(csrc)) == ["blurpool.cu", "gridsample.cu", "resample.cu"]
     with open(os.path.join(REPO, ".gitignore")) as f:
         assert "tfcgan_tpu_torch/_build/" in f.read().split()
     from tfcgan_tpu_torch.ops.kernels import _build

@@ -12,7 +12,11 @@ gradient) and then rounded: atol = rtol = 8e-3, one bf16 ulp, for a final
 rounding that can land on the other side. Resampling (float32 results from a
 float32 or bfloat16 input): outputs and the gradient to x within 2e-5, the
 gradients to p and q (sums over whole lines, in another order) within 2e-4,
-each x max(1, max|plain|).
+each x max(1, max|plain|). Dense grid_sample: the forward within 1e-5 x
+max(1, max|plain|) in float32 and one bf16 ulp in bfloat16; both gradients
+within 1e-4 x max(1, max|plain|) (the image gradient is summed with float32
+atomics in an order that changes from run to run, the grid gradient over the
+channels in another order than autograd).
 """
 
 from unittest import mock
@@ -20,9 +24,11 @@ from unittest import mock
 import pytest
 import torch
 
-from tfcgan_tpu_torch.ops import blurpool, resample
+from tfcgan_tpu_torch.ops import blurpool, gridsample, resample
 from tfcgan_tpu_torch.ops.kernels import blurpool as kernel
+from tfcgan_tpu_torch.ops.kernels import gridsample as gkernel
 from tfcgan_tpu_torch.ops.kernels import resample as rkernel
+from tfcgan_tpu_torch.ops.warp import affine_grid
 
 pytestmark = pytest.mark.cuda
 
@@ -211,3 +217,164 @@ def test_resample_kernels_refuse_what_they_do_not_take(cuda):
         rkernel.resample_fwd(x, p, q, 8, "nearest", True, 3)
     with pytest.raises(ValueError, match="does not belong"):
         rkernel.resample_gradpos(x, torch.randn(3, 8, 6, device=cuda), p, q, "cubic", True, 3)
+
+
+# ------------------------------------------------------ dense grid_sample
+PADDINGS = ("zeros", "border", "reflection")
+
+
+def _identity_grid(n, h, w, device, align=False):
+    theta = torch.tensor([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]], device=device).expand(n, 2, 3)
+    return affine_grid(theta, (n, h, w), align_corners=align).contiguous()
+
+
+def _k3_case(case, dtype, align, g):
+    """(inp, grid) of one named case on g's device."""
+    dev = g.device
+
+    def rand(shape):
+        return torch.randn(shape, device=dev, generator=g).to(dtype)
+
+    def uniform(shape, scale):
+        return (torch.rand(shape, device=dev, generator=g) * 2 - 1) * scale
+
+    if case.startswith("path"):  # (8, 256, 256, 6): A and fake_B stacked
+        pixels = {"path-identity": 0.0, "path-0.3px": 0.3, "path-5px": 5.0}[case]
+        base = _identity_grid(8, 256, 256, dev, align)
+        return rand((8, 256, 256, 6)), base + uniform(base.shape, pixels * 2 / 256)
+    if case in ("c1", "c2", "c3", "c6"):  # Hg, Wg != H, W
+        return rand((2, 24, 40, int(case[1:]))), uniform((2, 16, 33, 2), 1.2)
+    if case == "off-image":
+        return rand((2, 24, 40, 3)), uniform((2, 16, 33, 2), 6.0)
+    if case == "constant":  # 4096 outputs a sample on one spot
+        return rand((2, 24, 40, 3)), torch.tensor((0.313, -0.477), device=dev).expand(
+            2, 64, 64, 2).contiguous()
+    if case == "identity-16":
+        return rand((2, 16, 16, 3)), _identity_grid(2, 16, 16, dev, align)
+    shape = {"1px": (2, 1, 1, 3), "2x3px": (2, 2, 3, 2), "3x1px": (1, 3, 1, 1)}[case]
+    return rand(shape), uniform((shape[0], 5, 7, 2), 1.5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("align", [False, True])
+@pytest.mark.parametrize("padding", PADDINGS)
+@pytest.mark.parametrize("case", ["path-identity", "path-0.3px", "path-5px", "c1", "c2", "c3", "c6",
+                                  "1px", "2x3px", "3x1px", "off-image", "constant",
+                                  "identity-16"])
+def test_gridsample_kernels_match_plain(cuda, case, padding, align, dtype):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    inp, grid = _k3_case(case, dtype, align, g)
+    ct = torch.randn((*grid.shape[:3], inp.shape[3]), device=cuda, generator=g).to(dtype)
+    before = (gkernel.FWD_LAUNCHES, gkernel.BWD_LAUNCHES)
+    out = gkernel.gridsample_fwd(inp, grid, padding, align)
+    d_inp, d_grid = gkernel.gridsample_bwd(ct, inp, grid, padding, align)
+    torch.cuda.synchronize()
+    assert (gkernel.FWD_LAUNCHES, gkernel.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert out.dtype == dtype and d_inp.dtype == d_grid.dtype == torch.float32
+    ip, gp = inp.float().requires_grad_(), grid.clone().requires_grad_()
+    want = gridsample.grid_sample_dense_plain(ip, gp, "bilinear", padding, align)
+    wi, wg = torch.autograd.grad(want, (ip, gp), ct.float(), allow_unused=True)
+    wg = torch.zeros_like(grid) if wg is None else wg  # reflection of a 1-pixel axis
+    if dtype == torch.float32:
+        _close(out, want.detach(), 1e-5)
+    else:
+        torch.testing.assert_close(out.float(), want.detach().to(dtype).float(), atol=8e-3,
+                                   rtol=8e-3)
+    _close(d_inp, wi, 1e-4)
+    _close(d_grid, wg, 1e-4)
+
+
+@pytest.mark.parametrize("align", [False, True])
+@pytest.mark.parametrize("padding", PADDINGS)
+def test_gridsample_kernels_take_coordinates_no_int_holds(cuda, padding, align):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    inp = torch.randn((2, 24, 40, 3), device=cuda, generator=g)
+    grid = (torch.rand((2, 16, 33, 2), device=cuda, generator=g) * 2 - 1) * 1.2
+    flat = grid.view(-1)
+    for i, v in enumerate((1e10, -1e10, float("inf"), float("-inf"), float("nan"), 3e38)):
+        flat[7 * i + 3] = v
+    flat[200], flat[201] = float("nan"), float("inf")
+    ct = torch.randn((2, 16, 33, 3), device=cuda, generator=g)
+    out = gkernel.gridsample_fwd(inp, grid, padding, align)
+    d_inp, d_grid = gkernel.gridsample_bwd(ct, inp, grid, padding, align)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(t).all()) for t in (out, d_inp, d_grid))
+    bad = ~(grid.abs() <= 1e30)  # inf, NaN, and 3e38, which overflows in pixels
+    keep = ~bad.any(dim=-1, keepdim=True)
+    assert not bool(d_grid[bad].any())
+    if padding == "zeros":
+        assert not bool(out[~keep.expand_as(out)].any())
+    # the other samples (1e10 among them) against the plain version
+    ip = inp.clone().requires_grad_()
+    gp = torch.where(bad, torch.zeros_like(grid), grid).requires_grad_()
+    want = gridsample.grid_sample_dense_plain(ip, gp, "bilinear", padding, align)
+    wi, wg = torch.autograd.grad(want, (ip, gp), ct * keep)
+    d_inp, d_grid = gkernel.gridsample_bwd(ct * keep, inp, grid, padding, align)
+    _close(out * keep, want.detach() * keep, 1e-5)
+    _close(d_inp, wi, 1e-4)
+    _close(d_grid * keep, wg * keep, 1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grid_sample_dense_autograd_runs_both_kernels_once(cuda, dtype):
+    g = torch.Generator(device=cuda).manual_seed(6)
+    inp = torch.randn((2, 32, 48, 6), device=cuda, generator=g).to(dtype)
+    grid = _identity_grid(2, 32, 48, cuda) + (torch.rand((2, 32, 48, 2), device=cuda,
+                                                         generator=g) - 0.5) * 0.1
+    ct = torch.randn((2, 32, 48, 6), device=cuda, generator=g)
+    i, gr = inp.clone().requires_grad_(), grid.clone().requires_grad_()
+    before = (gkernel.FWD_LAUNCHES, gkernel.BWD_LAUNCHES)
+    out = gridsample.grid_sample_dense(i, gr)
+    assert out.dtype == dtype
+    (out.float() * ct).sum().backward()
+    torch.cuda.synchronize()
+    assert (gkernel.FWD_LAUNCHES, gkernel.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert i.grad.dtype == dtype and gr.grad.dtype == torch.float32
+    ip, gp = inp.float().requires_grad_(), grid.clone().requires_grad_()
+    (gridsample.grid_sample_dense_plain(ip, gp) * ct).sum().backward()
+    if dtype == torch.float32:
+        _close(i.grad, ip.grad, 1e-4)
+        _close(gr.grad, gp.grad, 1e-4)
+    else:  # the output gradient and the image gradient are rounded to bf16 once
+        torch.testing.assert_close(i.grad.float(), ip.grad, atol=8e-3, rtol=8e-3)
+        _close(gr.grad, gp.grad, 2e-2)
+    # only the gradient that is asked for
+    before = gkernel.BWD_LAUNCHES
+    gr2 = grid.clone().requires_grad_()
+    gridsample.grid_sample_dense(inp, gr2).float().sum().backward()
+    torch.cuda.synchronize()
+    assert gkernel.BWD_LAUNCHES == before + 1 and gr2.grad is not None
+
+
+def test_gridsample_identity_grid_gradient_is_the_plain_one(cuda):
+    """Zero offsets: every sample on an integer coordinate, where the grid
+    gradient is one-sided; the kernel must floor to the plain version's side."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    for size in (256, 24):  # 24: the coordinates are not exact in float32
+        inp = torch.randn((2, size, size, 6), device=cuda, generator=g)
+        grid = _identity_grid(2, size, size, cuda)
+        ct = torch.randn((2, size, size, 6), device=cuda, generator=g)
+        _, d_grid = gkernel.gridsample_bwd(ct, inp, grid, need_inp=False)
+        gp = grid.clone().requires_grad_()
+        (wg,) = torch.autograd.grad(gridsample.grid_sample_dense_plain(inp, gp), gp, ct)
+        assert float(wg.abs().max()) > 1.0
+        _close(d_grid, wg, 1e-4)
+
+
+def test_gridsample_kernels_refuse_what_they_do_not_take(cuda):
+    inp = torch.randn(2, 8, 8, 3, device=cuda)
+    grid = torch.zeros(2, 4, 4, 2, device=cuda)
+    with pytest.raises(ValueError, match="contiguous NHWC"):
+        gkernel.gridsample_fwd(inp.permute(0, 2, 1, 3), grid)
+    with pytest.raises(TypeError):
+        gkernel.gridsample_fwd(inp.half(), grid)
+    with pytest.raises(TypeError, match="float32 grid"):
+        gkernel.gridsample_fwd(inp, grid.bfloat16())
+    with pytest.raises(ValueError, match="grid"):
+        gkernel.gridsample_fwd(inp, grid[:1])
+    with pytest.raises(ValueError, match="padding_mode"):
+        gkernel.gridsample_fwd(inp, grid, "wrap")
+    with pytest.raises(ValueError, match="g must be"):
+        gkernel.gridsample_bwd(torch.zeros(2, 4, 4, 2, device=cuda), inp, grid)
+    assert gkernel.gridsample_bwd(torch.zeros(2, 4, 4, 3, device=cuda), inp, grid,
+                                  need_inp=False, need_grid=False) == (None, None)

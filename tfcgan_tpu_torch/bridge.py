@@ -7,7 +7,11 @@
 and ``lpips_from_flax`` do the same for ``PatchDiscriminator`` (with its
 spectral u/v), ``LPIPS``, ``ViT`` (``vit_from_flax``) and the affine STN
 (``stn_from_flax``), and ``train_state_from_flax`` for a whole
-``GANTrainState`` of the tfcgan or the stn recipe. Flax stores every conv kernel as
+``GANTrainState`` of the tfcgan, the stn or the nemar recipe. NeMAR's networks
+(``resnet_generator_from_flax``, ``deformable_stn_from_flax``,
+``cnn_affine_stn_from_flax``, ``nlayer_discriminator_from_flax``,
+``pixel_discriminator_from_flax``) are plain trees of convs and Dense layers
+and share one conversion. Flax stores every conv kernel as
 ``(kh, kw, in, out)``; torch wants ``(out, in, kh, kw)`` for a conv and
 ``(in, out, kh, kw)`` for a transposed conv (the up blocks' ``conv``). The
 spectral v is W's right singular vector over W flattened as (kh, kw, in) in
@@ -194,6 +198,60 @@ def stn_discriminators_from_flax(d_params: Mapping, spectral: Mapping | None = N
     return state
 
 
+def conv_net_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
+    """A JAX module tree of plain convs and Dense layers (nested, or flat with
+    "/"-joined keys) -> the state dict of its port, whose modules carry the
+    same names: ``a/b/kernel`` becomes ``a.b.weight``, a 4-D kernel in torch's
+    conv layout and a 2-D one transposed; ``a/b/bias`` becomes ``a.b.bias``.
+    (The conv-affine STN's first Dense reads an NHWC flatten in both packages,
+    so its kernel needs no reordering.)"""
+    state = {}
+    for path, value in flatten_params(params).items():
+        module, _, leaf = path.rpartition("/")
+        key = module.replace("/", ".")
+        if leaf == "bias":
+            state[f"{key}.bias"] = _tensor(value)
+        elif leaf == "kernel" and np.ndim(value) == 4:
+            state[f"{key}.weight"] = _tensor(value, (3, 2, 0, 1))
+        elif leaf == "kernel" and np.ndim(value) == 2:
+            state[f"{key}.weight"] = _dense(value, 1)
+        else:
+            raise KeyError(f"no conv or Dense parameter for flax path {path!r}")
+    return state
+
+
+# each of NeMAR's networks is such a tree
+resnet_generator_from_flax = conv_net_from_flax
+deformable_stn_from_flax = conv_net_from_flax
+cnn_affine_stn_from_flax = conv_net_from_flax
+nlayer_discriminator_from_flax = conv_net_from_flax
+pixel_discriminator_from_flax = conv_net_from_flax
+
+
+def _grouped(tree: Mapping) -> dict[str, torch.Tensor]:
+    """A tree of named conv nets ({"T", "R"} or {"D", "D_mr0", ...}, nested
+    or flat) -> the state dict of the ``nn.ModuleDict`` that holds them."""
+    groups: dict[str, dict] = {}
+    for path, value in flatten_params(tree).items():
+        head, rest = path.split("/", 1)
+        groups.setdefault(head, {})[rest] = value
+    return {f"{name}.{k}": v for name, group in groups.items()
+            for k, v in conv_net_from_flax(group).items()}
+
+
+def nemar_generators_from_flax(g_params: Mapping) -> dict[str, torch.Tensor]:
+    """The nemar recipe's ``g_params`` {"T", "R"} -> state dict of ``recipe.G``."""
+    return _grouped(g_params)
+
+
+def nemar_discriminators_from_flax(d_params: Mapping, spectral: Mapping | None = None
+                                   ) -> dict[str, torch.Tensor]:
+    """The nemar recipe's ``d_params`` {"D", "D_mr{i}"} -> state dict of
+    ``recipe.D``. ``spectral`` is the train state's collection, empty for
+    NeMAR: its discriminators carry no spectral norm."""
+    return _grouped(d_params)
+
+
 def _load_adam(opt: torch.optim.Adam, module: torch.nn.Module, adam_state,
                to_state_dict) -> None:
     """optax ``ScaleByAdamState`` (count, mu, nu) -> the torch Adam's state."""
@@ -207,12 +265,14 @@ def _load_adam(opt: torch.optim.Adam, module: torch.nn.Module, adam_state,
 
 
 def train_state_from_flax(state, recipe, generator: torch.Generator):
-    """A JAX ``GANTrainState`` of the tfcgan or the stn recipe (constant-lr
-    Adams) -> a port ``TrainState`` over ``recipe``'s modules: weights,
-    spectral u/v, LPIPS, both Adams' moments and the step. Draws come from
-    ``generator``."""
+    """A JAX ``GANTrainState`` of the tfcgan, the stn or the nemar recipe -> a
+    port ``TrainState`` over ``recipe``'s modules: weights, spectral u/v,
+    LPIPS, both Adams' moments and counts, and the step (which fixes the
+    schedule's learning rate). Draws come from ``generator``."""
     if recipe.name == "stn":
         g_from_flax, d_from_flax = stn_generators_from_flax, stn_discriminators_from_flax
+    elif recipe.name == "nemar":
+        g_from_flax, d_from_flax = nemar_generators_from_flax, nemar_discriminators_from_flax
     else:
         def g_from_flax(tree):
             return generator_from_flax(tree["G"])
@@ -223,10 +283,11 @@ def train_state_from_flax(state, recipe, generator: torch.Generator):
     recipe.D.load_state_dict(d_from_flax(state.d_params, state.spectral))
     if recipe.lpips is not None:
         recipe.lpips.load_state_dict(lpips_from_flax(state.frozen["lpips"]))
-    opt_g, opt_d = make_optimizers(recipe.cfg, recipe)
+    step = int(np.asarray(state.step))
+    opt_g, opt_d = make_optimizers(recipe.cfg, recipe, step)
     _load_adam(opt_g, recipe.G, state.g_opt_state[0], g_from_flax)
     _load_adam(opt_d, recipe.D, state.d_opt_state[0], d_from_flax)
-    return TrainState(step=int(np.asarray(state.step)), generator=generator, G=recipe.G,
+    return TrainState(step=step, generator=generator, G=recipe.G,
                       D=recipe.D, lpips=recipe.lpips, opt_g=opt_g, opt_d=opt_d)
 
 
@@ -241,3 +302,10 @@ def load_stn_generators_npz(path: str) -> dict[str, torch.Tensor]:
     ``tools/export_g_params.py``) -> state dict of ``recipes.stn.build_generators``."""
     with np.load(path) as npz:
         return stn_generators_from_flax({k: npz[k] for k in npz.files})
+
+
+def load_nemar_generators_npz(path: str) -> dict[str, torch.Tensor]:
+    """The nemar recipe's ``g_params.npz`` (T and R, from
+    ``tools/export_g_params.py``) -> state dict of ``recipes.nemar.build_generators``."""
+    with np.load(path) as npz:
+        return nemar_generators_from_flax({k: npz[k] for k in npz.files})

@@ -1,17 +1,22 @@
-"""Command-line interface of the port (the serve and eval chain of the tfcgan
-and stn recipes):
+"""Command-line interface of the port (the serve and eval chain of the tfcgan,
+stn and nemar recipes):
 
     python -m tfcgan_tpu_torch.cli test --experiment fft_glo --data-root DATA \
         --params g_params.npz --out-dir results/ --spectra
     python -m tfcgan_tpu_torch.cli test --config stn_newmodel3 --data-root DATA \
         --params g_params.npz --out-dir results/
+    python -m tfcgan_tpu_torch.cli test --config nemar --data-root DATA \
+        --params g_params.npz --out-dir results/
     python -m tfcgan_tpu_torch.cli prep-crop --stack-dir results/ --out-root crops/
     python -m tfcgan_tpu_torch.cli eval --fake-dir crops/fake_B --real-dir crops/real_B
 
 ``g_params.npz`` comes from a JAX checkpoint through ``tools/export_g_params.py``
-(for stn it holds G1, G2 and the STN); ``--init-seed N`` serves random weights
-instead. The stn stacks are real_A | real_B | warped_B | fake_A1 | fake_A2 |
-fake_B (``prep-crop --roles real_A,real_B,warped_B,fake_A1,fake_A2,fake_B``). ``--device``
+(for stn it holds G1, G2 and the STN, for nemar T and R); ``--init-seed N``
+serves random weights instead. The stn stacks are real_A | real_B | warped_B |
+fake_A1 | fake_A2 | fake_B (``prep-crop --roles
+real_A,real_B,warped_B,fake_A1,fake_A2,fake_B``), the nemar stacks real_A |
+real_B | registered_A | fake_B | fake_TR_B | fake_RT_B (``--roles
+real_A,real_B,reg_A,fake_B,fake_TR_B,fake_RT_B``). ``--device``
 defaults to ``cuda``, and the commands refuse to run when CUDA is absent
 unless ``--device cpu`` is given.
 """
@@ -48,19 +53,22 @@ def _cfg_from_args(args):
 
 
 def cmd_test(args):
-    from tfcgan_tpu_torch.bridge import load_generator_npz, load_stn_generators_npz
+    from tfcgan_tpu_torch import bridge
     from tfcgan_tpu_torch.data.pairs import PairedImageDataset, batch_iterator
     from tfcgan_tpu_torch.infer import Inferencer
-    from tfcgan_tpu_torch.recipes.stn import build_generators
-    from tfcgan_tpu_torch.recipes.tfcgan import build_generator
+    from tfcgan_tpu_torch.recipes import nemar, stn, tfcgan
 
     if (args.params is None) == (args.init_seed is None):
         raise SystemExit("pass exactly one of --params g_params.npz and --init-seed N")
     device = _device(args.device)
     cfg = _cfg_from_args(args)
     seed = 0 if args.init_seed is None else args.init_seed
-    build, load = ((build_generators, load_stn_generators_npz) if cfg.recipe == "stn"
-                   else (build_generator, load_generator_npz))
+    serving = {"tfcgan": (tfcgan.build_generator, bridge.load_generator_npz),
+               "stn": (stn.build_generators, bridge.load_stn_generators_npz),
+               "nemar": (nemar.build_generators, bridge.load_nemar_generators_npz)}
+    if cfg.recipe not in serving:
+        raise SystemExit(f"recipe {cfg.recipe!r} has no serve path in the port yet")
+    build, load = serving[cfg.recipe]
     g = build(cfg, device, torch.Generator().manual_seed(seed))
     if args.params is not None:
         g.load_state_dict(load(args.params))

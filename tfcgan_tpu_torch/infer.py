@@ -1,12 +1,13 @@
-"""Inference ("serve") path, port of ``tfcgan_tpu.infer`` for the tfcgan and
-stn recipes.
+"""Inference ("serve") path, port of ``tfcgan_tpu.infer`` for the tfcgan, stn
+and nemar recipes.
 
 ``Inferencer`` runs the eval-mode generator(s) on the device that holds their
 weights under ``torch.inference_mode``; ``run_test_set`` streams batches and
 writes the reference-style stacked PNGs: real_A | fake_B | real_B vertically
 for tfcgan (and, with ``save_spectra``, the fake/real log-magnitude spectra
 side by side), real_A | real_B | warped_B | fake_A1 | fake_A2 | fake_B for
-stn. The other recipes and the multi-device mesh are not ported yet.
+stn, real_A | real_B | registered_A | fake_B | fake_TR_B | fake_RT_B for
+nemar. The other recipes and the multi-device mesh are not ported yet.
 """
 
 from __future__ import annotations
@@ -19,40 +20,47 @@ import torch
 from tfcgan_tpu_torch.config import ExperimentConfig
 from tfcgan_tpu_torch.evaluation.suite import save_image_grid
 from tfcgan_tpu_torch.ops.fftloss import fft_log_magnitude
+from tfcgan_tpu_torch.recipes.nemar import nemar_forward
 from tfcgan_tpu_torch.recipes.stn import stn_condition, stn_serve
 
-STN_STACK = ("warped_B", "fake_A1", "fake_A2", "fake_B")  # after real_A, real_B
+# the generated images of a six-image stack, after real_A and real_B
+STACKS = {"stn": ("warped_B", "fake_A1", "fake_A2", "fake_B"),
+          "nemar": ("registered_A", "fake_B", "fake_TR_B", "fake_RT_B")}
 
 
 class Inferencer:
     """Eval-mode generation on the device that holds the weights of
-    ``generator``: the G of ``recipes.tfcgan.build_generator``, or the
-    {"G1", "G2", "STN"} modules of ``recipes.stn.build_generators``."""
+    ``generator``: the G of ``recipes.tfcgan.build_generator``, the
+    {"G1", "G2", "STN"} modules of ``recipes.stn.build_generators``, or the
+    {"T", "R"} modules of ``recipes.nemar.build_generators``."""
 
     def __init__(self, cfg: ExperimentConfig, generator: torch.nn.Module):
-        if cfg.recipe not in ("tfcgan", "stn") or cfg.loss.conditional:
+        if cfg.recipe not in ("tfcgan", "stn", "nemar") or cfg.loss.conditional:
             raise NotImplementedError(f"no inference path for {cfg.name!r} in the port yet")
         self.cfg = cfg
         self.generator = generator.eval()
         self.device = next(generator.parameters()).device
 
     def __call__(self, batch: dict) -> torch.Tensor | dict[str, torch.Tensor]:
-        """batch["A"] (and, for stn, batch["B"]): (N, H, W, 3) in [-1, 1],
-        numpy or tensor -> on the device, fake_B (tfcgan) or {"fake_B",
-        "fake_A1", "warped_B", "fake_A2"} (stn)."""
+        """batch["A"] (and, for stn and nemar, batch["B"]): (N, H, W, 3) in
+        [-1, 1], numpy or tensor -> on the device, fake_B (tfcgan), {"fake_B",
+        "fake_A1", "warped_B", "fake_A2"} (stn) or {"registered_A", "fake_B",
+        "fake_TR_B", "fake_RT_B"} (nemar)."""
         a = torch.as_tensor(batch["A"]).to(self.device, torch.float32)
         with torch.inference_mode():
+            if self.cfg.recipe == "tfcgan":
+                return self.generator(a)
+            b = torch.as_tensor(batch["B"]).to(self.device, torch.float32)
             if self.cfg.recipe == "stn":
-                b = torch.as_tensor(batch["B"]).to(self.device, torch.float32)
                 return stn_serve(self.generator, stn_condition(self.cfg), a, b)
-            return self.generator(a)
+            return nemar_forward(self.generator, a, b)[0]
 
-    def _run_stn_test_set(self, batches, out_dir: str) -> int:
+    def _run_six_image_test_set(self, batches, out_dir: str) -> int:
         n = 0
         for batch in batches:
             out = self(batch)
             stacks = [np.asarray(batch["A"]), np.asarray(batch["B"]),
-                      *(out[k].float().cpu().numpy() for k in STN_STACK)]
+                      *(out[k].float().cpu().numpy() for k in STACKS[self.cfg.recipe])]
             for i in range(stacks[0].shape[0]):
                 save_image_grid([s[i] for s in stacks], os.path.join(out_dir, f"{n:05d}.png"))
                 n += 1
@@ -62,8 +70,8 @@ class Inferencer:
         """Write one stack per image (and, for tfcgan, its spectra); returns
         images written."""
         os.makedirs(out_dir, exist_ok=True)
-        if self.cfg.recipe == "stn":
-            return self._run_stn_test_set(batches, out_dir)
+        if self.cfg.recipe in STACKS:
+            return self._run_six_image_test_set(batches, out_dir)
         n = 0
         for batch in batches:
             fake = self(batch).float()

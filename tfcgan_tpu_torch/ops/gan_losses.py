@@ -1,5 +1,6 @@
-"""Relativistic adversarial losses of the TFC-GAN family, port of
-``tfcgan_tpu.ops.gan_losses`` (BCE-with-logits, label smoothing 0.9)."""
+"""Adversarial losses, port of ``tfcgan_tpu.ops.gan_losses``: the relativistic
+BCE-with-logits pair of the TFC-GAN family (label smoothing 0.9) and the
+least-squares loss of NeMAR and CycleGAN."""
 
 from __future__ import annotations
 
@@ -24,3 +25,8 @@ def relativistic_d_loss(pred_real: torch.Tensor, pred_fake: torch.Tensor,
     """weight * (BCE(real - fake, smooth) + BCE(fake - real, 0))."""
     return weight * (bce_with_logits(pred_real - pred_fake, smooth)
                      + bce_with_logits(pred_fake - pred_real, 0.0))
+
+
+def lsgan_loss(pred: torch.Tensor, target: float) -> torch.Tensor:
+    """Mean squared error against a constant target, in float32."""
+    return (pred.float() - target).square().mean()

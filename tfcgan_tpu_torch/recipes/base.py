@@ -9,6 +9,11 @@ comes in as one argument (``draws``), made by ``draw`` from a
 ``torch.Generator`` or handed in by a caller that needs other draws (the
 tests rebuild the JAX package's). ``g_loss`` returns the generated images
 detached in ``aux``, and ``d_loss`` reuses them: G runs once per step.
+
+A recipe whose discriminator is updated first (``update_order = "d_first"``,
+see ``DFirstRecipe``) also exposes the generator side's forward on its own,
+so that the trainer can run it once, feed its detached outputs to ``d_loss``
+and, after D's update, hand the same forward to ``g_loss``.
 """
 
 from __future__ import annotations
@@ -41,4 +46,23 @@ class GANRecipe(Protocol):
 
     def d_loss(self, batch: Batch, aux: dict) -> tuple[torch.Tensor, dict]:
         """(loss_D, metrics)."""
+        ...
+
+
+class DFirstRecipe(GANRecipe, Protocol):
+    """What the trainer's D-first order needs on top of ``GANRecipe``."""
+
+    update_order: str  # "d_first"
+
+    def forward(self, batch: Batch, draws: Any) -> dict:
+        """The generator side's forward, with its graph."""
+        ...
+
+    def d_aux(self, forward: dict) -> dict:
+        """``d_loss``'s ``aux``: the detached outputs of ``forward``."""
+        ...
+
+    def g_loss(self, batch: Batch, draws: Any, forward: dict | None = None
+               ) -> tuple[torch.Tensor, dict, dict]:
+        """(loss_G, aux, metrics) on ``forward`` (run here when None)."""
         ...

@@ -5,11 +5,17 @@ come from, the recipe's modules (their float32 parameters and the spectral
 u/v buffers) and the two Adams. ``torch.optim.Adam(lr, betas=(b1, b2),
 eps=1e-8)`` computes optax's ``adam`` update: lr * m_hat / (sqrt(v_hat) +
 eps), eps outside the root.
+
+``learning_rate(cfg, step)`` is the closed-form schedule of the update that
+follows ``step`` completed ones (the first update is ``step`` 0), on the
+fractional epoch ``step / steps_per_epoch`` as optax evaluates it: per update,
+not once an epoch. The trainer writes it into both Adams before each step.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 import torch.nn as nn
@@ -28,14 +34,47 @@ class TrainState:
     opt_d: torch.optim.Adam
 
 
-def make_optimizers(cfg: ExperimentConfig, recipe) -> tuple[torch.optim.Adam, torch.optim.Adam]:
-    """Adam on G's and on D's parameters; only the constant schedule so far."""
+SCHEDULES = ("constant", "linear_decay", "step", "cosine")
+
+
+def learning_rate(cfg: ExperimentConfig, step: int) -> float:
+    """The lr of the update after ``step`` completed ones.
+
+    ``linear_decay`` (CycleGAN's LambdaLR): lr * (1 - max(0, epoch - decay) /
+    (n_epochs - decay)), floored at 0; ``step``: lr * 0.1 ** floor(epoch /
+    decay_start_epoch); ``cosine``: lr * 0.5 * (1 + cos(pi * epoch /
+    n_epochs)). ``plateau`` is driven by a validation metric between epochs
+    and is not ported yet."""
     o = cfg.optim
-    if o.schedule != "constant":
-        raise NotImplementedError(
-            f"lr schedule {o.schedule!r} is not ported yet (it comes with the recipes "
-            "that use it: CycleGAN and NeMAR)")
-    return tuple(torch.optim.Adam(m.parameters(), lr=o.lr, betas=(o.b1, o.b2), eps=1e-8)
+    if o.schedule == "constant":
+        return o.lr
+    epoch = step / (cfg.train.steps_per_epoch or 1)
+    n, dec = cfg.train.n_epochs, o.decay_start_epoch
+    if o.schedule == "linear_decay":
+        return o.lr * max(0.0, 1.0 - max(0.0, epoch - dec) / max(n - dec, 1))
+    if o.schedule == "step":
+        return o.lr * 0.1 ** math.floor(epoch / max(dec, 1))
+    if o.schedule == "cosine":
+        return o.lr * 0.5 * (1.0 + math.cos(math.pi * epoch / n))
+    if o.schedule == "plateau":
+        raise NotImplementedError("lr schedule 'plateau' is not ported yet (it comes with "
+                                  "the training CLI, which feeds it a validation metric)")
+    raise ValueError(f"unknown lr schedule {o.schedule!r}; known: {SCHEDULES}")
+
+
+def set_learning_rate(state: "TrainState", lr: float) -> None:
+    """Write ``lr`` into both Adams."""
+    for opt in (state.opt_g, state.opt_d):
+        for group in opt.param_groups:
+            group["lr"] = lr
+
+
+def make_optimizers(cfg: ExperimentConfig, recipe, step: int = 0
+                    ) -> tuple[torch.optim.Adam, torch.optim.Adam]:
+    """Adam on G's and on D's parameters, at the schedule's lr for ``step``."""
+    o = cfg.optim
+    lr = learning_rate(cfg, step)
+    return tuple(torch.optim.Adam(m.parameters(), lr=lr, betas=(o.b1, o.b2), eps=1e-8)
                  for m in (recipe.G, recipe.D))
 
 

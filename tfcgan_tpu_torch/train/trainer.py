@@ -1,13 +1,23 @@
 """The alternating G/D train step and the loop that runs it, port of
-``tfcgan_tpu.train.trainer`` (g_first order, one device).
+``tfcgan_tpu.train.trainer`` (one device).
 
-One step, in the order of the JAX step: one spectral power iteration over
-every discriminator head of ``recipe.D`` (per-step cadence); the G phase (G
-forward, D(fake), D(real), G loss) with gradients to G's parameters only (for
-the STN family: G1, G2 and the STN), D frozen for the phase; the G Adam step; the D phase
-on the detached fake of the same G forward, against the pre-update D; the D
-Adam step. The step's random draws come from ``draw_fn(state, batch)``, by
-default the recipe's draws on ``state.generator``.
+One step, in the order of the JAX step: the schedule's learning rate into both
+Adams; one spectral power iteration over every discriminator head of
+``recipe.D`` (per-step cadence); then, for a ``g_first`` recipe (the
+default), the G phase (G forward, D(fake), D(real), G loss) with gradients to
+G's parameters only (for the STN family: G1, G2 and the STN), D frozen for the
+phase; the G Adam step; the D phase on the detached fake of the same G
+forward, against the pre-update D; the D Adam step.
+
+A recipe with ``update_order = "d_first"`` (NeMAR) gets the reference's other
+interleaving: the generator side's forward once, with its graph; the D phase
+on its detached outputs and the D Adam step; then the generator loss on the
+same forward through the **updated** D, frozen, and the generator Adam step.
+(The JAX step runs that forward twice with the same parameters; running it
+once and keeping the graph across the D update gives the same numbers.)
+
+The step's random draws come from ``draw_fn(state, batch)``, by default the
+recipe's draws on ``state.generator``.
 """
 
 from __future__ import annotations
@@ -22,7 +32,8 @@ import torch.nn as nn
 
 from tfcgan_tpu_torch.config import ExperimentConfig
 from tfcgan_tpu_torch.models.layers import spectral_power_iteration
-from tfcgan_tpu_torch.train.state import TrainState, create_state
+from tfcgan_tpu_torch.train.state import (TrainState, create_state, learning_rate,
+                                          set_learning_rate)
 
 
 @contextlib.contextmanager
@@ -37,25 +48,42 @@ def _frozen(module: nn.Module):
 
 def make_train_step(cfg: ExperimentConfig, recipe) -> Callable:
     """``train_step(state, batch, draws) -> metrics``; updates ``state`` in place."""
-    if getattr(recipe, "update_order", "g_first") != "g_first":
-        raise NotImplementedError("d_first order is not ported yet (it comes with NeMAR)")
+    order = getattr(recipe, "update_order", "g_first")
+    if order not in ("g_first", "d_first"):
+        raise ValueError(f"unknown update_order {order!r}")
     per_forward = cfg.extra.get("spectral_cadence", "per_step") == "per_forward"
     if per_forward and not getattr(recipe, "supports_per_forward_spectral", False):
         raise ValueError(f"recipe {getattr(recipe, 'name', recipe)!r} does not implement "
                          "spectral_cadence='per_forward'")
+    if per_forward and order == "d_first":
+        raise ValueError("spectral_cadence='per_forward' requires g_first order")
 
-    def train_step(state: TrainState, batch: dict, draws) -> dict[str, torch.Tensor]:
-        if not per_forward:
-            spectral_power_iteration(recipe.D, order="vu")
-        with _frozen(recipe.D):
-            loss_g, aux, g_metrics = recipe.g_loss(batch, draws)
-            state.opt_g.zero_grad(set_to_none=True)
-            loss_g.backward()
-        state.opt_g.step()
+    def d_phase(state: TrainState, batch: dict, aux: dict) -> dict:
         loss_d, d_metrics = recipe.d_loss(batch, aux)
         state.opt_d.zero_grad(set_to_none=True)
         loss_d.backward()
         state.opt_d.step()
+        return d_metrics
+
+    def g_phase(state: TrainState, batch: dict, draws, *forward) -> tuple[dict, dict]:
+        with _frozen(recipe.D):
+            loss_g, aux, g_metrics = recipe.g_loss(batch, draws, *forward)
+            state.opt_g.zero_grad(set_to_none=True)
+            loss_g.backward()
+        state.opt_g.step()
+        return aux, g_metrics
+
+    def train_step(state: TrainState, batch: dict, draws) -> dict[str, torch.Tensor]:
+        set_learning_rate(state, learning_rate(cfg, state.step))
+        if not per_forward:
+            spectral_power_iteration(recipe.D, order="vu")
+        if order == "d_first":
+            forward = recipe.forward(batch, draws)
+            d_metrics = d_phase(state, batch, recipe.d_aux(forward))
+            _, g_metrics = g_phase(state, batch, draws, forward)
+        else:
+            aux, g_metrics = g_phase(state, batch, draws)
+            d_metrics = d_phase(state, batch, aux)
         state.step += 1
         return {k: v.detach() for k, v in {**g_metrics, **d_metrics}.items()}
 

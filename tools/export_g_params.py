@@ -8,7 +8,9 @@ The checkpoint is restored as ``tfcgan_tpu.cli test`` restores it; the npz
 holds the ``params["G"]`` tree as float32 arrays under "/"-joined keys
 ("down1/conv/kernel", ...), which ``tfcgan_tpu_torch.bridge`` maps to the
 port's state dict. For an stn experiment (``--experiment stn_newmodel3``) it
-holds the whole generator side, "G1/...", "G2/..." and "STN/...".
+holds the whole generator side, "G1/...", "G2/..." and "STN/..."; for
+``--experiment nemar`` the translator and the registration net, "T/..." and
+"R/...".
 """
 
 from __future__ import annotations
@@ -57,7 +59,7 @@ def restore_g_params(experiment: str, checkpoint: str) -> Mapping:
     template = trainer.init_state(jax.random.PRNGKey(0), first)
     state = restore_checkpoint(checkpoint, jax.device_get(template))
     g_params = jax.device_get(state.g_params)
-    return g_params if cfg.recipe == "stn" else g_params["G"]
+    return g_params if cfg.recipe in ("stn", "nemar") else g_params["G"]
 
 
 def main(argv=None):

@@ -1,6 +1,7 @@
 """Profile the PyTorch port's train step on one CUDA card: device time by kind.
 
     python tools/profile_torch_step.py --experiment stn_newmodel3 --batch 32
+    python tools/profile_torch_step.py --experiment nemar --batch 32
 
 Runs ``--warmup`` steps, then ``--steps`` steps of the full-width bf16 recipe
 at 256² under ``torch.profiler`` (CPU + CUDA activities), and prints the
@@ -32,6 +33,8 @@ KINDS = (
     ("K2-fwd (resample)", ("resample_fwd_kernel",)),
     ("K2-adjoint (resample)", ("resample_adjoint_kernel", "resample_edge_kernel")),
     ("K2-gradpos (resample)", ("resample_gradpos_kernel",)),
+    ("K3-fwd (grid_sample)", ("gridsample_fwd_kernel",)),
+    ("K3-bwd (grid_sample)", ("gridsample_bwd_kernel",)),
     ("Adam (foreach)", ("multi_tensor", "adam")),
     ("convolutions (cuDNN)", ("cudnn", "conv", "fprop", "dgrad", "wgrad", "xmma", "implicit")),
     ("matrix products (cuBLAS)", ("gemm", "gemv", "nvjet", "cublas", "cutlass")),
@@ -68,7 +71,8 @@ def main(argv=None) -> int:
     from tfcgan_tpu_torch.config import get_experiment
     from tfcgan_tpu_torch.data.synth import synthetic_batch
     from tfcgan_tpu_torch.models import discriminator, layers
-    from tfcgan_tpu_torch.ops import resample
+    from tfcgan_tpu_torch.models import stn as stn_models
+    from tfcgan_tpu_torch.ops import gridsample, resample
     from tfcgan_tpu_torch.ops.blurpool import blur_pool_padded
     from tfcgan_tpu_torch.recipes import build_recipe
     from tfcgan_tpu_torch.train.trainer import Trainer
@@ -90,6 +94,8 @@ def main(argv=None) -> int:
                 stack.enter_context(mock.patch.object(mod, "blur_pool", blur_pool_padded))
             stack.enter_context(mock.patch.object(resample, "resample_axis",
                                                   resample.resample_axis_plain))
+            stack.enter_context(mock.patch.object(stn_models, "grid_sample_dense",
+                                                  gridsample.grid_sample_dense_plain))
         for _ in range(args.warmup):
             trainer.step(state, batch)
         torch.cuda.synchronize()
