@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's fft_glo, stn_newmodel3 and nemar serve paths and train
-steps on one CUDA card.
+"""Drive the PyTorch port's fft_glo, stn_newmodel3, nemar and tfc_diff serve paths
+and train steps on one CUDA card.
 
     python3 chip_smoke.py [--params g_params.npz] [--init-seed 0]
 
@@ -10,7 +10,8 @@ Phases, one line or more each; any failure raises and exits non-zero:
 2. build: nvcc builds ``tfcgan_tpu_torch/csrc/blurpool.cu`` (blur-pool forward
    and backward), ``csrc/resample.cu`` (1-D affine resampling: forward,
    adjoint, position gradient) and ``csrc/gridsample.cu`` (dense bilinear
-   grid_sample, forward and backward), all started together; the build seconds.
+   grid_sample, forward and backward) and ``csrc/flashattn.cu`` (flash
+   attention: forward, dq, dk/dv), all started together; the build seconds.
 3. blur-pool vs plain: the forward kernel against ``blur_pool_padded`` and the
    backward kernel against ``torch.autograd.grad`` of it, at the 11 blur shapes
    of the 256² generator at batch 8 (both strides; the first four stride-2
@@ -99,22 +100,67 @@ Phases, one line or more each; any failure raises and exits non-zero:
    term finite, loss_G moving; per step exactly 1 grid_sample forward and 1
    backward launch and none of the other kernels, read after each step); the
    lr a step far into ``linear_decay`` used against the closed form.
-13. the card's ``nvidia-smi`` line, one JSON line for the kernels, and last
+13. flash attention vs plain: the three kernels through ``flash_attention`` and
+   autograd against ``flash_attention_plain`` and autograd of it, float32 and
+   bfloat16: the path's shapes (8 | 32 images x 8 heads, D = 8, S = 4096 and
+   1024) through the strided (N, S, C) views the model passes, S = 16384 (a
+   256² input), ragged S (1, 7, 255, 1000) in both layouts, D = 16, 32, 64,
+   scores of several hundred (an unshifted exp would overflow), every subset of
+   ``needs_input_grad`` (bit-identical to the full backward, only the kernels
+   needed launched), two identical backward runs compared bit for bit, and what
+   the wrappers refuse. Float32 forward within 2e-5 x max(1, max|plain|)
+   (exp2f's 2 ulp and sums over up to 16384 keys in another order), gradients
+   within 1e-4 x max(1, max|plain|) (sums of up to 16384 products of p and dp -
+   di, which cancel); bfloat16 within 2e-2 x max(1, max|plain|) (the kernel
+   rounds the unnormalised probability, the plain version the normalised one,
+   and its autograd rounds dp and ds to bfloat16 as well). Kernel, plain and
+   ``F.scaled_dot_product_attention`` times, forward and backward, at (256, 8,
+   4096) and (256, 8, 1024) bfloat16.
+14. tfc_diff serve at full width (the UNet2DModel denoiser, bf16, 128², the
+   config's size): ``Inferencer`` on 2 synthetic batches of 8 over the whole
+   500-step chain and ``cli gen --config tfc_diff`` over 8 A|B PNG pairs (batch
+   4): outputs finite and in [-1, 1], exactly 7 flash attention forward
+   launches a U-Net forward (3500 a chain), no backward launch and none of the
+   other kernels; U-Net forwards/s at batch 8 and 32 and the sampled images/s
+   they give. In float32: one U-Net forward on the kernel path against the
+   plain path (atol 1e-4) and a 20-step chain with the same noise on both (atol
+   1e-3: what the two forwards differ by passes through 19 more of them).
+15. tfc_diff train: one float32 ``tfc_diff`` step at batch 2 on the kernel path
+   against itself and against the plain path (loss terms rtol 1e-4, every
+   gradient within 1e-3 x max|g| + 1e-7); train-step images/s and peak memory
+   at 128², batch 16 and 32, kernel path and plain path; 3 bf16 steps at batch 8
+   through ``Trainer.fit`` for each of ``tfc_diff_label``, ``tfc_diff_hybrid``
+   and ``tfc_diff`` (every term finite, ``g_noise_mse`` moving, ``loss_D`` 0:
+   the family has no discriminator; per step exactly 7 launches of each flash
+   attention kernel, and for ``hybrid`` also the 11 + 11 blur-pool launches of
+   one G forward and backward, read after each step).
+16. the card's ``nvidia-smi`` line, one JSON line for the kernels, and last
    ``{"ok": true, "device": {...}}``.
 
 In the kernels' JSON, ``launches`` is the count of the kernel's main path, the
 last train path driven that runs it (``main_path``: phase 10's three steps for
-blur-pool and resampling, phase 12's for grid_sample), and the script fails if
-that is 0; ``launches_by_path`` gives each of the six driven paths' counts. For
+blur-pool and resampling, phase 12's for grid_sample, phase 15's ``tfc_diff``
+steps for flash attention), and the script fails if that is 0;
+``launches_by_path`` gives each of the eight driven paths' counts. For
 blur-pool, ``ms``/``plain_ms``/``bound_ms`` are sums over the 11 bfloat16 blur
 calls of one batch-8 G forward (for the backward: of one G backward); for
 resampling, over the calls of one warp at (32, 256, 256, 3) float32 (forward:
 both passes; adjoint: the y-pass; position gradient: both); for grid_sample,
-one call at (32, 256, 256, 6) float32. ``bound_ms`` is the larger of bytes /
-3.35 TB/s (inputs read once, outputs written once) and operations / 67 TFLOP/s
-(float32 outside the tensor cores). ``max_abs_err`` is the largest error of
-phase 3, 4 or 5. ``library_ms`` is ``F.grid_sample`` on the same inputs (for
-the backward kernels: its backward), timed here and called nowhere in the port.
+one call at (32, 256, 256, 6) float32; for flash attention, sums over the 7
+bfloat16 calls of one batch-32 U-Net pass at 128² (3 at S = 4096, 4 at S =
+1024, 256 heads each). ``bound_ms`` is the larger of bytes / 3.35 TB/s (inputs
+read once, outputs written once) and operations over the card's rate for their
+type: 67 TFLOP/s (float32 outside the tensor cores) for K1-K3; for flash
+attention the larger of its exponentials at 16 a clock an SM (132 SMs at the
+1.98 GHz that 67 TFLOP/s implies: 4.19e12 /s) and its matrix products on the
+tensor cores with D padded to their depth of 16 (989 TFLOP/s bfloat16),
+``bound_term`` naming which; phase 13's text lines also give what the same
+products take on the float32 units, which this first design uses.
+``max_abs_err`` is the largest error of phase 3, 4, 5 or 13. ``library_ms`` is ``F.grid_sample`` on the same inputs (for the backward
+kernels: its backward) and, for flash attention,
+``F.scaled_dot_product_attention`` (for both backward kernels: its whole
+backward, which gives all three gradients), timed here and called nowhere in
+the port.
 """
 
 from __future__ import annotations
@@ -141,18 +187,21 @@ from tfcgan_tpu_torch.config import get_experiment
 from tfcgan_tpu_torch.data.synth import synthetic_batch
 from tfcgan_tpu_torch.evaluation.suite import pair_metrics, save_image_grid
 from tfcgan_tpu_torch.infer import Inferencer
+from tfcgan_tpu_torch.models import diffusion as diffusion_models
 from tfcgan_tpu_torch.models import discriminator, layers
 from tfcgan_tpu_torch.models import stn as stn_models
 from tfcgan_tpu_torch.models.layers import spectral_power_iteration
 from tfcgan_tpu_torch.models.unet import GeneratorUNet
-from tfcgan_tpu_torch.ops import gridsample, resample
+from tfcgan_tpu_torch.ops import flashattn, gridsample, resample
 from tfcgan_tpu_torch.ops.blurpool import blur_pool_padded
 from tfcgan_tpu_torch.ops.kernels import _build
 from tfcgan_tpu_torch.ops.kernels import blurpool as kernel
+from tfcgan_tpu_torch.ops.kernels import flashattn as fkernel
 from tfcgan_tpu_torch.ops.kernels import gridsample as gkernel
 from tfcgan_tpu_torch.ops.kernels import resample as rkernel
 from tfcgan_tpu_torch.ops.warp import affine_grid
 from tfcgan_tpu_torch.recipes import build_recipe
+from tfcgan_tpu_torch.recipes import diffusion as diffusion_recipe
 from tfcgan_tpu_torch.recipes import nemar as nemar_recipe
 from tfcgan_tpu_torch.recipes.stn import build_generators
 from tfcgan_tpu_torch.recipes.tfcgan import build_generator
@@ -170,8 +219,12 @@ TRAIN_TERMS = ("g_adv", "g_triplet", "g_temp", "g_lpips", "g_fft", "loss_G", "lo
 STN_TERMS = ("g_adv", "g_recon", "g_lpips", "g_morph", "loss_G", "theta_t", "loss_D", "d1",
              "d2")
 NEMAR_TERMS = ("loss_G", "g_l1_tr", "g_l1_rt", "g_gan_tr", "g_gan_rt", "g_smooth", "loss_D")
+DIFF_TERMS = {"tfc_diff": ("g_noise_mse", "loss_G", "loss_D"),
+              "tfc_diff_label": ("g_noise_mse", "loss_G", "loss_D"),
+              "tfc_diff_hybrid": ("g_recon", "g_noise_mse", "loss_G", "loss_D")}
 KERNELS = ("blurpool_fwd", "blurpool_bwd", "resample_fwd", "resample_adjoint",
-           "resample_gradpos", "gridsample_fwd", "gridsample_bwd")
+           "resample_gradpos", "gridsample_fwd", "gridsample_bwd", "flashattn_fwd",
+           "flashattn_bwd_dq", "flashattn_bwd_dkv")
 # Launches a unit of each path; a kernel that is not named is launched 0 times.
 # One default fft_glo step: blur-pool forward G 11 + 4 D forwards x 4; backward
 # G 11 + D(fake) 4 in the G phase and 4 + 4 in the D phase (D(real) of the G
@@ -191,11 +244,22 @@ STN_SERVE_BATCH = {"blurpool_fwd": 33, "resample_fwd": 2}
 # T/R forward runs once; its graph is kept across D's update)
 NEMAR_SERVE_BATCH = {"gridsample_fwd": 1}
 NEMAR_STEP = {"gridsample_fwd": 1, "gridsample_bwd": 1}
+# of one U-Net forward of the tfc_diff family: attention after 3 resnets at
+# HW/4 tokens and 4 at HW/16. Of one train step: those and, in the backward,
+# one dq and one dk/dv launch each. The hybrid variant's G adds one U-Net
+# generator forward and backward (LPIPS has no blur-pool)
+DIFF_FORWARD = {"flashattn_fwd": 7}
+DIFF_STEP = {"flashattn_fwd": 7, "flashattn_bwd_dq": 7, "flashattn_bwd_dkv": 7}
+DIFF_HYBRID_STEP = {**DIFF_STEP, "blurpool_fwd": 11, "blurpool_bwd": 11}
+DIFF_SIZE = 128  # the tfc_diff configs' image side
 # the nemar float32 step against a reference: elementwise x max|g|, and L2 (see main)
 NEMAR_TOL, NEMAR_TOL_L2 = 1e-2, 2e-3
 SIZE = 256  # image side of every path (the reference trains and serves at 256²)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 FP32_FLOP_PER_S = 67e12    # H100 SXM float32 rate outside the tensor cores
+BF16_FLOP_PER_S = 989e12   # H100 SXM dense bfloat16 rate of the tensor cores
+# exponentials: 16 a clock an SM where the float32 rate is 2 x 128 flops a clock an SM
+EXP_PER_S = FP32_FLOP_PER_S / (2 * 128) * 16
 # operations per tap of the resampling kernels: the weight polynomial and one
 # multiply-add; 4 more per element for the position
 OPS_PER_TAP = {"cubic": 12, "linear": 5}
@@ -206,12 +270,15 @@ def reset_counts() -> None:
     kernel.LAUNCHES = kernel.BWD_LAUNCHES = 0
     rkernel.FWD_LAUNCHES = rkernel.ADJOINT_LAUNCHES = rkernel.GRADPOS_LAUNCHES = 0
     gkernel.FWD_LAUNCHES = gkernel.BWD_LAUNCHES = 0
+    fkernel.FWD_LAUNCHES = fkernel.DQ_LAUNCHES = fkernel.DKV_LAUNCHES = 0
 
 
 def counts() -> dict[str, int]:
     return dict(zip(KERNELS, (kernel.LAUNCHES, kernel.BWD_LAUNCHES, rkernel.FWD_LAUNCHES,
                               rkernel.ADJOINT_LAUNCHES, rkernel.GRADPOS_LAUNCHES,
-                              gkernel.FWD_LAUNCHES, gkernel.BWD_LAUNCHES)))
+                              gkernel.FWD_LAUNCHES, gkernel.BWD_LAUNCHES,
+                              fkernel.FWD_LAUNCHES, fkernel.DQ_LAUNCHES,
+                              fkernel.DKV_LAUNCHES)))
 
 
 def scaled(per_unit: dict[str, int], units: int) -> dict[str, int]:
@@ -237,7 +304,9 @@ def plain_path():
             mock.patch.object(discriminator, "blur_pool", blur_pool_padded), \
             mock.patch.object(resample, "resample_axis", resample.resample_axis_plain), \
             mock.patch.object(stn_models, "grid_sample_dense",
-                              gridsample.grid_sample_dense_plain):
+                              gridsample.grid_sample_dense_plain), \
+            mock.patch.object(diffusion_models, "flash_attention",
+                              flashattn.flash_attention_plain):
         yield
 
 
@@ -248,9 +317,13 @@ def plain_resample():
         yield
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
-    """The least time the card could take: (ms, "bytes" or "operations")."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / FP32_FLOP_PER_S * 1e3
+def bound_ms(n_bytes: float, n_ops: float, n_exp: float = 0.0,
+             ops_per_s: float = FP32_FLOP_PER_S) -> tuple[float, str]:
+    """The least time the card could take: (ms, "bytes" or "operations"), the
+    largest of the bytes over the memory rate, the arithmetic operations over
+    ``ops_per_s`` and the exponentials over the special-function rate."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(n_ops / ops_per_s, n_exp / EXP_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -356,13 +429,14 @@ def phase_kernels(device) -> tuple[dict, dict]:
 
 
 # ------------------------------------------------------------ resampling (K2)
-def _within(got: torch.Tensor, want: torch.Tensor, tol: float, what: str) -> float:
-    """max|got - want|, which must be within ``tol`` x max(1, max|want|)."""
+def _within(got: torch.Tensor, want: torch.Tensor, tol: float, what: str,
+            floor: float = 1.0) -> float:
+    """max|got - want|, which must be within ``tol`` x max(``floor``, max|want|)."""
     torch.cuda.synchronize()
     err, scale = float((got.float() - want.float()).abs().max()), float(want.abs().max())
-    if not err <= tol * max(1.0, scale):
+    if not err <= tol * max(floor, scale):
         raise AssertionError(f"{what}: max abs err {err:.3g} at max|plain| {scale:.3g}, "
-                             f"tolerance {tol} x max(1, max|plain|)")
+                             f"tolerance {tol} x max({floor}, max|plain|)")
     return err
 
 
@@ -872,10 +946,11 @@ def _cfg(name: str, dtype: str):
     return cfg.replace(train=dataclasses.replace(cfg.train, compute_dtype=dtype))
 
 
-def _device_batch(batch_size: int, seed: int, device, size: int = SIZE
-                  ) -> dict[str, torch.Tensor]:
-    return {k: torch.as_tensor(v, device=device)
-            for k, v in synthetic_batch(batch_size=batch_size, image_size=size, seed=seed).items()}
+def _device_batch(batch_size: int, seed: int, device, size: int = SIZE,
+                  with_labels: bool = False) -> dict[str, torch.Tensor]:
+    batch = synthetic_batch(batch_size=batch_size, image_size=size, seed=seed,
+                            with_labels=with_labels)
+    return {k: torch.as_tensor(v, device=device) for k, v in batch.items() if k != "LAB3"}
 
 
 class _Rows:
@@ -888,17 +963,18 @@ class _Rows:
         self.rows.append({**row, "counts": counts()})
 
 
-def phase_train(device, args, name: str, terms, per_step: dict[str, int], after=None
-                ) -> dict[str, int]:
-    """3 bf16 steps of the full-width recipe ``name`` at B=8, 256²; returns
-    the run's launch counts. ``after(trainer, state, batches)`` runs once they
-    are read."""
+def phase_train(device, args, name: str, terms, per_step: dict[str, int], after=None,
+                size: int = SIZE, moving: str = "loss_G") -> dict[str, int]:
+    """3 bf16 steps of the full-width recipe ``name`` at B=8, ``size``²;
+    returns the run's launch counts. ``after(trainer, state, batches)`` runs
+    once they are read. The term ``moving`` must differ between the steps."""
     cfg = _cfg(name, "bfloat16")
     recipe = build_recipe(cfg, device)
     log = _Rows()
     trainer = Trainer(cfg, recipe, logger=log)
     state = trainer.init_state(args.init_seed)
-    batches = [_device_batch(8, 20 + i, device) for i in range(3)]
+    labels = cfg.recipe == "diffusion"
+    batches = [_device_batch(8, 20 + i, device, size, labels) for i in range(3)]
     reset_counts()
     t0 = time.perf_counter()
     trainer.fit(state, batches, num_steps=3, log_every=1, check_finite=True)
@@ -910,13 +986,13 @@ def phase_train(device, args, name: str, terms, per_step: dict[str, int], after=
                                  f"{per_step} a step")
         print(f"{name} train step {row['step']}: "
               + ", ".join(f"{k} {row[k]:.5g}" for k in terms))
-    losses = [row["loss_G"] for row in log.rows]
+    losses = [row[moving] for row in log.rows]
     if len(log.rows) != 3 or state.step != 3 or len(set(losses)) != 3:
         raise AssertionError(f"{name} train: {len(log.rows)} rows, step {state.step}, "
-                             f"loss_G {losses}")
+                             f"{moving} {losses}")
     run = expect_counts(f"{name} train", per_step, 3)
-    print(f"{name} train: 3 bf16 steps at B=8, {SIZE}² in {seconds:.2f} s (first steps include "
-          f"set-up), all terms finite, loss_G moves; launches a step {per_step}")
+    print(f"{name} train: 3 bf16 steps at B=8, {size}² in {seconds:.2f} s (first steps include "
+          f"set-up), all terms finite, {moving} moves; launches a step {per_step}")
     if after is not None:
         after(trainer, state, batches)
     return run
@@ -931,7 +1007,8 @@ def _step_terms_and_grads(recipe, batch, draws) -> tuple[dict, dict]:
     loss_g.backward()
     recipe.D.requires_grad_(True)
     loss_d, d_terms = recipe.d_loss(batch, aux)
-    loss_d.backward()
+    if loss_d.requires_grad:  # a constant for a recipe without a discriminator
+        loss_d.backward()
     grads = {f"{prefix}.{n}": p.grad.detach().clone()
              for prefix, m in (("G", recipe.G), ("D", recipe.D)) for n, p in m.named_parameters()}
     return {k: float(v.detach()) for k, v in {**terms, **d_terms}.items()}, grads
@@ -947,8 +1024,8 @@ def _random_dtheta_head(stn, seed: int) -> None:
 
 
 def phase_train_compare(device, args, name: str, terms, per_step: dict[str, int],
-                        references) -> None:
-    """fp32, TF32 off: one step's losses and gradients at B=2, 256², through the
+                        references, size: int = SIZE) -> None:
+    """fp32, TF32 off: one step's losses and gradients at B=2, ``size``², through the
     kernels and through each of ``references`` (label, context manager,
     elementwise tolerance, L2 tolerance or None), from one set of weights and
     draws. Loss terms rtol 1e-4; every gradient within the elementwise
@@ -961,7 +1038,7 @@ def phase_train_compare(device, args, name: str, terms, per_step: dict[str, int]
         _random_dtheta_head(recipe.STN, args.init_seed)
     if cfg.recipe == "nemar":
         _random_offset_head(recipe.R, args.init_seed)
-    batch = _device_batch(2, 30, device)
+    batch = _device_batch(2, 30, device, size, cfg.recipe == "diffusion")
     draws = recipe.draw(torch.Generator(device).manual_seed(args.init_seed), batch)
     spectral_power_iteration(recipe.D, order="vu")
     reset_counts()
@@ -1000,7 +1077,7 @@ def phase_train_compare(device, args, name: str, terms, per_step: dict[str, int]
             raise AssertionError(f"{name} fp32 gradient {worst_name} against the {label}: "
                                  f"{worst:.3g} x its bound ({tol} max|g| + 1e-7 elementwise, "
                                  f"{tol_l2} x the norm)")
-        print(f"{name} train compare fp32 (B=2, {SIZE}², TF32 off), kernel path vs {label} "
+        print(f"{name} train compare fp32 (B=2, {size}², TF32 off), kernel path vs {label} "
               f"(which launched {launched or 'no kernel'}): {len(terms)} loss terms within "
               f"rtol 1e-4 (max rel "
               f"{max(abs(k_terms[k] - p_terms[k]) / max(abs(p_terms[k]), 1e-30) for k in terms):.3g}); "
@@ -1268,6 +1345,340 @@ def check_decayed_lr(trainer, state, batches) -> None:
           f"{state.step - 1} used {used[0]:.6g} in both Adams = the closed form {want:.6g}")
 
 
+# ------------------------------------------------------- flash attention (K4)
+# (forward, gradients, floor): an error is held to its tolerance x max(floor,
+# max|plain|). float32: exp2f and sums over S keys in another order, on values
+# of order 1. bfloat16: two to three ulps (2^-7) of the largest value, whatever
+# its size (at S = 4096 the outputs and gradients are 0.03 typical, 0.15 at
+# most, so a window taken at 1 would hold nothing): kernel and plain version
+# round their result to bfloat16 apart, the kernel rounds the unnormalised
+# probability, and the plain version's autograd also rounds dp and ds. The floor
+# keeps the bfloat16 window no tighter than the float32 one where the plain
+# gradient is exactly 0 (a single key)
+FLASH_TOL = {torch.float32: (2e-5, 1e-4, 1.0), torch.bfloat16: (2e-2, 2e-2, 5e-3)}
+# pairs of (tensor-core, float32-unit) operations a query-key pair: the
+# products of each kernel, 2 D flops each, D padded to 16 on the tensor cores
+FLASH_PRODUCTS = {"flashattn_fwd": 2, "flashattn_bwd_dq": 3, "flashattn_bwd_dkv": 4}
+# (images, S) of the path's attention calls at 128², batch 8 and 32, 8 heads of
+# D = 8, and a 256² input's S; then (S, calls a U-Net pass) at the timed batch
+FLASH_PATH = ((8, 4096), (8, 1024), (32, 4096), (32, 1024))
+FLASH_TIMED, FLASH_TIMED_BATCH = ((4096, 3), (1024, 4)), 32
+
+
+def _projection_views(n: int, heads: int, d: int, s: int, dtype, gen, count: int = 4) -> list:
+    """``count`` (N, heads, D, S) views of random (N, S, heads * D) tensors: what
+    ``AttentionBlock`` hands to ``flash_attention`` and gets as upstream gradient."""
+    return [torch.randn((n, s, heads * d), device=gen.device, generator=gen).to(dtype)
+            .view(n, s, heads, d).permute(0, 2, 3, 1) for _ in range(count)]
+
+
+def _dense_views(n: int, heads: int, d: int, s: int, dtype, gen, count: int = 4) -> list:
+    return [torch.randn((n, heads, d, s), device=gen.device, generator=gen).to(dtype)
+            for _ in range(count)]
+
+
+def _flash_grads(fn, q, k, v, g, scale: float):
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    out = fn(q, k, v, scale)
+    return (out.detach(), *torch.autograd.grad(out, (q, k, v), g))
+
+
+def check_flashattn(q, k, v, g, scale: float, what: str) -> tuple[tuple, tuple]:
+    """The three kernels through autograd on one case against the plain version
+    and autograd of it: max abs errors of (forward, dq, the larger of dk and
+    dv), and the same as shares of max|plain|."""
+    tol_f, tol_g, floor = FLASH_TOL[q.dtype]
+    got = _flash_grads(flashattn.flash_attention, q, k, v, g, scale)
+    want = _flash_grads(flashattn.flash_attention_plain, q, k, v, g, scale)
+    if got[0].stride() != torch.empty_like(q).stride():
+        raise AssertionError(f"{what}: output strides {got[0].stride()} for q {q.stride()}")
+    errs = [_within(a, b, tol, f"{what} {name}", floor) for a, b, tol, name in zip(
+        got, want, (tol_f, tol_g, tol_g, tol_g), ("forward", "dq", "dk", "dv"))]
+    scales = [float(w.abs().max()) for w in want]
+    shares = [e / s if s else (float("inf") if e else 0.0) for e, s in zip(errs, scales)]
+    return ((errs[0], errs[1], max(errs[2:])), (shares[0], shares[1], max(shares[2:])))
+
+
+def _flash_work(names, bh: int, s: int, d: int, element_size: int) -> dict[str, tuple]:
+    """(bytes, exponentials, tensor-core flops, float32-unit flops) of each
+    kernel on (BH, S, D): q, k, v (and do) read once, results written once, lse
+    and di in float32; one exponential a query-key pair; each product 2 D
+    flops a pair, D padded to the tensor cores' depth of 16."""
+    pairs = bh * s * s
+    tensor, stat = bh * s * d * element_size, bh * s * 4
+    n_bytes = {"flashattn_fwd": 4 * tensor + stat, "flashattn_bwd_dq": 5 * tensor + 2 * stat,
+               "flashattn_bwd_dkv": 6 * tensor + 2 * stat}
+    return {k: (n_bytes[k], pairs, pairs * FLASH_PRODUCTS[k] * 2 * max(d, 16),
+                pairs * FLASH_PRODUCTS[k] * 2 * d) for k in names}
+
+
+def phase_flashattn(device, card: str) -> dict[str, dict]:
+    """The K4 kernels vs plain; one result dict per kernel."""
+    gen = torch.Generator(device=device).manual_seed(6)
+    names = KERNELS[7:10]
+    worst = dict.fromkeys(names, 0.0)
+    # over the path's shapes in bfloat16, what the main path launches: (error,
+    # its share of max|plain|)
+    worst_path = dict.fromkeys(names, (0.0, 0.0))
+
+    def run(views, mult: float, what: str, scale: float | None = None, path: bool = False):
+        q, k, v, g = views
+        errs, shares = check_flashattn(q * mult, k, v, g, scale or q.shape[2] ** -0.5, what)
+        if mult == 1.0:  # max_abs_err is over unit-variance inputs
+            for name, e in zip(names, errs):
+                worst[name] = max(worst[name], e)
+        if path and q.dtype == torch.bfloat16:
+            for name, pair in zip(names, zip(errs, shares)):
+                worst_path[name] = max(worst_path[name], pair, key=lambda p: p[1])
+        print(f"kernel flashattn {what}: max abs err fwd {errs[0]:.3g}, dq {errs[1]:.3g}, "
+              f"dk/dv {errs[2]:.3g} = {shares[0]:.3g}, {shares[1]:.3g}, {shares[2]:.3g} of "
+              f"max|plain|")
+
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).split(".")[1]
+        # the path's shapes through the model's views, then a 256² input's S
+        for n, s in FLASH_PATH:
+            run(_projection_views(n, 8, 8, s, dtype, gen), 1.0,
+                f"path ({n}x8, 8, {s}) {tag} (N, S, C) views", path=True)
+        run(_projection_views(2, 8, 8, 16384, dtype, gen), 1.0,
+            f"(2x8, 8, 16384) {tag} (N, S, C) views")
+        for s in (1, 7, 255, 1000):  # ragged: the tail is masked in the kernels
+            run(_projection_views(2, 3, 8, s, dtype, gen), 1.0, f"(2x3, 8, {s}) {tag} views")
+            run(_dense_views(2, 3, 8, s, dtype, gen), 1.0, f"(2x3, 8, {s}) {tag} (N, H, D, S)")
+        for d in (16, 32, 64):
+            run(_projection_views(2, 2, d, 1000, dtype, gen), 1.0, f"(2x2, {d}, 1000) {tag} views")
+            run(_dense_views(1, 2, d, 512, dtype, gen), 1.0, f"(1x2, {d}, 512) {tag} (N, H, D, S)")
+        # scores of several hundred: exp without the running maximum overflows
+        # (gradients up to several hundred too: held to the same relative bound)
+        run(_projection_views(2, 4, 8, 700, dtype, gen), 40.0, f"(2x4, 8, 700) {tag} q x 40",
+            scale=1.0)
+        # the JAX entry point's (BH, D, S)
+        q, k, v, g = (t[0] for t in _dense_views(1, 6, 8, 300, dtype, gen))
+        got = flashattn.flash_attention(q, k, v, 0.35)
+        _within(got, flashattn.flash_attention_plain(q, k, v, 0.35), FLASH_TOL[dtype][0],
+                f"(6, 8, 300) {tag} 3-D", FLASH_TOL[dtype][2])
+
+    # only what autograd asks for, bit for bit what the full backward gives
+    q, k, v, g = _projection_views(4, 8, 8, 1000, torch.bfloat16, gen)
+    full = _flash_grads(flashattn.flash_attention, q, k, v, g, 0.35)[1:]
+    for need in ((1, 0, 0), (0, 1, 0), (0, 0, 1), (1, 1, 0), (0, 1, 1), (1, 0, 1), (1, 1, 1)):
+        ts = [t.detach().requires_grad_(bool(r)) for t, r in zip((q, k, v), need)]
+        before = counts()
+        out = flashattn.flash_attention(*ts, 0.35)
+        grads = torch.autograd.grad(out, [t for t in ts if t.requires_grad], g)
+        torch.cuda.synchronize()
+        launched = {name: counts()[name] - before[name] for name in names}
+        want = {"flashattn_fwd": 1, "flashattn_bwd_dq": need[0],
+                "flashattn_bwd_dkv": int(bool(need[1] or need[2]))}
+        if launched != want:
+            raise AssertionError(f"flashattn needs_input_grad {need}: launched {launched}")
+        for got, ref in zip(grads, [f for f, r in zip(full, need) if r]):
+            if not torch.equal(got, ref):
+                raise AssertionError(f"flashattn needs_input_grad {need}: a gradient differs "
+                                     "from the full backward's")
+    again = _flash_grads(flashattn.flash_attention, q, k, v, g, 0.35)[1:]
+    if not all(torch.equal(a, b) for a, b in zip(full, again)):
+        raise AssertionError("flashattn: two identical backward runs differ")
+    # what the wrappers refuse
+    bad_calls = [(_dense_views(1, 1, 24, 8, torch.float32, gen, 3), ValueError),
+                 ([t.half() for t in (q, k, v)], TypeError),
+                 ((q, k[:, :4], v), ValueError), ((q, k.float(), v), ValueError),
+                 ((q[0], k[0], v[0]), ValueError)]
+    refused = 0
+    for tensors, error in bad_calls:
+        try:
+            fkernel.flashattn_fwd(*tensors, 1.0)
+        except error:
+            refused += 1
+    if refused != 5:
+        raise AssertionError(f"flashattn wrappers refused {refused} of 5 bad calls")
+    print("kernel flashattn: 7 needs_input_grad subsets launch only their kernels and repeat the "
+          "full backward bit for bit; two identical backward runs bit-identical; head_dim 24, "
+          "float16, mismatched shapes and dtypes and 3-D views refused")
+
+    # times and bounds: the 7 calls of one B=32 U-Net pass at 128², bf16
+    results = {name: {"max_abs_err": worst[name], "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+               for name in names}
+    work = {name: [0.0, 0.0, 0.0, 0.0] for name in names}
+    bh = FLASH_TIMED_BATCH * 8
+    for s, calls in FLASH_TIMED:
+        q, k, v, g = _projection_views(FLASH_TIMED_BATCH, 8, 8, s, torch.bfloat16, gen)
+        scale = 8 ** -0.5
+        o, lse = fkernel.flashattn_fwd(q, k, v, scale)
+        di = (o.float() * g.float()).sum(dim=2).contiguous()
+        qp, kp, vp = (t.detach().requires_grad_() for t in (q, k, v))
+        plain_out = flashattn.flash_attention_plain(qp, kp, vp, scale)
+        # the library yardstick, (N, heads, S, D) views of the same memory
+        ql, kl, vl = (t.detach().permute(0, 1, 3, 2).requires_grad_() for t in (q, k, v))
+        gl = g.permute(0, 1, 3, 2)
+        lib_out = F.scaled_dot_product_attention(ql, kl, vl, scale=scale)
+        _within(lib_out.detach().permute(0, 1, 3, 2), o, 2e-2, f"flashattn S={s} vs the library",
+                FLASH_TOL[torch.bfloat16][2])
+
+        def plain_fwd():
+            with torch.no_grad():
+                return flashattn.flash_attention_plain(q, k, v, scale)
+
+        def lib_fwd():
+            with torch.no_grad():
+                return F.scaled_dot_product_attention(ql, kl, vl, scale=scale)
+
+        k_f, p_f = in_turns(plain_fwd, lambda: fkernel.flashattn_fwd(q, k, v, scale), 5)
+        k_dq = cuda_ms(lambda: fkernel.flashattn_bwd(q, k, v, g, lse, di, scale, True, False,
+                                                     False), 5)
+        k_dkv = cuda_ms(lambda: fkernel.flashattn_bwd(q, k, v, g, lse, di, scale, False, True,
+                                                      True), 5)
+        # autograd of the plain version recomputes each chunk's forward (checkpoint)
+        p_b = cuda_ms(lambda: torch.autograd.grad(plain_out, (qp, kp, vp), g, retain_graph=True),
+                      3)
+        l_f = cuda_ms(lib_fwd, 5)
+        l_b = cuda_ms(lambda: torch.autograd.grad(lib_out, (ql, kl, vl), gl, retain_graph=True),
+                      5)
+        del plain_out, lib_out
+        per_call = _flash_work(names, bh, s, 8, 2)
+        times = {"flashattn_fwd": (k_f, p_f, l_f), "flashattn_bwd_dq": (k_dq, p_b, l_b),
+                 "flashattn_bwd_dkv": (k_dkv, p_b, l_b)}
+        for name in names:
+            n_bytes, n_exp, n_tensor, n_fp32 = per_call[name]
+            b, _ = bound_ms(n_bytes, n_tensor, n_exp, BF16_FLOP_PER_S)
+            print(f"kernel {name} at ({bh}, 8, {s}) bf16 views: kernel {times[name][0]:.4f} ms, "
+                  f"plain {times[name][1]:.4f} ms, F.scaled_dot_product_attention "
+                  f"{times[name][2]:.4f} ms"
+                  + (" (its whole backward)" if name != "flashattn_fwd" else "")
+                  + f", bound {b:.4f} ms (bytes {n_bytes / HBM_BYTES_PER_S * 1e3:.4f}, "
+                  f"exponentials {n_exp / EXP_PER_S * 1e3:.4f}, tensor cores "
+                  f"{n_tensor / BF16_FLOP_PER_S * 1e3:.4f}); float32 units "
+                  f"{n_fp32 / FP32_FLOP_PER_S * 1e3:.4f} ms [{card}]")
+            for key, t in zip(("ms", "plain_ms", "library_ms"), times[name]):
+                results[name][key] += calls * t
+            for j, w in enumerate(per_call[name]):
+                work[name][j] += calls * w
+    for name in names:
+        n_bytes, n_exp, n_tensor, n_fp32 = work[name]
+        b, by = bound_ms(n_bytes, n_tensor, n_exp, BF16_FLOP_PER_S)
+        term = "bytes" if by == "bytes" else (
+            "exponentials" if n_exp / EXP_PER_S >= n_tensor / BF16_FLOP_PER_S else "tensor cores")
+        results[name].update(bound_ms=b, bound_by=by, bound_term=term)
+        r = results[name]
+        print(f"kernel {name}: all cases within tolerance, worst {worst[name]:.3g}; at the path's "
+              f"shapes in bf16 worst {worst_path[name][0]:.3g} = {worst_path[name][1]:.3g} of "
+              f"max|plain|; the 7 calls "
+              f"of one B={FLASH_TIMED_BATCH} U-Net pass at 128² bf16: kernel {r['ms']:.4f} ms, "
+              f"plain "
+              f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound {b:.4f} ms "
+              f"({term}; float32 units {n_fp32 / FP32_FLOP_PER_S * 1e3:.4f} ms) [{card}]")
+    return results
+
+
+# ------------------------------------------------------------------ tfc_diff
+def _diff_cfg(name: str, dtype: str, timesteps: int | None = None):
+    cfg = _cfg(name, dtype)
+    cfg = cfg.replace(data=dataclasses.replace(cfg.data, image_size=DIFF_SIZE))
+    return cfg.replace(extra={**cfg.extra, "timesteps": timesteps}) if timesteps else cfg
+
+
+def phase_diff_serve(device, args, card: str) -> dict[str, int]:
+    """The full-width tfc_diff serve path (the whole ancestral chain on the
+    card) through ``Inferencer`` and ``cli gen``; returns the run's launch
+    counts."""
+    from PIL import Image
+
+    cfg = _diff_cfg("tfc_diff", "bfloat16")
+    steps = diffusion_recipe.schedule_of(cfg).num_timesteps
+    nets = diffusion_recipe.build_generators(cfg, device,
+                                             torch.Generator().manual_seed(args.init_seed))
+    n_params = sum(p.numel() for p in nets.parameters())
+    inf = Inferencer(cfg, nets)
+    batches = [synthetic_batch(batch_size=8, image_size=DIFF_SIZE, seed=70 + i) for i in range(2)]
+    reset_counts()
+    t0 = time.perf_counter()
+    chains = 0
+    for i, b in enumerate(batches):
+        out = inf(b, seed=i)
+        chains += 1
+        expect_counts("tfc_diff serve", DIFF_FORWARD, chains * steps)
+        if out.shape != (8, DIFF_SIZE, DIFF_SIZE, 1) or out.dtype != torch.float32:
+            raise AssertionError(f"tfc_diff sample {tuple(out.shape)} {out.dtype}")
+        if not bool(torch.isfinite(out).all()) or float(out.abs().max()) > 1.0:
+            raise AssertionError("tfc_diff sample not finite or outside [-1, 1]")
+        if float(out.std()) < 1e-3:
+            raise AssertionError("tfc_diff sample is constant")
+    torch.cuda.synchronize()
+    chain_s = (time.perf_counter() - t0) / chains
+    with tempfile.TemporaryDirectory() as tmp:
+        data, out_dir = os.path.join(tmp, "data"), os.path.join(tmp, "out")
+        pairs = synthetic_batch(batch_size=8, image_size=DIFF_SIZE, seed=13)
+        for i in range(8):
+            save_image_grid([pairs["A"][i], pairs["B"][i]],
+                            os.path.join(data, "test", f"{i:03d}.png"), axis=1)
+        cli.main(["gen", "--config", "tfc_diff", "--data-root", data, "--image-size",
+                  str(DIFF_SIZE), "--dtype", "bfloat16", "--out-dir", out_dir,
+                  "--init-seed", str(args.init_seed), "--seed", "3", "--device", "cuda"])
+        chains += 2  # batch 4 by default
+        stacks = sorted(f for f in os.listdir(out_dir) if f.endswith(".png"))
+        with Image.open(os.path.join(out_dir, stacks[0])) as img:
+            size = img.size
+    seconds = time.perf_counter() - t0
+    if len(stacks) != 8 or size != (DIFF_SIZE, 2 * DIFF_SIZE):
+        raise AssertionError(f"cli gen wrote {len(stacks)} stacks of size {size}")
+    run = expect_counts("tfc_diff serve", DIFF_FORWARD, chains * steps)
+    print(f"tfc_diff serve: CondUNet {n_params:,} parameters, bf16, {DIFF_SIZE}²; {chains} chains "
+          f"of {steps} steps (2 x 8 images through Inferencer, {chain_s:.2f} s a chain = "
+          f"{8 / chain_s:.2f} sampled img/s; 2 x 4 through cli gen) in {seconds:.2f} s: samples "
+          f"finite and in [-1, 1], {len(stacks)} real_A | sample stacks of {size[0]}x{size[1]}; "
+          f"launches a U-Net forward {DIFF_FORWARD}, {run['flashattn_fwd']} in all, no backward "
+          f"launch, no other kernel [{card}]")
+
+    # float32, the same weights: one U-Net forward and a 20-step chain, kernel
+    # path vs plain path on the card
+    cfg32 = _diff_cfg("tfc_diff", "float32", timesteps=20)
+    nets32 = diffusion_recipe.build_generators(cfg32, device)
+    nets32.load_state_dict(nets.state_dict())
+    gen = torch.Generator(device=device).manual_seed(7)
+    small = {"A": torch.as_tensor(batches[0]["A"][:2], device=device)}
+    x = torch.randn((2, DIFF_SIZE, DIFF_SIZE, 1), device=device, generator=gen)
+    t = torch.tensor([3, steps - 1], device=device)
+    short = diffusion_recipe.schedule_of(cfg32)
+    noise = torch.randn((short.num_timesteps + 1, *x.shape), device=device, generator=gen)
+    with torch.no_grad():
+        cond = nets32.cond(small)
+        y_kernel = nets32.unet(x, t, cond)
+        chain_kernel = diffusion_recipe.diffusion_sample(nets32, short, small, noise=noise)
+        with plain_path():
+            before = counts()
+            y_plain = nets32.unet(x, t, cond)
+            chain_plain = diffusion_recipe.diffusion_sample(nets32, short, small, noise=noise)
+            if counts() != before:
+                raise AssertionError("tfc_diff serve: the plain path launched a kernel")
+    err, err_chain = (float((a - b).abs().max()) for a, b in ((y_kernel, y_plain),
+                                                              (chain_kernel, chain_plain)))
+    if err > 1e-4 or err_chain > 1e-3:
+        raise AssertionError(f"tfc_diff fp32: kernel path vs plain path max abs err U-Net "
+                             f"forward {err}, {short.num_timesteps}-step chain {err_chain}")
+    print(f"tfc_diff serve fp32 (2 x {DIFF_SIZE}²): kernel path vs plain path on the card max abs "
+          f"err U-Net forward {err:.3g} (atol 1e-4), {short.num_timesteps}-step chain with the "
+          f"same noise {err_chain:.3g} (atol 1e-3)")
+    del nets32
+
+    for bsz in (8, 32):
+        xb = torch.randn((bsz, DIFF_SIZE, DIFF_SIZE, 1), device=device, generator=gen)
+        cb = torch.rand((bsz, DIFF_SIZE, DIFF_SIZE, 1), device=device, generator=gen) * 2 - 1
+        tb = torch.full((bsz,), steps // 2, device=device)
+        with torch.inference_mode():
+            with plain_path():
+                p1 = cuda_ms(lambda: nets.unet(xb, tb, cb), 10)
+            k1 = cuda_ms(lambda: nets.unet(xb, tb, cb), 10)
+            k2 = cuda_ms(lambda: nets.unet(xb, tb, cb), 10)
+            with plain_path():
+                p2 = cuda_ms(lambda: nets.unet(xb, tb, cb), 10)
+        ms, plain = (k1 + k2) / 2, (p1 + p2) / 2
+        print(f"tfc_diff U-Net forward bf16 B={bsz} {DIFF_SIZE}²: kernel path {ms:.3f} ms = "
+              f"{1000 / ms:.1f} forwards/s = {bsz * 1000 / ms / steps:.3f} sampled img/s over a "
+              f"{steps}-step chain; plain path {plain:.3f} ms = {1000 / plain:.1f} forwards/s = "
+              f"{bsz * 1000 / plain / steps:.3f} sampled img/s [{card}]")
+    return run
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--params", default=None, help="g_params.npz (tools/export_g_params.py)")
@@ -1294,7 +1705,9 @@ def main(argv=None) -> int:
     symbols = {"blurpool": ("tfcgan_blurpool_fwd", "tfcgan_blurpool_bwd"),
                "resample": ("tfcgan_resample_fwd", "tfcgan_resample_adjoint",
                             "tfcgan_resample_gradpos"),
-               "gridsample": ("tfcgan_gridsample_fwd", "tfcgan_gridsample_bwd")}
+               "gridsample": ("tfcgan_gridsample_fwd", "tfcgan_gridsample_bwd"),
+               "flashattn": ("tfcgan_flashattn_fwd", "tfcgan_flashattn_bwd_dq",
+                             "tfcgan_flashattn_bwd_dkv")}
     _build.build_libraries(list(symbols))
     for name, functions in symbols.items():
         lib = _build.load_library(name)
@@ -1377,21 +1790,48 @@ def main(argv=None) -> int:
     by_path["nemar_train"] = phase_train(device, args, "nemar", NEMAR_TERMS, NEMAR_STEP,
                                          after=check_decayed_lr)
 
-    # 13. result
+    # 13. flash attention against its plain version
+    torch.cuda.empty_cache()
+    results.update(phase_flashattn(device, card))
+    torch.cuda.empty_cache()
+
+    # 14. the tfc_diff serve path: the ancestral sampler
+    by_path["tfc_diff_serve"] = phase_diff_serve(device, args, card)
+    torch.cuda.empty_cache()
+
+    # 15. the tfc_diff train step. The float32 step repeats bit for bit but for
+    # cuDNN's float32 convolutions (1e-6 run to run); the flash attention
+    # kernels themselves are held tightly in phase 13.
+    phase_train_compare(device, args, "tfc_diff", DIFF_TERMS["tfc_diff"], DIFF_STEP,
+                        [("kernel path again", contextlib.nullcontext, 1e-3, None),
+                         ("plain path", plain_path, 1e-3, None)], size=DIFF_SIZE)
+    phase_train_rate(device, args, card, "tfc_diff", (16, 32), size=DIFF_SIZE)
+    for name, per_step in (("tfc_diff_label", DIFF_STEP), ("tfc_diff_hybrid", DIFF_HYBRID_STEP),
+                           ("tfc_diff", DIFF_STEP)):
+        by_path["tfc_diff_train"] = phase_train(device, args, name, DIFF_TERMS[name], per_step,
+                                                size=DIFF_SIZE, moving="g_noise_mse")
+        torch.cuda.empty_cache()
+
+    # 16. result
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(card)
     sources = {"blurpool": "tfcgan_tpu_torch/csrc/blurpool.cu",
                "resample": "tfcgan_tpu_torch/csrc/resample.cu",
-               "gridsample": "tfcgan_tpu_torch/csrc/gridsample.cu"}
+               "gridsample": "tfcgan_tpu_torch/csrc/gridsample.cu",
+               "flashattn": "tfcgan_tpu_torch/csrc/flashattn.cu"}
     replaces = {"blurpool_fwd": "tfcgan_tpu/ops/pallas_kernels/blurpool.py:158",
                 "blurpool_bwd": "tfcgan_tpu/ops/pallas_kernels/blurpool.py:266",
                 "resample_fwd": "tfcgan_tpu/ops/pallas_kernels/resample.py:115",
                 "resample_adjoint": "tfcgan_tpu/ops/pallas_kernels/resample.py:155",
                 "resample_gradpos": "tfcgan_tpu/ops/pallas_kernels/resample.py:134",
                 "gridsample_fwd": "tfcgan_tpu/ops/pallas_kernels/gridsample.py:178",
-                "gridsample_bwd": "tfcgan_tpu/ops/pallas_kernels/gridsample.py:197"}
+                "gridsample_bwd": "tfcgan_tpu/ops/pallas_kernels/gridsample.py:197",
+                "flashattn_fwd": "tfcgan_tpu/ops/pallas_kernels/flashattn.py:248",
+                "flashattn_bwd_dq": "tfcgan_tpu/ops/pallas_kernels/flashattn.py:302",
+                "flashattn_bwd_dkv": "tfcgan_tpu/ops/pallas_kernels/flashattn.py:302"}
     # a kernel's main path: the last train path driven that runs it
-    main_path = {k: "nemar_train" if k.startswith("gridsample") else "stn_train" for k in KERNELS}
+    main_path = {k: {"gridsample": "nemar_train", "flashattn": "tfc_diff_train"}.get(
+        k.split("_")[0], "stn_train") for k in KERNELS}
     for k in KERNELS:
         if by_path[main_path[k]][k] < 1:
             raise AssertionError(f"{k} was not launched on {main_path[k]}")

@@ -52,7 +52,8 @@ def test_resample_source_ships_with_the_package():
         data = tomllib.load(f)["tool"]["setuptools"]["package-data"]["tfcgan_tpu_torch"]
     assert "csrc/*.cu" in data
     csrc = os.path.join(REPO, "tfcgan_tpu_torch", "csrc")
-    assert sorted(os.listdir(csrc)) == ["blurpool.cu", "gridsample.cu", "resample.cu"]
+    assert sorted(os.listdir(csrc)) == ["blurpool.cu", "flashattn.cu", "gridsample.cu",
+                                        "resample.cu"]
     with open(os.path.join(REPO, ".gitignore")) as f:
         assert "tfcgan_tpu_torch/_build/" in f.read().split()
     from tfcgan_tpu_torch.ops.kernels import _build
@@ -62,3 +63,7 @@ def test_resample_source_ships_with_the_package():
     for symbol in ("tfcgan_resample_fwd", "tfcgan_resample_adjoint", "tfcgan_resample_gradpos"):
         assert f'extern "C" int {symbol}(' in src
     assert "atomicAdd" not in src
+    src = open(os.path.join(csrc, "flashattn.cu")).read()
+    for symbol in ("tfcgan_flashattn_fwd", "tfcgan_flashattn_bwd_dq", "tfcgan_flashattn_bwd_dkv"):
+        assert f'extern "C" int {symbol}(' in src
+    assert "atomicAdd" not in src and "__expf" not in src

@@ -16,7 +16,12 @@ each x max(1, max|plain|). Dense grid_sample: the forward within 1e-5 x
 max(1, max|plain|) in float32 and one bf16 ulp in bfloat16; both gradients
 within 1e-4 x max(1, max|plain|) (the image gradient is summed with float32
 atomics in an order that changes from run to run, the grid gradient over the
-channels in another order than autograd).
+channels in another order than autograd). Flash attention: the float32
+forward within 2e-5 x max(1, max|plain|) (exp2f's 2 ulp, sums over up to 16384
+keys in another order), its gradients within 1e-4 x max(1, max|plain|) (sums
+of products of p and dp - di, which cancel), bfloat16 within 2e-2 x max(1,
+max|plain|) (the kernel rounds the unnormalised probability, the plain
+version the normalised one).
 """
 
 from unittest import mock
@@ -24,8 +29,9 @@ from unittest import mock
 import pytest
 import torch
 
-from tfcgan_tpu_torch.ops import blurpool, gridsample, resample
+from tfcgan_tpu_torch.ops import blurpool, flashattn, gridsample, resample
 from tfcgan_tpu_torch.ops.kernels import blurpool as kernel
+from tfcgan_tpu_torch.ops.kernels import flashattn as fkernel
 from tfcgan_tpu_torch.ops.kernels import gridsample as gkernel
 from tfcgan_tpu_torch.ops.kernels import resample as rkernel
 from tfcgan_tpu_torch.ops.warp import affine_grid
@@ -378,3 +384,150 @@ def test_gridsample_kernels_refuse_what_they_do_not_take(cuda):
         gkernel.gridsample_bwd(torch.zeros(2, 4, 4, 2, device=cuda), inp, grid)
     assert gkernel.gridsample_bwd(torch.zeros(2, 4, 4, 3, device=cuda), inp, grid,
                                   need_inp=False, need_grid=False) == (None, None)
+
+
+# ------------------------------------------------------- flash attention (K4)
+# (forward, gradients, floor): errors within tolerance x max(floor, max|plain|).
+# bfloat16 is held to two to three ulps of the largest value whatever its size
+# (0.15 at S = 4096); its floor keeps the window no tighter than float32's where
+# the plain gradient is exactly 0 (a single key)
+FLASH_TOL = {torch.float32: (2e-5, 1e-4, 1.0), torch.bfloat16: (2e-2, 2e-2, 5e-3)}
+
+
+def _flash_inputs(cuda, n, heads, d, s, dtype, views, seed=0):
+    """q, k, v and the upstream gradient as (N, heads, D, S): permuted views of
+    (N, S, heads * D) tensors, as the diffusion U-Net passes them, or dense."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    if views:
+        return [torch.randn((n, s, heads * d), device=cuda, generator=g).to(dtype)
+                .view(n, s, heads, d).permute(0, 2, 3, 1) for _ in range(4)]
+    return [torch.randn((n, heads, d, s), device=cuda, generator=g).to(dtype) for _ in range(4)]
+
+
+def _flash_grads(fn, q, k, v, g, scale):
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    out = fn(q, k, v, scale)
+    return (out.detach(), *torch.autograd.grad(out, (q, k, v), g))
+
+
+def _flash_close(got, want, tol, what, floor=1.0):
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= tol * max(floor, float(want.abs().max())), f"{what}: max abs err {err}"
+
+
+@pytest.mark.parametrize("views", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 8, 8, 4096), (8, 8, 8, 1024), (32, 8, 8, 1024),
+                                   (2, 8, 8, 16384), (2, 3, 8, 1), (2, 3, 8, 7), (2, 3, 8, 255),
+                                   (2, 3, 8, 1000), (2, 2, 16, 1000), (2, 2, 32, 1000),
+                                   (2, 2, 64, 1000), (1, 2, 64, 512)])
+def test_flashattn_kernels_match_plain(cuda, shape, dtype, views):
+    q, k, v, g = _flash_inputs(cuda, *shape, dtype, views)
+    scale = shape[2] ** -0.5
+    before = (fkernel.FWD_LAUNCHES, fkernel.DQ_LAUNCHES, fkernel.DKV_LAUNCHES)
+    got = _flash_grads(flashattn.flash_attention, q, k, v, g, scale)
+    assert (fkernel.FWD_LAUNCHES, fkernel.DQ_LAUNCHES, fkernel.DKV_LAUNCHES) == tuple(
+        b + 1 for b in before)
+    assert got[0].stride() == q.stride()  # the result in q's memory order, no copy
+    want = _flash_grads(flashattn.flash_attention_plain, q, k, v, g, scale)
+    tol_f, tol_g, floor = FLASH_TOL[dtype]
+    for a, b, tol, name in zip(got, want, (tol_f, tol_g, tol_g, tol_g), ("o", "dq", "dk", "dv")):
+        _flash_close(a, b, tol, f"{shape} {dtype} {name}", floor)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flashattn_path_shape_at_batch_32(cuda, dtype):
+    q, k, v, g = _flash_inputs(cuda, 32, 8, 8, 4096, dtype, True)
+    got = _flash_grads(flashattn.flash_attention, q, k, v, g, 8 ** -0.5)
+    want = _flash_grads(flashattn.flash_attention_plain, q, k, v, g, 8 ** -0.5)
+    tol_f, tol_g, floor = FLASH_TOL[dtype]
+    for a, b, tol, name in zip(got, want, (tol_f, tol_g, tol_g, tol_g), ("o", "dq", "dk", "dv")):
+        _flash_close(a, b, tol, f"(32, 8, 8, 4096) {dtype} {name}", floor)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flashattn_large_scores_do_not_overflow(cuda, dtype):
+    q, k, v, g = _flash_inputs(cuda, 2, 4, 8, 700, dtype, True, seed=3)
+    got = _flash_grads(flashattn.flash_attention, 40.0 * q, k, v, g, 1.0)
+    assert all(bool(torch.isfinite(t).all()) for t in got)
+    want = _flash_grads(flashattn.flash_attention_plain, 40.0 * q, k, v, g, 1.0)
+    tol_f, tol_g, floor = FLASH_TOL[dtype]
+    for a, b, tol, name in zip(got, want, (tol_f, tol_g, tol_g, tol_g), ("o", "dq", "dk", "dv")):
+        _flash_close(a, b, tol, f"q x 40 {dtype} {name}", floor)
+
+
+@pytest.mark.parametrize("need", [(1, 0, 0), (0, 1, 0), (0, 0, 1), (1, 1, 0), (0, 1, 1),
+                                  (1, 0, 1)])
+def test_flashattn_backward_computes_only_what_autograd_asks_for(cuda, need):
+    q, k, v, g = _flash_inputs(cuda, 4, 8, 8, 1000, torch.bfloat16, True, seed=5)
+    full = _flash_grads(flashattn.flash_attention, q, k, v, g, 0.35)[1:]
+    ts = [t.detach().requires_grad_(bool(r)) for t, r in zip((q, k, v), need)]
+    before = (fkernel.DQ_LAUNCHES, fkernel.DKV_LAUNCHES)
+    out = flashattn.flash_attention(*ts, 0.35)
+    grads = torch.autograd.grad(out, [t for t in ts if t.requires_grad], g)
+    assert fkernel.DQ_LAUNCHES - before[0] == need[0]
+    assert fkernel.DKV_LAUNCHES - before[1] == int(bool(need[1] or need[2]))
+    for got, ref in zip(grads, [f for f, r in zip(full, need) if r]):
+        assert torch.equal(got, ref)  # one writer per element: bit for bit
+
+
+def test_flashattn_backward_repeats_bit_for_bit(cuda):
+    q, k, v, g = _flash_inputs(cuda, 8, 8, 8, 4096, torch.float32, True, seed=6)
+    first = _flash_grads(flashattn.flash_attention, q, k, v, g, 8 ** -0.5)
+    second = _flash_grads(flashattn.flash_attention, q, k, v, g, 8 ** -0.5)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_flashattn_three_dimensional_entry_and_no_grad(cuda):
+    q, k, v, _ = (t[0] for t in _flash_inputs(cuda, 1, 6, 8, 300, torch.float32, False))
+    with torch.no_grad():
+        got = flashattn.flash_attention(q, k, v, 0.35)
+    assert got.shape == q.shape and not got.requires_grad
+    _flash_close(got, flashattn.flash_attention_plain(q, k, v, 0.35), 2e-5, "(6, 8, 300)")
+
+
+def test_flashattn_kernels_refuse_what_they_do_not_take(cuda):
+    q, k, v, _ = _flash_inputs(cuda, 2, 2, 8, 64, torch.float32, False)
+    with pytest.raises(ValueError, match="head_dim"):
+        fkernel.flashattn_fwd(*_flash_inputs(cuda, 1, 1, 24, 8, torch.float32, False)[:3], 1.0)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fkernel.flashattn_fwd(q.half(), k.half(), v.half(), 1.0)
+    with pytest.raises(ValueError, match="must be"):
+        fkernel.flashattn_fwd(q, k[:, :1], v, 1.0)
+    with pytest.raises(ValueError, match="must be"):
+        fkernel.flashattn_fwd(q, k.bfloat16(), v, 1.0)
+    with pytest.raises(ValueError, match="views"):
+        fkernel.flashattn_fwd(q[0], k[0], v[0], 1.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        fkernel.flashattn_fwd(q.cpu(), k.cpu(), v.cpu(), 1.0)
+    o, lse = fkernel.flashattn_fwd(q, k, v, 1.0)
+    with pytest.raises(ValueError, match="lse"):
+        fkernel.flashattn_bwd(q, k, v, o, lse[..., :8], lse, 1.0)
+    assert fkernel.flashattn_bwd(q, k, v, o, lse, lse, 1.0, False, False, False) == (
+        None, None, None)
+
+
+def test_diffusion_unet_forward_and_backward_through_the_kernels(cuda):
+    """The denoiser at 64² (1024 and 256 tokens) in float32: output and
+    parameter gradients on the kernel path against the plain path (atol 1e-4
+    of the output; gradients within 1e-3 x max|g| + 1e-7)."""
+    from tfcgan_tpu_torch.models import diffusion
+
+    unet = diffusion.CondUNet(2, 1, device=cuda, generator=torch.Generator().manual_seed(0))
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x, cond = (torch.randn((2, 64, 64, 1), device=cuda, generator=g) for _ in range(2))
+    t = torch.tensor([5, 400], device=cuda)
+    launches = fkernel.FWD_LAUNCHES
+    out = unet(x, t, cond)
+    assert fkernel.FWD_LAUNCHES == launches + 7
+    out.square().mean().backward()
+    got = {n: p.grad.clone() for n, p in unet.named_parameters()}
+    unet.zero_grad()
+    with mock.patch.object(diffusion, "flash_attention", flashattn.flash_attention_plain):
+        want_out = unet(x, t, cond)
+        want_out.square().mean().backward()
+    torch.testing.assert_close(out, want_out, atol=1e-4, rtol=0)
+    for n, p in unet.named_parameters():
+        bound = 1e-3 * float(p.grad.abs().max()) + 1e-7
+        assert float((got[n] - p.grad).abs().max()) <= bound, n

@@ -7,7 +7,10 @@
 and ``lpips_from_flax`` do the same for ``PatchDiscriminator`` (with its
 spectral u/v), ``LPIPS``, ``ViT`` (``vit_from_flax``) and the affine STN
 (``stn_from_flax``), and ``train_state_from_flax`` for a whole
-``GANTrainState`` of the tfcgan, the stn or the nemar recipe. NeMAR's networks
+``GANTrainState`` of the tfcgan, the stn, the nemar or the diffusion recipe
+(one Adam: the family has no discriminator). The TFC-Diff networks come over
+with ``cond_unet_from_flax`` and ``diffusion_generators_from_flax`` (``unet``,
+``class_emb``, ``G``). NeMAR's networks
 (``resnet_generator_from_flax``, ``deformable_stn_from_flax``,
 ``cnn_affine_stn_from_flax``, ``nlayer_discriminator_from_flax``,
 ``pixel_discriminator_from_flax``) are plain trees of convs and Dense layers
@@ -202,7 +205,8 @@ def conv_net_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
     """A JAX module tree of plain convs and Dense layers (nested, or flat with
     "/"-joined keys) -> the state dict of its port, whose modules carry the
     same names: ``a/b/kernel`` becomes ``a.b.weight``, a 4-D kernel in torch's
-    conv layout and a 2-D one transposed; ``a/b/bias`` becomes ``a.b.bias``.
+    conv layout and a 2-D one transposed; ``a/b/bias`` becomes ``a.b.bias``; a
+    norm's ``a/b/scale`` becomes ``a.b.weight``.
     (The conv-affine STN's first Dense reads an NHWC flatten in both packages,
     so its kernel needs no reordering.)"""
     state = {}
@@ -215,6 +219,8 @@ def conv_net_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
             state[f"{key}.weight"] = _tensor(value, (3, 2, 0, 1))
         elif leaf == "kernel" and np.ndim(value) == 2:
             state[f"{key}.weight"] = _dense(value, 1)
+        elif leaf == "scale":
+            state[f"{key}.weight"] = _tensor(value)
         else:
             raise KeyError(f"no conv or Dense parameter for flax path {path!r}")
     return state
@@ -226,6 +232,8 @@ deformable_stn_from_flax = conv_net_from_flax
 cnn_affine_stn_from_flax = conv_net_from_flax
 nlayer_discriminator_from_flax = conv_net_from_flax
 pixel_discriminator_from_flax = conv_net_from_flax
+# and so is the diffusion U-Net, with its GroupNorm scales
+cond_unet_from_flax = conv_net_from_flax
 
 
 def _grouped(tree: Mapping) -> dict[str, torch.Tensor]:
@@ -252,6 +260,23 @@ def nemar_discriminators_from_flax(d_params: Mapping, spectral: Mapping | None =
     return _grouped(d_params)
 
 
+def diffusion_generators_from_flax(g_params: Mapping) -> dict[str, torch.Tensor]:
+    """The diffusion recipe's ``g_params`` {"unet"[, "class_emb"][, "G"]}
+    (nested, or flat with "/"-joined keys) -> state dict of the port's
+    ``recipes.diffusion.DiffusionGenerators``."""
+    groups: dict[str, dict] = {"unet": {}, "G": {}}
+    state = {}
+    for path, value in flatten_params(g_params).items():
+        if path == "class_emb":
+            state["class_emb"] = _tensor(value)
+        else:
+            head, rest = path.split("/", 1)
+            groups[head][rest] = value
+    state.update({f"unet.{k}": v for k, v in cond_unet_from_flax(groups["unet"]).items()})
+    state.update({f"G.{k}": v for k, v in generator_from_flax(groups["G"]).items()})
+    return state
+
+
 def _load_adam(opt: torch.optim.Adam, module: torch.nn.Module, adam_state,
                to_state_dict) -> None:
     """optax ``ScaleByAdamState`` (count, mu, nu) -> the torch Adam's state."""
@@ -265,11 +290,17 @@ def _load_adam(opt: torch.optim.Adam, module: torch.nn.Module, adam_state,
 
 
 def train_state_from_flax(state, recipe, generator: torch.Generator):
-    """A JAX ``GANTrainState`` of the tfcgan, the stn or the nemar recipe -> a
-    port ``TrainState`` over ``recipe``'s modules: weights, spectral u/v,
-    LPIPS, both Adams' moments and counts, and the step (which fixes the
-    schedule's learning rate). Draws come from ``generator``."""
-    if recipe.name == "stn":
+    """A JAX ``GANTrainState`` of the tfcgan, the stn, the nemar or the
+    diffusion recipe -> a port ``TrainState`` over ``recipe``'s modules:
+    weights, spectral u/v, LPIPS, the Adams' moments and counts (one Adam for
+    the diffusion recipe, whose D side is empty), and the step (which fixes
+    the schedule's learning rate). Draws come from ``generator``."""
+    if recipe.name == "diffusion":
+        g_from_flax = diffusion_generators_from_flax
+
+        def d_from_flax(tree, spectral=None):
+            return {}
+    elif recipe.name == "stn":
         g_from_flax, d_from_flax = stn_generators_from_flax, stn_discriminators_from_flax
     elif recipe.name == "nemar":
         g_from_flax, d_from_flax = nemar_generators_from_flax, nemar_discriminators_from_flax
@@ -286,7 +317,8 @@ def train_state_from_flax(state, recipe, generator: torch.Generator):
     step = int(np.asarray(state.step))
     opt_g, opt_d = make_optimizers(recipe.cfg, recipe, step)
     _load_adam(opt_g, recipe.G, state.g_opt_state[0], g_from_flax)
-    _load_adam(opt_d, recipe.D, state.d_opt_state[0], d_from_flax)
+    if opt_d is not None:
+        _load_adam(opt_d, recipe.D, state.d_opt_state[0], d_from_flax)
     return TrainState(step=step, generator=generator, G=recipe.G,
                       D=recipe.D, lpips=recipe.lpips, opt_g=opt_g, opt_d=opt_d)
 
@@ -309,3 +341,11 @@ def load_nemar_generators_npz(path: str) -> dict[str, torch.Tensor]:
     ``tools/export_g_params.py``) -> state dict of ``recipes.nemar.build_generators``."""
     with np.load(path) as npz:
         return nemar_generators_from_flax({k: npz[k] for k in npz.files})
+
+
+def load_diffusion_generators_npz(path: str) -> dict[str, torch.Tensor]:
+    """The diffusion recipe's ``g_params.npz`` (unet, and where the variant has
+    them class_emb and G, from ``tools/export_g_params.py``) -> state dict of
+    ``recipes.diffusion.build_generators``."""
+    with np.load(path) as npz:
+        return diffusion_generators_from_flax({k: npz[k] for k in npz.files})

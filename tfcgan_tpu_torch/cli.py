@@ -1,5 +1,5 @@
 """Command-line interface of the port (the serve and eval chain of the tfcgan,
-stn and nemar recipes):
+stn and nemar recipes, and the diffusion family's sampler):
 
     python -m tfcgan_tpu_torch.cli test --experiment fft_glo --data-root DATA \
         --params g_params.npz --out-dir results/ --spectra
@@ -7,6 +7,8 @@ stn and nemar recipes):
         --params g_params.npz --out-dir results/
     python -m tfcgan_tpu_torch.cli test --config nemar --data-root DATA \
         --params g_params.npz --out-dir results/
+    python -m tfcgan_tpu_torch.cli gen --config tfc_diff --data-root DATA \
+        --params g_params.npz --out-dir samples/ --seed 0
     python -m tfcgan_tpu_torch.cli prep-crop --stack-dir results/ --out-root crops/
     python -m tfcgan_tpu_torch.cli eval --fake-dir crops/fake_B --real-dir crops/real_B
 
@@ -16,7 +18,10 @@ serves random weights instead. The stn stacks are real_A | real_B | warped_B |
 fake_A1 | fake_A2 | fake_B (``prep-crop --roles
 real_A,real_B,warped_B,fake_A1,fake_A2,fake_B``), the nemar stacks real_A |
 real_B | registered_A | fake_B | fake_TR_B | fake_RT_B (``--roles
-real_A,real_B,reg_A,fake_B,fake_TR_B,fake_RT_B``). ``--device``
+real_A,real_B,reg_A,fake_B,fake_TR_B,fake_RT_B``). ``gen`` runs the on-device
+ancestral sampler of a diffusion experiment (for it ``g_params.npz`` holds the
+denoiser, the class embedding and, for the hybrid variant, G) over the test
+set, batch 4 by default, and writes real_A | sample stacks. ``--device``
 defaults to ``cuda``, and the commands refuse to run when CUDA is absent
 unless ``--device cpu`` is given.
 """
@@ -79,6 +84,29 @@ def cmd_test(args):
     print(f"wrote {n} stacks to {args.out_dir}")
 
 
+def cmd_gen(args):
+    """Diffusion sampling: the whole chain on the device for every test image."""
+    from tfcgan_tpu_torch import bridge
+    from tfcgan_tpu_torch.data.pairs import PairedImageDataset, batch_iterator
+    from tfcgan_tpu_torch.infer import Inferencer
+    from tfcgan_tpu_torch.recipes import diffusion
+
+    if (args.params is None) == (args.init_seed is None):
+        raise SystemExit("pass exactly one of --params g_params.npz and --init-seed N")
+    device = _device(args.device)
+    cfg = _cfg_from_args(args)
+    if cfg.recipe != "diffusion":
+        raise SystemExit("gen is for diffusion experiments")
+    seed = 0 if args.init_seed is None else args.init_seed
+    nets = diffusion.build_generators(cfg, device, torch.Generator().manual_seed(seed))
+    if args.params is not None:
+        nets.load_state_dict(bridge.load_diffusion_generators_npz(args.params))
+    ds = PairedImageDataset(cfg.data.root, "test", cfg.data.image_size, cfg.data.direction)
+    batches = batch_iterator(ds, args.batch_size or 4, shuffle=False, epochs=1, drop_last=False)
+    n = Inferencer(cfg, nets).run_test_set(batches, args.out_dir, seed=args.seed)
+    print(f"sampled {n} images -> {args.out_dir}")
+
+
 def cmd_prep_crop(args):
     from tfcgan_tpu_torch.evaluation.suite import crop_stack
 
@@ -103,20 +131,25 @@ def main(argv=None):
     p = argparse.ArgumentParser(prog="tfcgan_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
 
-    sp = sub.add_parser("test")
-    sp.add_argument("--experiment", "--config", dest="experiment", default="fft_glo")
-    sp.add_argument("--data-root", default=None)
-    sp.add_argument("--batch-size", type=int, default=None)
-    sp.add_argument("--image-size", type=int, default=None)
-    sp.add_argument("--direction", default=None, choices=[None, "AtoB", "BtoA"])
-    sp.add_argument("--dtype", default=None, choices=[None, "bfloat16", "float32"])
-    sp.add_argument("--out-dir", default="runs")
-    sp.add_argument("--params", default=None, help="g_params.npz from tools/export_g_params.py")
-    sp.add_argument("--init-seed", type=int, default=None,
-                    help="serve random weights drawn from this seed")
-    sp.add_argument("--spectra", action="store_true")
-    sp.add_argument("--device", default="cuda")
-    sp.set_defaults(fn=cmd_test)
+    for name, fn, default in (("test", cmd_test, "fft_glo"), ("gen", cmd_gen, "tfc_diff")):
+        sp = sub.add_parser(name)
+        sp.add_argument("--experiment", "--config", dest="experiment", default=default)
+        sp.add_argument("--data-root", default=None)
+        sp.add_argument("--batch-size", type=int, default=None)
+        sp.add_argument("--image-size", type=int, default=None)
+        sp.add_argument("--direction", default=None, choices=[None, "AtoB", "BtoA"])
+        sp.add_argument("--dtype", default=None, choices=[None, "bfloat16", "float32"])
+        sp.add_argument("--out-dir", default="runs")
+        sp.add_argument("--params", default=None,
+                        help="g_params.npz from tools/export_g_params.py")
+        sp.add_argument("--init-seed", type=int, default=None,
+                        help="serve random weights drawn from this seed")
+        sp.add_argument("--device", default="cuda")
+        if name == "test":
+            sp.add_argument("--spectra", action="store_true")
+        else:
+            sp.add_argument("--seed", type=int, default=0, help="the sampler's seed")
+        sp.set_defaults(fn=fn)
 
     sp = sub.add_parser("prep-crop")
     sp.add_argument("--stack-dir", required=True)

@@ -1,5 +1,5 @@
 """Inference ("serve") path, port of ``tfcgan_tpu.infer`` for the tfcgan, stn
-and nemar recipes.
+and nemar recipes, and the diffusion family's sampling (the JAX CLI's ``gen``).
 
 ``Inferencer`` runs the eval-mode generator(s) on the device that holds their
 weights under ``torch.inference_mode``; ``run_test_set`` streams batches and
@@ -7,7 +7,9 @@ writes the reference-style stacked PNGs: real_A | fake_B | real_B vertically
 for tfcgan (and, with ``save_spectra``, the fake/real log-magnitude spectra
 side by side), real_A | real_B | warped_B | fake_A1 | fake_A2 | fake_B for
 stn, real_A | real_B | registered_A | fake_B | fake_TR_B | fake_RT_B for
-nemar. The other recipes and the multi-device mesh are not ported yet.
+nemar. For a diffusion experiment a call samples x_0 over the whole ancestral
+chain and ``run_test_set`` writes real_A | sample. The other recipes and the
+multi-device mesh are not ported yet.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 from tfcgan_tpu_torch.config import ExperimentConfig
 from tfcgan_tpu_torch.evaluation.suite import save_image_grid
 from tfcgan_tpu_torch.ops.fftloss import fft_log_magnitude
+from tfcgan_tpu_torch.recipes.diffusion import diffusion_sample, schedule_of
 from tfcgan_tpu_torch.recipes.nemar import nemar_forward
 from tfcgan_tpu_torch.recipes.stn import stn_condition, stn_serve
 
@@ -31,22 +34,31 @@ STACKS = {"stn": ("warped_B", "fake_A1", "fake_A2", "fake_B"),
 class Inferencer:
     """Eval-mode generation on the device that holds the weights of
     ``generator``: the G of ``recipes.tfcgan.build_generator``, the
-    {"G1", "G2", "STN"} modules of ``recipes.stn.build_generators``, or the
-    {"T", "R"} modules of ``recipes.nemar.build_generators``."""
+    {"G1", "G2", "STN"} modules of ``recipes.stn.build_generators``, the
+    {"T", "R"} modules of ``recipes.nemar.build_generators``, or the
+    ``DiffusionGenerators`` of ``recipes.diffusion.build_generators``."""
 
     def __init__(self, cfg: ExperimentConfig, generator: torch.nn.Module):
-        if cfg.recipe not in ("tfcgan", "stn", "nemar") or cfg.loss.conditional:
+        if cfg.recipe not in ("tfcgan", "stn", "nemar", "diffusion") or cfg.loss.conditional:
             raise NotImplementedError(f"no inference path for {cfg.name!r} in the port yet")
         self.cfg = cfg
         self.generator = generator.eval()
         self.device = next(generator.parameters()).device
 
-    def __call__(self, batch: dict) -> torch.Tensor | dict[str, torch.Tensor]:
+    def __call__(self, batch: dict, seed: int = 0) -> torch.Tensor | dict[str, torch.Tensor]:
         """batch["A"] (and, for stn and nemar, batch["B"]): (N, H, W, 3) in
         [-1, 1], numpy or tensor -> on the device, fake_B (tfcgan), {"fake_B",
-        "fake_A1", "warped_B", "fake_A2"} (stn) or {"registered_A", "fake_B",
-        "fake_TR_B", "fake_RT_B"} (nemar)."""
+        "fake_A1", "warped_B", "fake_A2"} (stn), {"registered_A", "fake_B",
+        "fake_TR_B", "fake_RT_B"} (nemar) or, for a diffusion experiment, the
+        float32 sample of the whole chain (its draws from ``seed``; class
+        labels from batch["LAB"], 0 where the batch has none)."""
         a = torch.as_tensor(batch["A"]).to(self.device, torch.float32)
+        if self.cfg.recipe == "diffusion":
+            lab = torch.as_tensor(batch.get("LAB", np.zeros(a.shape[0], np.int64)))
+            with torch.inference_mode():
+                return diffusion_sample(
+                    self.generator, schedule_of(self.cfg), {"A": a, "LAB": lab.to(self.device)},
+                    torch.Generator(self.device).manual_seed(seed))
         with torch.inference_mode():
             if self.cfg.recipe == "tfcgan":
                 return self.generator(a)
@@ -66,10 +78,26 @@ class Inferencer:
                 n += 1
         return n
 
-    def run_test_set(self, batches, out_dir: str, save_spectra: bool = False) -> int:
+    def _run_sampling_test_set(self, batches, out_dir: str, seed: int) -> int:
+        """real_A | sample per image; every batch samples from ``seed``, as
+        the JAX CLI's ``gen`` does."""
+        n = 0
+        for batch in batches:
+            out = self(batch, seed).cpu().numpy()
+            a = np.asarray(batch["A"])
+            for i in range(out.shape[0]):
+                img = out[i].repeat(3, -1) if out.shape[-1] == 1 else out[i]
+                save_image_grid([a[i], img], os.path.join(out_dir, f"{n:05d}.png"))
+                n += 1
+        return n
+
+    def run_test_set(self, batches, out_dir: str, save_spectra: bool = False,
+                     seed: int = 0) -> int:
         """Write one stack per image (and, for tfcgan, its spectra); returns
-        images written."""
+        images written. ``seed`` is the diffusion sampler's."""
         os.makedirs(out_dir, exist_ok=True)
+        if self.cfg.recipe == "diffusion":
+            return self._run_sampling_test_set(batches, out_dir, seed)
         if self.cfg.recipe in STACKS:
             return self._run_six_image_test_set(batches, out_dir)
         n = 0

@@ -3,11 +3,13 @@
 from __future__ import annotations
 
 from tfcgan_tpu_torch.config import ExperimentConfig
+from tfcgan_tpu_torch.recipes.diffusion import DiffusionRecipe
 from tfcgan_tpu_torch.recipes.nemar import NeMARRecipe
 from tfcgan_tpu_torch.recipes.stn import STNRecipe
 from tfcgan_tpu_torch.recipes.tfcgan import TFCGANRecipe
 
-_RECIPES = {"tfcgan": TFCGANRecipe, "stn": STNRecipe, "nemar": NeMARRecipe}
+_RECIPES = {"tfcgan": TFCGANRecipe, "stn": STNRecipe, "nemar": NeMARRecipe,
+            "diffusion": DiffusionRecipe}
 
 
 def build_recipe(cfg: ExperimentConfig, device="cuda"):

@@ -2,9 +2,10 @@
 
 A plain dataclass: the step count, the ``torch.Generator`` the step's draws
 come from, the recipe's modules (their float32 parameters and the spectral
-u/v buffers) and the two Adams. ``torch.optim.Adam(lr, betas=(b1, b2),
-eps=1e-8)`` computes optax's ``adam`` update: lr * m_hat / (sqrt(v_hat) +
-eps), eps outside the root.
+u/v buffers) and the two Adams (``opt_d`` is None for a recipe without a
+discriminator: ``D`` has no parameters, as in the TFC-Diff family).
+``torch.optim.Adam(lr, betas=(b1, b2), eps=1e-8)`` computes optax's ``adam``
+update: lr * m_hat / (sqrt(v_hat) + eps), eps outside the root.
 
 ``learning_rate(cfg, step)`` is the closed-form schedule of the update that
 follows ``step`` completed ones (the first update is ``step`` 0), on the
@@ -31,7 +32,7 @@ class TrainState:
     D: nn.Module
     lpips: nn.Module | None
     opt_g: torch.optim.Adam
-    opt_d: torch.optim.Adam
+    opt_d: torch.optim.Adam | None
 
 
 SCHEDULES = ("constant", "linear_decay", "step", "cosine")
@@ -63,19 +64,21 @@ def learning_rate(cfg: ExperimentConfig, step: int) -> float:
 
 
 def set_learning_rate(state: "TrainState", lr: float) -> None:
-    """Write ``lr`` into both Adams."""
+    """Write ``lr`` into both Adams (the one there is, without a D)."""
     for opt in (state.opt_g, state.opt_d):
-        for group in opt.param_groups:
+        for group in opt.param_groups if opt is not None else ():
             group["lr"] = lr
 
 
 def make_optimizers(cfg: ExperimentConfig, recipe, step: int = 0
-                    ) -> tuple[torch.optim.Adam, torch.optim.Adam]:
-    """Adam on G's and on D's parameters, at the schedule's lr for ``step``."""
+                    ) -> tuple[torch.optim.Adam, torch.optim.Adam | None]:
+    """Adam on G's and on D's parameters, at the schedule's lr for ``step``;
+    None for a D without parameters (torch's Adam refuses an empty list)."""
     o = cfg.optim
     lr = learning_rate(cfg, step)
-    return tuple(torch.optim.Adam(m.parameters(), lr=lr, betas=(o.b1, o.b2), eps=1e-8)
-                 for m in (recipe.G, recipe.D))
+    return tuple(torch.optim.Adam(params, lr=lr, betas=(o.b1, o.b2), eps=1e-8)
+                 if params else None
+                 for params in (list(recipe.G.parameters()), list(recipe.D.parameters())))
 
 
 def create_state(cfg: ExperimentConfig, recipe, seed: int) -> TrainState:

@@ -16,6 +16,10 @@ same forward through the **updated** D, frozen, and the generator Adam step.
 (The JAX step runs that forward twice with the same parameters; running it
 once and keeping the graph across the D update gives the same numbers.)
 
+A recipe whose ``D`` has no parameters (the TFC-Diff family) has no D phase:
+its constant ``d_loss`` is only reported, as the JAX step reports ``loss_D = 0``
+for its empty tree.
+
 The step's random draws come from ``draw_fn(state, batch)``, by default the
 recipe's draws on ``state.generator``.
 """
@@ -60,6 +64,8 @@ def make_train_step(cfg: ExperimentConfig, recipe) -> Callable:
 
     def d_phase(state: TrainState, batch: dict, aux: dict) -> dict:
         loss_d, d_metrics = recipe.d_loss(batch, aux)
+        if state.opt_d is None:  # no discriminator: nothing to differentiate or step
+            return d_metrics
         state.opt_d.zero_grad(set_to_none=True)
         loss_d.backward()
         state.opt_d.step()
@@ -114,11 +120,15 @@ class Trainer:
         return create_state(self.cfg, self.recipe, seed)
 
     def step(self, state: TrainState, batch: dict) -> dict[str, torch.Tensor]:
-        """One step on ``batch`` ({"A", "B", "T_B"}, numpy or tensors);
-        returns the metrics as 0-dim tensors on the device."""
+        """One step on ``batch`` ({"A", "B", "T_B"[, "LAB"]}, numpy or
+        tensors; the images as float32, the class labels as integers); returns
+        the metrics as 0-dim tensors on the device."""
         dev = self.recipe.device
-        batch = {k: torch.as_tensor(v).to(dev, torch.float32) for k, v in batch.items()
-                 if k in ("A", "B", "T_B")}
+        images = {k: torch.as_tensor(v).to(dev, torch.float32) for k, v in batch.items()
+                  if k in ("A", "B", "T_B")}
+        labels = {k: torch.as_tensor(v).to(dev, torch.int64) for k, v in batch.items()
+                  if k == "LAB"}
+        batch = {**images, **labels}
         metrics = self._step_fn(state, batch, self.draw_fn(state, batch))
         self.last_metrics = metrics
         return metrics

@@ -10,7 +10,9 @@ holds the ``params["G"]`` tree as float32 arrays under "/"-joined keys
 port's state dict. For an stn experiment (``--experiment stn_newmodel3``) it
 holds the whole generator side, "G1/...", "G2/..." and "STN/..."; for
 ``--experiment nemar`` the translator and the registration net, "T/..." and
-"R/...".
+"R/..."; for a diffusion experiment (``tfc_diff``, ``tfc_diff_label``,
+``tfc_diff_hybrid``) the denoiser "unet/..." and, where the variant has them,
+"class_emb" and "G/...".
 """
 
 from __future__ import annotations
@@ -55,11 +57,11 @@ def restore_g_params(experiment: str, checkpoint: str) -> Mapping:
     recipe = build_recipe(cfg)
     trainer = Trainer(cfg, recipe)
     first = synthetic_batch(batch_size=jax.device_count(), image_size=cfg.data.image_size,
-                            with_labels=cfg.loss.conditional)
+                            with_labels=cfg.loss.conditional or cfg.recipe == "diffusion")
     template = trainer.init_state(jax.random.PRNGKey(0), first)
     state = restore_checkpoint(checkpoint, jax.device_get(template))
     g_params = jax.device_get(state.g_params)
-    return g_params if cfg.recipe in ("stn", "nemar") else g_params["G"]
+    return g_params if cfg.recipe in ("stn", "nemar", "diffusion") else g_params["G"]
 
 
 def main(argv=None):

@@ -2,11 +2,13 @@
 
     python tools/profile_torch_step.py --experiment stn_newmodel3 --batch 32
     python tools/profile_torch_step.py --experiment nemar --batch 32
+    python tools/profile_torch_step.py --experiment tfc_diff --batch 32
 
 Runs ``--warmup`` steps, then ``--steps`` steps of the full-width bf16 recipe
-at 256² under ``torch.profiler`` (CPU + CUDA activities), and prints the
-card's ``nvidia-smi`` name and power limit, the device kernel time a step, the
-share of the profiled span in which a kernel ran, the time by kind of kernel
+at its config's image size (256², 128² for the tfc_diff family) under
+``torch.profiler`` (CPU + CUDA activities), and prints the card's
+``nvidia-smi`` name and power limit, the device kernel time a step, the share
+of the profiled span in which a kernel ran, the time by kind of kernel
 (classified by name) and the largest kernels. ``--plain`` profiles the path
 with every hand-written kernel replaced by its plain PyTorch version.
 """
@@ -35,6 +37,9 @@ KINDS = (
     ("K2-gradpos (resample)", ("resample_gradpos_kernel",)),
     ("K3-fwd (grid_sample)", ("gridsample_fwd_kernel",)),
     ("K3-bwd (grid_sample)", ("gridsample_bwd_kernel",)),
+    ("K4-fwd (flash attention)", ("flashattn_fwd_kernel",)),
+    ("K4-bwd dq (flash attention)", ("flashattn_dq_kernel",)),
+    ("K4-bwd dk/dv (flash attention)", ("flashattn_dkv_kernel",)),
     ("Adam (foreach)", ("multi_tensor", "adam")),
     ("convolutions (cuDNN)", ("cudnn", "conv", "fprop", "dgrad", "wgrad", "xmma", "implicit")),
     ("matrix products (cuBLAS)", ("gemm", "gemv", "nvjet", "cublas", "cutlass")),
@@ -70,9 +75,10 @@ def main(argv=None) -> int:
 
     from tfcgan_tpu_torch.config import get_experiment
     from tfcgan_tpu_torch.data.synth import synthetic_batch
+    from tfcgan_tpu_torch.models import diffusion as diffusion_models
     from tfcgan_tpu_torch.models import discriminator, layers
     from tfcgan_tpu_torch.models import stn as stn_models
-    from tfcgan_tpu_torch.ops import gridsample, resample
+    from tfcgan_tpu_torch.ops import flashattn, gridsample, resample
     from tfcgan_tpu_torch.ops.blurpool import blur_pool_padded
     from tfcgan_tpu_torch.recipes import build_recipe
     from tfcgan_tpu_torch.train.trainer import Trainer
@@ -86,7 +92,8 @@ def main(argv=None) -> int:
     trainer = Trainer(cfg, recipe)
     state = trainer.init_state(0)
     batch = {k: torch.as_tensor(v, device="cuda") for k, v in synthetic_batch(
-        batch_size=args.batch, image_size=cfg.data.image_size, seed=40).items()}
+        batch_size=args.batch, image_size=cfg.data.image_size, seed=40,
+        with_labels=cfg.recipe == "diffusion").items()}
 
     with contextlib.ExitStack() as stack:
         if args.plain:
@@ -96,6 +103,8 @@ def main(argv=None) -> int:
                                                   resample.resample_axis_plain))
             stack.enter_context(mock.patch.object(stn_models, "grid_sample_dense",
                                                   gridsample.grid_sample_dense_plain))
+            stack.enter_context(mock.patch.object(diffusion_models, "flash_attention",
+                                                  flashattn.flash_attention_plain))
         for _ in range(args.warmup):
             trainer.step(state, batch)
         torch.cuda.synchronize()
