@@ -11,7 +11,9 @@ Phases, one line or more each; any failure raises and exits non-zero:
    and backward), ``csrc/resample.cu`` (1-D affine resampling: forward,
    adjoint, position gradient) and ``csrc/gridsample.cu`` (dense bilinear
    grid_sample, forward and backward) and ``csrc/flashattn.cu`` (flash
-   attention: forward, dq, dk/dv), all started together; the build seconds.
+   attention: forward, dq, dk/dv; the backward on the float32 units for
+   float32 and on the tensor cores for bfloat16), all started together; the
+   build seconds.
 3. blur-pool vs plain: the forward kernel against ``blur_pool_padded`` and the
    backward kernel against ``torch.autograd.grad`` of it, at the 11 blur shapes
    of the 256² generator at batch 8 (both strides; the first four stride-2
@@ -107,13 +109,16 @@ Phases, one line or more each; any failure raises and exits non-zero:
    256² input), ragged S (1, 7, 255, 1000) in both layouts, D = 16, 32, 64,
    scores of several hundred (an unshifted exp would overflow), every subset of
    ``needs_input_grad`` (bit-identical to the full backward, only the kernels
-   needed launched), two identical backward runs compared bit for bit, and what
-   the wrappers refuse. Float32 forward within 2e-5 x max(1, max|plain|)
-   (exp2f's 2 ulp and sums over up to 16384 keys in another order), gradients
-   within 1e-4 x max(1, max|plain|) (sums of up to 16384 products of p and dp -
-   di, which cancel); bfloat16 within 2e-2 x max(1, max|plain|) (the kernel
-   rounds the unnormalised probability, the plain version the normalised one,
-   and its autograd rounds dp and ds to bfloat16 as well). Kernel, plain and
+   needed launched), two identical bfloat16 backward runs compared bit for bit,
+   and what the wrappers refuse. Every bfloat16 case's backward must run the
+   tensor-core kernels (their counts move by one each) and no float32 case's.
+   Float32 forward within 2e-5 x max(1, max|plain|) (exp2f's 2 ulp and sums
+   over up to 16384 keys in another order), gradients within 1e-4 x max(1,
+   max|plain|) (sums of up to 16384 products of p and dp - di, which cancel);
+   bfloat16 within 2e-2 x max(5e-3, max|plain|) (the kernel rounds the
+   unnormalised probability, the plain version the normalised one; the
+   backward rounds P and dS to bfloat16 for its tensor-core products, the
+   plain version's autograd rounds P, dP and dS). Kernel, plain and
    ``F.scaled_dot_product_attention`` times, forward and backward, at (256, 8,
    4096) and (256, 8, 1024) bfloat16.
 14. tfc_diff serve at full width (the UNet2DModel denoiser, bf16, 128², the
@@ -132,8 +137,9 @@ Phases, one line or more each; any failure raises and exits non-zero:
    through ``Trainer.fit`` for each of ``tfc_diff_label``, ``tfc_diff_hybrid``
    and ``tfc_diff`` (every term finite, ``g_noise_mse`` moving, ``loss_D`` 0:
    the family has no discriminator; per step exactly 7 launches of each flash
-   attention kernel, and for ``hybrid`` also the 11 + 11 blur-pool launches of
-   one G forward and backward, read after each step).
+   attention kernel, the 7 dq and 7 dk/dv on the tensor cores, and for
+   ``hybrid`` also the 11 + 11 blur-pool launches of one G forward and
+   backward, read after each step).
 16. the card's ``nvidia-smi`` line, one JSON line for the kernels, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -155,7 +161,7 @@ attention the larger of its exponentials at 16 a clock an SM (132 SMs at the
 1.98 GHz that 67 TFLOP/s implies: 4.19e12 /s) and its matrix products on the
 tensor cores with D padded to their depth of 16 (989 TFLOP/s bfloat16),
 ``bound_term`` naming which; phase 13's text lines also give what the same
-products take on the float32 units, which this first design uses.
+products take on the float32 units, which the forward uses.
 ``max_abs_err`` is the largest error of phase 3, 4, 5 or 13. ``library_ms`` is ``F.grid_sample`` on the same inputs (for the backward
 kernels: its backward) and, for flash attention,
 ``F.scaled_dot_product_attention`` (for both backward kernels: its whole
@@ -225,6 +231,10 @@ DIFF_TERMS = {"tfc_diff": ("g_noise_mse", "loss_G", "loss_D"),
 KERNELS = ("blurpool_fwd", "blurpool_bwd", "resample_fwd", "resample_adjoint",
            "resample_gradpos", "gridsample_fwd", "gridsample_bwd", "flashattn_fwd",
            "flashattn_bwd_dq", "flashattn_bwd_dkv")
+# what the counts track: every kernel, and which of the flash attention
+# backward launches took the tensor cores (the bfloat16 ones)
+FLASH_TC = ("flashattn_bwd_dq_tc", "flashattn_bwd_dkv_tc")
+COUNTED = KERNELS + FLASH_TC
 # Launches a unit of each path; a kernel that is not named is launched 0 times.
 # One default fft_glo step: blur-pool forward G 11 + 4 D forwards x 4; backward
 # G 11 + D(fake) 4 in the G phase and 4 + 4 in the D phase (D(real) of the G
@@ -250,7 +260,9 @@ NEMAR_STEP = {"gridsample_fwd": 1, "gridsample_bwd": 1}
 # generator forward and backward (LPIPS has no blur-pool)
 DIFF_FORWARD = {"flashattn_fwd": 7}
 DIFF_STEP = {"flashattn_fwd": 7, "flashattn_bwd_dq": 7, "flashattn_bwd_dkv": 7}
-DIFF_HYBRID_STEP = {**DIFF_STEP, "blurpool_fwd": 11, "blurpool_bwd": 11}
+# a bfloat16 step: its backward launches all on the tensor cores
+DIFF_STEP_BF16 = {**DIFF_STEP, "flashattn_bwd_dq_tc": 7, "flashattn_bwd_dkv_tc": 7}
+DIFF_HYBRID_STEP = {**DIFF_STEP_BF16, "blurpool_fwd": 11, "blurpool_bwd": 11}
 DIFF_SIZE = 128  # the tfc_diff configs' image side
 # the nemar float32 step against a reference: elementwise x max|g|, and L2 (see main)
 NEMAR_TOL, NEMAR_TOL_L2 = 1e-2, 2e-3
@@ -271,19 +283,21 @@ def reset_counts() -> None:
     rkernel.FWD_LAUNCHES = rkernel.ADJOINT_LAUNCHES = rkernel.GRADPOS_LAUNCHES = 0
     gkernel.FWD_LAUNCHES = gkernel.BWD_LAUNCHES = 0
     fkernel.FWD_LAUNCHES = fkernel.DQ_LAUNCHES = fkernel.DKV_LAUNCHES = 0
+    fkernel.DQ_TC_LAUNCHES = fkernel.DKV_TC_LAUNCHES = 0
 
 
 def counts() -> dict[str, int]:
-    return dict(zip(KERNELS, (kernel.LAUNCHES, kernel.BWD_LAUNCHES, rkernel.FWD_LAUNCHES,
+    return dict(zip(COUNTED, (kernel.LAUNCHES, kernel.BWD_LAUNCHES, rkernel.FWD_LAUNCHES,
                               rkernel.ADJOINT_LAUNCHES, rkernel.GRADPOS_LAUNCHES,
                               gkernel.FWD_LAUNCHES, gkernel.BWD_LAUNCHES,
                               fkernel.FWD_LAUNCHES, fkernel.DQ_LAUNCHES,
-                              fkernel.DKV_LAUNCHES)))
+                              fkernel.DKV_LAUNCHES, fkernel.DQ_TC_LAUNCHES,
+                              fkernel.DKV_TC_LAUNCHES)))
 
 
 def scaled(per_unit: dict[str, int], units: int) -> dict[str, int]:
-    """``per_unit`` x ``units`` for every kernel, 0 for the ones not named."""
-    return {k: per_unit.get(k, 0) * units for k in KERNELS}
+    """``per_unit`` x ``units`` for every count, 0 for the ones not named."""
+    return {k: per_unit.get(k, 0) * units for k in COUNTED}
 
 
 def expect_counts(what: str, per_unit: dict[str, int], units: int) -> dict[str, int]:
@@ -1423,7 +1437,12 @@ def phase_flashattn(device, card: str) -> dict[str, dict]:
 
     def run(views, mult: float, what: str, scale: float | None = None, path: bool = False):
         q, k, v, g = views
+        before = counts()
         errs, shares = check_flashattn(q * mult, k, v, g, scale or q.shape[2] ** -0.5, what)
+        torch.cuda.synchronize()
+        tc = [counts()[c] - before[c] for c in FLASH_TC]
+        if tc != [int(q.dtype == torch.bfloat16)] * 2:
+            raise AssertionError(f"{what}: tensor-core backward launches {tc}")
         if mult == 1.0:  # max_abs_err is over unit-variance inputs
             for name, e in zip(names, errs):
                 worst[name] = max(worst[name], e)
@@ -1467,9 +1486,10 @@ def phase_flashattn(device, card: str) -> dict[str, dict]:
         out = flashattn.flash_attention(*ts, 0.35)
         grads = torch.autograd.grad(out, [t for t in ts if t.requires_grad], g)
         torch.cuda.synchronize()
-        launched = {name: counts()[name] - before[name] for name in names}
+        launched = {name: counts()[name] - before[name] for name in names + FLASH_TC}
         want = {"flashattn_fwd": 1, "flashattn_bwd_dq": need[0],
                 "flashattn_bwd_dkv": int(bool(need[1] or need[2]))}
+        want.update(zip(FLASH_TC, (want["flashattn_bwd_dq"], want["flashattn_bwd_dkv"])))
         if launched != want:
             raise AssertionError(f"flashattn needs_input_grad {need}: launched {launched}")
         for got, ref in zip(grads, [f for f, r in zip(full, need) if r]):
@@ -1478,7 +1498,7 @@ def phase_flashattn(device, card: str) -> dict[str, dict]:
                                      "from the full backward's")
     again = _flash_grads(flashattn.flash_attention, q, k, v, g, 0.35)[1:]
     if not all(torch.equal(a, b) for a, b in zip(full, again)):
-        raise AssertionError("flashattn: two identical backward runs differ")
+        raise AssertionError("flashattn: two identical bf16 backward runs differ")
     # what the wrappers refuse
     bad_calls = [(_dense_views(1, 1, 24, 8, torch.float32, gen, 3), ValueError),
                  ([t.half() for t in (q, k, v)], TypeError),
@@ -1492,9 +1512,10 @@ def phase_flashattn(device, card: str) -> dict[str, dict]:
             refused += 1
     if refused != 5:
         raise AssertionError(f"flashattn wrappers refused {refused} of 5 bad calls")
-    print("kernel flashattn: 7 needs_input_grad subsets launch only their kernels and repeat the "
-          "full backward bit for bit; two identical backward runs bit-identical; head_dim 24, "
-          "float16, mismatched shapes and dtypes and 3-D views refused")
+    print("kernel flashattn: every bf16 backward on the tensor cores, no float32 one; 7 "
+          "needs_input_grad subsets launch only their kernels and repeat the full backward bit "
+          "for bit; two identical bf16 backward runs bit-identical; head_dim 24, float16, "
+          "mismatched shapes and dtypes and 3-D views refused")
 
     # times and bounds: the 7 calls of one B=32 U-Net pass at 128², bf16
     results = {name: {"max_abs_err": worst[name], "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
@@ -1806,8 +1827,8 @@ def main(argv=None) -> int:
                         [("kernel path again", contextlib.nullcontext, 1e-3, None),
                          ("plain path", plain_path, 1e-3, None)], size=DIFF_SIZE)
     phase_train_rate(device, args, card, "tfc_diff", (16, 32), size=DIFF_SIZE)
-    for name, per_step in (("tfc_diff_label", DIFF_STEP), ("tfc_diff_hybrid", DIFF_HYBRID_STEP),
-                           ("tfc_diff", DIFF_STEP)):
+    for name, per_step in (("tfc_diff_label", DIFF_STEP_BF16),
+                           ("tfc_diff_hybrid", DIFF_HYBRID_STEP), ("tfc_diff", DIFF_STEP_BF16)):
         by_path["tfc_diff_train"] = phase_train(device, args, name, DIFF_TERMS[name], per_step,
                                                 size=DIFF_SIZE, moving="g_noise_mse")
         torch.cuda.empty_cache()

@@ -19,9 +19,10 @@ atomics in an order that changes from run to run, the grid gradient over the
 channels in another order than autograd). Flash attention: the float32
 forward within 2e-5 x max(1, max|plain|) (exp2f's 2 ulp, sums over up to 16384
 keys in another order), its gradients within 1e-4 x max(1, max|plain|) (sums
-of products of p and dp - di, which cancel), bfloat16 within 2e-2 x max(1,
+of products of p and dp - di, which cancel), bfloat16 within 2e-2 x max(5e-3,
 max|plain|) (the kernel rounds the unnormalised probability, the plain
-version the normalised one).
+version the normalised one; the tensor-core backward rounds P and dS to
+bfloat16 for its products, the plain version's autograd rounds P, dP and dS).
 """
 
 from unittest import mock
@@ -477,6 +478,54 @@ def test_flashattn_backward_repeats_bit_for_bit(cuda):
     first = _flash_grads(flashattn.flash_attention, q, k, v, g, 8 ** -0.5)
     second = _flash_grads(flashattn.flash_attention, q, k, v, g, 8 ** -0.5)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def _tc_counts():
+    return fkernel.DQ_TC_LAUNCHES, fkernel.DKV_TC_LAUNCHES
+
+
+@pytest.mark.parametrize("views", [True, False])
+@pytest.mark.parametrize("s", [1, 7, 255, 1000])
+@pytest.mark.parametrize("d", [8, 16, 32, 64])
+def test_flashattn_bf16_backward_runs_on_the_tensor_cores(cuda, d, s, views):
+    q, k, v, g = _flash_inputs(cuda, 2, 3, d, s, torch.bfloat16, views, seed=d + s)
+    before = _tc_counts()
+    got = _flash_grads(flashattn.flash_attention, q, k, v, g, d ** -0.5)
+    assert _tc_counts() == (before[0] + 1, before[1] + 1)
+    want = _flash_grads(flashattn.flash_attention_plain, q, k, v, g, d ** -0.5)
+    _, tol_g, floor = FLASH_TOL[torch.bfloat16]
+    for a, b, name in zip(got[1:], want[1:], ("dq", "dk", "dv")):
+        _flash_close(a, b, tol_g, f"D={d} S={s} views={views} {name}", floor)
+
+
+@pytest.mark.parametrize("d", [8, 16, 32, 64])
+def test_flashattn_bf16_backward_with_large_scores(cuda, d):
+    q, k, v, g = _flash_inputs(cuda, 2, 4, d, 700, torch.bfloat16, True, seed=d)
+    got = _flash_grads(flashattn.flash_attention, 40.0 * q, k, v, g, 1.0)
+    assert all(bool(torch.isfinite(t).all()) for t in got)
+    want = _flash_grads(flashattn.flash_attention_plain, 40.0 * q, k, v, g, 1.0)
+    _, tol_g, floor = FLASH_TOL[torch.bfloat16]
+    for a, b, name in zip(got[1:], want[1:], ("dq", "dk", "dv")):
+        _flash_close(a, b, tol_g, f"q x 40 D={d} {name}", floor)
+
+
+def test_flashattn_bf16_backward_repeats_bit_for_bit(cuda):
+    q, k, v, g = _flash_inputs(cuda, 8, 8, 8, 4096, torch.bfloat16, True, seed=7)
+    first = _flash_grads(flashattn.flash_attention, q, k, v, g, 8 ** -0.5)
+    second = _flash_grads(flashattn.flash_attention, q, k, v, g, 8 ** -0.5)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flashattn_tensor_core_counts_move_only_for_bf16(cuda, dtype):
+    q, k, v, g = _flash_inputs(cuda, 2, 2, 8, 100, dtype, True)
+    o, lse = fkernel.flashattn_fwd(q, k, v, 0.35)
+    di = (o.float() * g.float()).sum(dim=2).contiguous()
+    before, plain = _tc_counts(), (fkernel.DQ_LAUNCHES, fkernel.DKV_LAUNCHES)
+    fkernel.flashattn_bwd(q, k, v, g, lse, di, 0.35)
+    assert (fkernel.DQ_LAUNCHES, fkernel.DKV_LAUNCHES) == (plain[0] + 1, plain[1] + 1)
+    tc = int(dtype == torch.bfloat16)
+    assert _tc_counts() == (before[0] + tc, before[1] + tc)
 
 
 def test_flashattn_three_dimensional_entry_and_no_grad(cuda):

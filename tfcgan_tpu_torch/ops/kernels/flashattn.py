@@ -2,14 +2,16 @@
 
 ``flashattn_fwd`` computes ``o = softmax(q^T k * scale) v`` per (batch, head)
 and the log-sum-exp of the scores; ``flashattn_bwd`` the gradients to q, k and
-v from the saved log-sum-exp, as two kernels (dq: a thread per query; dk and
-dv: a thread per key), each launched only when a gradient it computes is asked
-for. Every tensor is a ``(N, H, D, S)`` view of any strides, float32 or
-bfloat16: the kernels read and write through the strides, so the wrappers never
-copy. They launch on PyTorch's current stream for CUDA tensors and raise on
-anything the kernels do not take; they never fall back. The plain PyTorch
-version is ``tfcgan_tpu_torch.ops.flashattn.flash_attention_plain``; autograd
-of it is the plain version of the backward.
+v from the saved log-sum-exp, as two kernels (dq, and dk with dv), each
+launched only when a gradient it computes is asked for. The C entries choose
+the backward kernels by type: bfloat16 runs them on the tensor cores (a warp
+per 16 queries or keys, ``mma.sync``), float32 on the float32 units (a thread
+per query or key). Every tensor is a ``(N, H, D, S)`` view of any strides,
+float32 or bfloat16: the kernels read and write through the strides, so the
+wrappers never copy. They launch on PyTorch's current stream for CUDA tensors
+and raise on anything the kernels do not take; they never fall back. The
+plain PyTorch version is ``tfcgan_tpu_torch.ops.flashattn.flash_attention_plain``;
+autograd of it is the plain version of the backward.
 """
 
 from __future__ import annotations
@@ -26,11 +28,14 @@ from tfcgan_tpu_torch.ops.kernels._build import load_library
 FWD_LAUNCHES = 0
 DQ_LAUNCHES = 0
 DKV_LAUNCHES = 0
+# of those backward launches, the bfloat16 ones: the tensor-core kernels
+DQ_TC_LAUNCHES = 0
+DKV_TC_LAUNCHES = 0
 
 HEAD_DIMS = (8, 16, 32, 64)  # the D the kernels are instantiated for
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _INT_LIMIT = 2**31 - 1
-_THREADS = 128  # kThreads in csrc/flashattn.cu
+_ROWS = 64  # the fewest rows a block owns in csrc/flashattn.cu (kTcRows)
 
 _PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # strides, n, heads, s, d, scale, dtype, stream
@@ -60,7 +65,7 @@ def _check(what: str, q: torch.Tensor, others: dict[str, torch.Tensor]) -> None:
         raise ValueError(f"{what}: head_dim {d} is not one of {HEAD_DIMS}")
     if min(n, h, s) < 1:
         raise ValueError(f"{what}: empty shape {tuple(q.shape)}")
-    if n * h * ((s + _THREADS - 1) // _THREADS) > _INT_LIMIT:
+    if n * h * ((s + _ROWS - 1) // _ROWS) > _INT_LIMIT:
         raise ValueError(f"{what}: shape {tuple(q.shape)} exceeds the kernel's launch grid")
     for name, t in others.items():
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
@@ -114,18 +119,20 @@ def flashattn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.T
     """(dq, dk, dv) of ``flashattn_fwd`` for the output gradient ``do`` (any
     strides), its saved ``lse`` and ``di[n, h, i] = sum_d o * do`` (float32);
     None for a gradient not asked for. dq launches one kernel, dk and dv share
-    the other."""
-    global DQ_LAUNCHES, DKV_LAUNCHES
+    the other; in bfloat16 both are the tensor-core kernels."""
+    global DQ_LAUNCHES, DKV_LAUNCHES, DQ_TC_LAUNCHES, DKV_TC_LAUNCHES
     _check("flashattn_bwd", q, {"k": k, "v": v, "do": do})
     _check_stat("flashattn_bwd", "lse", lse, q)
     _check_stat("flashattn_bwd", "di", di, q)
     dq = dk = dv = None
+    tc = int(q.dtype == torch.bfloat16)
     if need_q:
         dq = torch.empty_like(q)
         _launch("tfcgan_flashattn_bwd_dq",
                 (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
                  di.data_ptr(), dq.data_ptr()), (q, k, v, do, dq), q, scale)
         DQ_LAUNCHES += 1
+        DQ_TC_LAUNCHES += tc
     if need_k or need_v:
         dk = torch.empty_like(k) if need_k else None
         dv = torch.empty_like(v) if need_v else None
@@ -133,4 +140,5 @@ def flashattn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.T
                 (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
                  di.data_ptr(), _ptr(dk), _ptr(dv)), (q, k, v, do, dk, dv), q, scale)
         DKV_LAUNCHES += 1
+        DKV_TC_LAUNCHES += tc
     return dq, dk, dv

@@ -3,9 +3,10 @@ non-conditional, no-mask, no-region experiments (fft_glo and its siblings).
 
 G loss = adv_w * relativistic BCE + triplet_w * patch triplet (random
 whole-patch negatives) + temp_w * temperature triplet (ColorJitter
-negatives, x lambda_t) + lpips_w * LPIPS + fft_w * FFT amp/phase L1; D loss =
-the relativistic pair. D forward order as the reference: D(fake), D(real) in
-the G phase; D(real), D(fake.detach()) in the D phase. Spectral norm
+negatives, x lambda_t) + lpips_w * perceptual (LPIPS, or the msrecon
+pyramid for ``perceptual="msrecon"`` and for "auto" without LPIPS weights) +
+fft_w * FFT amp/phase L1; D loss = the relativistic pair. D forward order as
+the reference: D(fake), D(real) in the G phase; D(real), D(fake.detach()) in the D phase. Spectral norm
 advances once per step in the trainer, or, with
 ``extra["spectral_cadence"] = "per_forward"``, before each D forward in the
 "uv" order of torch's parametrization.
@@ -28,6 +29,7 @@ from tfcgan_tpu_torch.ops.color import JITTER_RANGES, color_jitter
 from tfcgan_tpu_torch.ops.fftloss import fft_l1_loss
 from tfcgan_tpu_torch.ops.gan_losses import relativistic_d_loss, relativistic_g_loss
 from tfcgan_tpu_torch.ops.patches import patchify
+from tfcgan_tpu_torch.ops.perceptual import multiscale_recon
 from tfcgan_tpu_torch.ops.temperature import temperature_lut
 from tfcgan_tpu_torch.ops.triplet import triplet_margin_loss
 
@@ -112,13 +114,12 @@ class TFCGANRecipe:
         self.G = GeneratorUNet(channels, channels, dtype=dtype, device=device, generator=generator)
         self.G.train(not self.deterministic_g)
         self.D = PatchDiscriminator(2 * channels, dtype=dtype, device=device, generator=generator)
+        # the perceptual term: LPIPS, or the fixed msrecon pyramid (no module)
+        self.perceptual = resolve_perceptual(lc) if lc.use_lpips else "off"
+        if self.perceptual not in ("lpips", "msrecon", "off"):
+            raise ValueError(f"unknown perceptual mode {self.perceptual!r}")
         self.lpips = None
-        if lc.use_lpips:
-            mode = resolve_perceptual(lc)
-            if mode != "lpips":
-                raise NotImplementedError(
-                    f"perceptual={mode!r} is not ported for the tfcgan recipe (the JAX "
-                    "package uses msrecon in the STN family only)")
+        if self.perceptual == "lpips":
             if resolve_lpips_weights(lc):
                 raise NotImplementedError(
                     f"converted LPIPS weights were found ({resolve_lpips_weights(lc)}); "
@@ -188,6 +189,9 @@ class TFCGANRecipe:
             total = total + lc.temp_weight * metrics["g_temp"]
         if self.lpips is not None:
             metrics["g_lpips"] = self.lpips(fake, b).mean()
+            total = total + lc.lpips_weight * metrics["g_lpips"]
+        elif self.perceptual == "msrecon":
+            metrics["g_lpips"] = multiscale_recon(fake, b)
             total = total + lc.lpips_weight * metrics["g_lpips"]
         if lc.fft_mode != "off":
             metrics["g_fft"] = fft_loss(fake, b, lc)

@@ -38,8 +38,9 @@ KINDS = (
     ("K3-fwd (grid_sample)", ("gridsample_fwd_kernel",)),
     ("K3-bwd (grid_sample)", ("gridsample_bwd_kernel",)),
     ("K4-fwd (flash attention)", ("flashattn_fwd_kernel",)),
-    ("K4-bwd dq (flash attention)", ("flashattn_dq_kernel",)),
-    ("K4-bwd dk/dv (flash attention)", ("flashattn_dkv_kernel",)),
+    # the float32-unit kernels and the tensor-core ones (flashattn_dq_tc_kernel, ...)
+    ("K4-bwd dq (flash attention)", ("flashattn_dq_",)),
+    ("K4-bwd dk/dv (flash attention)", ("flashattn_dkv_",)),
     ("Adam (foreach)", ("multi_tensor", "adam")),
     ("convolutions (cuDNN)", ("cudnn", "conv", "fprop", "dgrad", "wgrad", "xmma", "implicit")),
     ("matrix products (cuBLAS)", ("gemm", "gemv", "nvjet", "cublas", "cutlass")),
