@@ -11,9 +11,8 @@ Phases, one line or more each; any failure raises and exits non-zero:
    and backward), ``csrc/resample.cu`` (1-D affine resampling: forward,
    adjoint, position gradient) and ``csrc/gridsample.cu`` (dense bilinear
    grid_sample, forward and backward) and ``csrc/flashattn.cu`` (flash
-   attention: forward, dq, dk/dv; the backward on the float32 units for
-   float32 and on the tensor cores for bfloat16), all started together; the
-   build seconds.
+   attention: forward, dq, dk/dv; on the float32 units for float32 and on the
+   tensor cores for bfloat16), all started together; the build seconds.
 3. blur-pool vs plain: the forward kernel against ``blur_pool_padded`` and the
    backward kernel against ``torch.autograd.grad`` of it, at the 11 blur shapes
    of the 256² generator at batch 8 (both strides; the first four stride-2
@@ -37,10 +36,11 @@ Phases, one line or more each; any failure raises and exits non-zero:
    ``align_corners=False``, with the identity grid (every sample on an integer
    coordinate), offsets of 0.3 pixel and of 5 pixels; then all three padding
    modes x both ``align_corners`` on (2, 24, 40, C) sampled to (16, 33) for
-   C = 1, 2, 3, 6, 1-3 pixel images, grids 5x off the image, a constant grid
-   (4096 outputs on one spot), the identity grid, and coordinates 1e10, 3e38,
-   +-inf and NaN (finite results, 0 under zeros, no gradient to such a
-   coordinate, no access outside the image). Forward within 1e-5 x max(1,
+   C = 1, 2, 3, 6, 8 and 300 (two channels a backward thread), 1-3 pixel
+   images, grids 5x off the image, a constant grid (4096 outputs on one spot),
+   the identity grid, and coordinates 1e10, 3e38, +-inf and NaN (finite
+   results, 0 under zeros, no gradient to such a coordinate, no access
+   outside the image). Forward within 1e-5 x max(1,
    max|plain|) in float32 (the kernel repeats the plain version's rounded
    operations, so it is mostly exact) and one bf16 ulp in bfloat16; both
    gradients within 1e-4 x max(1, max|plain|): the image gradient is summed
@@ -110,26 +110,30 @@ Phases, one line or more each; any failure raises and exits non-zero:
    scores of several hundred (an unshifted exp would overflow), every subset of
    ``needs_input_grad`` (bit-identical to the full backward, only the kernels
    needed launched), two identical bfloat16 backward runs compared bit for bit,
-   and what the wrappers refuse. Every bfloat16 case's backward must run the
-   tensor-core kernels (their counts move by one each) and no float32 case's.
+   two identical bfloat16 forward runs at the path's shapes compared bit for
+   bit (output and lse), and what the wrappers refuse. Every bfloat16 case
+   must run its forward and backward on the tensor-core kernels (their three
+   counts move by one each) and no float32 case may.
    Float32 forward within 2e-5 x max(1, max|plain|) (exp2f's 2 ulp and sums
    over up to 16384 keys in another order), gradients within 1e-4 x max(1,
    max|plain|) (sums of up to 16384 products of p and dp - di, which cancel);
-   bfloat16 within 2e-2 x max(5e-3, max|plain|) (the kernel rounds the
+   bfloat16 within 2e-2 x max(5e-3, max|plain|) (the forward rounds the
    unnormalised probability, the plain version the normalised one; the
    backward rounds P and dS to bfloat16 for its tensor-core products, the
-   plain version's autograd rounds P, dP and dS). Kernel, plain and
+   plain version's autograd rounds P, dP and dS; the backward is fed the
+   forward kernel's lse). Kernel, plain and
    ``F.scaled_dot_product_attention`` times, forward and backward, at (256, 8,
    4096) and (256, 8, 1024) bfloat16.
 14. tfc_diff serve at full width (the UNet2DModel denoiser, bf16, 128², the
    config's size): ``Inferencer`` on 2 synthetic batches of 8 over the whole
    500-step chain and ``cli gen --config tfc_diff`` over 8 A|B PNG pairs (batch
    4): outputs finite and in [-1, 1], exactly 7 flash attention forward
-   launches a U-Net forward (3500 a chain), no backward launch and none of the
-   other kernels; U-Net forwards/s at batch 8 and 32 and the sampled images/s
-   they give. In float32: one U-Net forward on the kernel path against the
-   plain path (atol 1e-4) and a 20-step chain with the same noise on both (atol
-   1e-3: what the two forwards differ by passes through 19 more of them).
+   launches a U-Net forward (3500 a chain), all 7 on the tensor cores, no
+   backward launch and none of the other kernels; U-Net forwards/s at batch 8
+   and 32 and the sampled images/s they give. In float32: one U-Net forward
+   on the kernel path against the plain path (atol 1e-4) and a 20-step chain
+   with the same noise on both (atol 1e-3: what the two forwards differ by
+   passes through 19 more of them).
 15. tfc_diff train: one float32 ``tfc_diff`` step at batch 2 on the kernel path
    against itself and against the plain path (loss terms rtol 1e-4, every
    gradient within 1e-3 x max|g| + 1e-7); train-step images/s and peak memory
@@ -137,8 +141,8 @@ Phases, one line or more each; any failure raises and exits non-zero:
    through ``Trainer.fit`` for each of ``tfc_diff_label``, ``tfc_diff_hybrid``
    and ``tfc_diff`` (every term finite, ``g_noise_mse`` moving, ``loss_D`` 0:
    the family has no discriminator; per step exactly 7 launches of each flash
-   attention kernel, the 7 dq and 7 dk/dv on the tensor cores, and for
-   ``hybrid`` also the 11 + 11 blur-pool launches of one G forward and
+   attention kernel, all 21 on the tensor cores (none in the float32 step),
+   and for ``hybrid`` also the 11 + 11 blur-pool launches of one G forward and
    backward, read after each step).
 16. the card's ``nvidia-smi`` line, one JSON line for the kernels, and last
    ``{"ok": true, "device": {...}}``.
@@ -147,7 +151,9 @@ In the kernels' JSON, ``launches`` is the count of the kernel's main path, the
 last train path driven that runs it (``main_path``: phase 10's three steps for
 blur-pool and resampling, phase 12's for grid_sample, phase 15's ``tfc_diff``
 steps for flash attention), and the script fails if that is 0;
-``launches_by_path`` gives each of the eight driven paths' counts. For
+``launches_by_path`` gives each of the eight driven paths' counts, and for
+flash attention ``tensor_core_launches`` how many of the main path's launches
+were the bfloat16 tensor-core kernel. For
 blur-pool, ``ms``/``plain_ms``/``bound_ms`` are sums over the 11 bfloat16 blur
 calls of one batch-8 G forward (for the backward: of one G backward); for
 resampling, over the calls of one warp at (32, 256, 256, 3) float32 (forward:
@@ -161,7 +167,7 @@ attention the larger of its exponentials at 16 a clock an SM (132 SMs at the
 1.98 GHz that 67 TFLOP/s implies: 4.19e12 /s) and its matrix products on the
 tensor cores with D padded to their depth of 16 (989 TFLOP/s bfloat16),
 ``bound_term`` naming which; phase 13's text lines also give what the same
-products take on the float32 units, which the forward uses.
+products take on the float32 units, which the float32 kernels use.
 ``max_abs_err`` is the largest error of phase 3, 4, 5 or 13. ``library_ms`` is ``F.grid_sample`` on the same inputs (for the backward
 kernels: its backward) and, for flash attention,
 ``F.scaled_dot_product_attention`` (for both backward kernels: its whole
@@ -232,8 +238,8 @@ KERNELS = ("blurpool_fwd", "blurpool_bwd", "resample_fwd", "resample_adjoint",
            "resample_gradpos", "gridsample_fwd", "gridsample_bwd", "flashattn_fwd",
            "flashattn_bwd_dq", "flashattn_bwd_dkv")
 # what the counts track: every kernel, and which of the flash attention
-# backward launches took the tensor cores (the bfloat16 ones)
-FLASH_TC = ("flashattn_bwd_dq_tc", "flashattn_bwd_dkv_tc")
+# launches took the tensor cores (the bfloat16 ones)
+FLASH_TC = ("flashattn_fwd_tc", "flashattn_bwd_dq_tc", "flashattn_bwd_dkv_tc")
 COUNTED = KERNELS + FLASH_TC
 # Launches a unit of each path; a kernel that is not named is launched 0 times.
 # One default fft_glo step: blur-pool forward G 11 + 4 D forwards x 4; backward
@@ -257,11 +263,12 @@ NEMAR_STEP = {"gridsample_fwd": 1, "gridsample_bwd": 1}
 # of one U-Net forward of the tfc_diff family: attention after 3 resnets at
 # HW/4 tokens and 4 at HW/16. Of one train step: those and, in the backward,
 # one dq and one dk/dv launch each. The hybrid variant's G adds one U-Net
-# generator forward and backward (LPIPS has no blur-pool)
-DIFF_FORWARD = {"flashattn_fwd": 7}
+# generator forward and backward (LPIPS has no blur-pool). A float32 step
+# launches no tensor-core kernel; a bfloat16 forward or step launches all its
+# flash attention kernels on the tensor cores
 DIFF_STEP = {"flashattn_fwd": 7, "flashattn_bwd_dq": 7, "flashattn_bwd_dkv": 7}
-# a bfloat16 step: its backward launches all on the tensor cores
-DIFF_STEP_BF16 = {**DIFF_STEP, "flashattn_bwd_dq_tc": 7, "flashattn_bwd_dkv_tc": 7}
+DIFF_FORWARD = {"flashattn_fwd": 7, "flashattn_fwd_tc": 7}
+DIFF_STEP_BF16 = {**DIFF_STEP, **{f"{k}_tc": n for k, n in DIFF_STEP.items()}}
 DIFF_HYBRID_STEP = {**DIFF_STEP_BF16, "blurpool_fwd": 11, "blurpool_bwd": 11}
 DIFF_SIZE = 128  # the tfc_diff configs' image side
 # the nemar float32 step against a reference: elementwise x max|g|, and L2 (see main)
@@ -283,7 +290,7 @@ def reset_counts() -> None:
     rkernel.FWD_LAUNCHES = rkernel.ADJOINT_LAUNCHES = rkernel.GRADPOS_LAUNCHES = 0
     gkernel.FWD_LAUNCHES = gkernel.BWD_LAUNCHES = 0
     fkernel.FWD_LAUNCHES = fkernel.DQ_LAUNCHES = fkernel.DKV_LAUNCHES = 0
-    fkernel.DQ_TC_LAUNCHES = fkernel.DKV_TC_LAUNCHES = 0
+    fkernel.FWD_TC_LAUNCHES = fkernel.DQ_TC_LAUNCHES = fkernel.DKV_TC_LAUNCHES = 0
 
 
 def counts() -> dict[str, int]:
@@ -291,8 +298,8 @@ def counts() -> dict[str, int]:
                               rkernel.ADJOINT_LAUNCHES, rkernel.GRADPOS_LAUNCHES,
                               gkernel.FWD_LAUNCHES, gkernel.BWD_LAUNCHES,
                               fkernel.FWD_LAUNCHES, fkernel.DQ_LAUNCHES,
-                              fkernel.DKV_LAUNCHES, fkernel.DQ_TC_LAUNCHES,
-                              fkernel.DKV_TC_LAUNCHES)))
+                              fkernel.DKV_LAUNCHES, fkernel.FWD_TC_LAUNCHES,
+                              fkernel.DQ_TC_LAUNCHES, fkernel.DKV_TC_LAUNCHES)))
 
 
 def scaled(per_unit: dict[str, int], units: int) -> dict[str, int]:
@@ -733,7 +740,7 @@ def phase_gridsample(device, card: str) -> dict[str, dict]:
         for align in (False, True):
             for dtype in (torch.float32, torch.bfloat16):
                 tag = f"{padding} align={align} {str(dtype).split('.')[1]}"
-                for c in (1, 2, 3, 6):  # Hg, Wg != H, W
+                for c in (1, 2, 3, 6, 8, 300):  # Hg, Wg != H, W; 300: two channels a thread
                     run(rand((2, 24, 40, c), dtype), uniform((2, 16, 33, 2), 1.2), padding,
                         align, f"(2,24,40,{c})->(16,33) {tag}")
                 for shape in ((2, 1, 1, 3), (2, 2, 3, 2), (1, 3, 1, 1)):  # 1-3 pixel images
@@ -756,10 +763,11 @@ def phase_gridsample(device, card: str) -> dict[str, dict]:
                     flat[7 * i + 3] = v
                 flat[200], flat[201] = float("nan"), float("inf")  # both of one sample
                 run(inp, grid, padding, align, f"non-finite coordinates {tag}")
-                cases += 13
+                cases += 15
     print(f"kernel gridsample: {cases} small cases (3 paddings x 2 align_corners x fp32/bf16: "
-          f"C = 1, 2, 3, 6 at (2,24,40,C)->(16,33), 1-3 pixel images, 5x off the image, constant "
-          f"grids, the identity grid, coordinates 1e10, 3e38, inf, NaN) within tolerance")
+          f"C = 1, 2, 3, 6, 8, 300 at (2,24,40,C)->(16,33), 1-3 pixel images, 5x off the "
+          f"image, constant grids, the identity grid, coordinates 1e10, 3e38, inf, NaN) "
+          "within tolerance")
 
     # times, bounds and the run-to-run difference at the path's shape, B=32
     inp = rand((32, SIZE, SIZE, 6))
@@ -1441,8 +1449,8 @@ def phase_flashattn(device, card: str) -> dict[str, dict]:
         errs, shares = check_flashattn(q * mult, k, v, g, scale or q.shape[2] ** -0.5, what)
         torch.cuda.synchronize()
         tc = [counts()[c] - before[c] for c in FLASH_TC]
-        if tc != [int(q.dtype == torch.bfloat16)] * 2:
-            raise AssertionError(f"{what}: tensor-core backward launches {tc}")
+        if tc != [int(q.dtype == torch.bfloat16)] * len(FLASH_TC):
+            raise AssertionError(f"{what}: tensor-core launches (fwd, dq, dk/dv) {tc}")
         if mult == 1.0:  # max_abs_err is over unit-variance inputs
             for name, e in zip(names, errs):
                 worst[name] = max(worst[name], e)
@@ -1489,7 +1497,7 @@ def phase_flashattn(device, card: str) -> dict[str, dict]:
         launched = {name: counts()[name] - before[name] for name in names + FLASH_TC}
         want = {"flashattn_fwd": 1, "flashattn_bwd_dq": need[0],
                 "flashattn_bwd_dkv": int(bool(need[1] or need[2]))}
-        want.update(zip(FLASH_TC, (want["flashattn_bwd_dq"], want["flashattn_bwd_dkv"])))
+        want.update(zip(FLASH_TC, (1, want["flashattn_bwd_dq"], want["flashattn_bwd_dkv"])))
         if launched != want:
             raise AssertionError(f"flashattn needs_input_grad {need}: launched {launched}")
         for got, ref in zip(grads, [f for f, r in zip(full, need) if r]):
@@ -1499,6 +1507,14 @@ def phase_flashattn(device, card: str) -> dict[str, dict]:
     again = _flash_grads(flashattn.flash_attention, q, k, v, g, 0.35)[1:]
     if not all(torch.equal(a, b) for a, b in zip(full, again)):
         raise AssertionError("flashattn: two identical bf16 backward runs differ")
+    # the bf16 forward at the path's shapes: output and lse bit for bit
+    for s in (4096, 1024):
+        qkv = _projection_views(FLASH_TIMED_BATCH, 8, 8, s, torch.bfloat16, gen, 3)
+        first, second = (fkernel.flashattn_fwd(*qkv, 8 ** -0.5) for _ in range(2))
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(first, second)):
+            raise AssertionError(f"flashattn: two identical bf16 forward runs differ at S={s}")
+    del qkv, first, second
     # what the wrappers refuse
     bad_calls = [(_dense_views(1, 1, 24, 8, torch.float32, gen, 3), ValueError),
                  ([t.half() for t in (q, k, v)], TypeError),
@@ -1512,9 +1528,10 @@ def phase_flashattn(device, card: str) -> dict[str, dict]:
             refused += 1
     if refused != 5:
         raise AssertionError(f"flashattn wrappers refused {refused} of 5 bad calls")
-    print("kernel flashattn: every bf16 backward on the tensor cores, no float32 one; 7 "
-          "needs_input_grad subsets launch only their kernels and repeat the full backward bit "
-          "for bit; two identical bf16 backward runs bit-identical; head_dim 24, float16, "
+    print("kernel flashattn: every bf16 forward and backward on the tensor cores, no float32 "
+          "one; 7 needs_input_grad subsets launch only their kernels and repeat the full "
+          "backward bit for bit; two identical bf16 backward runs, and two bf16 forward runs at "
+          f"({FLASH_TIMED_BATCH}x8, 8, 4096) and 1024, bit-identical; head_dim 24, float16, "
           "mismatched shapes and dtypes and 3-D views refused")
 
     # times and bounds: the 7 calls of one B=32 U-Net pass at 128², bf16
@@ -1860,7 +1877,9 @@ def main(argv=None) -> int:
         {"name": k, "route": "cuda", "source": sources[k.split("_")[0]],
          "replaces": replaces[k], "launches": by_path[main_path[k]][k],
          "main_path": main_path[k],
-         "launches_by_path": {path: c[k] for path, c in by_path.items()}, **results[k]}
+         "launches_by_path": {path: c[k] for path, c in by_path.items()},
+         **({"tensor_core_launches": by_path[main_path[k]][f"{k}_tc"]}
+            if f"{k}_tc" in COUNTED else {}), **results[k]}
         for k in KERNELS]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -20,9 +20,11 @@ channels in another order than autograd). Flash attention: the float32
 forward within 2e-5 x max(1, max|plain|) (exp2f's 2 ulp, sums over up to 16384
 keys in another order), its gradients within 1e-4 x max(1, max|plain|) (sums
 of products of p and dp - di, which cancel), bfloat16 within 2e-2 x max(5e-3,
-max|plain|) (the kernel rounds the unnormalised probability, the plain
-version the normalised one; the tensor-core backward rounds P and dS to
-bfloat16 for its products, the plain version's autograd rounds P, dP and dS).
+max|plain|) (the tensor-core forward rounds the unnormalised probability, the
+plain version the normalised one; the tensor-core backward, fed the forward
+kernel's lse, rounds P and dS to bfloat16 for its products, the plain
+version's autograd rounds P, dP and dS); the forward's lse within 2e-5 x
+max(1, max|lse|) of the float32 log-sum-exp.
 """
 
 from unittest import mock
@@ -249,7 +251,7 @@ def _k3_case(case, dtype, align, g):
         pixels = {"path-identity": 0.0, "path-0.3px": 0.3, "path-5px": 5.0}[case]
         base = _identity_grid(8, 256, 256, dev, align)
         return rand((8, 256, 256, 6)), base + uniform(base.shape, pixels * 2 / 256)
-    if case in ("c1", "c2", "c3", "c6"):  # Hg, Wg != H, W
+    if case in ("c1", "c2", "c3", "c6", "c8", "c300"):  # Hg, Wg != H, W; 300: 2 channels a thread
         return rand((2, 24, 40, int(case[1:]))), uniform((2, 16, 33, 2), 1.2)
     if case == "off-image":
         return rand((2, 24, 40, 3)), uniform((2, 16, 33, 2), 6.0)
@@ -266,7 +268,7 @@ def _k3_case(case, dtype, align, g):
 @pytest.mark.parametrize("align", [False, True])
 @pytest.mark.parametrize("padding", PADDINGS)
 @pytest.mark.parametrize("case", ["path-identity", "path-0.3px", "path-5px", "c1", "c2", "c3", "c6",
-                                  "1px", "2x3px", "3x1px", "off-image", "constant",
+                                  "c8", "c300", "1px", "2x3px", "3x1px", "off-image", "constant",
                                   "identity-16"])
 def test_gridsample_kernels_match_plain(cuda, case, padding, align, dtype):
     g = torch.Generator(device=cuda).manual_seed(4)
@@ -320,6 +322,31 @@ def test_gridsample_kernels_take_coordinates_no_int_holds(cuda, padding, align):
     _close(out * keep, want.detach() * keep, 1e-5)
     _close(d_inp, wi, 1e-4)
     _close(d_grid * keep, wg * keep, 1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["path-0.3px", "c1", "c3", "c8", "c300", "constant", "identity-16",
+                                  "non-finite"])
+def test_gridsample_backward_repeats(cuda, case, dtype):
+    """Two identical backward runs: the grid gradient (one writer, its channel
+    shares summed in one order) bit for bit, the image gradient (atomics in
+    an order that changes) within 1e-4 x max(1, max|g|); both finite."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    if case == "non-finite":
+        inp = torch.randn((2, 24, 40, 3), device=cuda, generator=g).to(dtype)
+        grid = (torch.rand((2, 16, 33, 2), device=cuda, generator=g) * 2 - 1) * 1.2
+        flat = grid.view(-1)
+        for i, v in enumerate((1e10, -1e10, float("inf"), float("-inf"), float("nan"), 3e38)):
+            flat[7 * i + 3] = v
+    else:
+        inp, grid = _k3_case(case, dtype, False, g)
+    ct = torch.randn((*grid.shape[:3], inp.shape[3]), device=cuda, generator=g).to(dtype)
+    for padding in PADDINGS:
+        first, second = (gkernel.gridsample_bwd(ct, inp, grid, padding) for _ in range(2))
+        torch.cuda.synchronize()
+        assert all(bool(torch.isfinite(t).all()) for t in (*first, *second))
+        assert torch.equal(first[1], second[1]), padding
+        _close(first[0], second[0], 1e-4)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -481,7 +508,7 @@ def test_flashattn_backward_repeats_bit_for_bit(cuda):
 
 
 def _tc_counts():
-    return fkernel.DQ_TC_LAUNCHES, fkernel.DKV_TC_LAUNCHES
+    return fkernel.FWD_TC_LAUNCHES, fkernel.DQ_TC_LAUNCHES, fkernel.DKV_TC_LAUNCHES
 
 
 @pytest.mark.parametrize("views", [True, False])
@@ -491,7 +518,7 @@ def test_flashattn_bf16_backward_runs_on_the_tensor_cores(cuda, d, s, views):
     q, k, v, g = _flash_inputs(cuda, 2, 3, d, s, torch.bfloat16, views, seed=d + s)
     before = _tc_counts()
     got = _flash_grads(flashattn.flash_attention, q, k, v, g, d ** -0.5)
-    assert _tc_counts() == (before[0] + 1, before[1] + 1)
+    assert _tc_counts() == tuple(b + 1 for b in before)  # forward, dq, dk/dv
     want = _flash_grads(flashattn.flash_attention_plain, q, k, v, g, d ** -0.5)
     _, tol_g, floor = FLASH_TOL[torch.bfloat16]
     for a, b, name in zip(got[1:], want[1:], ("dq", "dk", "dv")):
@@ -519,13 +546,51 @@ def test_flashattn_bf16_backward_repeats_bit_for_bit(cuda):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flashattn_tensor_core_counts_move_only_for_bf16(cuda, dtype):
     q, k, v, g = _flash_inputs(cuda, 2, 2, 8, 100, dtype, True)
+    before, plain = _tc_counts(), (fkernel.FWD_LAUNCHES, fkernel.DQ_LAUNCHES,
+                                   fkernel.DKV_LAUNCHES)
     o, lse = fkernel.flashattn_fwd(q, k, v, 0.35)
     di = (o.float() * g.float()).sum(dim=2).contiguous()
-    before, plain = _tc_counts(), (fkernel.DQ_LAUNCHES, fkernel.DKV_LAUNCHES)
     fkernel.flashattn_bwd(q, k, v, g, lse, di, 0.35)
-    assert (fkernel.DQ_LAUNCHES, fkernel.DKV_LAUNCHES) == (plain[0] + 1, plain[1] + 1)
+    assert (fkernel.FWD_LAUNCHES, fkernel.DQ_LAUNCHES, fkernel.DKV_LAUNCHES) == tuple(
+        b + 1 for b in plain)
     tc = int(dtype == torch.bfloat16)
-    assert _tc_counts() == (before[0] + tc, before[1] + tc)
+    assert _tc_counts() == tuple(b + tc for b in before)
+
+
+@pytest.mark.parametrize("views", [True, False])
+@pytest.mark.parametrize("s", [1, 7, 255, 1000, 4096])
+@pytest.mark.parametrize("d", [8, 16, 32, 64])
+def test_flashattn_bf16_forward_runs_on_the_tensor_cores(cuda, d, s, views):
+    """The bf16 forward kernel alone: its output against the plain version,
+    its lse against the float32 log-sum-exp of the same bf16 scores (2e-5 x
+    max(1, max|lse|), the float32 forward's window), one tensor-core launch."""
+    q, k, v, _ = _flash_inputs(cuda, 2, 3, d, s, torch.bfloat16, views, seed=d * s)
+    before = _tc_counts()
+    o, lse = fkernel.flashattn_fwd(q, k, v, d ** -0.5)
+    assert _tc_counts() == (before[0] + 1, *before[1:])
+    assert o.stride() == q.stride() and lse.dtype == torch.float32
+    tol_f, _, floor = FLASH_TOL[torch.bfloat16]
+    _flash_close(o, flashattn.flash_attention_plain(q, k, v, d ** -0.5), tol_f,
+                 f"D={d} S={s} views={views} o", floor)
+    scores = torch.matmul(q.float().transpose(-1, -2), k.float()) * d ** -0.5
+    _flash_close(lse, torch.logsumexp(scores, dim=-1), 2e-5, f"D={d} S={s} lse")
+
+
+@pytest.mark.parametrize("d", [8, 16, 32, 64])
+def test_flashattn_bf16_forward_with_large_scores_and_a_negative_scale(cuda, d):
+    q, k, v, _ = _flash_inputs(cuda, 2, 4, d, 700, torch.bfloat16, True, seed=d + 1)
+    tol_f, _, floor = FLASH_TOL[torch.bfloat16]
+    for qs, scale in ((40.0 * q, 1.0), (q, -0.3)):
+        got = fkernel.flashattn_fwd(qs, k, v, scale)[0]
+        assert bool(torch.isfinite(got).all())
+        _flash_close(got, flashattn.flash_attention_plain(qs, k, v, scale), tol_f,
+                     f"D={d} scale {scale}", floor)
+
+
+def test_flashattn_bf16_forward_repeats_bit_for_bit(cuda):
+    q, k, v, _ = _flash_inputs(cuda, 8, 8, 8, 4096, torch.bfloat16, True, seed=9)
+    first, second = (fkernel.flashattn_fwd(q, k, v, 8 ** -0.5) for _ in range(2))
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
 
 
 def test_flashattn_three_dimensional_entry_and_no_grad(cuda):

@@ -190,7 +190,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         kernels.flashattn_bwd(x, x, x, x, stat, stat, 1.0)
     assert kernels.FWD_LAUNCHES == kernels.DQ_LAUNCHES == kernels.DKV_LAUNCHES == 0
-    assert kernels.DQ_TC_LAUNCHES == kernels.DKV_TC_LAUNCHES == 0
+    assert kernels.FWD_TC_LAUNCHES == kernels.DQ_TC_LAUNCHES == kernels.DKV_TC_LAUNCHES == 0
     assert kernels.HEAD_DIMS == (8, 16, 32, 64)
 
 

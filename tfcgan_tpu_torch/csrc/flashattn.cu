@@ -21,29 +21,47 @@
 // sequential grid). Neither design is kept: blocks run in no order here, and a
 // thread's registers are the fast memory.
 //
-// flashattn_fwd_kernel: a thread owns one query (two at D = 8 and 16), with q
-// (pre-multiplied by scale * log2 e), the running maximum, the running sum and
-// the D-wide accumulator in registers; a block of 128 threads walks the keys in
-// tiles of 64, K and V staged through shared memory as float32 once per block
-// and read by every thread at the same address (a broadcast). Online softmax
-// over chunks of 16 keys: the 16 scores are held in registers, one rescale of
-// the accumulator per chunk, then 2^(score - running maximum) by ex2.approx (see
-// exp2_approx; never the fast-math exp, and the wrappers build without
-// -use_fast_math).
-// The ragged tail of S is masked to -inf. For bfloat16 the unnormalised
-// probability 2^(s - m) is rounded to bfloat16 before it multiplies v, while
-// the running sum keeps the unrounded value; the TPU kernel and the plain
-// version normalise first and round p / l. The two roundings differ by one
-// bfloat16 ulp of a term (2^-8 relative) and agree in float32.
-//
-// The backward takes one of two designs, chosen by the tensors' type in the C
+// Every entry takes one of two designs, chosen by the tensors' type in the C
 // entries (an explicit dispatch: a type has one kernel, never a fallback):
+// float32 on the float32 units, bfloat16 on the tensor cores. The tensor cores
+// would need TF32 for float32, whose 10-bit mantissa misses the float32 window
+// (2e-5 of max for the forward, 1e-4 for the gradients).
+//
+// float32, flashattn_fwd_kernel: a thread owns one query (two at D = 8 and 16),
+// with q (pre-multiplied by scale * log2 e), the running maximum, the running
+// sum and the D-wide accumulator in registers; a block of 128 threads walks the
+// keys in tiles of 64, K and V staged through shared memory as float32 once per
+// block and read by every thread at the same address (a broadcast). Online
+// softmax over chunks of 16 keys: the 16 scores are held in registers, one
+// rescale of the accumulator per chunk, then 2^(score - running maximum) by
+// ex2.approx (see exp2_approx; never the fast-math exp, and the wrappers build
+// without -use_fast_math). The ragged tail of S is masked to -inf.
+//
+// bfloat16, flashattn_fwd_tc_kernel: the block and tile shape of the
+// tensor-core backward below. A block of 4 warps owns 64 queries, 16 a warp,
+// whose q fragments (bfloat16, unscaled: pre-scaling in bfloat16 would add a
+// rounding) it loads once; it walks K/V tiles of 64 keys, double-buffered in
+// shared memory. S = Q K^T on the tensor cores into float32 accumulators; the
+// online softmax works in those registers: the row maximum over the tile is
+// taken across the quad of threads that holds the row (two shuffles), O and the
+// running sum l are rescaled once a tile, and p = 2^(fma(s, scale * log2 e,
+// -m)) (one rounding, then the exponential). l sums the unrounded p, each
+// thread over its own columns, the quad's shares added once at the end. P is
+// rounded to bfloat16 and packed from the C fragments straight into the A
+// operand of O += P V (V through ldmatrix.trans). Keys at or past S are
+// masked in the last tile only. O is written once through the output's
+// strides, times 1 / l; lse = (m + log2 l) ln 2 once per query.
+//
+// Both forwards round the unnormalised probability 2^(s - m) to the input's
+// type before it multiplies v (a no-op in float32), while the running sum
+// keeps the unrounded value; the TPU kernel and the plain version normalise
+// first and round p / l. The two roundings differ by one bfloat16 ulp of a
+// term (2^-8 relative) and agree in float32.
 //
 // float32, flashattn_dq_kernel and flashattn_dkv_kernel: a thread per query (dq)
 // or per key (dk/dv), one or two rows a thread, loops over tiles of the other
 // side staged through shared memory as float32, recomputes p from lse and
-// accumulates in registers on the float32 units. The tensor cores would need
-// TF32, whose 10-bit mantissa misses the float32 window (2e-5 / 1e-4 x max).
+// accumulates in registers on the float32 units.
 //
 // bfloat16, flashattn_dq_tc_kernel and flashattn_dkv_tc_kernel: the products on
 // the tensor cores, mma.sync m16n8k8 (D = 8) and m16n8k16 with bfloat16 operands
@@ -72,7 +90,7 @@
 // last tile only; rows at or beyond S are neither read past the end of lse/di
 // nor written.
 //
-// Both designs: one writer per element and a fixed order of additions, no
+// Every kernel: one writer per element and a fixed order of additions, no
 // atomics, two runs repeat bit for bit. Either of dk, dv is skipped (with its
 // products) when its pointer is null.
 //
@@ -80,19 +98,22 @@
 // bfloat16 the forward moves 71 MB but takes 4.3e9 exponentials and 1.4e11
 // multiply-add operations (2 * 2 * D a pair); the backward recomputes p in each
 // of its two kernels and does 2 * 3 * D and 2 * 4 * D operations a pair. The
-// forward and the float32 backward run them on the float32 units: about 16
-// multiply-adds and 10 other operations a pair in the forward at D = 8, and the
-// rate at which an SM starts operations is what it waits for. With one row a
-// thread the broadcast reads from shared memory (4 of 16 bytes a pair, 4 + 2 in
-// dk/dv) cost as much again, which is why a thread owns two rows where the
-// registers allow. D = 64 keeps up to 4 * 64 floats a thread and spills. On the
-// tensor cores the products cost a few instructions a warp per 256 pairs, and
-// what is left a pair is one exponential (16 a clock an SM: the bound) and
-// about four float32 operations.
+// float32 kernels run them on the float32 units: about 16 multiply-adds and 10
+// other operations a pair in the forward at D = 8, and the rate at which an SM
+// starts operations is what it waits for. With one row a thread the broadcast
+// reads from shared memory (4 of 16 bytes a pair, 4 + 2 in dk/dv) cost as much
+// again, which is why a thread owns two rows where the registers allow. D = 64
+// keeps up to 4 * 64 floats a thread and spills. On the tensor cores the
+// products cost a few instructions a warp per 256 pairs, and what is left a
+// pair is one exponential (16 a clock an SM: the bound) and two to four float32
+// operations (the forward: the maximum, the fused exponent, the sum, half a
+// pack to bfloat16).
 //
-// Left for later work: the forward on the tensor cores, a fused backward (it
-// would reduce dq across key blocks: float32 atomics, which break the
-// bit-identical repeats, or a partial-dq workspace of 2 GB at S = 4096), D = 128.
+// Left for later work: a fused backward (it would reduce dq across key blocks:
+// float32 atomics, which break the bit-identical repeats, or a partial-dq
+// workspace of 2 GB at S = 4096), D = 128 (one more instantiation of the
+// tensor-core kernels, whose accumulators D is a template parameter of; the
+// float32 dk/dv kernel would spill).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -113,13 +134,6 @@ struct Strides {
   int64_t n, h, d, s;
 };
 
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) { return __bfloat162float(*p); }
-__device__ __forceinline__ void store_f32(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-
 // 2^x by the special-function unit's own operation, the one exp2f is built
 // around: maximum relative error 2^-22 over the whole range (and the scale is
 // folded into the argument, so no product is rounded before it, which is what
@@ -132,23 +146,11 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
-// x rounded to T and back: what a product with a T-typed probability sees
-template <typename T>
-__device__ __forceinline__ float round_to(float x);
-template <>
-__device__ __forceinline__ float round_to<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
 // Rows [row0, row0 + kTile) of one head's (D, S) view into dst[kTile][D] as
 // float32, rows at or beyond s_len as zeros. Neighbouring threads read
 // neighbouring addresses along whichever axis is dense.
-template <typename T, int D>
-__device__ __forceinline__ void stage_tile(float* dst, const T* base, int64_t sd, int64_t ss,
+template <int D>
+__device__ __forceinline__ void stage_tile(float* dst, const float* base, int64_t sd, int64_t ss,
                                            int row0, int s_len) {
   for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
     int r, d;
@@ -160,7 +162,7 @@ __device__ __forceinline__ void stage_tile(float* dst, const T* base, int64_t sd
       r = i % kTile;
     }
     const int row = row0 + r;
-    dst[r * D + d] = row < s_len ? load_f32(base + row * ss + d * sd) : 0.f;
+    dst[r * D + d] = row < s_len ? base[row * ss + d * sd] : 0.f;
   }
 }
 
@@ -198,29 +200,29 @@ __device__ __forceinline__ void axpy(float (&acc)[D], float w, const float (&row
 // staged row read from shared memory feeds R rows' arithmetic: the broadcast
 // reads, not the arithmetic, bound the one-row form. Row r of thread t in tile
 // `tile` is (tile * R + r) * kThreads + t.
-template <typename T, int D, int R>
+template <int D, int R>
 __global__ void __launch_bounds__(kThreads)
-flashattn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     T* __restrict__ o, float* __restrict__ lse, Strides sq, Strides sk,
-                     Strides sv, Strides so, int heads, int s_len, int tiles,
-                     float scale_log2) {
+flashattn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     float* __restrict__ lse, Strides sq, Strides sk, Strides sv, Strides so,
+                     int heads, int s_len, int tiles, float scale_log2) {
   __shared__ __align__(16) float ks[kTile * D];
   __shared__ __align__(16) float vs[kTile * D];
   const int bh = blockIdx.x / tiles;
   const int n = bh / heads, h = bh % heads;
   const int q0 = (blockIdx.x % tiles) * R * kThreads + threadIdx.x;
-  const T* qb = q + n * sq.n + h * sq.h;
-  const T* kb = k + n * sk.n + h * sk.h;
-  const T* vb = v + n * sv.n + h * sv.h;
+  const float* qb = q + n * sq.n + h * sq.h;
+  const float* kb = k + n * sk.n + h * sk.h;
+  const float* vb = v + n * sv.n + h * sv.h;
   float qr[R][D], acc[R][D], m[R], l[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     // a row past the end keeps the block's loads and barriers company on row 0
     const int qi = q0 + r * kThreads;
-    const T* qp = qb + (qi < s_len ? qi : 0) * sq.s;
+    const float* qp = qb + (qi < s_len ? qi : 0) * sq.s;
 #pragma unroll
     for (int d = 0; d < D; ++d) {
-      qr[r][d] = load_f32(qp + d * sq.d) * scale_log2;
+      qr[r][d] = qp[d * sq.d] * scale_log2;
       acc[r][d] = 0.f;
     }
     m[r] = -INFINITY;  // in the base-2 domain: scores are s * log2 e
@@ -228,8 +230,8 @@ flashattn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   }
   for (int t0 = 0; t0 < s_len; t0 += kTile) {
     __syncthreads();  // the previous tile is consumed
-    stage_tile<T, D>(ks, kb, sk.d, sk.s, t0, s_len);
-    stage_tile<T, D>(vs, vb, sv.d, sv.s, t0, s_len);
+    stage_tile<D>(ks, kb, sk.d, sk.s, t0, s_len);
+    stage_tile<D>(vs, vb, sv.d, sv.s, t0, s_len);
     __syncthreads();
     const int valid = min(kTile, s_len - t0);
 #pragma unroll 1
@@ -265,7 +267,7 @@ flashattn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
         for (int r = 0; r < R; ++r) {
           const float p = exp2_approx(sc[r][j] - m[r]);
           l[r] += p;
-          axpy<D>(acc[r], round_to<T>(p), vv);
+          axpy<D>(acc[r], p, vv);
         }
       }
     }
@@ -275,39 +277,39 @@ flashattn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     const int qi = q0 + r * kThreads;
     if (qi < s_len) {
       const float inv = 1.f / l[r];
-      T* op = o + n * so.n + h * so.h + qi * so.s;
+      float* op = o + n * so.n + h * so.h + qi * so.s;
 #pragma unroll
-      for (int d = 0; d < D; ++d) store_f32(op + d * so.d, acc[r][d] * inv);
+      for (int d = 0; d < D; ++d) op[d * so.d] = acc[r][d] * inv;
       lse[static_cast<int64_t>(bh) * s_len + qi] = (m[r] + log2f(l[r])) * kLn2;
     }
   }
 }
 
-template <typename T, int D, int R>
+template <int D, int R>
 __global__ void __launch_bounds__(kThreads)
-flashattn_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const T* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ di, T* __restrict__ dq, Strides sq, Strides sk,
-                    Strides sv, Strides sdo, Strides sdq, int heads, int s_len, int tiles,
-                    float scale, float scale_log2) {
+flashattn_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ di,
+                    float* __restrict__ dq, Strides sq, Strides sk, Strides sv, Strides sdo,
+                    Strides sdq, int heads, int s_len, int tiles, float scale, float scale_log2) {
   __shared__ __align__(16) float ks[kTile * D];
   __shared__ __align__(16) float vs[kTile * D];
   const int bh = blockIdx.x / tiles;
   const int n = bh / heads, h = bh % heads;
   const int q0 = (blockIdx.x % tiles) * R * kThreads + threadIdx.x;
-  const T* kb = k + n * sk.n + h * sk.h;
-  const T* vb = v + n * sv.n + h * sv.h;
+  const float* kb = k + n * sk.n + h * sk.h;
+  const float* vb = v + n * sv.n + h * sv.h;
   float qr[R][D], dor[R][D], acc[R][D], lse2[R], delta[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int qi = q0 + r * kThreads;
     const int row = qi < s_len ? qi : 0;
-    const T* qp = q + n * sq.n + h * sq.h + row * sq.s;
-    const T* dop = dout + n * sdo.n + h * sdo.h + row * sdo.s;
+    const float* qp = q + n * sq.n + h * sq.h + row * sq.s;
+    const float* dop = dout + n * sdo.n + h * sdo.h + row * sdo.s;
 #pragma unroll
     for (int d = 0; d < D; ++d) {
-      qr[r][d] = load_f32(qp + d * sq.d) * scale_log2;
-      dor[r][d] = load_f32(dop + d * sdo.d);
+      qr[r][d] = qp[d * sq.d] * scale_log2;
+      dor[r][d] = dop[d * sdo.d];
       acc[r][d] = 0.f;
     }
     const int64_t stat = static_cast<int64_t>(bh) * s_len + row;
@@ -316,8 +318,8 @@ flashattn_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   }
   for (int t0 = 0; t0 < s_len; t0 += kTile) {
     __syncthreads();
-    stage_tile<T, D>(ks, kb, sk.d, sk.s, t0, s_len);
-    stage_tile<T, D>(vs, vb, sv.d, sv.s, t0, s_len);
+    stage_tile<D>(ks, kb, sk.d, sk.s, t0, s_len);
+    stage_tile<D>(vs, vb, sv.d, sv.s, t0, s_len);
     __syncthreads();
     const int valid = min(kTile, s_len - t0);
 #pragma unroll 4
@@ -336,18 +338,19 @@ flashattn_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   for (int r = 0; r < R; ++r) {
     const int qi = q0 + r * kThreads;
     if (qi < s_len) {
-      T* dqp = dq + n * sdq.n + h * sdq.h + qi * sdq.s;
+      float* dqp = dq + n * sdq.n + h * sdq.h + qi * sdq.s;
 #pragma unroll
-      for (int d = 0; d < D; ++d) store_f32(dqp + d * sdq.d, acc[r][d] * scale);
+      for (int d = 0; d < D; ++d) dqp[d * sdq.d] = acc[r][d] * scale;
     }
   }
 }
 
-template <typename T, int D, int R>
+template <int D, int R>
 __global__ void __launch_bounds__(kThreads)
-flashattn_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     const T* __restrict__ dout, const float* __restrict__ lse,
-                     const float* __restrict__ di, T* __restrict__ dk, T* __restrict__ dv,
+flashattn_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ di,
+                     float* __restrict__ dk, float* __restrict__ dv,
                      Strides sq, Strides sk, Strides sv, Strides sdo, Strides sdk, Strides sdv,
                      int heads, int s_len, int tiles, float scale, float scale_log2) {
   __shared__ __align__(16) float qs[kTile * D];
@@ -356,8 +359,8 @@ flashattn_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   const int bh = blockIdx.x / tiles;
   const int n = bh / heads, h = bh % heads;
   const int k0 = (blockIdx.x % tiles) * R * kThreads + threadIdx.x;
-  const T* qb = q + n * sq.n + h * sq.h;
-  const T* dob = dout + n * sdo.n + h * sdo.h;
+  const float* qb = q + n * sq.n + h * sq.h;
+  const float* dob = dout + n * sdo.n + h * sdo.h;
   const float* lse_b = lse + static_cast<int64_t>(bh) * s_len;
   const float* di_b = di + static_cast<int64_t>(bh) * s_len;
   const bool want_dk = dk != nullptr, want_dv = dv != nullptr;
@@ -366,20 +369,20 @@ flashattn_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   for (int r = 0; r < R; ++r) {
     const int kj = k0 + r * kThreads;
     const int row = kj < s_len ? kj : 0;
-    const T* kp = k + n * sk.n + h * sk.h + row * sk.s;
-    const T* vp = v + n * sv.n + h * sv.h + row * sv.s;
+    const float* kp = k + n * sk.n + h * sk.h + row * sk.s;
+    const float* vp = v + n * sv.n + h * sv.h + row * sv.s;
 #pragma unroll
     for (int d = 0; d < D; ++d) {
-      kr[r][d] = load_f32(kp + d * sk.d) * scale_log2;
-      vr[r][d] = load_f32(vp + d * sv.d);
+      kr[r][d] = kp[d * sk.d] * scale_log2;
+      vr[r][d] = vp[d * sv.d];
       acc_k[r][d] = 0.f;
       acc_v[r][d] = 0.f;
     }
   }
   for (int t0 = 0; t0 < s_len; t0 += kTile) {
     __syncthreads();
-    stage_tile<T, D>(qs, qb, sq.d, sq.s, t0, s_len);
-    stage_tile<T, D>(dos, dob, sdo.d, sdo.s, t0, s_len);
+    stage_tile<D>(qs, qb, sq.d, sq.s, t0, s_len);
+    stage_tile<D>(dos, dob, sdo.d, sdo.s, t0, s_len);
     if (threadIdx.x < kTile) {
       const int i = t0 + threadIdx.x;
       stats[threadIdx.x] = i < s_len ? make_float2(lse_b[i] * kLog2e, di_b[i])
@@ -396,7 +399,7 @@ flashattn_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         const float p = exp2_approx(dot<D>(kr[r], qq) - st.x);
-        if (want_dv) axpy<D>(acc_v[r], round_to<T>(p), dd);
+        if (want_dv) axpy<D>(acc_v[r], p, dd);
         if (want_dk) axpy<D>(acc_k[r], p * (dot<D>(vr[r], dd) - st.y), qq);
       }
     }
@@ -406,14 +409,14 @@ flashattn_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     const int kj = k0 + r * kThreads;
     if (kj < s_len) {
       if (want_dk) {
-        T* dkp = dk + n * sdk.n + h * sdk.h + kj * sdk.s;
+        float* dkp = dk + n * sdk.n + h * sdk.h + kj * sdk.s;
 #pragma unroll
-        for (int d = 0; d < D; ++d) store_f32(dkp + d * sdk.d, acc_k[r][d] * scale);
+        for (int d = 0; d < D; ++d) dkp[d * sdk.d] = acc_k[r][d] * scale;
       }
       if (want_dv) {
-        T* dvp = dv + n * sdv.n + h * sdv.h + kj * sdv.s;
+        float* dvp = dv + n * sdv.n + h * sdv.h + kj * sdv.s;
 #pragma unroll
-        for (int d = 0; d < D; ++d) store_f32(dvp + d * sdv.d, acc_v[r][d]);
+        for (int d = 0; d < D; ++d) dvp[d * sdv.d] = acc_v[r][d];
       }
     }
   }
@@ -821,6 +824,147 @@ flashattn_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// One staged tile of keys for one warp's 16 queries: S = Q K^T, the online
+// softmax in the accumulator registers (one rescale of O and l a tile), then
+// O += P V. m is the running maximum of the scaled scores in the base-2 domain,
+// l this thread's share of the running sum (its columns only; the quad's
+// shares are added once, at the end). kMask: the tile holds only `valid` live
+// keys (the last one).
+template <int D, bool kMask>
+__device__ __forceinline__ void fwd_tile(float (&acc)[D / 8][4], float (&m)[2], float (&l)[2],
+                                         const uint32_t (&qa)[D / 4], const bf16* ks,
+                                         const bf16* vs, int valid, float scale_log2) {
+  constexpr int C = kTcTile / 16;
+  const int lane = threadIdx.x % 32, t = lane % 4;
+  // element e of s[c][h]: query row g + 8 (e / 2), key 16c + 8h + 2t + e % 2
+  float s[C][2][4];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) s[c][h][0] = s[c][h][1] = s[c][h][2] = s[c][h][3] = 0.f;
+    mma_rows<D>(s[c], qa, ks, 16 * c, lane);
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (kMask && 16 * c + 8 * h + 2 * t + e % 2 >= valid) continue;
+        mx[e / 2] = fmaxf(mx[e / 2], s[c][h][e]);
+      }
+    }
+  }
+  float nm[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    // the row's maximum over the quad that holds it
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    // key 0 of the tile is a live one, so m_new is finite and m - m_new is -inf at most
+    const float m_new = fmaxf(m[i], mx[i] * scale_log2);
+    const float corr = exp2_approx(m[i] - m_new);
+    l[i] *= corr;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      acc[j][2 * i] *= corr;
+      acc[j][2 * i + 1] *= corr;
+    }
+    m[i] = m_new;
+    nm[i] = -m_new;
+  }
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    uint32_t a[4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        p[e] = exp2_approx(fmaf(s[c][h][e], scale_log2, nm[e / 2]));
+        if (kMask && 16 * c + 8 * h + 2 * t + e % 2 >= valid) p[e] = 0.f;
+        l[e / 2] += p[e];
+      }
+      a[2 * h] = pack_bf16(p[0], p[1]);
+      a[2 * h + 1] = pack_bf16(p[2], p[3]);
+    }
+    mma_over_rows<D>(acc, a, vs, 16 * c, lane);
+  }
+}
+
+// At D = 8 (the path's) the forward asks for 8 blocks an SM, at most 64
+// registers a thread: the 32 scores of a tile held across the softmax need
+// more, and the few bytes that spill cost less than the occupancy they buy,
+// which hides the latency of the exponentials and shuffles. Larger D would
+// spill much more; they keep the compiler's choice.
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, D == 8 ? 8 : 1)
+flashattn_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+                        Strides sq, Strides sk, Strides sv, Strides so, int heads, int s_len,
+                        int tiles, float scale_log2, bool k_dense, bool v_dense) {
+  constexpr int P = tc_pitch<D>();
+  __shared__ __align__(16) bf16 ks[2][kTcTile * P];
+  __shared__ __align__(16) bf16 vs[2][kTcTile * P];
+  const int bh = blockIdx.x / tiles;
+  const int n = bh / heads, h = bh % heads;
+  const int lane = threadIdx.x % 32, t = lane % 4;
+  // this thread's query rows r0 and r0 + 8
+  const int r0 = (blockIdx.x % tiles) * kTcRows + (threadIdx.x / 32) * 16 + lane / 4;
+  uint32_t qa[D / 4];
+  load_a<D>(qa, q + n * sq.n + h * sq.h, sq.d, sq.s, r0, s_len, t);
+  if (scale_log2 < 0.f) {
+    // q negated (exact in bfloat16), so that the maximum of the raw scores is
+    // the maximum of the scaled ones
+#pragma unroll
+    for (int i = 0; i < D / 4; ++i) qa[i] ^= 0x80008000u;
+    scale_log2 = -scale_log2;
+  }
+  float acc[D / 8][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  const bf16* kb = k + n * sk.n + h * sk.h;
+  const bf16* vb = v + n * sv.n + h * sv.h;
+  const int steps = (s_len + kTcTile - 1) / kTcTile;
+  stage_tc<D>(ks[0], kb, sk.d, sk.s, 0, s_len, k_dense);
+  stage_tc<D>(vs[0], vb, sv.d, sv.s, 0, s_len, v_dense);
+  cp_async_commit();
+  for (int it = 0; it < steps; ++it) {
+    const int buf = it & 1;
+    if (it + 1 < steps) {  // the next tile into the other buffer, freed by the last barrier
+      stage_tc<D>(ks[buf ^ 1], kb, sk.d, sk.s, (it + 1) * kTcTile, s_len, k_dense);
+      stage_tc<D>(vs[buf ^ 1], vb, sv.d, sv.s, (it + 1) * kTcTile, s_len, v_dense);
+    }
+    cp_async_commit();
+    cp_async_wait_prior();
+    __syncthreads();
+    const int valid = min(kTcTile, s_len - it * kTcTile);
+    if (valid == kTcTile)
+      fwd_tile<D, false>(acc, m, l, qa, ks[buf], vs[buf], valid, scale_log2);
+    else
+      fwd_tile<D, true>(acc, m, l, qa, ks[buf], vs[buf], valid, scale_log2);
+    __syncthreads();
+  }
+  bf16* ob = o + n * so.n + h * so.h;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    // the row's sum over the quad, in one order for every lane
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const int row = r0 + 8 * i;
+    if (row >= s_len) continue;
+    const float inv = 1.f / l[i];
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      bf16* p = ob + row * so.s + (8 * j + 2 * t) * so.d;
+      p[0] = __float2bfloat16_rn(acc[j][2 * i] * inv);
+      p[so.d] = __float2bfloat16_rn(acc[j][2 * i + 1] * inv);
+    }
+    if (t == 0) lse[static_cast<int64_t>(bh) * s_len + row] = (m[i] + log2f(l[i])) * kLn2;
+  }
+}
+
 // a (N, H, D, S) view whose rows of D values are dense, 16-byte aligned runs
 bool rows_dense(const void* p, const Strides& s) {
   return s.d == 1 && s.s % 8 == 0 && s.h % 8 == 0 && s.n % 8 == 0 &&
@@ -842,13 +986,23 @@ Strides strides_at(const int64_t* p, int i) {
 template <typename T, int D>
 void launch_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
                 const int64_t* st, int n, int heads, int s_len, float scale, cudaStream_t s) {
-  constexpr int R = rows_per_thread<D>();
-  const int tiles = tiles_for(s_len, R);
-  const unsigned int blocks = static_cast<unsigned int>(n) * heads * tiles;
-  flashattn_fwd_kernel<T, D, R><<<blocks, kThreads, 0, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
-      strides_at(st, 3), heads, s_len, tiles, scale * kLog2e);
+  if constexpr (std::is_same<T, bf16>::value) {  // the tensor cores
+    const int tiles = (s_len + kTcRows - 1) / kTcRows;
+    const unsigned int blocks = static_cast<unsigned int>(n) * heads * tiles;
+    const Strides sk = strides_at(st, 1), sv = strides_at(st, 2);
+    flashattn_fwd_tc_kernel<D><<<blocks, kTcThreads, 0, s>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<bf16*>(o), lse, strides_at(st, 0), sk, sv, strides_at(st, 3), heads, s_len,
+        tiles, scale * kLog2e, rows_dense(k, sk), rows_dense(v, sv));
+  } else {  // float32: the float32 units
+    constexpr int R = rows_per_thread<D>();
+    const int tiles = tiles_for(s_len, R);
+    const unsigned int blocks = static_cast<unsigned int>(n) * heads * tiles;
+    flashattn_fwd_kernel<D, R><<<blocks, kThreads, 0, s>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<float*>(o), lse, strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
+        strides_at(st, 3), heads, s_len, tiles, scale * kLog2e);
+  }
 }
 
 template <typename T, int D>
@@ -868,9 +1022,9 @@ void launch_dq(const void* q, const void* k, const void* v, const void* dout, co
     constexpr int R = rows_per_thread<D>();
     const int tiles = tiles_for(s_len, R);
     const unsigned int blocks = static_cast<unsigned int>(n) * heads * tiles;
-    flashattn_dq_kernel<T, D, R><<<blocks, kThreads, 0, s>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const T*>(dout), lse, di, static_cast<T*>(dq), strides_at(st, 0),
+    flashattn_dq_kernel<D, R><<<blocks, kThreads, 0, s>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<const float*>(dout), lse, di, static_cast<float*>(dq), strides_at(st, 0),
         strides_at(st, 1), strides_at(st, 2), strides_at(st, 3), strides_at(st, 4), heads, s_len,
         tiles, scale, scale * kLog2e);
   }
@@ -897,9 +1051,9 @@ void launch_dkv(const void* q, const void* k, const void* v, const void* dout, c
     constexpr int R = rows_per_thread<D>();
     const int tiles = tiles_for(s_len, R);
     const unsigned int blocks = static_cast<unsigned int>(n) * heads * tiles;
-    flashattn_dkv_kernel<T, D, R><<<blocks, kThreads, 0, s>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const T*>(dout), lse, di, static_cast<T*>(dk), static_cast<T*>(dv),
+    flashattn_dkv_kernel<D, R><<<blocks, kThreads, 0, s>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<const float*>(dout), lse, di, static_cast<float*>(dk), static_cast<float*>(dv),
         strides_at(st, 0), strides_at(st, 1), strides_at(st, 2), strides_at(st, 3),
         strides_at(st, 4), strides_at(st, 5), heads, s_len, tiles, scale, scale * kLog2e);
   }
@@ -930,8 +1084,8 @@ void launch_dkv(const void* q, const void* k, const void* v, const void* dout, c
 // cudaGetLastError(). The caller checks: n, heads, s_len >= 1, d in {8, 16, 32,
 // 64}, n * heads * ceil(s_len / 64) below 2^31, no output overlapping itself.
 // dtype: 0 = float32, 1 = bfloat16 (of every view); lse and di are (N, H, S)
-// float32, contiguous. The backward entries take the float32-unit kernels for
-// float32 and the tensor-core kernels for bfloat16.
+// float32, contiguous. Every entry takes the float32-unit kernels for float32
+// and the tensor-core kernels for bfloat16.
 
 extern "C" int tfcgan_flashattn_fwd(const void* q, const void* k, const void* v, void* o,
                                     float* lse, const int64_t* strides, int n, int heads,

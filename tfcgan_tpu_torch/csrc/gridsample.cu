@@ -27,15 +27,23 @@
 // neighbouring pixels; the threads of one pixel read the same two grid values
 // (one broadcast load each). float32 arithmetic, output in inp's dtype.
 //
-// tfcgan_gridsample_bwd: one thread per output pixel, looping over the
-// channels. It recomputes the taps exactly as the forward does, sums the two
-// coordinate gradients over the channels in registers and writes them once
-// (one writer per element), and adds w * g into the float32 image gradient
-// with atomicAdd: any number of output pixels may sample one input pixel, so
-// no gather form exists for an arbitrary flow. The order of those additions
-// changes from run to run and with it the last bits of the image gradient.
-// The image gradient is zeroed here, on the same stream, before the kernel.
-// Either result is skipped when its pointer is null.
+// tfcgan_gridsample_bwd: threads over (pixel, channel) with channels fastest,
+// as the forward's, so the reads of g are coalesced and, for a smooth flow, the
+// atomics of one warp to one tap land on a few contiguous L2 sectors (a
+// thread a pixel looping over the channels would put its lanes' addresses
+// 4 * C bytes apart: about 24 sectors a warp at C = 6 where 4 do). A
+// block owns whole pixels, whose taps its first threads compute once, exactly
+// as the forward does, into shared memory (a tap a channel thread would cost
+// C times the coordinate arithmetic). Each thread adds w * g into the float32
+// image gradient with atomicAdd (any number of output pixels may sample one
+// input pixel, so no gather form exists for an arbitrary flow; the order of
+// those additions changes from run to run and with it the last bits of the
+// image gradient), and leaves its channel's share of the two coordinate
+// gradients in shared memory; the pixel's first thread sums the shares in
+// channel order and writes them once (one writer, one order: the grid
+// gradient repeats bit for bit). The image gradient is zeroed here, on the
+// same stream, before the kernel. Either result is skipped when its pointer
+// is null.
 //
 // Coordinates are computed with unfused, individually rounded operations in
 // the order of the plain tensor code (ops/warp.py): a sample that sits on an
@@ -50,10 +58,15 @@
 // What bounds both: bytes. The forward reads inp and grid once and writes out;
 // the backward reads g, inp and grid and writes both gradients. The 4 taps of
 // neighbouring outputs overlap and are served by L1/L2. The backward's atomics
-// go to L2 and are what it waits for.
+// (4 an output element) go to L2 and are what it waits for: the (pixel,
+// channel) threads make them coalesce.
 //
-// Left for later work: 16-byte loads, merging the atomics of neighbouring
-// pixels in shared memory before they go to L2, a deterministic variant.
+// Left for later work: 16-byte loads; a deterministic variant. Tried on the
+// card and not kept: accumulating the image gradient of a block's 8 x 32
+// output pixels in a shared-memory window of the input before one atomic an
+// element goes to L2 (3.4 times fewer atomics to L2 at the path's flow, and
+// slower: the shared atomics, the window's zeroing and flush and the
+// registers they cost outweighed what L2 saved, PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -163,48 +176,96 @@ gridsample_fwd_kernel(const T* __restrict__ inp, const float* __restrict__ grid,
   store_f32(out + e, acc);
 }
 
-// One thread per output pixel; dinp and dgrid may each be null.
+// What the threads of one pixel share in the backward: its four taps (element
+// offsets into inp, -1 for a tap that reads 0), their weights, the axis
+// weights of the coordinate gradients and the two coordinate scales.
+struct PixelTaps {
+  int o[4];  // taps 00, 01, 10, 11 (y, x)
+  float w[4];
+  float xw0, xw1, yw0, yw1, sx, sy;
+};
+
+// Threads over (pixel, channel), channels fastest, as the forward's; a block
+// owns `ppb` whole pixels, cw = min(c, kThreads) threads a pixel, the thread
+// ch0 of a pixel over channels ch0, ch0 + cw, ... . The first ppb threads
+// compute the pixels' taps once, into shared memory. dinp and dgrid may each
+// be null (the same for every thread of the launch). Every offset into inp
+// fits an int (the caller checks inp's size), and so does every pixel index.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 gridsample_bwd_kernel(const T* __restrict__ g, const T* __restrict__ inp,
                       const float* __restrict__ grid, float* __restrict__ dinp,
-                      float* __restrict__ dgrid, int64_t pixels, int64_t plane, int h, int w,
-                      int c, int padding, int align) {
-  const int64_t pix = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (pix >= pixels) return;
-  const int64_t n = pix / plane;
-  const Axis ax = axis_taps(grid[2 * pix], w, padding, align);
-  const Axis ay = axis_taps(grid[2 * pix + 1], h, padding, align);
-  const int64_t base = n * h * w * c;
-  const int64_t r0 = static_cast<int64_t>(ay.i0) * w, r1 = static_cast<int64_t>(ay.i1) * w;
-  const int64_t o00 = base + (r0 + ax.i0) * c, o01 = base + (r0 + ax.i1) * c;
-  const int64_t o10 = base + (r1 + ax.i0) * c, o11 = base + (r1 + ax.i1) * c;
-  const bool on00 = ay.on0 && ax.on0, on01 = ay.on0 && ax.on1;
-  const bool on10 = ay.on1 && ax.on0, on11 = ay.on1 && ax.on1;
-  const float w00 = ax.w0 * ay.w0, w01 = ax.w1 * ay.w0;
-  const float w10 = ax.w0 * ay.w1, w11 = ax.w1 * ay.w1;
-  const T* gp = g + pix * c;
+                      float* __restrict__ dgrid, int pixels, int plane, int h, int w, int c,
+                      int cw, int ppb, int padding, int align) {
+  __shared__ PixelTaps taps[kThreads];
+  __shared__ float2 part[kThreads];  // each thread's share of its pixel's (gx, gy)
+  const int p0 = blockIdx.x * ppb;
+  if (threadIdx.x < ppb && p0 + static_cast<int>(threadIdx.x) < pixels) {
+    const int pix = p0 + threadIdx.x;
+    const Axis ax = axis_taps(grid[2 * static_cast<int64_t>(pix)], w, padding, align);
+    const Axis ay = axis_taps(grid[2 * static_cast<int64_t>(pix) + 1], h, padding, align);
+    const int base = pix / plane * h * w * c;
+    const int r0 = ay.i0 * w, r1 = ay.i1 * w;
+    PixelTaps t;
+    t.o[0] = ay.on0 && ax.on0 ? base + (r0 + ax.i0) * c : -1;
+    t.o[1] = ay.on0 && ax.on1 ? base + (r0 + ax.i1) * c : -1;
+    t.o[2] = ay.on1 && ax.on0 ? base + (r1 + ax.i0) * c : -1;
+    t.o[3] = ay.on1 && ax.on1 ? base + (r1 + ax.i1) * c : -1;
+    t.w[0] = ax.w0 * ay.w0;
+    t.w[1] = ax.w1 * ay.w0;
+    t.w[2] = ax.w0 * ay.w1;
+    t.w[3] = ax.w1 * ay.w1;
+    t.xw0 = ax.w0;
+    t.xw1 = ax.w1;
+    t.yw0 = ay.w0;
+    t.yw1 = ay.w1;
+    t.sx = ax.scale;
+    t.sy = ay.scale;
+    taps[threadIdx.x] = t;
+  }
+  __syncthreads();
+  const int lp = threadIdx.x / cw, ch0 = threadIdx.x % cw;
+  const int pix = p0 + lp;
+  const bool live = lp < ppb && pix < pixels;
   float gx = 0.f, gy = 0.f;
-  for (int ch = 0; ch < c; ++ch) {
-    const float gv = load_f32(gp + ch);
-    if (dinp != nullptr) {
-      if (on00) atomicAdd(dinp + o00 + ch, gv * w00);
-      if (on01) atomicAdd(dinp + o01 + ch, gv * w01);
-      if (on10) atomicAdd(dinp + o10 + ch, gv * w10);
-      if (on11) atomicAdd(dinp + o11 + ch, gv * w11);
-    }
-    if (dgrid != nullptr) {
-      const float v00 = tap(inp + o00 + ch, on00), v01 = tap(inp + o01 + ch, on01);
-      const float v10 = tap(inp + o10 + ch, on10), v11 = tap(inp + o11 + ch, on11);
-      // d out / d tx and d out / d ty: a pair of taps clamped to one pixel
-      // cancels, a tap off the image counts as 0
-      gx += gv * ((v01 - v00) * ay.w0 + (v11 - v10) * ay.w1);
-      gy += gv * ((v10 - v00) * ax.w0 + (v11 - v01) * ax.w1);
+  if (live) {
+    const PixelTaps& t = taps[lp];
+    const T* gp = g + static_cast<int64_t>(pix) * c;
+    for (int ch = ch0; ch < c; ch += cw) {
+      const float gv = load_f32(gp + ch);
+      if (dinp != nullptr) {
+        // the lanes of a warp add into neighbouring channels of neighbouring
+        // pixels: for a smooth flow, a few contiguous L2 sectors a tap
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (t.o[i] >= 0) atomicAdd(dinp + t.o[i] + ch, gv * t.w[i]);
+        }
+      }
+      if (dgrid != nullptr) {
+        float v[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) v[i] = t.o[i] >= 0 ? load_f32(inp + t.o[i] + ch) : 0.f;
+        // d out / d tx and d out / d ty: a pair of taps clamped to one pixel
+        // cancels, a tap off the image counts as 0
+        gx += gv * ((v[1] - v[0]) * t.yw0 + (v[3] - v[2]) * t.yw1);
+        gy += gv * ((v[2] - v[0]) * t.xw0 + (v[3] - v[1]) * t.xw1);
+      }
     }
   }
-  if (dgrid != nullptr) {
-    dgrid[2 * pix] = gx * ax.scale;
-    dgrid[2 * pix + 1] = gy * ay.scale;
+  if (dgrid == nullptr) return;
+  // the pixel's channel shares summed by its first thread in channel order:
+  // one writer, one order, the same bits every run
+  part[threadIdx.x] = make_float2(gx, gy);
+  __syncthreads();
+  if (live && ch0 == 0) {
+    float tx = 0.f, ty = 0.f;
+    for (int i = 0; i < cw; ++i) {
+      const float2 v = part[threadIdx.x + i];
+      tx += v.x;
+      ty += v.y;
+    }
+    dgrid[2 * static_cast<int64_t>(pix)] = tx * taps[lp].sx;
+    dgrid[2 * static_cast<int64_t>(pix) + 1] = ty * taps[lp].sy;
   }
 }
 
@@ -215,8 +276,9 @@ unsigned int blocks_for(int64_t threads) {
 }  // namespace
 
 // Both take contiguous tensors on the current device and return
-// cudaGetLastError(). The caller checks: every size >= 1, n * hg * wg * c
-// below 2^31 * 256, padding in {0 zeros, 1 border, 2 reflection}.
+// cudaGetLastError(). The caller checks: every size >= 1, n * h * w * c and
+// n * hg * wg below 2^31, n * hg * wg * c below 2^31 * 256, padding in {0
+// zeros, 1 border, 2 reflection}.
 // dtype: 0 = float32, 1 = bfloat16 (of inp, out and g); grid, dinp and dgrid
 // are float32.
 
@@ -255,15 +317,18 @@ extern "C" int tfcgan_gridsample_bwd(const void* g, const void* inp, const float
     const cudaError_t err = cudaMemsetAsync(dinp, 0, bytes, s);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const unsigned int blocks = blocks_for(pixels);
+  const int cw = c < kThreads ? c : kThreads;  // threads a pixel
+  const int ppb = kThreads / cw;                 // whole pixels a block
+  const auto blocks = static_cast<unsigned int>((pixels + ppb - 1) / ppb);
+  const int pix = static_cast<int>(pixels), pl = static_cast<int>(plane);
   if (dtype == 0) {
     gridsample_bwd_kernel<float><<<blocks, kThreads, 0, s>>>(
-        static_cast<const float*>(g), static_cast<const float*>(inp), grid, dinp, dgrid, pixels,
-        plane, h, w, c, padding, align);
+        static_cast<const float*>(g), static_cast<const float*>(inp), grid, dinp, dgrid, pix, pl,
+        h, w, c, cw, ppb, padding, align);
   } else if (dtype == 1) {
     gridsample_bwd_kernel<__nv_bfloat16><<<blocks, kThreads, 0, s>>>(
         static_cast<const __nv_bfloat16*>(g), static_cast<const __nv_bfloat16*>(inp), grid, dinp,
-        dgrid, pixels, plane, h, w, c, padding, align);
+        dgrid, pix, pl, h, w, c, cw, ppb, padding, align);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

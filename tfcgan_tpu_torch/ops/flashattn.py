@@ -12,7 +12,8 @@ dtype before they multiply v. A CUDA tensor goes through ``FlashAttention``,
 the autograd function around the hand-written kernels
 (``ops/kernels/flashattn.py``): the scores never reach device memory, the
 backward recomputes them from the saved log-sum-exp and computes only the
-gradients autograd asks for. The kernels read through the strides they are
+gradients autograd asks for. In bfloat16 the forward and both backward kernels
+run their products on the tensor cores; in float32 on the float32 units. The kernels read through the strides they are
 given, so ``models/diffusion.AttentionBlock`` hands in permuted views of its
 ``(N, S, C)`` projections and gets the result in the same memory order. Any S
 >= 1; D in the kernels' ``HEAD_DIMS`` (8, 16, 32, 64). A CPU tensor goes to ``flash_attention_plain``, and
@@ -23,8 +24,9 @@ math of the JAX ``AttentionBlock`` (scores * scale -> float32 softmax -> cast
 to v's dtype -> P V), over chunks of queries so that the float32 scores of a
 chunk, not of the whole sequence, are live; under autograd each chunk is
 checkpointed, so the backward recomputes a chunk's probabilities instead of
-keeping all of them. (The kernel's bfloat16 rounding differs in one place: it
-rounds the unnormalised probability, the plain version the normalised one.)
+keeping all of them. (The kernels' bfloat16 rounding differs in one place:
+the forward rounds the unnormalised probability, the plain version the
+normalised one.)
 """
 
 from __future__ import annotations

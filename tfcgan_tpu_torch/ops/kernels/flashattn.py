@@ -3,12 +3,15 @@
 ``flashattn_fwd`` computes ``o = softmax(q^T k * scale) v`` per (batch, head)
 and the log-sum-exp of the scores; ``flashattn_bwd`` the gradients to q, k and
 v from the saved log-sum-exp, as two kernels (dq, and dk with dv), each
-launched only when a gradient it computes is asked for. The C entries choose
-the backward kernels by type: bfloat16 runs them on the tensor cores (a warp
-per 16 queries or keys, ``mma.sync``), float32 on the float32 units (a thread
-per query or key). Every tensor is a ``(N, H, D, S)`` view of any strides,
-float32 or bfloat16: the kernels read and write through the strides, so the
-wrappers never copy. They launch on PyTorch's current stream for CUDA tensors
+launched only when a gradient it computes is asked for. They replace the TPU
+kernels of ``tfcgan_tpu/ops/pallas_kernels/flashattn.py`` (``_flash_fwd_impl``,
+``_flash_vjp_bwd``). The C entries choose every kernel by type: bfloat16 runs
+on the tensor cores (a warp per 16 queries or keys, ``mma.sync``, one
+exponential a query-key pair left on the other units: what bounds them),
+float32 on the float32 units (a thread per query or key, bound by the rate at
+which an SM issues operations; TF32 would miss the float32 window). Every
+tensor is a ``(N, H, D, S)`` view of any strides, float32 or bfloat16: the
+kernels read and write through the strides, so the wrappers never copy. They launch on PyTorch's current stream for CUDA tensors
 and raise on anything the kernels do not take; they never fall back. The
 plain PyTorch version is ``tfcgan_tpu_torch.ops.flashattn.flash_attention_plain``;
 autograd of it is the plain version of the backward.
@@ -28,7 +31,8 @@ from tfcgan_tpu_torch.ops.kernels._build import load_library
 FWD_LAUNCHES = 0
 DQ_LAUNCHES = 0
 DKV_LAUNCHES = 0
-# of those backward launches, the bfloat16 ones: the tensor-core kernels
+# of those launches, the bfloat16 ones: the tensor-core kernels
+FWD_TC_LAUNCHES = 0
 DQ_TC_LAUNCHES = 0
 DKV_TC_LAUNCHES = 0
 
@@ -100,8 +104,9 @@ def flashattn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: floa
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """(o, lse): o[n, h, :, i] = sum_j softmax_j(q[n, h, :, i] . k[n, h, :, j] *
     scale) v[n, h, :, j] in q's dtype and, where q is dense, q's memory order;
-    lse (N, H, S) float32, the log-sum-exp of each query's scaled scores."""
-    global FWD_LAUNCHES
+    lse (N, H, S) float32, the log-sum-exp of each query's scaled scores. In
+    bfloat16 the kernel is the tensor-core one."""
+    global FWD_LAUNCHES, FWD_TC_LAUNCHES
     _check("flashattn_fwd", q, {"k": k, "v": v})
     o = torch.empty_like(q)  # q's strides when q is dense, else contiguous
     lse = torch.empty((q.shape[0], q.shape[1], q.shape[3]), dtype=torch.float32,
@@ -109,6 +114,7 @@ def flashattn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: floa
     _launch("tfcgan_flashattn_fwd", (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                                      lse.data_ptr()), (q, k, v, o), q, scale)
     FWD_LAUNCHES += 1
+    FWD_TC_LAUNCHES += int(q.dtype == torch.bfloat16)
     return o, lse
 
 

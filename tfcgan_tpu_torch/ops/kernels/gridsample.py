@@ -4,8 +4,12 @@
 ``gridsample_fwd`` samples an NHWC image (float32 or bfloat16) at a float32
 normalized ``(N, Hg, Wg, 2)`` grid; ``gridsample_bwd`` is its exact backward:
 the image gradient (float32, summed with atomics into a buffer the launch
-zeroes itself) and the grid gradient (one writer per element), each computed
-only when asked for. Both launch on PyTorch's current stream for CUDA tensors
+zeroes itself) and the grid gradient (one writer per element, its channel
+shares summed in a fixed order), each computed only when asked for. They
+replace the TPU kernels of ``tfcgan_tpu/ops/pallas_kernels/gridsample.py``
+(``_sample_padded``, ``_sp_bwd``). Bytes bound both; the backward waits for its
+atomics, which its threads issue per (pixel, channel), channels fastest, so
+that a warp's land on a few contiguous L2 sectors. Both launch on PyTorch's current stream for CUDA tensors
 and raise on anything the kernels do not take. They never copy and never fall
 back. The plain PyTorch version is ``tfcgan_tpu_torch.ops.warp.grid_sample``
 with ``mode="bilinear"``; autograd of it is the plain version of the backward.
@@ -64,7 +68,8 @@ def _check(what: str, inp: torch.Tensor, grid: torch.Tensor, padding_mode: str) 
     n, h, w, c = inp.shape
     if min(h, w, c) < 1:
         raise ValueError(f"{what}: inp {tuple(inp.shape)} has an empty image")
-    if inp.numel() > _INT_LIMIT or n * grid.shape[1] * grid.shape[2] * c > _INT_LIMIT * _THREADS:
+    pixels = n * grid.shape[1] * grid.shape[2]
+    if inp.numel() > _INT_LIMIT or pixels > _INT_LIMIT or pixels * c > _INT_LIMIT * _THREADS:
         raise ValueError(f"{what}: inp {tuple(inp.shape)} with grid {tuple(grid.shape)} exceeds "
                          "the kernel's launch grid")
 
