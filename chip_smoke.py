@@ -19,7 +19,10 @@ Phases, one line or more each; any failure raises and exits non-zero:
    shapes are also the discriminator's), odd shapes and 1-3 pixel maps,
    float32 (atol 1e-5) and bfloat16 (against the plain version in float32
    from the same bf16 input or output gradient, rounded: atol = rtol = 8e-3,
-   one bf16 ulp), with kernel and plain times at the path's shapes.
+   one bf16 ulp), with kernel and plain times at the path's shapes; two
+   identical backward runs at every path shape compared bit for bit; kernel
+   times and the byte bound of one fft_glo step's bf16 calls at batch 128
+   (``fft_glo_step_calls``: 27 forward, 23 backward).
 4. resampling vs plain: the three kernels against ``resample_axis_plain`` and
    autograd of it (outputs and the gradient to x within 2e-5, the gradients to
    p and q within 2e-4, each x max(1, max|plain|): the reductions run in
@@ -47,8 +50,9 @@ Phases, one line or more each; any failure raises and exits non-zero:
    with float32 atomics in an order that changes from run to run (up to 4096
    terms on one pixel here), the grid gradient over the channels in another
    order than autograd. Kernel, plain and ``F.grid_sample`` times, forward and
-   backward, at (32, 256, 256, 6); the largest difference between two identical
-   backward runs.
+   backward, at (32, 256, 256, 6), and the forward's time and bound in
+   bfloat16 there; the largest difference between two identical backward
+   runs; two identical forward runs, float32 and bfloat16, bit for bit.
 6. fft_glo serve: the full-width ``GeneratorUNet`` (random weights from
    --init-seed, or --params) through ``Inferencer`` and
    ``run_test_set(save_spectra=True)`` on 4 synthetic batches of 8 at 256² in
@@ -158,7 +162,8 @@ blur-pool, ``ms``/``plain_ms``/``bound_ms`` are sums over the 11 bfloat16 blur
 calls of one batch-8 G forward (for the backward: of one G backward); for
 resampling, over the calls of one warp at (32, 256, 256, 3) float32 (forward:
 both passes; adjoint: the y-pass; position gradient: both); for grid_sample,
-one call at (32, 256, 256, 6) float32; for flash attention, sums over the 7
+one call at (32, 256, 256, 6) float32 (the forward's ``bf16_ms`` and
+``bf16_bound_ms``: in bfloat16); for flash attention, sums over the 7
 bfloat16 calls of one batch-32 U-Net pass at 128² (3 at S = 4096, 4 at S =
 1024, 256 heads each). ``bound_ms`` is the larger of bytes / 3.35 TB/s (inputs
 read once, outputs written once) and operations over the card's rate for their
@@ -168,6 +173,10 @@ attention the larger of its exponentials at 16 a clock an SM (132 SMs at the
 tensor cores with D padded to their depth of 16 (989 TFLOP/s bfloat16),
 ``bound_term`` naming which; phase 13's text lines also give what the same
 products take on the float32 units, which the float32 kernels use.
+Blur-pool's ``graph_ms`` is ``ms`` timed by replaying CUDA graphs (the device
+alone: eager calls of the small shapes time the wrapper's host work), and
+``step_ms`` and ``step_bound_ms`` are the sums over one fft_glo step's
+``step_calls`` bf16 calls at batch 128.
 ``max_abs_err`` is the largest error of phase 3, 4, 5 or 13. ``library_ms`` is ``F.grid_sample`` on the same inputs (for the backward
 kernels: its backward) and, for flash attention,
 ``F.scaled_dot_product_attention`` (for both backward kernels: its whole
@@ -225,6 +234,7 @@ STRIDE1_SHAPES = [(8, 8, 8, 512), (8, 16, 16, 512), (8, 32, 32, 256), (8, 64, 64
                   (8, 128, 128, 64)]
 EXTRA_SHAPES = [(1, 15, 17, 5), (1, 255, 9, 2), (2, 31, 31, 8),
                 (2, 1, 1, 8), (2, 2, 2, 8), (2, 3, 3, 8)]
+STEP_BATCH = 128  # the fft_glo step whose blur-pool calls phase 3 times
 THROUGHPUT_BATCHES = (8, 32, 128)
 TRAIN_RATE_BATCHES = (32, 128)
 TRAIN_TERMS = ("g_adv", "g_triplet", "g_temp", "g_lpips", "g_fft", "loss_G", "loss_D")
@@ -361,6 +371,29 @@ def cuda_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, calls: int = 10, reps: int = 10) -> float:
+    """Device time of one ``fn()``: ``calls`` calls captured in one CUDA graph,
+    replayed ``reps`` times. Back-to-back eager calls of a small kernel time
+    the wrapper's host work instead (20-45 us a call here): the card waits."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (reps * calls)
+
+
 def _check(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
     """got (kernel, its dtype) against want (plain, float32, rounded to got's
     dtype); returns the max abs error."""
@@ -392,6 +425,54 @@ def check_blurpool_bwd(shape, stride: int, dtype, gen) -> float:
                   f"blurpool bwd {dtype} s{stride} {tuple(shape)}")
 
 
+def fft_glo_step_calls(batch: int) -> tuple[list, list]:
+    """One fft_glo step's blur-pool calls at ``batch``: ((shape, stride,
+    calls) of the forward, of the backward). G runs its 11 shapes once each
+    way; D's 4 blocks have G's first four stride-2 shapes and run in its 4
+    forwards and 3 backwards (``FFT_GLO_STEP``)."""
+    shapes = [((batch, *s[1:]), 2) for s in STRIDE2_SHAPES]
+    shapes += [((batch, *s[1:]), 1) for s in STRIDE1_SHAPES]
+    fwd = [(s, st, 1 + 4 * (i < 4)) for i, (s, st) in enumerate(shapes)]
+    bwd = [(s, st, 1 + 3 * (i < 4)) for i, (s, st) in enumerate(shapes)]
+    assert sum(c for *_, c in fwd) == FFT_GLO_STEP["blurpool_fwd"]
+    assert sum(c for *_, c in bwd) == FFT_GLO_STEP["blurpool_bwd"]
+    return fwd, bwd
+
+
+def blur_work(shape, stride: int, element_size: int) -> tuple[int, int]:
+    """(bytes, operations) of one blur-pool call either way at the forward's
+    input ``shape``: the input and the output once, 16 multiply-adds an output
+    (the backward reads dy and writes dx: the same bytes and products)."""
+    n, h, w, c = shape
+    out = n * kernel.out_len(h, stride) * kernel.out_len(w, stride) * c
+    return (n * h * w * c + out) * element_size, 2 * 16 * out
+
+
+def time_step_calls(device, batch: int, gen) -> dict[str, dict]:
+    """Kernel ms and bound of one fft_glo step's bf16 blur-pool calls at
+    ``batch``, forward and backward: {"blurpool_fwd": {...}, ...}."""
+    out = {}
+    for name, calls in zip(("blurpool_fwd", "blurpool_bwd"), fft_glo_step_calls(batch)):
+        ms = n_bytes = n_ops = 0
+        for shape, stride, count in calls:
+            n, h, w, c = shape
+            if name == "blurpool_fwd":
+                x = torch.randn(shape, device=device, generator=gen).to(torch.bfloat16)
+                ms += count * cuda_ms(lambda: kernel.blur_pool_fwd(x, stride), 10)
+            else:
+                x = torch.randn((n, kernel.out_len(h, stride), kernel.out_len(w, stride), c),
+                                device=device, generator=gen).to(torch.bfloat16)
+                ms += count * cuda_ms(lambda: kernel.blur_pool_bwd(x, h, w, stride), 10)
+            b, o = blur_work(shape, stride, 2)
+            n_bytes, n_ops = n_bytes + count * b, n_ops + count * o
+            del x
+            torch.cuda.empty_cache()
+        bound, by = bound_ms(n_bytes, n_ops)
+        out[name] = {"calls": sum(c for *_, c in calls), "ms": ms, "bound_ms": bound,
+                     "bound_by": by, "bytes": n_bytes}
+    return out
+
+
 def in_turns(plain, kern, iters: int = 20) -> tuple[float, float]:
     """(kernel ms, plain ms): plain, kernel, kernel, plain, averaged."""
     p1, k1, k2, p2 = (cuda_ms(f, iters) for f in (plain, kern, kern, plain))
@@ -402,7 +483,7 @@ def phase_kernels(device) -> tuple[dict, dict]:
     """Blur-pool forward and backward kernel vs plain; one result dict each
     (max_abs_err, ms, plain_ms, bound_ms, bound_by)."""
     gen = torch.Generator(device=device).manual_seed(0)
-    fwd, bwd = [0.0, 0.0, 0.0], [0.0, 0.0, 0.0]
+    fwd, bwd = [0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0]
     n_bytes = n_ops = 0
     path = [(s, 2) for s in STRIDE2_SHAPES] + [(s, 1) for s in STRIDE1_SHAPES]
     for dtype in (torch.float32, torch.bfloat16):
@@ -417,16 +498,18 @@ def phase_kernels(device) -> tuple[dict, dict]:
             n, h, w, c = shape
             dy = torch.randn((n, kernel.out_len(h, stride), kernel.out_len(w, stride), c),
                              device=device, generator=gen).to(dtype)
+            if not torch.equal(*(kernel.blur_pool_bwd(dy, h, w, stride) for _ in range(2))):
+                raise AssertionError(f"blurpool bwd {name} s{stride} {shape} does not repeat")
             xg = x.detach().requires_grad_()
             y = blur_pool_padded(xg, stride)
             kb, pb = in_turns(lambda: torch.autograd.grad(y, xg, dy, retain_graph=True),
                               lambda: kernel.blur_pool_bwd(dy, h, w, stride))
             if dtype == torch.bfloat16:
                 fwd[1], fwd[2], bwd[1], bwd[2] = fwd[1] + k, fwd[2] + p, bwd[1] + kb, bwd[2] + pb
-                # the forward reads x and writes y, 16 multiply-adds an output;
-                # the backward reads dy and writes dx: the same bytes and products
-                n_bytes += (x.numel() + dy.numel()) * x.element_size()
-                n_ops += 2 * 16 * dy.numel()
+                fwd[3] += graph_ms(lambda: kernel.blur_pool_fwd(x, stride))
+                bwd[3] += graph_ms(lambda: kernel.blur_pool_bwd(dy, h, w, stride))
+                b, o = blur_work(shape, stride, x.element_size())
+                n_bytes, n_ops = n_bytes + b, n_ops + o
             print(f"kernel blurpool {name} s{stride} {shape}: max_abs_err fwd s1 {errs[0]:.3g} "
                   f"s2 {errs[1]:.3g}, bwd s1 {errs_b[0]:.3g} s2 {errs_b[1]:.3g}; "
                   f"fwd kernel {k:.4f} ms, plain {p:.4f} ms ({p / k:.2f}x); "
@@ -440,13 +523,21 @@ def phase_kernels(device) -> tuple[dict, dict]:
                   f"s2 {errs[1]:.3g}, bwd s1 {errs_b[0]:.3g} s2 {errs_b[1]:.3g}")
     bound, by = bound_ms(n_bytes, n_ops)
     print(f"kernel blurpool: all cases within tolerance, max_abs_err fwd {fwd[0]:.3g}, "
-          f"bwd {bwd[0]:.3g}; one bf16 B=8 G forward's 11 calls: kernel {fwd[1]:.4f} ms, "
-          f"plain {fwd[2]:.4f} ms; their backward: kernel {bwd[1]:.4f} ms, "
-          f"plain {bwd[2]:.4f} ms; bound {bound:.4f} ms each way ({by}: "
-          f"{n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.2f} GFLOP)")
-    keys = ("max_abs_err", "ms", "plain_ms")
+          f"bwd {bwd[0]:.3g}; the backward repeats bit for bit at every path shape; one bf16 "
+          f"B=8 G forward's 11 calls: kernel {fwd[1]:.4f} ms (device alone, CUDA graph: "
+          f"{fwd[3]:.4f}), plain {fwd[2]:.4f} ms; their backward: kernel {bwd[1]:.4f} ms "
+          f"(device alone {bwd[3]:.4f}), plain {bwd[2]:.4f} ms; bound {bound:.4f} ms each way "
+          f"({by}: {n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.2f} GFLOP)")
+    step = time_step_calls(device, STEP_BATCH, gen)
+    for k, r in step.items():
+        print(f"kernel {k}: the {r['calls']} bf16 calls of one fft_glo step at B={STEP_BATCH}: "
+              f"kernel {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}: "
+              f"{r['bytes'] / 1e9:.3f} GB), {100 * r['bound_ms'] / r['ms']:.1f} % of the bound")
+    keys = ("max_abs_err", "ms", "plain_ms", "graph_ms")
     extra = {"bound_ms": bound, "bound_by": by, "library_ms": None}
-    return {**dict(zip(keys, fwd)), **extra}, {**dict(zip(keys, bwd)), **extra}
+    return tuple({**dict(zip(keys, v)), **extra, "step_ms": step[k]["ms"],
+                  "step_bound_ms": step[k]["bound_ms"], "step_calls": step[k]["calls"]}
+                 for k, v in (("blurpool_fwd", fwd), ("blurpool_bwd", bwd)))
 
 
 # ------------------------------------------------------------ resampling (K2)
@@ -800,7 +891,13 @@ def phase_gridsample(device, card: str) -> dict[str, dict]:
         lib_f = cuda_ms(lambda: F.grid_sample(inp_n, grid_l, mode="bilinear",
                                               padding_mode="zeros", align_corners=False))
     lib_b = cuda_ms(lambda: torch.autograd.grad(lib_out, (inp_n, grid_l), g_n, retain_graph=True))
-    del lib_out, inp_n, grid_l, g_n
+    # the forward in bfloat16 at the same shape (F.grid_sample takes no
+    # bfloat16 image with a float32 grid: no library time)
+    inp16 = inp.to(torch.bfloat16)
+    k_f16 = cuda_ms(lambda: gkernel.gridsample_fwd(inp16, grid))
+    if not torch.equal(*(gkernel.gridsample_fwd(inp16, grid) for _ in range(2))):
+        raise AssertionError("gridsample: the bf16 forward does not repeat")
+    del lib_out, inp_n, grid_l, g_n, inp16
     first, second = (gkernel.gridsample_bwd(g, inp, grid) for _ in range(2))
     again = gkernel.gridsample_fwd(inp, grid)
     torch.cuda.synchronize()
@@ -832,6 +929,12 @@ def phase_gridsample(device, card: str) -> dict[str, dict]:
         print(f"kernel {k}: all cases within tolerance, worst {err:.3g}; at (32,{SIZE},{SIZE},6) "
               f"fp32, offsets 0.3 px: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b:.4f} ms "
               f"({by}, {mb[k]:.1f} MB), F.grid_sample {lib:.4f} ms [{card}]")
+    # bf16 image and output, float32 grid
+    b16, by16 = bound_ms(nb["in"] // 2 + nb["grid"] + nb["out"] // 2, pixels * (40 + 8 * c))
+    results["gridsample_fwd"].update(bf16_ms=k_f16, bf16_bound_ms=b16)
+    print(f"kernel gridsample_fwd: bf16 at (32,{SIZE},{SIZE},6): kernel {k_f16:.4f} ms, bound "
+          f"{b16:.4f} ms ({by16}, {(nb['in'] // 2 + nb['grid'] + nb['out'] // 2) / 1e6:.1f} MB); "
+          f"two identical runs bit-identical [{card}]")
     print(f"kernel gridsample_bwd: grid gradient alone {k_bg:.4f} ms, image gradient alone "
           f"{k_bi:.4f} ms; two identical runs: image gradient max abs diff {repeat:.3g} at "
           f"max|g| {scale:.3g} (atomics), grid gradient and forward bit-identical; forward vs "
@@ -1109,11 +1212,12 @@ def phase_train_compare(device, args, name: str, terms, per_step: dict[str, int]
 
 
 def phase_train_rate(device, args, card: str, name: str, batch_sizes, paths=None,
-                     size: int = SIZE) -> None:
+                     size: int = SIZE) -> dict[tuple[int, str], float]:
     """Train-step img/s and peak memory, bf16, at ``size``², on each of
-    ``paths`` (label -> context manager; the kernel path and the plain path
-    unless given)."""
+    ``paths`` (label -> context manager, timed in their order; the kernel path
+    and the plain path unless given). Returns the step ms by (batch, label)."""
     paths = paths or {"kernel": contextlib.nullcontext, "plain": plain_path}
+    readings = {}
     cfg = _cfg(name, "bfloat16")
     cfg = cfg.replace(data=dataclasses.replace(cfg.data, image_size=size))
     for bsz in batch_sizes:
@@ -1134,7 +1238,7 @@ def phase_train_rate(device, args, card: str, name: str, batch_sizes, paths=None
                     metrics = trainer.step(state, batch)
                 end.record()
                 end.synchronize()
-            ms = start.elapsed_time(end) / 5
+            ms = readings[bsz, path] = start.elapsed_time(end) / 5
             if not all(bool(torch.isfinite(v)) for v in metrics.values()):
                 raise AssertionError(f"{name} train rate B={bsz} {path}: a loss is not finite")
             peak = torch.cuda.max_memory_allocated() / 2**30
@@ -1142,6 +1246,7 @@ def phase_train_rate(device, args, card: str, name: str, batch_sizes, paths=None
                   f"{bsz * 1000 / ms:.1f} img/s, peak memory {peak:.2f} GiB [{card}]")
         del recipe, trainer, state, batch, metrics
         torch.cuda.empty_cache()
+    return readings
 
 
 # ------------------------------------------------------------- stn_newmodel3

@@ -92,6 +92,72 @@ def test_blurpool_backward_kernel_matches_plain_gradient(cuda, shape, stride, dt
         torch.testing.assert_close(got.float(), want.to(dtype).float(), atol=8e-3, rtol=8e-3)
 
 
+def _plain_blur_grad(dy, h, w, stride):
+    x = torch.zeros((dy.shape[0], h, w, dy.shape[3]), device=dy.device, requires_grad=True)
+    return torch.autograd.grad(blurpool.blur_pool_padded(x, stride), x, dy.float())[0]
+
+
+def _blur_dy(shape, stride, dtype, g):
+    n, h, w, c = shape
+    return torch.randn((n, kernel.out_len(h, stride), kernel.out_len(w, stride), c),
+                       device=g.device, generator=g).to(dtype)
+
+
+def _assert_blur_grad(got, want, dtype, what):
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=0, msg=what)
+    else:
+        torch.testing.assert_close(got.float(), want.to(dtype).float(), atol=8e-3, rtol=8e-3,
+                                   msg=what)
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("c", [6, 8, 12, 24, 64, 136])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_blurpool_backward_blocks_on_small_and_odd_maps(cuda, c, stride, dtype):
+    """The backward's 2 x 2 blocks of dx pixels at every H, W in {4, 5, 6, 7,
+    33}: border and interior blocks, odd edges where a block holds one row or
+    column. Every access width: one scalar (C = 6 in bfloat16), 8 bytes (at
+    stride 1 up to 256 bytes a pixel; C = 6 in float32, where 16 bytes do not
+    divide a pixel) and 16 bytes (stride 2; C = 136 at stride 1); 64 is the
+    path's narrowest C."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    for h in (4, 5, 6, 7, 33):
+        for w in (4, 5, 6, 7, 33):
+            dy = _blur_dy((2, h, w, c), stride, dtype, g)
+            got = kernel.blur_pool_bwd(dy, h, w, stride)
+            _assert_blur_grad(got, _plain_blur_grad(dy, h, w, stride), dtype,
+                              lambda m, h=h, w=w: f"H={h} W={w}: {m}")
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_blurpool_backward_takes_a_misaligned_dy(cuda, stride, dtype):
+    """A contiguous dy at an odd storage offset (2 or 4 bytes off a 16-byte
+    boundary) takes the scalar path: the same sums in the same order, so the
+    same bits as the 16-byte path on an aligned copy."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    n, h, w, c = 2, 33, 31, 64
+    aligned = _blur_dy((n, h, w, c), stride, dtype, g)
+    flat = torch.empty(aligned.numel() + 1, dtype=dtype, device=cuda)
+    dy = flat[1:].view(aligned.shape)
+    dy.copy_(aligned)
+    assert dy.is_contiguous() and dy.data_ptr() % 16 != 0
+    got = kernel.blur_pool_bwd(dy, h, w, stride)
+    _assert_blur_grad(got, _plain_blur_grad(aligned, h, w, stride), dtype, lambda m: m)
+    assert torch.equal(got, kernel.blur_pool_bwd(aligned, h, w, stride))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_blurpool_backward_repeats_bit_for_bit(cuda, dtype):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    for shape, stride in (((8, 255, 255, 64), 2), ((8, 128, 128, 64), 1), ((8, 7, 7, 512), 2),
+                          ((8, 8, 8, 512), 1), ((1, 15, 17, 5), 2), ((2, 2, 2, 8), 1)):
+        dy = _blur_dy(shape, stride, dtype, g)
+        first, second = (kernel.blur_pool_bwd(dy, *shape[1:3], stride) for _ in range(2))
+        assert torch.equal(first, second), (shape, stride)
+
+
 def test_blur_pool_autograd_runs_both_kernels(cuda):
     x = torch.randn(2, 31, 31, 8, device=cuda, requires_grad=True)
     fwd, bwd = kernel.LAUNCHES, kernel.BWD_LAUNCHES
@@ -347,6 +413,34 @@ def test_gridsample_backward_repeats(cuda, case, dtype):
         assert all(bool(torch.isfinite(t).all()) for t in (*first, *second))
         assert torch.equal(first[1], second[1]), padding
         _close(first[0], second[0], 1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gridsample_forward_repeats_bit_for_bit(cuda, dtype):
+    g = torch.Generator(device=cuda).manual_seed(9)
+    inp, grid = _k3_case("path-0.3px", dtype, False, g)
+    for padding in PADDINGS:
+        first, second = (gkernel.gridsample_fwd(inp, grid, padding) for _ in range(2))
+        assert torch.equal(first, second), padding
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [6, 8])
+def test_gridsample_forward_takes_misaligned_tensors(cuda, c, dtype):
+    """An image and a grid at an odd storage offset take the narrower loads
+    (one scalar a channel, two scalar grid loads): the same bits as the wide
+    loads on aligned copies."""
+    g = torch.Generator(device=cuda).manual_seed(10)
+    inp = torch.randn((2, 24, 40, c), device=cuda, generator=g).to(dtype)
+    grid = (torch.rand((2, 16, 33, 2), device=cuda, generator=g) * 2 - 1) * 1.2
+    views = []
+    for t in (inp, grid):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+        views.append(flat[1:].view(t.shape).copy_(t))
+    assert all(v.is_contiguous() and v.data_ptr() % 8 != 0 for v in views)
+    for padding in PADDINGS:
+        assert torch.equal(gkernel.gridsample_fwd(*views, padding),
+                           gkernel.gridsample_fwd(inp, grid, padding)), padding
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

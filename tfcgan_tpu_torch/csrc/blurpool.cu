@@ -10,36 +10,51 @@
 // VMEM, gathers reflect halos in XLA and splits parities by reshapes because
 // Mosaic rejects strided slices; none of that has a reason here. Each thread
 // computes one output element with the reflect indices worked out in the
-// kernel, so no padded copy of x is ever written.
+// kernel, so no padded copy of x is ever written. Bytes bound it: it reads X
+// and writes X/4 (stride 2) or X (stride 1). Channels are the fastest index of
+// both the thread and the tensor, so a warp reads 32 neighbouring channels of
+// one pixel per tap. Left for later work: 16-byte loads over channels and a
+// block of outputs a thread, as the backward has.
 //
 // Backward: replaces _bwd_kernel / _blur_pool_bwd_impl / _bp_bwd of the same
 // module (row tiles, XLA-gathered halo rows, the W adjoint as an XLA einsum on
 // thin rows, extra folds for odd lengths). Here it is the exact adjoint in
-// gather form, one thread per dx element, written from the math: along an
-// axis of input length n and output length no, dx[r] collects k[a] * dy[o]
-// for every (o, a) with reflect(s*o + a - 1, n) == r. The reads s*o + a - 1
-// lie in [-1, n + 1]; the ones outside [0, n) fold back onto r = 1, n - 2 and
-// n - 3 (or onto any r for n <= 3), and every such o lies in the window
-// [ceil((r - 2) / s), floor((r + 3) / s)] clipped to [0, no): at most 6
-// outputs at stride 1 and 3 at stride 2. The 2-D adjoint is the product of
-// the two axes' weights over those windows. Away from the borders (all but
-// the 2 first and 3 last rows and columns) the window is known: 4 outputs
-// with the taps reversed at stride 1, 2 at stride 2, so the thread reads 16 or
-// 4 dy values with constant weights; only border threads build the windows.
-// (Building them in every thread bound a first version by integer work, at
-// 6-7x the forward's time for the same bytes.) No atomics: every dx element
-// is written once by one thread, so the result is deterministic.
+// gather form, written from the math: along an axis of input length n and
+// output length no, dx[r] collects k[a] * dy[o] for every (o, a) with
+// reflect(s*o + a - 1, n) == r. The reads s*o + a - 1 lie in [-1, n + 1]; the
+// ones outside [0, n) fold back onto r = 1, n - 2 and n - 3 (or onto any r for
+// n <= 3), and every such o lies in the window [ceil((r - 2) / s),
+// floor((r + 3) / s)] clipped to [0, no): at most 6 outputs at stride 1 and 3
+// at stride 2. The 2-D adjoint is the product of the two axes' weights over
+// those windows. No atomics: every dx element is written once by one thread,
+// so the result is deterministic and repeats bit for bit.
 //
-// What bounds both: bytes. The forward reads X and writes X/4 (stride 2) or
-// X (stride 1); the backward reads dy and writes dx, with dx 4x dy at stride
-// 2. Channels are the fastest index of both the thread and the tensor, so a
-// warp reads 32 neighbouring channels of one pixel per tap (coalesced), and
-// the tap reuse between neighbouring threads is served by L1/L2 rather than
-// by device memory.
-//
-// Left for later work: tiling rows through shared memory, 16-byte vector
-// loads over channels, and fusing the blur into the neighbouring instance
-// norm (forward) or its gradient (backward).
+// What bounds the backward: bytes (it reads dy and writes dx, 4x dy at stride
+// 2), once the loads are few enough. A thread an element with 2- or 4-byte
+// loads was bound instead by load instructions and L1 traffic: 4 loads an
+// output at stride 2 and 16 at stride 1, most of them of dy values that the
+// neighbouring threads read as well (10 % of the byte bound at the fft_glo
+// step's shapes). So a thread owns V consecutive channels (16 bytes: 8 in
+// bfloat16, 4 in float32; 8 bytes at stride 1 for pixels of at most 256
+// bytes) of a 2 x 2 block of dx pixels, rows 2m, 2m + 1 and columns 2p,
+// 2p + 1. Away from the borders (all but the 2 first and 3 last rows and
+// columns) the windows are known: the block reads a 3 x 3 window of dy at
+// stride 2 (9 vector loads for 4 x V outputs) and 5 x 5 at stride 1 (25 for
+// 4 x V), sums each dy row over the columns once for both dx columns, and
+// each column sum into both dx rows, in the order of the one-element form
+// (column sums first, then the rows, each a chain of fmaf from 0). Border
+// blocks build the general windows for each of their pixels and load every
+// position of the window (clamped into dy) whatever its weight, so that no
+// load waits behind a test of a weight: tested per position, the loads of a
+// border pixel ran one after another, and the generator's 7 x 7 map, nearly
+// all border, took longer than with a thread an element. A
+// block of threads is (channel vectors, column pairs), the channel vector
+// fastest, over a grid of (row pairs, column-pair chunks, images): no thread
+// divides. The entry picks the access width per launch: V when C is a
+// multiple of V and both pointers are aligned to V elements, else the same
+// kernel with V = 1 (one scalar an access). 64 registers a thread (4 blocks
+// of 256 an SM); the 16-byte stride-1 form spills 224 bytes in bfloat16,
+// which a cap of 80 registers (3 blocks) did not make faster.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -114,15 +129,17 @@ __device__ __forceinline__ float tap_weight(int a) {
   return static_cast<unsigned>(a) < 4u ? ((a == 0 || a == 3) ? 0.125f : 0.375f) : 0.f;
 }
 
-constexpr int kWindow = 6;      // outputs that can read one input: 6 at stride 1, 3 at stride 2
+// outputs that can read one input: 6 at stride 1, 3 at stride 2
+template <int S> constexpr int kWindow = S == 1 ? 6 : 3;
 constexpr int kNoRead = -(1 << 20);  // a read position that no window reaches
 
 // Adjoint weights of one axis for input index r: wt[i] is the summed weight
 // with which output o_lo + i reads r. Output o reads j = S*o + a - 1 with tap
 // a, so the read of r itself has a = r + 1 - S*o; the reads outside [0, n)
-// that reflect onto r (j = -1, n, n + 1) add theirs. Returns o_lo.
+// that reflect onto r (j = -1, n, n + 1) add theirs. Returns o_lo, which is
+// inside [0, no).
 template <int S>
-__device__ __forceinline__ int adjoint_weights(int r, int n, int no, float (&wt)[kWindow]) {
+__device__ __forceinline__ int adjoint_weights(int r, int n, int no, float (&wt)[kWindow<S>]) {
   const int o_lo = r < 2 ? 0 : (r - 2 + S - 1) / S;
   const int o_hi = min(no - 1, (r + 3) / S);
   // reflect_index(-1, n), (n, n) and (n + 1, n) in closed form
@@ -130,7 +147,7 @@ __device__ __forceinline__ int adjoint_weights(int r, int n, int no, float (&wt)
   const int fold_n = (n == 1 ? 0 : n - 2) == r ? n : kNoRead;
   const int fold_n1 = (n == 1 ? 0 : n == 2 ? 1 : n - 3) == r ? n + 1 : kNoRead;
 #pragma unroll
-  for (int i = 0; i < kWindow; ++i) {
+  for (int i = 0; i < kWindow<S>; ++i) {
     const int base = 1 - S * (o_lo + i);  // a = j + base for a read at j
     wt[i] = o_lo + i <= o_hi ? tap_weight(r + base) + tap_weight(fold_lo + base) +
                                    tap_weight(fold_n + base) + tap_weight(fold_n1 + base)
@@ -139,77 +156,232 @@ __device__ __forceinline__ int adjoint_weights(int r, int n, int no, float (&wt)
   return o_lo;
 }
 
-// grid.x: one block row per dx row (n, r); grid.y: chunks of W*C.
-template <typename T, int S>
-__global__ void __launch_bounds__(kThreads)
-blurpool_bwd_kernel(const T* __restrict__ dy, T* __restrict__ dx, int h, int w, int c,
-                    int ho, int wo) {
-  const int q = blockIdx.y * kThreads + threadIdx.x;  // index in the dx row: iw * c + ci
-  if (q >= w * c) return;
-  const int row = blockIdx.x;                          // n * h + r (< 2^31: 32-bit division)
-  const int n = row / h;
-  const int r = row - n * h;
-  const int iw = q / c;
-  const int ci = q - iw * c;
-  const int64_t row_stride = static_cast<int64_t>(wo) * c;
-  const T* dyn = dy + static_cast<int64_t>(n) * ho * row_stride + ci;
+// V consecutive elements of T as one aligned access of V * sizeof(T) bytes
+// (2 to 16), converted to or from float32.
+template <int Bytes> struct Word;
+template <> struct Word<2> { using type = unsigned short; };
+template <> struct Word<4> { using type = unsigned int; };
+template <> struct Word<8> { using type = uint2; };
+template <> struct Word<16> { using type = uint4; };
 
-  float acc = 0.f;
-  if (r >= 2 && r <= h - 4 && iw >= 2 && iw <= w - 4) {
-    // interior (all but the 2 first and 3 last rows and columns): no
-    // reflected read lands here, and the outputs reading (r, iw) are those
-    // with S*o = r + 1 - a for a tap a: 4 consecutive at stride 1, 2 at stride 2
-    constexpr int kTaps = S == 1 ? 4 : 2;
-    float wr[kTaps], wc[kTaps];
-    if constexpr (S == 1) {  // taps a = 3, 2, 1, 0 of outputs r - 2 .. r + 1
-      const float k[kTaps] = {0.125f, 0.375f, 0.375f, 0.125f};
+template <typename T, int V>
+__device__ __forceinline__ void load_vec(const T* p, float (&v)[V]) {
+  using W = typename Word<sizeof(T) * V>::type;
+  if constexpr (sizeof(T) == 4) {
+    union { W w; float f[V]; } u;
+    u.w = *reinterpret_cast<const W*>(p);
 #pragma unroll
-      for (int i = 0; i < kTaps; ++i) wr[i] = wc[i] = k[i];
-    } else {  // even r: taps 3, 1 of outputs r/2 - 1, r/2; odd r: 2, 0 of (r-1)/2, (r+1)/2
-      wr[0] = r & 1 ? 0.375f : 0.125f, wr[1] = r & 1 ? 0.125f : 0.375f;
-      wc[0] = iw & 1 ? 0.375f : 0.125f, wc[1] = iw & 1 ? 0.125f : 0.375f;
-    }
-    const int o0 = S == 1 ? r - 2 : (r - 1) >> 1;
-    const int p0 = S == 1 ? iw - 2 : (iw - 1) >> 1;
-    const T* dyr = dyn + o0 * row_stride + static_cast<int64_t>(p0) * c;
+    for (int i = 0; i < V; ++i) v[i] = u.f[i];
+  } else {  // bfloat16: the high half of a float32
+    union { W w; unsigned short b[V]; } u;
+    u.w = *reinterpret_cast<const W*>(p);
 #pragma unroll
-    for (int i = 0; i < kTaps; ++i, dyr += row_stride) {
-      float sum = 0.f;
+    for (int i = 0; i < V; ++i) v[i] = __uint_as_float(static_cast<unsigned int>(u.b[i]) << 16);
+  }
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void store_vec(T* p, const float (&v)[V]) {
+  using W = typename Word<sizeof(T) * V>::type;
+  if constexpr (sizeof(T) == 4) {
+    union { W w; float f[V]; } u;
 #pragma unroll
-      for (int j = 0; j < kTaps; ++j) sum = fmaf(wc[j], load_f32(dyr + j * c), sum);
-      acc = fmaf(wr[i], sum, acc);
-    }
+    for (int i = 0; i < V; ++i) u.f[i] = v[i];
+    *reinterpret_cast<W*>(p) = u.w;
   } else {
-    float wr[kWindow], wc[kWindow];
-    const int o_lo = adjoint_weights<S>(r, h, ho, wr);
-    const int p_lo = adjoint_weights<S>(iw, w, wo, wc);
-    const T* dyr = dyn + o_lo * row_stride + static_cast<int64_t>(p_lo) * c;
+    union { W w; unsigned short b[V]; } u;
 #pragma unroll
-    for (int i = 0; i < kWindow; ++i, dyr += row_stride) {
-      if (wr[i] == 0.f) continue;
-      float sum = 0.f;
+    for (int i = 0; i < V; ++i) u.b[i] = __bfloat16_as_ushort(__float2bfloat16_rn(v[i]));
+    *reinterpret_cast<W*>(p) = u.w;
+  }
+}
+
+// s = fmaf(k, v, first ? 0 : s), elementwise over a vector
+template <int V>
+__device__ __forceinline__ void fma_into(float (&s)[V], float k, const float (&v)[V], bool first) {
 #pragma unroll
-      for (int j = 0; j < kWindow; ++j) {
-        if (wc[j] != 0.f) sum = fmaf(wc[j], load_f32(dyr + j * c), sum);
-      }
-      acc = fmaf(wr[i], sum, acc);
+  for (int i = 0; i < V; ++i) s[i] = fmaf(k, v[i], first ? 0.f : s[i]);
+}
+
+// Interior 2 x 2 block at stride 2: dx rows 2m, 2m + 1 read dy rows m - 1, m
+// (taps 3, 1) and m, m + 1 (taps 2, 0); the columns alike. src points at dy
+// (m - 1, p - 1), dst at dx (2m, 2p), both at the thread's channels.
+template <typename T, int V>
+__device__ __forceinline__ void interior_s2(const T* src, T* dst, int64_t dy_row,
+                                            int64_t dx_row, int c) {
+  float se[3][V], so[3][V];  // each dy row summed for dx column 2p and 2p + 1
+#pragma unroll
+  for (int a = 0; a < 3; ++a, src += dy_row) {
+    float v0[V], v1[V], v2[V];
+    load_vec<T, V>(src, v0);
+    load_vec<T, V>(src + c, v1);
+    load_vec<T, V>(src + 2 * c, v2);
+    fma_into(se[a], 0.125f, v0, true);
+    fma_into(se[a], 0.375f, v1, false);
+    fma_into(so[a], 0.375f, v1, true);
+    fma_into(so[a], 0.125f, v2, false);
+  }
+  float o[V];
+  fma_into(o, 0.125f, se[0], true);
+  fma_into(o, 0.375f, se[1], false);
+  store_vec<T, V>(dst, o);
+  fma_into(o, 0.125f, so[0], true);
+  fma_into(o, 0.375f, so[1], false);
+  store_vec<T, V>(dst + c, o);
+  fma_into(o, 0.375f, se[1], true);
+  fma_into(o, 0.125f, se[2], false);
+  store_vec<T, V>(dst + dx_row, o);
+  fma_into(o, 0.375f, so[1], true);
+  fma_into(o, 0.125f, so[2], false);
+  store_vec<T, V>(dst + dx_row + c, o);
+}
+
+// Interior 2 x 2 block at stride 1: dx row r reads dy rows r - 2 .. r + 1 with
+// the taps reversed (k is symmetric), so the block reads rows 2m - 2 .. 2m + 2
+// and the columns alike. src points at dy (2m - 2, 2p - 2), dst at dx (2m, 2p).
+template <typename T, int V>
+__device__ __forceinline__ void interior_s1(const T* src, T* dst, int64_t dy_row,
+                                            int64_t dx_row, int c) {
+  const float k[4] = {0.125f, 0.375f, 0.375f, 0.125f};
+  float a00[V], a01[V], a10[V], a11[V];  // dx (2m, 2p), (2m, 2p + 1), (2m + 1, 2p), ...
+#pragma unroll
+  for (int a = 0; a < 5; ++a, src += dy_row) {
+    float se[V], so[V];  // this dy row summed for dx column 2p and 2p + 1
+#pragma unroll
+    for (int b = 0; b < 5; ++b) {
+      float v[V];
+      load_vec<T, V>(src + b * c, v);
+      if (b < 4) fma_into(se, k[b], v, b == 0);
+      if (b > 0) fma_into(so, k[b - 1], v, b == 1);
+    }
+    if (a < 4) {
+      fma_into(a00, k[a], se, a == 0);
+      fma_into(a01, k[a], so, a == 0);
+    }
+    if (a > 0) {
+      fma_into(a10, k[a - 1], se, a == 1);
+      fma_into(a11, k[a - 1], so, a == 1);
     }
   }
-  store_f32(dx + static_cast<int64_t>(row) * w * c + q, acc);
+  store_vec<T, V>(dst, a00);
+  store_vec<T, V>(dst + c, a01);
+  store_vec<T, V>(dst + dx_row, a10);
+  store_vec<T, V>(dst + dx_row + c, a11);
+}
+
+// One dx pixel from its general windows (rows o_lo + i with weight wr[i],
+// columns p_lo + j with wc[j]), V channels: dyn points at dy (n, 0, 0) and dst
+// at the dx pixel, both at the thread's channels. Every window position is
+// loaded, clamped into dy, whatever its weight, so that no load waits for a
+// test of a weight; a position of weight 0 adds nothing (the sums are those
+// of the positions with weights, in window order).
+template <typename T, int S, int V>
+__device__ __forceinline__ void border_pixel(const T* dyn, T* dst, int o_lo,
+                                             const float (&wr)[kWindow<S>], int p_lo,
+                                             const float (&wc)[kWindow<S>], int ho, int wo,
+                                             int c) {
+  const int64_t dy_row = static_cast<int64_t>(wo) * c;
+  float acc[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) acc[e] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kWindow<S>; ++i) {
+    const T* dyr = dyn + min(o_lo + i, ho - 1) * dy_row;
+    float sum[V];
+#pragma unroll
+    for (int e = 0; e < V; ++e) sum[e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kWindow<S>; ++j) {
+      float v[V];
+      load_vec<T, V>(dyr + static_cast<int64_t>(min(p_lo + j, wo - 1)) * c, v);
+      if (wc[j] != 0.f) fma_into(sum, wc[j], v, false);
+    }
+    if (wr[i] != 0.f) fma_into(acc, wr[i], sum, false);
+  }
+  store_vec<T, V>(dst, acc);
+}
+
+// block (tx channel vectors, ty column pairs); grid (row pairs, chunks of
+// column pairs, images). A thread: V channels of dx rows 2m, 2m + 1 and
+// columns 2p, 2p + 1 (those inside the image), for channel vectors threadIdx.x,
+// threadIdx.x + tx, ... .
+template <typename T, int S, int V>
+__global__ void __launch_bounds__(kThreads, 4)
+blurpool_bwd_kernel(const T* __restrict__ dy, T* __restrict__ dx, int h, int w, int c,
+                    int ho, int wo) {
+  const int m = blockIdx.x;
+  const int p = blockIdx.y * blockDim.y + threadIdx.y;
+  const int r0 = 2 * m, c0 = 2 * p;
+  if (c0 >= w) return;
+  const int64_t dy_row = static_cast<int64_t>(wo) * c, dx_row = static_cast<int64_t>(w) * c;
+  const T* dyn = dy + static_cast<int64_t>(blockIdx.z) * ho * dy_row;
+  T* dxb = dx + (static_cast<int64_t>(blockIdx.z) * h + r0) * dx_row +
+           static_cast<int64_t>(c0) * c;
+  // no reflected read lands on rows 2 .. h - 4 or columns 2 .. w - 4
+  if (r0 >= 2 && r0 + 1 <= h - 4 && c0 >= 2 && c0 + 1 <= w - 4) {
+    for (int ch = threadIdx.x * V; ch < c; ch += blockDim.x * V) {
+      if constexpr (S == 2) {
+        interior_s2<T, V>(dyn + (m - 1) * dy_row + static_cast<int64_t>(p - 1) * c + ch,
+                          dxb + ch, dy_row, dx_row, c);
+      } else {
+        interior_s1<T, V>(dyn + (r0 - 2) * dy_row + static_cast<int64_t>(c0 - 2) * c + ch,
+                          dxb + ch, dy_row, dx_row, c);
+      }
+    }
+    return;
+  }
+  for (int i = 0; i < 2 && r0 + i < h; ++i) {
+    float wr[kWindow<S>];
+    const int o_lo = adjoint_weights<S>(r0 + i, h, ho, wr);
+    for (int j = 0; j < 2 && c0 + j < w; ++j) {
+      float wc[kWindow<S>];
+      const int p_lo = adjoint_weights<S>(c0 + j, w, wo, wc);
+      for (int ch = threadIdx.x * V; ch < c; ch += blockDim.x * V) {
+        border_pixel<T, S, V>(dyn + ch, dxb + i * dx_row + j * c + ch, o_lo, wr, p_lo, wc, ho,
+                              wo, c);
+      }
+    }
+  }
+}
+
+template <typename T, int S, int V>
+cudaError_t launch_bwd_as(const void* dy, void* dx, int64_t n, int h, int w, int c, int ho,
+                          int wo, cudaStream_t stream) {
+  const int vectors = c / V;
+  const int tx = vectors < kThreads ? vectors : kThreads;
+  const int ty = kThreads / tx;
+  const int64_t pairs = (w + 1) / 2;
+  const int64_t chunks = (pairs + ty - 1) / ty;
+  if (n > 65535 || chunks > 65535) return cudaErrorInvalidConfiguration;
+  const dim3 grid(static_cast<unsigned>((h + 1) / 2), static_cast<unsigned>(chunks),
+                  static_cast<unsigned>(n));
+  blurpool_bwd_kernel<T, S, V><<<grid, dim3(tx, ty), 0, stream>>>(
+      static_cast<const T*>(dy), static_cast<T*>(dx), h, w, c, ho, wo);
+  return cudaSuccess;
+}
+
+// The access width, per launch: 16 bytes a thread and access, but 8 at stride
+// 1 where a pixel's channels span at most 256 bytes (C = 64 and 128 in
+// bfloat16, where it was faster in turns on the card; at stride 2 and at
+// wider pixels it was not), each when C is a multiple of it and both pointers
+// are aligned to it; else one scalar.
+template <typename T, int S>
+cudaError_t launch_bwd_stride(const void* dy, void* dx, int64_t n, int h, int w, int c, int ho,
+                              int wo, cudaStream_t stream) {
+  const uintptr_t at = reinterpret_cast<uintptr_t>(dy) | reinterpret_cast<uintptr_t>(dx);
+  const auto fits = [&](int bytes) { return c % (bytes / sizeof(T)) == 0 && at % bytes == 0; };
+  if ((S == 2 || c * sizeof(T) > 256) && fits(16)) {
+    return launch_bwd_as<T, S, 16 / sizeof(T)>(dy, dx, n, h, w, c, ho, wo, stream);
+  }
+  if (fits(8)) return launch_bwd_as<T, S, 8 / sizeof(T)>(dy, dx, n, h, w, c, ho, wo, stream);
+  return launch_bwd_as<T, S, 1>(dy, dx, n, h, w, c, ho, wo, stream);
 }
 
 template <typename T>
-void launch_bwd(const void* dy, void* dx, int64_t n, int h, int w, int c, int ho, int wo,
-                int stride, cudaStream_t stream) {
-  const dim3 grid(static_cast<unsigned>(n * h),
-                  static_cast<unsigned>((static_cast<int64_t>(w) * c + kThreads - 1) / kThreads));
-  const T* src = static_cast<const T*>(dy);
-  T* dst = static_cast<T*>(dx);
-  if (stride == 1) {
-    blurpool_bwd_kernel<T, 1><<<grid, kThreads, 0, stream>>>(src, dst, h, w, c, ho, wo);
-  } else {
-    blurpool_bwd_kernel<T, 2><<<grid, kThreads, 0, stream>>>(src, dst, h, w, c, ho, wo);
-  }
+cudaError_t launch_bwd(const void* dy, void* dx, int64_t n, int h, int w, int c, int ho, int wo,
+                       int stride, cudaStream_t stream) {
+  return stride == 1 ? launch_bwd_stride<T, 1>(dy, dx, n, h, w, c, ho, wo, stream)
+                     : launch_bwd_stride<T, 2>(dy, dx, n, h, w, c, ho, wo, stream);
 }
 
 }  // namespace
@@ -232,17 +404,21 @@ extern "C" int tfcgan_blurpool_fwd(const void* x, void* y, int64_t n, int h, int
 
 // The adjoint of tfcgan_blurpool_fwd: dy is (n, ho, wo, c) and dx (n, h, w, c),
 // both contiguous on the current device, ho/wo the forward's output lengths
-// for h/w at this stride; the caller checks shapes and the grid limits
-// (n * h < 2^31, w * c < 2^31). Returns cudaGetLastError().
+// for h/w at this stride; the caller checks shapes and the grid limits (n <
+// 2^16, w * c < 2^31 and at most 65535 blocks of 256 threads over w * c).
+// Returns cudaGetLastError(), or cudaErrorInvalidConfiguration for a grid out
+// of those limits.
 extern "C" int tfcgan_blurpool_bwd(const void* dy, void* dx, int64_t n, int h, int w, int c,
                                    int ho, int wo, int stride, int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
   if (dtype == 0) {
-    launch_bwd<float>(dy, dx, n, h, w, c, ho, wo, stride, s);
+    err = launch_bwd<float>(dy, dx, n, h, w, c, ho, wo, stride, s);
   } else if (dtype == 1) {
-    launch_bwd<__nv_bfloat16>(dy, dx, n, h, w, c, ho, wo, stride, s);
+    err = launch_bwd<__nv_bfloat16>(dy, dx, n, h, w, c, ho, wo, stride, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -22,10 +22,32 @@
 // that machine has no gather. This card has one: the function is 4 loads and 4
 // multiply-adds per output element, and nothing of that design is kept.
 //
-// tfcgan_gridsample_fwd: one thread per output element, channels fastest, so
-// a warp writes neighbouring addresses and, for a smooth flow, reads
-// neighbouring pixels; the threads of one pixel read the same two grid values
-// (one broadcast load each). float32 arithmetic, output in inp's dtype.
+// tfcgan_gridsample_fwd: a block of 256 threads owns 256 consecutive output
+// pixels. Each thread first works out one pixel's two axes (the grid read as
+// one float2, 32-bit indices, no division but the image index) into shared
+// memory: the four tap offsets and the four products of the axis weights. Then
+// the block's threads walk its output (C channels a pixel, contiguous) in
+// vectors of V channels, V the widest that C and the pointers allow (up to 16
+// bytes: 4 float32 or 8 bfloat16; 2 at the path's C = 6, 1 for odd C), each
+// reading its pixel's taps from shared memory, the four taps' V channels as
+// one load each, and writing its V outputs as one store: a warp's stores are
+// contiguous. float32 arithmetic, output in inp's dtype. What bounds it now:
+// bytes in float32 (it reads inp and grid once and writes out; the 4 taps of
+// neighbouring outputs overlap and are served by L1/L2): 70 % of the byte
+// bound at the path's shape. In bfloat16, with half the image bytes, about
+// half: a block's two round trips to memory one after the other (the grid,
+// then the taps) weigh as much as its bytes. A thread an output element, the
+// first design, was bound by instructions instead: two 64-bit divisions and
+// both axes' coordinate arithmetic for every channel, and a 2- or 4-byte load
+// for every tap and channel (34 % of the byte bound and behind F.grid_sample
+// at the path's shape). The other layout, a thread a pixel looping over its
+// channels with the same vectors and storing them itself, was built and timed
+// in turns against this one on an H100 (CUDA graphs, (32, 256, 256, 6)): 1.4x
+// slower in float32, 6 % faster in bfloat16, and 3.3x slower at (32, 64, 64,
+// 64) float32, where a warp's stores are 256 bytes apart; staging its outputs
+// in shared memory for contiguous stores would need 256 x C elements (300 KB
+// at C = 300). Unrolling this kernel's loop over vectors (2 or 4 in flight a
+// thread) did not make it faster.
 //
 // tfcgan_gridsample_bwd: threads over (pixel, channel) with channels fastest,
 // as the forward's, so the reads of g are coalesced and, for a smooth flow, the
@@ -55,14 +77,12 @@
 // under border it reads the edge pixel it was clamped to (NaN: pixel 0), and
 // no tap ever addresses memory outside the image.
 //
-// What bounds both: bytes. The forward reads inp and grid once and writes out;
-// the backward reads g, inp and grid and writes both gradients. The 4 taps of
-// neighbouring outputs overlap and are served by L1/L2. The backward's atomics
-// (4 an output element) go to L2 and are what it waits for: the (pixel,
-// channel) threads make them coalesce.
+// What bounds the backward: bytes (it reads g, inp and grid and writes both
+// gradients) and its atomics (4 an output element), which go to L2 and are
+// what it waits for: the (pixel, channel) threads make them coalesce.
 //
-// Left for later work: 16-byte loads; a deterministic variant. Tried on the
-// card and not kept: accumulating the image gradient of a block's 8 x 32
+// Left for later work: a deterministic image gradient. Tried on the card and
+// not kept: accumulating the image gradient of a block's 8 x 32
 // output pixels in a shared-memory window of the input before one atomic an
 // element goes to L2 (3.4 times fewer atomics to L2 at the path's flow, and
 // slower: the shared atomics, the window's zeroing and flush and the
@@ -81,10 +101,6 @@ constexpr int kReflection = 2;
 
 __device__ __forceinline__ float load_f32(const float* p) { return *p; }
 __device__ __forceinline__ float load_f32(const __nv_bfloat16* p) { return __bfloat162float(*p); }
-__device__ __forceinline__ void store_f32(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 
 // One axis of one sample: its two taps, their weights, and the derivative of
 // the pixel coordinate with respect to the normalized one.
@@ -144,36 +160,109 @@ __device__ __forceinline__ Axis axis_taps(float g, int size, int padding, int al
   return a;
 }
 
-template <typename T>
-__device__ __forceinline__ float tap(const T* p, bool on) {
-  return on ? load_f32(p) : 0.f;
+// V consecutive elements of T as one aligned access of V * sizeof(T) bytes
+// (2 to 16), converted to or from float32.
+template <int Bytes> struct Word;
+template <> struct Word<2> { using type = unsigned short; };
+template <> struct Word<4> { using type = unsigned int; };
+template <> struct Word<8> { using type = uint2; };
+template <> struct Word<16> { using type = uint4; };
+
+template <typename T, int V>
+__device__ __forceinline__ void load_vec(const T* p, float (&v)[V]) {
+  using W = typename Word<sizeof(T) * V>::type;
+  if constexpr (sizeof(T) == 4) {
+    union { W w; float f[V]; } u;
+    u.w = *reinterpret_cast<const W*>(p);
+#pragma unroll
+    for (int i = 0; i < V; ++i) v[i] = u.f[i];
+  } else {  // bfloat16: the high half of a float32
+    union { W w; unsigned short b[V]; } u;
+    u.w = *reinterpret_cast<const W*>(p);
+#pragma unroll
+    for (int i = 0; i < V; ++i) v[i] = __uint_as_float(static_cast<unsigned int>(u.b[i]) << 16);
+  }
 }
 
-// One thread per output element e = pixel * c + channel.
-template <typename T>
+template <typename T, int V>
+__device__ __forceinline__ void store_vec(T* p, const float (&v)[V]) {
+  using W = typename Word<sizeof(T) * V>::type;
+  if constexpr (sizeof(T) == 4) {
+    union { W w; float f[V]; } u;
+#pragma unroll
+    for (int i = 0; i < V; ++i) u.f[i] = v[i];
+    *reinterpret_cast<W*>(p) = u.w;
+  } else {
+    union { W w; unsigned short b[V]; } u;
+#pragma unroll
+    for (int i = 0; i < V; ++i) u.b[i] = __bfloat16_as_ushort(__float2bfloat16_rn(v[i]));
+    *reinterpret_cast<W*>(p) = u.w;
+  }
+}
+
+// A block owns kThreads consecutive output pixels. Its thread t first works
+// out pixel p0 + t's taps into shared memory: the element offsets of taps 00,
+// 01, 10, 11 (y, x) into inp, -1 for a tap that reads 0, and their weights.
+// Then the block's threads walk its contiguous output, pixels x C channels, V
+// channels a step. grid_pairs: the grid is 8-byte aligned (one float2 load a
+// pixel). Every offset into inp fits an int (the caller checks inp's size),
+// and so does every pixel index.
+template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
 gridsample_fwd_kernel(const T* __restrict__ inp, const float* __restrict__ grid,
-                      T* __restrict__ out, int64_t total, int64_t plane, int h, int w, int c,
-                      int padding, int align) {
-  const int64_t e = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (e >= total) return;
-  const int64_t pix = e / c;
-  const int ch = static_cast<int>(e - pix * c);
-  const int64_t n = pix / plane;
-  const Axis ax = axis_taps(grid[2 * pix], w, padding, align);
-  const Axis ay = axis_taps(grid[2 * pix + 1], h, padding, align);
-  const T* img = inp + n * h * w * c + ch;
-  const int64_t r0 = static_cast<int64_t>(ay.i0) * w, r1 = static_cast<int64_t>(ay.i1) * w;
-  const float v00 = tap(img + (r0 + ax.i0) * c, ay.on0 && ax.on0);
-  const float v01 = tap(img + (r0 + ax.i1) * c, ay.on0 && ax.on1);
-  const float v10 = tap(img + (r1 + ax.i0) * c, ay.on1 && ax.on0);
-  const float v11 = tap(img + (r1 + ax.i1) * c, ay.on1 && ax.on1);
-  // the plain version's sum, term by term
-  float acc = __fmul_rn(v00, __fmul_rn(ax.w0, ay.w0));
-  acc = __fadd_rn(acc, __fmul_rn(v01, __fmul_rn(ax.w1, ay.w0)));
-  acc = __fadd_rn(acc, __fmul_rn(v10, __fmul_rn(ax.w0, ay.w1)));
-  acc = __fadd_rn(acc, __fmul_rn(v11, __fmul_rn(ax.w1, ay.w1)));
-  store_f32(out + e, acc);
+                      T* __restrict__ out, int pixels, int plane, int h, int w, int c,
+                      int padding, int align, int grid_pairs) {
+  __shared__ int4 offs[kThreads];
+  __shared__ float4 wts[kThreads];
+  const int p0 = blockIdx.x * kThreads;
+  const int count = min(kThreads, pixels - p0);
+  if (static_cast<int>(threadIdx.x) < count) {
+    const int pix = p0 + threadIdx.x;
+    float gx, gy;
+    if (grid_pairs) {
+      const float2 g = reinterpret_cast<const float2*>(grid)[pix];
+      gx = g.x;
+      gy = g.y;
+    } else {
+      gx = grid[2 * static_cast<int64_t>(pix)];
+      gy = grid[2 * static_cast<int64_t>(pix) + 1];
+    }
+    const Axis ax = axis_taps(gx, w, padding, align);
+    const Axis ay = axis_taps(gy, h, padding, align);
+    const int base = pix / plane * h * w * c;
+    const int r0 = ay.i0 * w, r1 = ay.i1 * w;
+    offs[threadIdx.x] = make_int4(ay.on0 && ax.on0 ? base + (r0 + ax.i0) * c : -1,
+                                  ay.on0 && ax.on1 ? base + (r0 + ax.i1) * c : -1,
+                                  ay.on1 && ax.on0 ? base + (r1 + ax.i0) * c : -1,
+                                  ay.on1 && ax.on1 ? base + (r1 + ax.i1) * c : -1);
+    wts[threadIdx.x] = make_float4(__fmul_rn(ax.w0, ay.w0), __fmul_rn(ax.w1, ay.w0),
+                                   __fmul_rn(ax.w0, ay.w1), __fmul_rn(ax.w1, ay.w1));
+  }
+  __syncthreads();
+  const int vectors = c / V;  // a pixel's
+  T* dst = out + static_cast<int64_t>(p0) * c;
+  for (int i = threadIdx.x; i < count * vectors; i += kThreads) {
+    const int lp = i / vectors;
+    const int ch = (i - lp * vectors) * V;
+    const int4 o = offs[lp];
+    const float4 wt = wts[lp];
+    float v00[V], v01[V], v10[V], v11[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) v00[k] = v01[k] = v10[k] = v11[k] = 0.f;
+    if (o.x >= 0) load_vec<T, V>(inp + o.x + ch, v00);
+    if (o.y >= 0) load_vec<T, V>(inp + o.y + ch, v01);
+    if (o.z >= 0) load_vec<T, V>(inp + o.z + ch, v10);
+    if (o.w >= 0) load_vec<T, V>(inp + o.w + ch, v11);
+    float acc[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) {  // the plain version's sum, term by term
+      acc[k] = __fmul_rn(v00[k], wt.x);
+      acc[k] = __fadd_rn(acc[k], __fmul_rn(v01[k], wt.y));
+      acc[k] = __fadd_rn(acc[k], __fmul_rn(v10[k], wt.z));
+      acc[k] = __fadd_rn(acc[k], __fmul_rn(v11[k], wt.w));
+    }
+    store_vec<T, V>(dst + static_cast<int64_t>(i) * V, acc);
+  }
 }
 
 // What the threads of one pixel share in the backward: its four taps (element
@@ -269,16 +358,40 @@ gridsample_bwd_kernel(const T* __restrict__ g, const T* __restrict__ inp,
   }
 }
 
-unsigned int blocks_for(int64_t threads) {
-  return static_cast<unsigned int>((threads + kThreads - 1) / kThreads);
+template <typename T, int V>
+void launch_fwd_as(const void* inp, const float* grid, void* out, int pixels, int plane, int h,
+                   int w, int c, int padding, int align, int grid_pairs, cudaStream_t s) {
+  const auto blocks = static_cast<unsigned int>((pixels + kThreads - 1) / kThreads);
+  gridsample_fwd_kernel<T, V><<<blocks, kThreads, 0, s>>>(
+      static_cast<const T*>(inp), grid, static_cast<T*>(out), pixels, plane, h, w, c, padding,
+      align, grid_pairs);
+}
+
+// V: the widest vector of up to 16 bytes that divides C and to which inp and
+// out are aligned.
+template <typename T>
+void launch_fwd(const void* inp, const float* grid, void* out, int pixels, int plane, int h,
+                int w, int c, int padding, int align, int grid_pairs, cudaStream_t s) {
+  const uintptr_t at = reinterpret_cast<uintptr_t>(inp) | reinterpret_cast<uintptr_t>(out);
+  const auto fits = [&](int v) { return c % v == 0 && at % (v * sizeof(T)) == 0; };
+  if (sizeof(T) == 2 && fits(8)) {
+    launch_fwd_as<T, 16 / sizeof(T)>(inp, grid, out, pixels, plane, h, w, c, padding, align,
+                                     grid_pairs, s);
+  } else if (fits(4)) {
+    launch_fwd_as<T, 4>(inp, grid, out, pixels, plane, h, w, c, padding, align, grid_pairs, s);
+  } else if (fits(2)) {
+    launch_fwd_as<T, 2>(inp, grid, out, pixels, plane, h, w, c, padding, align, grid_pairs, s);
+  } else {
+    launch_fwd_as<T, 1>(inp, grid, out, pixels, plane, h, w, c, padding, align, grid_pairs, s);
+  }
 }
 
 }  // namespace
 
 // Both take contiguous tensors on the current device and return
 // cudaGetLastError(). The caller checks: every size >= 1, n * h * w * c and
-// n * hg * wg below 2^31, n * hg * wg * c below 2^31 * 256, padding in {0
-// zeros, 1 border, 2 reflection}.
+// n * hg * wg below 2^31, n * hg * wg * c below 2^31 * 256, 256 * c below
+// 2^31, padding in {0 zeros, 1 border, 2 reflection}.
 // dtype: 0 = float32, 1 = bfloat16 (of inp, out and g); grid, dinp and dgrid
 // are float32.
 
@@ -286,17 +399,12 @@ extern "C" int tfcgan_gridsample_fwd(const void* inp, const float* grid, void* o
                                      int w, int c, int hg, int wg, int padding, int align,
                                      int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t plane = static_cast<int64_t>(hg) * wg;
-  const int64_t total = static_cast<int64_t>(n) * plane * c;
-  const unsigned int blocks = blocks_for(total);
+  const int plane = hg * wg, pixels = n * plane;
+  const int pairs = reinterpret_cast<uintptr_t>(grid) % 8 == 0;
   if (dtype == 0) {
-    gridsample_fwd_kernel<float><<<blocks, kThreads, 0, s>>>(
-        static_cast<const float*>(inp), grid, static_cast<float*>(out), total, plane, h, w, c,
-        padding, align);
+    launch_fwd<float>(inp, grid, out, pixels, plane, h, w, c, padding, align, pairs, s);
   } else if (dtype == 1) {
-    gridsample_fwd_kernel<__nv_bfloat16><<<blocks, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(inp), grid, static_cast<__nv_bfloat16*>(out), total,
-        plane, h, w, c, padding, align);
+    launch_fwd<__nv_bfloat16>(inp, grid, out, pixels, plane, h, w, c, padding, align, pairs, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

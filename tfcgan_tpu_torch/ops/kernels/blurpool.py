@@ -58,10 +58,13 @@ def _check(t: torch.Tensor, what: str, stride: int) -> None:
 
 def _launch(name: str, src: torch.Tensor, dst: torch.Tensor, n: int, h: int, w: int, c: int,
             stride: int) -> None:
-    """One launch, one thread per element of ``dst``; (n, h, w, c) is the
-    forward's input shape."""
+    """One launch over ``dst`` (the forward: a thread an element; the
+    backward: a thread a 2 x 2 block of pixels and up to 16 bytes of
+    channels, a grid dimension for the images); (n, h, w, c) is the forward's
+    input shape."""
     rows, cols = n * dst.shape[1], dst.shape[2] * c
-    if rows > _GRID_LIMIT or cols > _GRID_LIMIT or -(-cols // _THREADS) > _GRID_Y_LIMIT:
+    if (rows > _GRID_LIMIT or cols > _GRID_LIMIT or -(-cols // _THREADS) > _GRID_Y_LIMIT
+            or (name == "tfcgan_blurpool_bwd" and n > _GRID_Y_LIMIT)):
         raise ValueError(f"shape {tuple(dst.shape)} exceeds the kernel's launch grid")
     with torch.cuda.device(src.device):
         stream = torch.cuda.current_stream(src.device).cuda_stream

@@ -69,7 +69,8 @@ def _check(what: str, inp: torch.Tensor, grid: torch.Tensor, padding_mode: str) 
     if min(h, w, c) < 1:
         raise ValueError(f"{what}: inp {tuple(inp.shape)} has an empty image")
     pixels = n * grid.shape[1] * grid.shape[2]
-    if inp.numel() > _INT_LIMIT or pixels > _INT_LIMIT or pixels * c > _INT_LIMIT * _THREADS:
+    if (inp.numel() > _INT_LIMIT or pixels > _INT_LIMIT or pixels * c > _INT_LIMIT * _THREADS
+            or c * _THREADS > _INT_LIMIT):
         raise ValueError(f"{what}: inp {tuple(inp.shape)} with grid {tuple(grid.shape)} exceeds "
                          "the kernel's launch grid")
 

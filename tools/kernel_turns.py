@@ -1,0 +1,225 @@
+"""Time this tree's blur-pool and grid_sample kernels against another tree's, in
+turns on one CUDA card, and the train steps that run them.
+
+    python tools/kernel_turns.py --other DIR [--steps]
+
+DIR is another checkout of the repository (for example the parent commit,
+unpacked with ``git archive``). Its ``tfcgan_tpu_torch/csrc/blurpool.cu`` and
+``csrc/gridsample.cu`` are built with this tree's nvcc flags and swapped in
+for this tree's libraries through the wrappers' ``_fn``; every other line of
+code is this tree's. Each measurement runs in the order other, this, this,
+other, and prints every reading:
+
+- K1-bwd and K1-fwd: the 11 bfloat16 calls of one batch-8 G pass
+  (``chip_smoke.STRIDE2_SHAPES`` and ``STRIDE1_SHAPES``), eager and replayed
+  from CUDA graphs (``chip_smoke.graph_ms``: the device alone), and the calls
+  of one fft_glo step at batch 128 (``chip_smoke.fft_glo_step_calls``), with
+  their byte bounds;
+- K3-fwd in float32 and bfloat16 and K3-bwd in float32 at (32, 256, 256, 6),
+  offsets of 0.3 pixel;
+- with ``--steps``: the bf16 train step of fft_glo at batch 128, stn_newmodel3
+  and nemar at 32 (256²) and tfc_diff at 32 (128²), through
+  ``chip_smoke.phase_train_rate``.
+
+Before the times it prints the largest difference between the two trees'
+results on the same inputs. The last line is one JSON object with every
+reading.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import ctypes
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+from unittest import mock
+
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import chip_smoke  # noqa: E402
+from tfcgan_tpu_torch.ops.kernels import _build  # noqa: E402
+from tfcgan_tpu_torch.ops.kernels import blurpool as kernel  # noqa: E402
+from tfcgan_tpu_torch.ops.kernels import gridsample as gkernel  # noqa: E402
+
+LIBRARIES = {"blurpool": kernel, "gridsample": gkernel}
+ORDER = ("other", "this", "this again", "other again")
+TRAIN = (("fft_glo", 128, chip_smoke.SIZE), ("stn_newmodel3", 32, chip_smoke.SIZE),
+         ("nemar", 32, chip_smoke.SIZE), ("tfc_diff", 32, chip_smoke.DIFF_SIZE))
+
+
+def build_other(root: Path) -> dict[str, ctypes.CDLL]:
+    """Build the other tree's two sources as ``_build`` builds this tree's
+    (one nvcc each, started together), into a build directory of their own."""
+    with mock.patch.object(_build, "CSRC_DIR", root / "tfcgan_tpu_torch" / "csrc"), \
+            mock.patch.object(_build, "BUILD_DIR", _build.BUILD_DIR / "other"):
+        _build.build_libraries(list(LIBRARIES))
+        return {name: ctypes.CDLL(str(_build.library_path(name))) for name in LIBRARIES}
+
+
+def swapper(libs: dict[str, ctypes.CDLL]):
+    """A context manager factory: inside, the wrappers launch the other tree's
+    kernels (same C entry points and arguments)."""
+    def fn_of(name: str, module):
+        ours_fn = module._fn  # before any patch: this tree's loader
+
+        def fn(symbol: str):
+            ours = ours_fn(symbol)
+            theirs = getattr(libs[name], symbol)
+            theirs.argtypes, theirs.restype = ours.argtypes, ours.restype
+            return theirs
+        return fn
+
+    fns = {name: fn_of(name, module) for name, module in LIBRARIES.items()}
+
+    @contextlib.contextmanager
+    def other():
+        with mock.patch.object(kernel, "_fn", fns["blurpool"]), \
+                mock.patch.object(gkernel, "_fn", fns["gridsample"]):
+            yield
+    return other
+
+
+def in_turns(other, fn) -> list[float]:
+    """fn() -> ms under other, this, this, other."""
+    out = []
+    for label in ORDER:
+        with other() if label.startswith("other") else contextlib.nullcontext():
+            out.append(fn())
+    return out
+
+
+def blur_pass(device, gen, dtype=torch.bfloat16) -> list:
+    """(shape, stride, x, dy) of the 11 blur calls of one batch-8 G pass."""
+    cases = []
+    for shapes, stride in ((chip_smoke.STRIDE2_SHAPES, 2), (chip_smoke.STRIDE1_SHAPES, 1)):
+        for shape in shapes:
+            n, h, w, c = shape
+            x = torch.randn(shape, device=device, generator=gen).to(dtype)
+            dy = torch.randn((n, kernel.out_len(h, stride), kernel.out_len(w, stride), c),
+                             device=device, generator=gen).to(dtype)
+            cases.append((shape, stride, x, dy))
+    return cases
+
+
+def largest_difference(other, device, gen) -> dict[str, float]:
+    """max |this - other| of each kernel's results on the same inputs."""
+    diff = {}
+
+    def both(fn):
+        with other():
+            theirs = fn()
+        ours = fn()
+        torch.cuda.synchronize()
+        if isinstance(ours, tuple):
+            return max(float((a - b).abs().max()) for a, b in zip(ours, theirs))
+        return float((ours.float() - theirs.float()).abs().max())
+
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).split(".")[1]
+        cases = blur_pass(device, gen, dtype) + [
+            (s, st, torch.randn(s, device=device, generator=gen).to(dtype),
+             torch.randn((s[0], kernel.out_len(s[1], st), kernel.out_len(s[2], st), s[3]),
+                         device=device, generator=gen).to(dtype))
+            for s, st in (((1, 15, 17, 5), 2), ((2, 3, 3, 8), 1), ((2, 33, 31, 12), 1))]
+        diff[f"blurpool_fwd {tag}"] = max(both(lambda: kernel.blur_pool_fwd(x, st))
+                                          for _, st, x, _ in cases)
+        diff[f"blurpool_bwd {tag}"] = max(both(lambda: kernel.blur_pool_bwd(dy, s[1], s[2], st))
+                                          for s, st, _, dy in cases)
+        inp, grid, g = k3_inputs(device, gen, dtype)
+        diff[f"gridsample_fwd {tag}"] = max(both(lambda: gkernel.gridsample_fwd(inp, grid, p))
+                                            for p in gkernel.PADDING_MODES)
+    return diff
+
+
+def k3_inputs(device, gen, dtype=torch.float32):
+    size = chip_smoke.SIZE
+    grid = (chip_smoke._identity_grid(32, size, size, device)
+            + (torch.rand((32, size, size, 2), device=device, generator=gen) * 2 - 1)
+            * (0.6 / size)).contiguous()
+    inp = torch.randn((32, size, size, 6), device=device, generator=gen).to(dtype)
+    g = torch.randn((32, size, size, 6), device=device, generator=gen).to(dtype)
+    return inp, grid, g
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--other", required=True, type=Path, help="root of the other checkout")
+    p.add_argument("--steps", action="store_true", help="also time the train steps")
+    p.add_argument("--init-seed", type=int, default=0)
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        sys.exit("kernel_turns: needs a CUDA card")
+    device = torch.device("cuda", 0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+    print(card)
+    _build.build_libraries(list(LIBRARIES))
+    other = swapper(build_other(args.other.resolve()))
+    gen = torch.Generator(device=device).manual_seed(0)
+    result = {"card": card, "order": ORDER}
+
+    result["max_abs_diff"] = largest_difference(other, device, gen)
+    for k, v in result["max_abs_diff"].items():
+        print(f"this tree vs {args.other}: {k} max abs diff {v:.3g}")
+
+    cases = blur_pass(device, gen)
+    bytes_ops = [chip_smoke.blur_work(s, st, 2) for s, st, _, _ in cases]
+    bound, by = chip_smoke.bound_ms(sum(b for b, _ in bytes_ops), sum(o for _, o in bytes_ops))
+    for name, call in (("blurpool_bwd", lambda s, st, x, dy: kernel.blur_pool_bwd(
+            dy, s[1], s[2], st)), ("blurpool_fwd", lambda s, st, x, dy: kernel.blur_pool_fwd(
+                x, st))):
+        ms = in_turns(other, lambda: sum(chip_smoke.cuda_ms(lambda: call(*c)) for c in cases))
+        dev = in_turns(other, lambda: sum(chip_smoke.graph_ms(lambda: call(*c)) for c in cases))
+        result[f"{name} B=8 pass"] = {"ms": ms, "graph_ms": dev, "bound_ms": bound}
+        print(f"{name}: the 11 bf16 calls of a B=8 G pass, {' / '.join(ORDER)}: "
+              + ", ".join(f"{t:.4f}" for t in ms) + " ms; device alone (CUDA graphs) "
+              + ", ".join(f"{t:.4f}" for t in dev) + f" ms; bound {bound:.4f} ms ({by}) "
+              f"[{card}]")
+    del cases
+    torch.cuda.empty_cache()
+    readings = in_turns(other, lambda: chip_smoke.time_step_calls(device, chip_smoke.STEP_BATCH,
+                                                                  gen))
+    for name in ("blurpool_bwd", "blurpool_fwd"):
+        ms = [r[name]["ms"] for r in readings]
+        r = readings[0][name]
+        result[f"{name} fft_glo step"] = {"ms": ms, "bound_ms": r["bound_ms"],
+                                          "calls": r["calls"], "bytes": r["bytes"]}
+        print(f"{name}: the {r['calls']} bf16 calls of an fft_glo step at B="
+              f"{chip_smoke.STEP_BATCH}, {' / '.join(ORDER)}: "
+              + ", ".join(f"{t:.4f}" for t in ms) + f" ms; bound {r['bound_ms']:.4f} ms "
+              f"({r['bytes'] / 1e9:.3f} GB) [{card}]")
+
+    inp, grid, g = k3_inputs(device, gen)
+    inp16 = inp.to(torch.bfloat16)
+    for name, fn in (("gridsample_fwd fp32", lambda: gkernel.gridsample_fwd(inp, grid)),
+                     ("gridsample_fwd bf16", lambda: gkernel.gridsample_fwd(inp16, grid)),
+                     ("gridsample_bwd fp32", lambda: gkernel.gridsample_bwd(g, inp, grid))):
+        ms = in_turns(other, lambda: chip_smoke.cuda_ms(fn))
+        result[f"{name} (32,256,256,6)"] = {"ms": ms}
+        print(f"{name} at (32, 256, 256, 6), offsets 0.3 px, {' / '.join(ORDER)}: "
+              + ", ".join(f"{t:.4f}" for t in ms) + f" ms [{card}]")
+    del inp, inp16, grid, g
+    torch.cuda.empty_cache()
+
+    if args.steps:
+        paths = {label: other if label.startswith("other") else contextlib.nullcontext
+                 for label in ORDER}
+        for name, bsz, size in TRAIN:
+            got = chip_smoke.phase_train_rate(device, args, card, name, (bsz,), paths, size)
+            result[f"{name} step B={bsz} {size}²"] = {"ms": [got[bsz, k] for k in ORDER]}
+            torch.cuda.empty_cache()
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -37,7 +37,8 @@ KINDS = (
     ("K2-gradpos (resample)", ("resample_gradpos_kernel",)),
     ("K3-fwd (grid_sample)", ("gridsample_fwd_kernel",)),
     ("K3-bwd (grid_sample)", ("gridsample_bwd_kernel",)),
-    ("K4-fwd (flash attention)", ("flashattn_fwd_kernel",)),
+    # the float32-unit kernel and the bfloat16 tensor-core one
+    ("K4-fwd (flash attention)", ("flashattn_fwd_kernel", "flashattn_fwd_tc_kernel")),
     # the float32-unit kernels and the tensor-core ones (flashattn_dq_tc_kernel, ...)
     ("K4-bwd dq (flash attention)", ("flashattn_dq_",)),
     ("K4-bwd dk/dv (flash attention)", ("flashattn_dkv_",)),
