@@ -20,9 +20,10 @@ Phases, one line or more each; any failure raises and exits non-zero:
    float32 (atol 1e-5) and bfloat16 (against the plain version in float32
    from the same bf16 input or output gradient, rounded: atol = rtol = 8e-3,
    one bf16 ulp), with kernel and plain times at the path's shapes; two
-   identical backward runs at every path shape compared bit for bit; kernel
-   times and the byte bound of one fft_glo step's bf16 calls at batch 128
-   (``fft_glo_step_calls``: 27 forward, 23 backward).
+   identical forward and two identical backward runs at every path shape
+   compared bit for bit; kernel times and the byte bound of one fft_glo
+   step's bf16 calls at batch 128 (``fft_glo_step_calls``: 27 forward, 23
+   backward).
 4. resampling vs plain: the three kernels against ``resample_axis_plain`` and
    autograd of it (outputs and the gradient to x within 2e-5, the gradients to
    p and q within 2e-4, each x max(1, max|plain|): the reductions run in
@@ -32,7 +33,9 @@ Phases, one line or more each; any failure raises and exits non-zero:
    shapes and lengths 1-3, with lines at p = 0.5, 4, 0.25, 0 and -1 and lines
    pushed wholly off either end; ``warp_affine_separable`` forward and
    gradients through the kernels against the plain path; kernel, plain and
-   library (``F.grid_sample``) times at (32, 256, 256, 3).
+   library (``F.grid_sample``) times at (32, 256, 256, 3), and the forward's
+   time on the device alone (CUDA graphs) and share of its byte bound there
+   with a float32 and a bfloat16 image, whose forward runs twice bit for bit.
 5. dense grid_sample vs plain: both kernels against ``grid_sample_dense_plain``
    (``ops/warp.grid_sample`` in float32) and autograd of it, float32 and
    bfloat16 image: the path's shape (8|32, 256, 256, 6), zeros,
@@ -176,7 +179,9 @@ products take on the float32 units, which the float32 kernels use.
 Blur-pool's ``graph_ms`` is ``ms`` timed by replaying CUDA graphs (the device
 alone: eager calls of the small shapes time the wrapper's host work), and
 ``step_ms`` and ``step_bound_ms`` are the sums over one fft_glo step's
-``step_calls`` bf16 calls at batch 128.
+``step_calls`` bf16 calls at batch 128. The resampling forward's
+``graph_ms`` is its warp's ``ms`` on the device alone, and ``bf16_ms``,
+``bf16_graph_ms`` and ``bf16_bound_ms`` the same with a bfloat16 image.
 ``max_abs_err`` is the largest error of phase 3, 4, 5 or 13. ``library_ms`` is ``F.grid_sample`` on the same inputs (for the backward
 kernels: its backward) and, for flash attention,
 ``F.scaled_dot_product_attention`` (for both backward kernels: its whole
@@ -495,6 +500,8 @@ def phase_kernels(device) -> tuple[dict, dict]:
             fwd[0], bwd[0] = max(fwd[0], *errs), max(bwd[0], *errs_b)
             k, p = in_turns(lambda: blur_pool_padded(x, stride),
                             lambda: kernel.blur_pool_fwd(x, stride))
+            if not torch.equal(*(kernel.blur_pool_fwd(x, stride) for _ in range(2))):
+                raise AssertionError(f"blurpool fwd {name} s{stride} {shape} does not repeat")
             n, h, w, c = shape
             dy = torch.randn((n, kernel.out_len(h, stride), kernel.out_len(w, stride), c),
                              device=device, generator=gen).to(dtype)
@@ -523,7 +530,7 @@ def phase_kernels(device) -> tuple[dict, dict]:
                   f"s2 {errs[1]:.3g}, bwd s1 {errs_b[0]:.3g} s2 {errs_b[1]:.3g}")
     bound, by = bound_ms(n_bytes, n_ops)
     print(f"kernel blurpool: all cases within tolerance, max_abs_err fwd {fwd[0]:.3g}, "
-          f"bwd {bwd[0]:.3g}; the backward repeats bit for bit at every path shape; one bf16 "
+          f"bwd {bwd[0]:.3g}; both repeat bit for bit at every path shape; one bf16 "
           f"B=8 G forward's 11 calls: kernel {fwd[1]:.4f} ms (device alone, CUDA graph: "
           f"{fwd[3]:.4f}), plain {fwd[2]:.4f} ms; their backward: kernel {bwd[1]:.4f} ms "
           f"(device alone {bwd[3]:.4f}), plain {bwd[2]:.4f} ms; bound {bound:.4f} ms each way "
@@ -643,6 +650,34 @@ def _pass_bounds(x, p, g, mode) -> dict[str, tuple[float, float]]:
             "resample_gradpos": (x_bytes + g_bytes + 2 * lines, ops + 3 * g.numel())}
 
 
+def time_warp_fwd(src: torch.Tensor, theta: torch.Tensor, card: str) -> dict[str, float]:
+    """The forward kernel over one cubic warp of ``src`` (both passes) with a
+    float32 and a bfloat16 image: eager and device-alone (CUDA graph) ms and
+    the byte bound; two identical runs compared bit for bit."""
+    out = {}
+    for dtype, tag in ((torch.float32, ""), (torch.bfloat16, "bf16_")):
+        passes = record_passes(src.to(dtype), theta)
+
+        def warp():
+            return [rkernel.resample_fwd(x, p, q, *rest) for x, p, q, *rest in passes]
+
+        if not all(torch.equal(a, b) for a, b in zip(warp(), warp())):
+            raise AssertionError(f"resample_fwd {dtype} does not repeat bit for bit")
+        n_bytes = n_ops = 0
+        for x, p, q, l_out, mode, *_ in passes:
+            g = torch.empty((x.shape[0], l_out, x.shape[2]), device=x.device)
+            b, o = _pass_bounds(x, p, g, mode)["resample_fwd"]
+            n_bytes, n_ops = n_bytes + b, n_ops + o
+        ms, alone, (bound, by) = cuda_ms(warp), graph_ms(warp), bound_ms(n_bytes, n_ops)
+        out.update({f"{tag}ms": ms, f"{tag}graph_ms": alone, f"{tag}bound_ms": bound})
+        print(f"kernel resample_fwd: one cubic warp (x- and y-pass) of a {tuple(src.shape)} "
+              f"{str(dtype).split('.')[1]} image: kernel {ms:.4f} ms, device alone (CUDA "
+              f"graph) {alone:.4f} ms, bound {bound:.4f} ms ({by}, {n_bytes / 1e6:.1f} MB): "
+              f"{100 * bound / alone:.1f} % of the bound on the device alone; repeats bit for "
+              f"bit [{card}]")
+    return {k: v for k, v in out.items() if k not in ("ms", "bound_ms")}
+
+
 def phase_resample(device, card: str) -> dict[str, dict]:
     """The resampling kernels vs plain; one result dict per kernel."""
     gen = torch.Generator(device=device).manual_seed(2)
@@ -725,6 +760,7 @@ def phase_resample(device, card: str) -> dict[str, dict]:
         return F.grid_sample(src_n, grid, mode="bicubic", padding_mode="border",
                              align_corners=True)
 
+    fwd_alone = time_warp_fwd(src, theta, card)
     out = library()
     lib = {"resample_fwd": cuda_ms(lambda: library().detach()),
            "resample_adjoint": cuda_ms(
@@ -734,7 +770,8 @@ def phase_resample(device, card: str) -> dict[str, dict]:
     for k in names:
         b, by = bound_ms(total[k][2], total[k][3])
         results[k] = {"max_abs_err": worst[k], "ms": total[k][0], "plain_ms": total[k][1],
-                      "bound_ms": b, "bound_by": by, "library_ms": lib[k]}
+                      "bound_ms": b, "bound_by": by, "library_ms": lib[k],
+                      **(fwd_alone if k == "resample_fwd" else {})}
         print(f"kernel {k}: all cases within tolerance, worst {worst[k]:.3g}; one warp at "
               f"(32,256,256,3) fp32 (passes {[('x', 'y')[i] for i in used[k]]}): kernel "
               f"{total[k][0]:.4f} ms, plain {total[k][1]:.4f} ms, bound {b:.4f} ms ({by}, "

@@ -158,6 +158,75 @@ def test_blurpool_backward_repeats_bit_for_bit(cuda, dtype):
         assert torch.equal(first, second), (shape, stride)
 
 
+def _assert_blur_fwd(got, x, stride, what):
+    want = blurpool.blur_pool_padded(x.float(), stride).to(x.dtype)
+    if x.dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=0, msg=what)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), atol=8e-3, rtol=8e-3, msg=what)
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("c", [5, 4, 6, 8, 64, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_blurpool_forward_strips_on_small_and_odd_maps(cuda, c, stride, dtype):
+    """The forward's strips of output rows at every H, W in {1, 2, 3, 7, 8,
+    15, 16, 33}: maps all border, tail strips shorter than a strip, non-square
+    maps. Both access widths: one scalar (odd C, and C = 6 in float32 and 4 in
+    bfloat16, where 16 bytes do not divide a pixel) and 16 bytes (C = 4 in
+    float32, 8, 64 and 512 in bfloat16; 64 is the path's narrowest C, 512 its
+    widest)."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    for h in (1, 2, 3, 7, 8, 15, 16, 33):
+        for w in (1, 2, 3, 7, 8, 15, 16, 33):
+            x = torch.randn((2, h, w, c), device=cuda, generator=g).to(dtype)
+            _assert_blur_fwd(kernel.blur_pool_fwd(x, stride), x, stride,
+                             lambda m, h=h, w=w: f"H={h} W={w}: {m}")
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_blurpool_forward_takes_a_misaligned_x(cuda, stride, dtype):
+    """A contiguous x at an odd storage offset takes the scalar path: the same
+    sums in the same order, so the same bits as the 16-byte path."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    aligned = torch.randn((2, 33, 31, 64), device=cuda, generator=g).to(dtype)
+    flat = torch.empty(aligned.numel() + 1, dtype=dtype, device=cuda)
+    x = flat[1:].view(aligned.shape)
+    x.copy_(aligned)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    got = kernel.blur_pool_fwd(x, stride)
+    _assert_blur_fwd(got, aligned, stride, lambda m: m)
+    assert torch.equal(got, kernel.blur_pool_fwd(aligned, stride))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_blurpool_forward_repeats_bit_for_bit(cuda, dtype):
+    g = torch.Generator(device=cuda).manual_seed(7)
+    for shape, stride in (((8, 255, 255, 64), 2), ((8, 128, 128, 64), 1), ((8, 7, 7, 512), 2),
+                          ((8, 8, 8, 512), 1), ((1, 15, 17, 5), 2), ((2, 2, 2, 8), 1)):
+        x = torch.randn(shape, device=cuda, generator=g).to(dtype)
+        first, second = (kernel.blur_pool_fwd(x, stride) for _ in range(2))
+        assert torch.equal(first, second), (shape, stride)
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_blurpool_takes_more_images_than_one_grid(cuda, stride):
+    """More than 65535 images (the grid's z limit) go in several launches,
+    forward and backward; the images of the second launch come out as they do
+    alone."""
+    g = torch.Generator(device=cuda).manual_seed(10)
+    shape = (65535 + 3, 5, 4, 8)
+    x = torch.randn(shape, device=cuda, generator=g).to(torch.bfloat16)
+    y = kernel.blur_pool_fwd(x, stride)
+    _assert_blur_fwd(y, x, stride, lambda m: m)
+    assert torch.equal(y[-3:], kernel.blur_pool_fwd(x[-3:].contiguous(), stride))
+    dy = _blur_dy(shape, stride, torch.bfloat16, g)
+    dx = kernel.blur_pool_bwd(dy, 5, 4, stride)
+    _assert_blur_grad(dx, _plain_blur_grad(dy, 5, 4, stride), torch.bfloat16, lambda m: m)
+    assert torch.equal(dx[-3:], kernel.blur_pool_bwd(dy[-3:].contiguous(), 5, 4, stride))
+
+
 def test_blur_pool_autograd_runs_both_kernels(cuda):
     x = torch.randn(2, 31, 31, 8, device=cuda, requires_grad=True)
     fwd, bwd = kernel.LAUNCHES, kernel.BWD_LAUNCHES
@@ -232,6 +301,43 @@ def test_resample_kernels_match_plain(cuda, shape, l_out, channels, mode, border
     _close(gx, wx, 2e-5)
     _close(gp, wp, 2e-4)
     _close(gq, wq, 2e-4)
+
+
+def _views(n, h, w, c, g, dtype):
+    """The x-pass view (N*H, W, C) and the y-pass view (N, H, W*C) of one
+    image, each with its lines' p and q: ``_lines`` with p = 0 and |p| < 0.5
+    in the first lines after the identity."""
+    img = torch.randn((n, h, w, c), device=g.device, generator=g).to(dtype)
+    out = []
+    for x in (img.view(n * h, w, c), img.view(n, h, w * c)):
+        p, q = _lines(x.shape[0], x.shape[2] // c, x.shape[1], g)
+        p.view(-1)[:4] = torch.tensor([1.0, 0.0, 0.3, -0.45], device=g.device)
+        out.append((x, p, q))
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("border", [True, False])
+@pytest.mark.parametrize("mode", ["cubic", "linear"])
+def test_resample_forward_per_line_taps(cuda, mode, border, dtype):
+    """The forward's taps computed once a (line, position) and applied to the
+    line's channels: x-pass and y-pass views, 1 and 3 channels a line."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    for c in (1, 3):
+        for x, p, q in _views(2, 19, 23, c, g, dtype):
+            for l_out in (x.shape[1], 2 * x.shape[1] + 1):
+                got = rkernel.resample_fwd(x, p, q, l_out, mode, border, c)
+                want = resample.resample_axis_plain(x.float(), p, q, l_out, mode, border, c)
+                _close(got, want, 2e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_resample_forward_repeats_bit_for_bit(cuda, dtype):
+    g = torch.Generator(device=cuda).manual_seed(9)
+    for x, p, q in _views(8, 256, 256, 3, g, dtype):
+        first, second = (rkernel.resample_fwd(x, p, q, 256, "cubic", True, 3)
+                         for _ in range(2))
+        assert torch.equal(first, second), tuple(x.shape)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

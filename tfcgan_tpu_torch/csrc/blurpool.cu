@@ -8,13 +8,46 @@
 // Forward: replaces the TPU kernel tfcgan_tpu/ops/pallas_kernels/blurpool.py
 // (_fwd_kernel, reached through blur_pool_fast). That kernel tiles rows into
 // VMEM, gathers reflect halos in XLA and splits parities by reshapes because
-// Mosaic rejects strided slices; none of that has a reason here. Each thread
-// computes one output element with the reflect indices worked out in the
-// kernel, so no padded copy of x is ever written. Bytes bound it: it reads X
-// and writes X/4 (stride 2) or X (stride 1). Channels are the fastest index of
-// both the thread and the tensor, so a warp reads 32 neighbouring channels of
-// one pixel per tap. Left for later work: 16-byte loads over channels and a
-// block of outputs a thread, as the backward has.
+// Mosaic rejects strided slices; none of that has a reason here. The reflect
+// indices are worked out in the kernel, so no padded copy of x is ever
+// written. What bounds it: bytes (it reads X and writes X/4 at stride 2, X at
+// stride 1), once the loads are few enough. The first design, a thread an
+// output element with 16 scalar 2- or 4-byte loads (each input loaded by 4
+// threads at stride 2 and by 16 at stride 1), a reflect per tap and a 64-bit
+// division per thread, was bound by load instructions instead: 22 % of the
+// byte bound over the fft_glo step's calls. So a thread owns V consecutive
+// channels (16 bytes: 8 in bfloat16, 4 in float32) of one output column in a
+// strip of R = 4 output rows. It walks the strip's input rows once, in order
+// (S * (R - 1) + 4 of them: 10 at stride 2, 7 at stride 1), sums each over
+// the column's 4 window columns once (r: a chain of fmaf over the taps b, from
+// 0) and adds r into every output row of the strip that reads it (acc: a
+// chain of fmaf over the taps a, from 0). Those are the one-element kernel's
+// operations in its order, so the results are bit for bit the same. An output
+// row is stored as soon as its last input row is in, so only the rows still
+// open hold registers (2 at stride 2, 4 at stride 1). A strip or column whose
+// windows lie inside the image takes plain indices; the others reflect each
+// index once (no modulo per tap). A block of threads is (channel vectors,
+// columns), the channel vector fastest, over a grid of (row strips, column
+// chunks, images), at most 65535 images a launch: no thread divides. The
+// entry picks the access width per launch, as the backward's: V when C is a
+// multiple of it and both pointers are aligned to it, else V = 1 (one scalar
+// an access); every shape of the path takes V. Capped for 3 blocks of 256
+// an SM, which ptxas allots 80 registers a thread: the 16-byte forms spill
+// 20 bytes in bfloat16 and 12 in float32 at stride 2 (-Xptxas -v); the
+// 64-register cap spilled up to 72 bytes in bfloat16.
+//
+// Variants timed against this design in turns by tools/kernel_turns.py on an
+// NVIDIA H100 80GB HBM3 (700 W), as the 27 bf16 calls of an fft_glo B=128 step
+// (bound 4.03 ms) and, on the device alone, the 11 calls of a B=8 G pass, all
+// at the 64-register cap unless named; this design there: 5.32-5.54 ms and
+// 0.099-0.100 ms. Strips of 2 rows at stride 2: 5.02-5.10 ms; of 2 rows at
+// stride 1: no faster, 0.104 ms; of 8 rows: 6.04-6.06 ms, 0.120 ms; two output
+// columns a thread (6 window columns for 2 where two threads load 8):
+// 8.20-8.24 ms, 0.171 ms; 8-byte accesses at stride 1 for pixels of at most
+// 256 bytes (the backward's choice): 5.56-5.59 ms against 5.31-5.35. At 128
+// registers 4.96-5.15 ms and at the 3-block cap 4.94 ms against 5.48-5.56
+// (0.097 ms against 0.101); strips of 2 rows at that cap 5.10 ms. Each variant
+// was an edited copy of this file, timed with tools/kernel_turns.py --other.
 //
 // Backward: replaces _bwd_kernel / _blur_pool_bwd_impl / _bp_bwd of the same
 // module (row tiles, XLA-gathered halo rows, the W adjoint as an XLA einsum on
@@ -47,12 +80,12 @@
 // position of the window (clamped into dy) whatever its weight, so that no
 // load waits behind a test of a weight: tested per position, the loads of a
 // border pixel ran one after another, and the generator's 7 x 7 map, nearly
-// all border, took longer than with a thread an element. A
-// block of threads is (channel vectors, column pairs), the channel vector
-// fastest, over a grid of (row pairs, column-pair chunks, images): no thread
-// divides. The entry picks the access width per launch: V when C is a
-// multiple of V and both pointers are aligned to V elements, else the same
-// kernel with V = 1 (one scalar an access). 64 registers a thread (4 blocks
+// all border, took longer than with a thread an element. A block of threads
+// is (channel vectors, column pairs), the channel vector fastest, over a grid
+// of (row pairs, column-pair chunks, images), at most 65535 images a launch:
+// no thread divides. The entry picks the access width per launch: V when C
+// is a multiple of V and both pointers are aligned to V elements, else the
+// same kernel with V = 1 (one scalar an access). 64 registers a thread (4 blocks
 // of 256 an SM); the 16-byte stride-1 form spills 224 bytes in bfloat16,
 // which a cap of 80 registers (3 blocks) did not make faster.
 
@@ -74,54 +107,6 @@ __device__ __forceinline__ int reflect_index(int j, int n) {
   j %= period;
   if (j < 0) j += period;
   return j < n ? j : period - j;
-}
-
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) { return __bfloat162float(*p); }
-
-__device__ __forceinline__ void store_f32(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
-
-// grid.x: one block row per output row (n, o); grid.y: chunks of Wo*C.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-blurpool_fwd_kernel(const T* __restrict__ x, T* __restrict__ y, int h, int w, int c,
-                    int ho, int wo, int stride) {
-  const int q = blockIdx.y * kThreads + threadIdx.x;  // index in the output row: ow * c + ci
-  if (q >= wo * c) return;
-  const int64_t row = blockIdx.x;                      // n * ho + oh
-  const int64_t n = row / ho;
-  const int oh = static_cast<int>(row - n * ho);
-  const int ow = q / c;
-  const int ci = q - ow * c;
-
-  const float k[4] = {0.125f, 0.375f, 0.375f, 0.125f};
-  const int64_t row_stride = static_cast<int64_t>(w) * c;
-  const T* xn = x + n * static_cast<int64_t>(h) * row_stride + ci;
-
-  int col_off[4];
-#pragma unroll
-  for (int b = 0; b < 4; ++b) col_off[b] = reflect_index(stride * ow + b - 1, w) * c;
-
-  float acc = 0.f;
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const T* xr = xn + reflect_index(stride * oh + a - 1, h) * row_stride;
-    float r = 0.f;
-#pragma unroll
-    for (int b = 0; b < 4; ++b) r = fmaf(k[b], load_f32(xr + col_off[b]), r);
-    acc = fmaf(k[a], r, acc);
-  }
-  store_f32(y + row * static_cast<int64_t>(wo) * c + q, acc);
-}
-
-template <typename T>
-void launch(const void* x, void* y, int64_t n, int h, int w, int c, int ho, int wo,
-            int stride, cudaStream_t stream) {
-  const dim3 grid(static_cast<unsigned>(n * ho),
-                  static_cast<unsigned>((static_cast<int64_t>(wo) * c + kThreads - 1) / kThreads));
-  blurpool_fwd_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(y), h, w, c, ho, wo, stride);
 }
 
 // The forward tap weight k[a] for a read at offset a of a window, 0 outside it.
@@ -201,6 +186,114 @@ template <int V>
 __device__ __forceinline__ void fma_into(float (&s)[V], float k, const float (&v)[V], bool first) {
 #pragma unroll
   for (int i = 0; i < V; ++i) s[i] = fmaf(k, v[i], first ? 0.f : s[i]);
+}
+
+// The forward's strip of output rows a thread, and the blocks of 256 threads
+// an SM that its register cap allows (3: 80 registers a thread).
+constexpr int kFwdRows = 4;
+constexpr int kFwdMinBlocks = 3;
+
+// Images lie on grid.z, at most this many a launch; more go in several.
+constexpr int64_t kMaxImages = 65535;
+
+// block (tx channel vectors, ty columns); grid (strips of R output rows,
+// chunks of columns, images). A thread: V channels of output rows o0 .. o0 +
+// R - 1 (those inside the map) of column q, for channel vectors threadIdx.x,
+// threadIdx.x + tx, ... .
+template <typename T, int S, int V>
+__global__ void __launch_bounds__(kThreads, kFwdMinBlocks)
+blurpool_fwd_kernel(const T* __restrict__ x, T* __restrict__ y, int h, int w, int c, int ho,
+                    int wo) {
+  constexpr int R = kFwdRows;
+  constexpr int kRows = S * (R - 1) + 4;  // the input rows of the strip's windows
+  const float k[4] = {0.125f, 0.375f, 0.375f, 0.125f};
+  const int o0 = blockIdx.x * R;
+  const int q = blockIdx.y * blockDim.y + threadIdx.y;
+  if (q >= wo) return;
+  // the windows' input rows and columns (times c), reflected where they leave the image
+  const int j0 = S * o0 - 1, b0 = S * q - 1;
+  int rows[kRows], cols[4];
+  if (j0 >= 0 && j0 + kRows <= h) {
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) rows[i] = j0 + i;
+  } else {
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) rows[i] = reflect_index(j0 + i, h);
+  }
+  if (b0 >= 0 && b0 + 4 <= w) {
+#pragma unroll
+    for (int b = 0; b < 4; ++b) cols[b] = (b0 + b) * c;
+  } else {
+#pragma unroll
+    for (int b = 0; b < 4; ++b) cols[b] = reflect_index(b0 + b, w) * c;
+  }
+  const int64_t x_row = static_cast<int64_t>(w) * c, y_row = static_cast<int64_t>(wo) * c;
+  const T* xn = x + static_cast<int64_t>(blockIdx.z) * h * x_row;
+  T* yb = y + (static_cast<int64_t>(blockIdx.z) * ho + o0) * y_row + static_cast<int64_t>(q) * c;
+  for (int ch = threadIdx.x * V; ch < c; ch += blockDim.x * V) {
+    float acc[R][V];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const T* xr = xn + rows[i] * x_row + ch;
+      float r[V];  // this input row summed over the window's columns
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        float v[V];
+        load_vec<T, V>(xr + cols[b], v);
+        fma_into(r, k[b], v, b == 0);
+      }
+#pragma unroll
+      for (int rr = 0; rr < R; ++rr) {
+        const int a = i - S * rr;  // the tap with which output row o0 + rr reads this row
+        if (a < 0 || a > 3) continue;
+        fma_into(acc[rr], k[a], r, a == 0);
+        if (a == 3 && o0 + rr < ho) store_vec<T, V>(yb + rr * y_row + ch, acc[rr]);
+      }
+    }
+  }
+}
+
+template <typename T, int S, int V>
+cudaError_t launch_fwd_as(const void* x, void* y, int64_t n, int h, int w, int c, int ho,
+                          int wo, cudaStream_t stream) {
+  const int vectors = c / V;
+  const int tx = vectors < kThreads ? vectors : kThreads;
+  const int ty = kThreads / tx;
+  const int64_t chunks = (wo + ty - 1) / ty;
+  if (chunks > 65535) return cudaErrorInvalidConfiguration;
+  const int64_t x_image = static_cast<int64_t>(h) * w * c;
+  const int64_t y_image = static_cast<int64_t>(ho) * wo * c;
+  const unsigned strips = static_cast<unsigned>((ho + kFwdRows - 1) / kFwdRows);
+  for (int64_t n0 = 0; n0 < n; n0 += kMaxImages) {
+    const dim3 grid(strips, static_cast<unsigned>(chunks),
+                    static_cast<unsigned>(n - n0 < kMaxImages ? n - n0 : kMaxImages));
+    blurpool_fwd_kernel<T, S, V><<<grid, dim3(tx, ty), 0, stream>>>(
+        static_cast<const T*>(x) + n0 * x_image, static_cast<T*>(y) + n0 * y_image, h, w, c, ho,
+        wo);
+  }
+  return cudaSuccess;
+}
+
+// The access width, per launch: 16 bytes a thread and access when C is a
+// multiple of it and both pointers are aligned to it, else one scalar. (8
+// bytes at stride 1 for pixels of at most 256 bytes, the backward's choice,
+// was slower here; every shape of the path takes 16 bytes.)
+template <typename T, int S>
+cudaError_t launch_fwd_stride(const void* x, void* y, int64_t n, int h, int w, int c, int ho,
+                              int wo, cudaStream_t stream) {
+  constexpr int V = 16 / sizeof(T);
+  const uintptr_t at = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y);
+  if (c % V == 0 && at % 16 == 0) {
+    return launch_fwd_as<T, S, V>(x, y, n, h, w, c, ho, wo, stream);
+  }
+  return launch_fwd_as<T, S, 1>(x, y, n, h, w, c, ho, wo, stream);
+}
+
+template <typename T>
+cudaError_t launch_fwd(const void* x, void* y, int64_t n, int h, int w, int c, int ho, int wo,
+                       int stride, cudaStream_t stream) {
+  return stride == 1 ? launch_fwd_stride<T, 1>(x, y, n, h, w, c, ho, wo, stream)
+                     : launch_fwd_stride<T, 2>(x, y, n, h, w, c, ho, wo, stream);
 }
 
 // Interior 2 x 2 block at stride 2: dx rows 2m, 2m + 1 read dy rows m - 1, m
@@ -352,11 +445,16 @@ cudaError_t launch_bwd_as(const void* dy, void* dx, int64_t n, int h, int w, int
   const int ty = kThreads / tx;
   const int64_t pairs = (w + 1) / 2;
   const int64_t chunks = (pairs + ty - 1) / ty;
-  if (n > 65535 || chunks > 65535) return cudaErrorInvalidConfiguration;
-  const dim3 grid(static_cast<unsigned>((h + 1) / 2), static_cast<unsigned>(chunks),
-                  static_cast<unsigned>(n));
-  blurpool_bwd_kernel<T, S, V><<<grid, dim3(tx, ty), 0, stream>>>(
-      static_cast<const T*>(dy), static_cast<T*>(dx), h, w, c, ho, wo);
+  if (chunks > 65535) return cudaErrorInvalidConfiguration;
+  const int64_t dy_image = static_cast<int64_t>(ho) * wo * c;
+  const int64_t dx_image = static_cast<int64_t>(h) * w * c;
+  for (int64_t n0 = 0; n0 < n; n0 += kMaxImages) {
+    const dim3 grid(static_cast<unsigned>((h + 1) / 2), static_cast<unsigned>(chunks),
+                    static_cast<unsigned>(n - n0 < kMaxImages ? n - n0 : kMaxImages));
+    blurpool_bwd_kernel<T, S, V><<<grid, dim3(tx, ty), 0, stream>>>(
+        static_cast<const T*>(dy) + n0 * dy_image, static_cast<T*>(dx) + n0 * dx_image, h, w, c,
+        ho, wo);
+  }
   return cudaSuccess;
 }
 
@@ -387,27 +485,29 @@ cudaError_t launch_bwd(const void* dy, void* dx, int64_t n, int h, int w, int c,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. x is (n, h, w, c) and y (n, ho, wo, c),
-// both contiguous on the current device; the caller checks shapes and the
-// grid limits (n * ho < 2^31, wo * c < 2^31). Returns cudaGetLastError().
+// both contiguous on the current device; the caller checks shapes and that
+// w * c < 2^31. Returns cudaGetLastError(), or cudaErrorInvalidConfiguration
+// for a grid out of its limits (more than 65535 chunks of column groups).
 extern "C" int tfcgan_blurpool_fwd(const void* x, void* y, int64_t n, int h, int w, int c,
                                    int ho, int wo, int stride, int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
   if (dtype == 0) {
-    launch<float>(x, y, n, h, w, c, ho, wo, stride, s);
+    err = launch_fwd<float>(x, y, n, h, w, c, ho, wo, stride, s);
   } else if (dtype == 1) {
-    launch<__nv_bfloat16>(x, y, n, h, w, c, ho, wo, stride, s);
+    err = launch_fwd<__nv_bfloat16>(x, y, n, h, w, c, ho, wo, stride, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The adjoint of tfcgan_blurpool_fwd: dy is (n, ho, wo, c) and dx (n, h, w, c),
 // both contiguous on the current device, ho/wo the forward's output lengths
-// for h/w at this stride; the caller checks shapes and the grid limits (n <
-// 2^16, w * c < 2^31 and at most 65535 blocks of 256 threads over w * c).
+// for h/w at this stride; the caller checks shapes and that w * c < 2^31.
 // Returns cudaGetLastError(), or cudaErrorInvalidConfiguration for a grid out
-// of those limits.
+// of its limits (more than 65535 chunks of column pairs).
 extern "C" int tfcgan_blurpool_bwd(const void* dy, void* dx, int64_t n, int h, int w, int c,
                                    int ho, int wo, int stride, int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -19,9 +19,28 @@
 // NHWC image as (N*H, W, C) and the y-pass as (N, H, W*C), so column taps are
 // read at stride W*C and no transposed copy is ever written.
 //
-// tfcgan_resample_fwd: one thread per output element, j fastest, so a warp
-// reads and writes neighbouring addresses in both passes. x float32 or
-// bfloat16, float32 accumulation and output.
+// tfcgan_resample_fwd: one thread per output position i of one line, lines
+// fastest, so a warp reads and writes neighbouring addresses in both passes
+// (the x-pass's neighbouring pixels, the y-pass's neighbouring columns). The
+// thread works out the position, its taps and their 2 or 4 weights once and
+// applies them to all the line's channels: the 3 channels of a pixel in the
+// x-pass, of a column in the y-pass. One integer division a thread (i and the
+// line from the thread's index). At 3 channels (the image's) the channel
+// loop is unrolled, so all 12 of a thread's cubic tap loads are in flight
+// together; other counts loop at run time. x float32 or bfloat16, float32
+// accumulation and output. What holds it back is latency more than bytes:
+// each thread waits for p and q, then for its taps. The first design, a
+// thread an output element, recomputed the position, the floor and the four
+// branchy Keys weights for every channel and divided twice per element: 26 %
+// of the byte bound at the path's shape (one warp at (32, 256, 256, 3)).
+// Timed in turns by tools/kernel_turns.py on an NVIDIA H100 80GB HBM3 (700
+// W), device alone, float32 image: that design 0.1108 ms; this one with the
+// channel loop at run time 0.0656 ms; unrolled at 3 channels 0.0512 ms (59 %
+// of the 0.0301 ms bound; 0.0473 ms with a bfloat16 image); the block's taps
+// staged in shared memory and then one element a thread, channels fastest
+// (every access coalesced, but a barrier and two dependent phases) 0.0793
+// ms. The taps are scalar loads: a vector over j spans pixels of different
+// lines when channels = 3.
 //
 // tfcgan_resample_adjoint: dx = A^T g in gather form, one thread per dx
 // element, no atomics, so the result is deterministic. The thread for (o, v, j)
@@ -54,9 +73,12 @@
 // position gradient reads x and g and writes two floats a line. The 2 to 4
 // taps of neighbouring outputs overlap and are served by L1/L2.
 //
-// Left for later work: computing p and q in the kernel from the six affine
-// coefficients, both passes in one kernel through shared memory, 16-byte
-// loads, and folding the edge pass into the gather kernel's launch.
+// Left for later work: the adjoint and the position gradient still compute
+// the taps (and the position gradient its weights, in window_grad_sum) for
+// every element; they take the forward's form next, the edge pass folded into
+// the gather kernel's launch. Also not tried: p and q computed in the kernel from
+// the six affine coefficients, both passes in one kernel through shared
+// memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -103,10 +125,11 @@ __device__ __forceinline__ float position(float p, float q, int i) {
   return __fadd_rn(__fmul_rn(p, static_cast<float>(i)), q);
 }
 
-// sum_k W(t - k) * x[tap k] over the window of pos, W = K or K'.
-template <typename T, bool Cubic, bool Grad>
-__device__ __forceinline__ float window_sum(const T* xl, float pos, int l_in, int inner,
-                                            int border) {
+// sum_k K'(t - k) * x[tap k] over the window of pos: the position gradient's
+// sum, over the same taps as window_taps.
+template <typename T, bool Cubic>
+__device__ __forceinline__ float window_grad_sum(const T* xl, float pos, int l_in, int inner,
+                                                 int border) {
   constexpr int hs = Cubic ? 2 : 1;
   const float i0 = floorf(pos);
   const float t = pos - i0;
@@ -117,28 +140,83 @@ __device__ __forceinline__ float window_sum(const T* xl, float pos, int l_in, in
     const float u = i0 + static_cast<float>(k);
     if (!border && !(u >= 0.f && u <= last)) continue;
     const int uc = static_cast<int>(fminf(fmaxf(u, 0.f), last));
-    const float wgt = Grad ? kgrad<Cubic>(t - static_cast<float>(k))
-                           : kfn<Cubic>(t - static_cast<float>(k));
+    const float wgt = kgrad<Cubic>(t - static_cast<float>(k));
     acc = fmaf(load_f32(xl + static_cast<int64_t>(uc) * inner), wgt, acc);
   }
   return acc;
 }
 
-// grid.x: o; grid.y: chunks of the (l_out, inner) plane.
+// The window of one output position pos along a line: where each of its 2
+// or 4 taps reads (an element offset from the line's start at u = 0), its
+// weight, and whether it reads at all (with border == 0 a tap outside [0,
+// l_in) does not). The operations and order of the first forward's sum (a
+// thread an element), so a sum over a line's channels with these taps is that
+// sum, bit for bit.
+template <bool Cubic>
+struct Taps {
+  static constexpr int kN = Cubic ? 4 : 2;
+  int off[kN];
+  float wgt[kN];
+  bool on[kN];
+};
+
+template <bool Cubic>
+__device__ __forceinline__ Taps<Cubic> window_taps(float pos, int l_in, int inner, int border) {
+  constexpr int hs = Cubic ? 2 : 1;
+  const float i0 = floorf(pos);
+  const float t = pos - i0;
+  const float last = static_cast<float>(l_in - 1);
+  Taps<Cubic> taps;
+#pragma unroll
+  for (int k = -hs + 1; k <= hs; ++k) {
+    const float u = i0 + static_cast<float>(k);
+    taps.on[k + hs - 1] = border || (u >= 0.f && u <= last);
+    taps.off[k + hs - 1] = static_cast<int>(fminf(fmaxf(u, 0.f), last)) * inner;
+    taps.wgt[k + hs - 1] = kfn<Cubic>(t - static_cast<float>(k));
+  }
+  return taps;
+}
+
+// dst[ch] = sum over the taps of x at the tap, for the line's channels; C > 0
+// is their count known at compile time (every load of the thread in flight
+// together), 0 a count known at run time
+template <typename T, bool Cubic, int C>
+__device__ __forceinline__ void apply_taps(const T* xl, float* dst, const Taps<Cubic>& taps,
+                                           int channels) {
+#pragma unroll
+  for (int ch = 0; ch < (C > 0 ? C : channels); ++ch) {
+    float acc = 0.f;
+#pragma unroll
+    for (int k = 0; k < Taps<Cubic>::kN; ++k) {
+      if (taps.on[k]) acc = fmaf(load_f32(xl + taps.off[k] + ch), taps.wgt[k], acc);
+    }
+    dst[ch] = acc;
+  }
+}
+
+// grid.x: o; grid.y: chunks of the (l_out, lines) plane, lines = inner /
+// channels. A thread: one output position i of one line, all the line's
+// channels: the position, its taps and their weights once, then each
+// channel's sum over the taps.
 template <typename T, bool Cubic>
 __global__ void __launch_bounds__(kThreads)
 resample_fwd_kernel(const T* __restrict__ x, const float* __restrict__ p,
                     const float* __restrict__ q, float* __restrict__ out, int l_in, int l_out,
-                    int inner, int channels, int border) {
-  const int e = blockIdx.y * kThreads + threadIdx.x;  // i * inner + j
-  if (e >= l_out * inner) return;
+                    int inner, int channels, int lines, int border) {
+  const int e = blockIdx.y * kThreads + threadIdx.x;  // i * lines + line
+  if (e >= l_out * lines) return;
   const int64_t o = blockIdx.x;
-  const int i = e / inner;
-  const int j = e - i * inner;
-  const int64_t line = o * (inner / channels) + j / channels;
-  const float pos = position(p[line], q[line], i);
-  const T* xl = x + o * l_in * inner + j;
-  out[o * l_out * inner + e] = window_sum<T, Cubic, false>(xl, pos, l_in, inner, border);
+  const int i = e / lines;
+  const int line = e - i * lines;
+  const int64_t ln = o * lines + line;
+  const Taps<Cubic> taps = window_taps<Cubic>(position(p[ln], q[ln], i), l_in, inner, border);
+  const T* xl = x + o * l_in * inner + line * channels;
+  float* dst = out + (o * l_out + i) * inner + line * channels;
+  if (channels == 3) {
+    apply_taps<T, Cubic, 3>(xl, dst, taps, 3);
+  } else {
+    apply_taps<T, Cubic, 0>(xl, dst, taps, channels);
+  }
 }
 
 // Block shape of the two reducing kernels: tj neighbouring j (whole lines)
@@ -279,7 +357,7 @@ resample_gradpos_kernel(const T* __restrict__ x, const float* __restrict__ g,
     const float* gl = g + o * l_out * inner + j;
     for (int i = tx; i < l_out; i += tile.tx) {
       const float gpos = gl[static_cast<int64_t>(i) * inner] *
-                         window_sum<T, Cubic, true>(xl, position(pl, ql, i), l_in, inner, border);
+                         window_grad_sum<T, Cubic>(xl, position(pl, ql, i), l_in, inner, border);
       sum_p = fmaf(gpos, static_cast<float>(i), sum_p);
       sum_q += gpos;
     }
@@ -314,14 +392,15 @@ template <typename T>
 void launch_fwd(const void* x, const float* p, const float* q, float* out, int64_t outer,
                 int l_in, int l_out, int inner, int channels, int cubic, int border,
                 cudaStream_t s) {
-  const dim3 grid = plane_grid(outer, l_out, inner);
+  const int lines = inner / channels;
+  const dim3 grid = plane_grid(outer, l_out, lines);
   const T* xs = static_cast<const T*>(x);
   if (cubic) {
     resample_fwd_kernel<T, true><<<grid, kThreads, 0, s>>>(xs, p, q, out, l_in, l_out, inner,
-                                                           channels, border);
+                                                           channels, lines, border);
   } else {
     resample_fwd_kernel<T, false><<<grid, kThreads, 0, s>>>(xs, p, q, out, l_in, l_out, inner,
-                                                            channels, border);
+                                                            channels, lines, border);
   }
 }
 

@@ -24,9 +24,7 @@ LAUNCHES = 0
 BWD_LAUNCHES = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_GRID_LIMIT = 2**31 - 1
-_THREADS = 256  # kThreads in csrc/blurpool.cu
-_GRID_Y_LIMIT = 65535
+_INT_LIMIT = 2**31 - 1
 
 
 @functools.cache
@@ -58,13 +56,13 @@ def _check(t: torch.Tensor, what: str, stride: int) -> None:
 
 def _launch(name: str, src: torch.Tensor, dst: torch.Tensor, n: int, h: int, w: int, c: int,
             stride: int) -> None:
-    """One launch over ``dst`` (the forward: a thread an element; the
+    """One call over ``dst``, a grid dimension for the images (the forward:
+    a thread a strip of output rows and up to 16 bytes of channels; the
     backward: a thread a 2 x 2 block of pixels and up to 16 bytes of
-    channels, a grid dimension for the images); (n, h, w, c) is the forward's
-    input shape."""
-    rows, cols = n * dst.shape[1], dst.shape[2] * c
-    if (rows > _GRID_LIMIT or cols > _GRID_LIMIT or -(-cols // _THREADS) > _GRID_Y_LIMIT
-            or (name == "tfcgan_blurpool_bwd" and n > _GRID_Y_LIMIT)):
+    channels); (n, h, w, c) is the forward's input shape. The C entries launch
+    more than 65535 images in several grids, and refuse (with an error code) a
+    grid of more than 65535 column chunks."""
+    if w * c > _INT_LIMIT:
         raise ValueError(f"shape {tuple(dst.shape)} exceeds the kernel's launch grid")
     with torch.cuda.device(src.device):
         stream = torch.cuda.current_stream(src.device).cuda_stream

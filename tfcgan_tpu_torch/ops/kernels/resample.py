@@ -34,7 +34,9 @@ GRADPOS_LAUNCHES = 0
 MODES = ("linear", "cubic")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _GRID_LIMIT = 2**31 - 1
-_PLANE_LIMIT = 65535 * 256  # grid.y chunks of 256 threads over length * inner
+# grid.y chunks of 256 threads over length * inner (the adjoint) or length *
+# lines (the forward, no more)
+_PLANE_LIMIT = 65535 * 256
 _MAX_CHANNELS = 256  # a line's channels are summed inside one block of 256 threads
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int

@@ -1,29 +1,37 @@
-"""Time this tree's blur-pool and grid_sample kernels against another tree's, in
-turns on one CUDA card, and the train steps that run them.
+"""Time this tree's blur-pool, resampling and grid_sample kernels against another
+tree's, in turns on one CUDA card, and the train steps that run them.
 
     python tools/kernel_turns.py --other DIR [--steps]
 
 DIR is another checkout of the repository (for example the parent commit,
-unpacked with ``git archive``). Its ``tfcgan_tpu_torch/csrc/blurpool.cu`` and
+unpacked with ``git archive``, or a copy with a variant of a kernel). Its
+``tfcgan_tpu_torch/csrc/blurpool.cu``, ``csrc/resample.cu`` and
 ``csrc/gridsample.cu`` are built with this tree's nvcc flags and swapped in
 for this tree's libraries through the wrappers' ``_fn``; every other line of
-code is this tree's. Each measurement runs in the order other, this, this,
-other, and prints every reading:
+code is this tree's. Each measurement runs in the order other, this, this, other, and
+prints every reading:
 
 - K1-bwd and K1-fwd: the 11 bfloat16 calls of one batch-8 G pass
   (``chip_smoke.STRIDE2_SHAPES`` and ``STRIDE1_SHAPES``), eager and replayed
   from CUDA graphs (``chip_smoke.graph_ms``: the device alone), and the calls
   of one fft_glo step at batch 128 (``chip_smoke.fft_glo_step_calls``), with
   their byte bounds;
+- K2-fwd: one float32 cubic warp at (32, 256, 256, 3) (its x-pass and y-pass,
+  near-identity thetas) with a float32 and a bfloat16 image, eager and
+  replayed from CUDA graphs, with its byte bound;
 - K3-fwd in float32 and bfloat16 and K3-bwd in float32 at (32, 256, 256, 6),
   offsets of 0.3 pixel;
-- with ``--steps``: the bf16 train step of fft_glo at batch 128, stn_newmodel3
-  and nemar at 32 (256²) and tfc_diff at 32 (128²), through
+- with ``--steps``: the bf16 stn_newmodel3 serve forward (``Inferencer``) at
+  batch 8 and 32, and the bf16 train step of fft_glo at batch 128,
+  stn_newmodel3 and nemar at 32 (256²) and tfc_diff at 32 (128²), through
   ``chip_smoke.phase_train_rate``.
 
 Before the times it prints the largest difference between the two trees'
-results on the same inputs. The last line is one JSON object with every
-reading.
+results on the same inputs, float32 and bfloat16: both blur-pool kernels (the
+path's 11 shapes and ``chip_smoke.EXTRA_SHAPES``, each at both strides), all
+three resampling kernels (the path's passes and ``chip_smoke``'s hard lines,
+every mode) and the grid_sample forward. The last line is one JSON object
+with every reading.
 """
 
 from __future__ import annotations
@@ -46,16 +54,17 @@ import chip_smoke  # noqa: E402
 from tfcgan_tpu_torch.ops.kernels import _build  # noqa: E402
 from tfcgan_tpu_torch.ops.kernels import blurpool as kernel  # noqa: E402
 from tfcgan_tpu_torch.ops.kernels import gridsample as gkernel  # noqa: E402
+from tfcgan_tpu_torch.ops.kernels import resample as rkernel  # noqa: E402
 
-LIBRARIES = {"blurpool": kernel, "gridsample": gkernel}
+LIBRARIES = {"blurpool": kernel, "resample": rkernel, "gridsample": gkernel}
 ORDER = ("other", "this", "this again", "other again")
 TRAIN = (("fft_glo", 128, chip_smoke.SIZE), ("stn_newmodel3", 32, chip_smoke.SIZE),
          ("nemar", 32, chip_smoke.SIZE), ("tfc_diff", 32, chip_smoke.DIFF_SIZE))
 
 
 def build_other(root: Path) -> dict[str, ctypes.CDLL]:
-    """Build the other tree's two sources as ``_build`` builds this tree's
-    (one nvcc each, started together), into a build directory of their own."""
+    """Build the other tree's sources as ``_build`` builds this tree's (one
+    nvcc each, started together), into a build directory of their own."""
     with mock.patch.object(_build, "CSRC_DIR", root / "tfcgan_tpu_torch" / "csrc"), \
             mock.patch.object(_build, "BUILD_DIR", _build.BUILD_DIR / "other"):
         _build.build_libraries(list(LIBRARIES))
@@ -79,8 +88,9 @@ def swapper(libs: dict[str, ctypes.CDLL]):
 
     @contextlib.contextmanager
     def other():
-        with mock.patch.object(kernel, "_fn", fns["blurpool"]), \
-                mock.patch.object(gkernel, "_fn", fns["gridsample"]):
+        with contextlib.ExitStack() as stack:
+            for name, module in LIBRARIES.items():
+                stack.enter_context(mock.patch.object(module, "_fn", fns[name]))
             yield
     return other
 
@@ -122,19 +132,53 @@ def largest_difference(other, device, gen) -> dict[str, float]:
 
     for dtype in (torch.float32, torch.bfloat16):
         tag = str(dtype).split(".")[1]
-        cases = blur_pass(device, gen, dtype) + [
-            (s, st, torch.randn(s, device=device, generator=gen).to(dtype),
-             torch.randn((s[0], kernel.out_len(s[1], st), kernel.out_len(s[2], st), s[3]),
-                         device=device, generator=gen).to(dtype))
-            for s, st in (((1, 15, 17, 5), 2), ((2, 3, 3, 8), 1), ((2, 33, 31, 12), 1))]
-        diff[f"blurpool_fwd {tag}"] = max(both(lambda: kernel.blur_pool_fwd(x, st))
-                                          for _, st, x, _ in cases)
-        diff[f"blurpool_bwd {tag}"] = max(both(lambda: kernel.blur_pool_bwd(dy, s[1], s[2], st))
-                                          for s, st, _, dy in cases)
+        # the path's 11 shapes and chip_smoke's odd ones, each at both strides
+        shapes = (chip_smoke.STRIDE2_SHAPES + chip_smoke.STRIDE1_SHAPES
+                  + chip_smoke.EXTRA_SHAPES + [(2, 33, 31, 12)])
+        for name in ("blurpool_fwd", "blurpool_bwd"):
+            diff[f"{name} {tag}"] = 0.0
+        for s in shapes:
+            x = torch.randn(s, device=device, generator=gen).to(dtype)
+            for st in (1, 2):
+                dy = torch.randn((s[0], kernel.out_len(s[1], st), kernel.out_len(s[2], st), s[3]),
+                                 device=device, generator=gen).to(dtype)
+                diff[f"blurpool_fwd {tag}"] = max(diff[f"blurpool_fwd {tag}"],
+                                                  both(lambda: kernel.blur_pool_fwd(x, st)))
+                diff[f"blurpool_bwd {tag}"] = max(
+                    diff[f"blurpool_bwd {tag}"],
+                    both(lambda: kernel.blur_pool_bwd(dy, s[1], s[2], st)))
         inp, grid, g = k3_inputs(device, gen, dtype)
         diff[f"gridsample_fwd {tag}"] = max(both(lambda: gkernel.gridsample_fwd(inp, grid, p))
                                             for p in gkernel.PADDING_MODES)
+        k2 = {"resample_fwd": 0.0, "resample_adjoint": 0.0, "resample_gradpos": 0.0}
+        for x, p, q, l_out, mode, border, channels in k2_cases(device, gen, dtype):
+            args = (mode, border, channels)
+            g = torch.randn((x.shape[0], l_out, x.shape[2]), device=device, generator=gen)
+            for name, fn in (
+                    ("resample_fwd", lambda: rkernel.resample_fwd(x, p, q, l_out, *args)),
+                    ("resample_adjoint",
+                     lambda: rkernel.resample_adjoint(g, p, q, x.shape[1], *args)),
+                    ("resample_gradpos", lambda: rkernel.resample_gradpos(x, g, p, q, *args))):
+                k2[name] = max(k2[name], both(fn))
+        diff.update({f"{k} {tag}": v for k, v in k2.items()})
     return diff
+
+
+def k2_cases(device, gen, dtype) -> list:
+    """(x, p, q, l_out, mode, border, channels) of the resampling kernels: the
+    two passes of a bicubic warp at (32, 256, 256, 3) with near-identity
+    thetas, then ``chip_smoke``'s hard lines on small views in every mode."""
+    src = torch.rand((32, chip_smoke.SIZE, chip_smoke.SIZE, 3), device=device, generator=gen)
+    cases = chip_smoke.record_passes((src * 2 - 1).to(dtype),
+                                     chip_smoke._near_identity_theta(32, gen))
+    for shape, l_out, channels in (((64, 100, 1), 100, 1), ((16, 40, 6), 57, 3),
+                                   ((7, 33, 10), 20, 5), ((2, 31, 93), 40, 3)):
+        for mode in rkernel.MODES:
+            for border in (True, False):
+                x = torch.randn(shape, device=device, generator=gen).to(dtype)
+                p, q = chip_smoke._hard_lines(shape[0], shape[2] // channels, shape[1], gen)
+                cases.append((x, p, q, l_out, mode, border, channels))
+    return cases
 
 
 def k3_inputs(device, gen, dtype=torch.float32):
@@ -145,6 +189,23 @@ def k3_inputs(device, gen, dtype=torch.float32):
     inp = torch.randn((32, size, size, 6), device=device, generator=gen).to(dtype)
     g = torch.randn((32, size, size, 6), device=device, generator=gen).to(dtype)
     return inp, grid, g
+
+
+def stn_serve_turns(device, args, other, bsz: int) -> list[float]:
+    """ms of one bf16 stn_newmodel3 serve forward at batch ``bsz``, in turns."""
+    cfg = chip_smoke._cfg("stn_newmodel3", "bfloat16")
+    nets = chip_smoke.build_generators(cfg, device,
+                                       torch.Generator().manual_seed(args.init_seed))
+    chip_smoke._random_dtheta_head(nets["STN"], args.init_seed)
+    inf = chip_smoke.Inferencer(cfg, nets)
+    gen = torch.Generator(device=device).manual_seed(3)
+    batch = {k: torch.rand((bsz, chip_smoke.SIZE, chip_smoke.SIZE, 3), device=device,
+                           generator=gen) * 2 - 1 for k in ("A", "B")}
+    with torch.inference_mode():
+        ms = in_turns(other, lambda: chip_smoke.cuda_ms(lambda: inf(batch), 10))
+    del nets, inf, batch
+    torch.cuda.empty_cache()
+    return ms
 
 
 def main(argv=None) -> int:
@@ -210,7 +271,39 @@ def main(argv=None) -> int:
     del inp, inp16, grid, g
     torch.cuda.empty_cache()
 
+    src = torch.rand((32, chip_smoke.SIZE, chip_smoke.SIZE, 3), device=device, generator=gen)
+    theta = chip_smoke._near_identity_theta(32, gen)
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).split(".")[1]
+        passes = chip_smoke.record_passes((src * 2 - 1).to(dtype), theta)
+        n_bytes = n_ops = 0
+        for x, p, q, l_out, mode, *_ in passes:
+            g = torch.empty((x.shape[0], l_out, x.shape[2]), device=device)
+            b, o = chip_smoke._pass_bounds(x, p, g, mode)["resample_fwd"]
+            n_bytes, n_ops = n_bytes + b, n_ops + o
+
+        def warp():
+            for x, p, q, *rest in passes:
+                rkernel.resample_fwd(x, p, q, *rest)
+        ms = in_turns(other, lambda: chip_smoke.cuda_ms(warp))
+        dev = in_turns(other, lambda: chip_smoke.graph_ms(warp))
+        bound, by = chip_smoke.bound_ms(n_bytes, n_ops)
+        result[f"resample_fwd {tag} warp (32,256,256,3)"] = {"ms": ms, "graph_ms": dev,
+                                                            "bound_ms": bound}
+        print(f"resample_fwd: one cubic warp (x- and y-pass) at (32, 256, 256, 3), {tag} "
+              f"image, {' / '.join(ORDER)}: " + ", ".join(f"{t:.4f}" for t in ms)
+              + " ms; device alone (CUDA graphs) " + ", ".join(f"{t:.4f}" for t in dev)
+              + f" ms; bound {bound:.4f} ms ({by}, {n_bytes / 1e6:.1f} MB) [{card}]")
+    del src, passes, g
+    torch.cuda.empty_cache()
+
     if args.steps:
+        for bsz in (8, 32):
+            ms = stn_serve_turns(device, args, other, bsz)
+            result[f"stn_newmodel3 serve B={bsz}"] = {"ms": ms}
+            print(f"stn_newmodel3 serve forward bf16 B={bsz} (Inferencer: 3 G forwards, ViT-Base, "
+                  f"warp), {' / '.join(ORDER)}: " + ", ".join(f"{t:.3f}" for t in ms)
+                  + f" ms [{card}]")
         paths = {label: other if label.startswith("other") else contextlib.nullcontext
                  for label in ORDER}
         for name, bsz, size in TRAIN:
