@@ -31,11 +31,16 @@ Phases, one line or more each; any failure raises and exits non-zero:
    warp at (8|32, 256, 256, 3) cubic with near-identity thetas, then linear,
    ``border=False``, channel strides 1, 3 and 5, other output lengths, odd
    shapes and lengths 1-3, with lines at p = 0.5, 4, 0.25, 0 and -1 and lines
-   pushed wholly off either end; ``warp_affine_separable`` forward and
-   gradients through the kernels against the plain path; kernel, plain and
-   library (``F.grid_sample``) times at (32, 256, 256, 3), and the forward's
-   time on the device alone (CUDA graphs) and share of its byte bound there
-   with a float32 and a bfloat16 image, whose forward runs twice bit for bit.
+   pushed wholly off either end; the adjoint's edge masses (``_edge_lines``:
+   lines over both ends, p = 0 inside, near and beyond either end, p < 0) at
+   1, 2, 3 and 40 elements and 1, 3, 5 and 10 channels a line; on every case
+   the adjoint and the position gradient run twice and repeat bit for bit;
+   ``warp_affine_separable`` forward and gradients through the kernels against
+   the plain path; kernel, plain and library (``F.grid_sample``) times at (32,
+   256, 256, 3), and each kernel's time on the device alone (CUDA graphs) and
+   share of its byte bound over its passes of one warp (forward and position
+   gradient both passes, with a float32 and a bfloat16 image; adjoint the
+   y-pass), each run twice there and compared bit for bit.
 5. dense grid_sample vs plain: both kernels against ``grid_sample_dense_plain``
    (``ops/warp.grid_sample`` in float32) and autograd of it, float32 and
    bfloat16 image: the path's shape (8|32, 256, 256, 6), zeros,
@@ -179,9 +184,10 @@ products take on the float32 units, which the float32 kernels use.
 Blur-pool's ``graph_ms`` is ``ms`` timed by replaying CUDA graphs (the device
 alone: eager calls of the small shapes time the wrapper's host work), and
 ``step_ms`` and ``step_bound_ms`` are the sums over one fft_glo step's
-``step_calls`` bf16 calls at batch 128. The resampling forward's
-``graph_ms`` is its warp's ``ms`` on the device alone, and ``bf16_ms``,
-``bf16_graph_ms`` and ``bf16_bound_ms`` the same with a bfloat16 image.
+``step_calls`` bf16 calls at batch 128. Each resampling kernel's
+``graph_ms`` is its warp's ``ms`` on the device alone, and for the forward
+and the position gradient ``bf16_ms``, ``bf16_graph_ms`` and
+``bf16_bound_ms`` the same with a bfloat16 image.
 ``max_abs_err`` is the largest error of phase 3, 4, 5 or 13. ``library_ms`` is ``F.grid_sample`` on the same inputs (for the backward
 kernels: its backward) and, for flash attention,
 ``F.scaled_dot_product_attention`` (for both backward kernels: its whole
@@ -562,11 +568,17 @@ def _within(got: torch.Tensor, want: torch.Tensor, tol: float, what: str,
 def check_resample(x, p, q, g, mode: str, border: bool, channels: int, what: str
                    ) -> tuple[float, float, float]:
     """The three kernels on one case against the plain version and its
-    autograd gradients; x (outer, l_in, inner), g (outer, l_out, inner)."""
+    autograd gradients; x (outer, l_in, inner), g (outer, l_out, inner). The
+    adjoint and the position gradient run twice and must repeat bit for bit."""
     l_in, l_out = x.shape[1], g.shape[1]
     out = rkernel.resample_fwd(x, p, q, l_out, mode, border, channels)
     gx = rkernel.resample_adjoint(g, p, q, l_in, mode, border, channels)
     gp, gq = rkernel.resample_gradpos(x, g, p, q, mode, border, channels)
+    again = (rkernel.resample_adjoint(g, p, q, l_in, mode, border, channels),
+             *rkernel.resample_gradpos(x, g, p, q, mode, border, channels))
+    if not all(torch.equal(a, b) for a, b in zip((gx, gp, gq), again)):
+        raise AssertionError(f"{what}: the adjoint or the position gradient does not repeat "
+                             f"bit for bit")
     xp = x.float().requires_grad_()
     pp, qp = p.clone().requires_grad_(), q.clone().requires_grad_()
     want = resample.resample_axis_plain(xp, pp, qp, l_out, mode, border, channels)
@@ -589,6 +601,33 @@ def _hard_lines(outer: int, lines: int, l_in: int, gen) -> tuple[torch.Tensor, t
     for i, (pv, qv) in enumerate(corner[:outer * lines]):
         p[i], q[i] = pv, qv
     return p.view(outer, lines), q.view(outer, lines)
+
+
+def _edge_lines(outer: int, lines: int, l_in: int, l_out: int, gen
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """p in [-4, 4] and q in [-l_in, 2 l_in], the first lines the cases of the
+    adjoint's edge masses: lines over both ends (p = 2 from q = -3, its flip,
+    and a slope that spans the line and 3 elements beyond each end), p = 0
+    inside the line, near either end (the window leaves it) and beyond either
+    end, p < 0 across the low end and across both, the identity shifted by half
+    an element, a line that starts below 0."""
+    dev = gen.device
+    p = torch.empty(outer * lines, device=dev).uniform_(-4.0, 4.0, generator=gen)
+    q = torch.empty(outer * lines, device=dev).uniform_(-l_in, 2.0 * l_in, generator=gen)
+    corner = [(2.0, -3.0), (-2.0, l_in + 2.0), ((l_in + 6.0) / l_out, -3.0),
+              (0.0, 0.5 * (l_in - 1)), (0.0, -0.7), (0.0, l_in - 1.3), (0.0, -5.0),
+              (0.0, l_in + 4.0), (-1.5, l_in + 2.0), (-0.3, 1.0), (-4.0, 3.0 * l_in),
+              (1.0, 0.5), (0.7, -2.5)]
+    for i, (pv, qv) in enumerate(corner[:outer * lines]):
+        p[i], q[i] = pv, qv
+    return p.view(outer, lines), q.view(outer, lines)
+
+
+# (l_in, l_out) of the edge cases: windows that hold the whole line (1 and 2
+# elements; v == 0 is also the last element at 1), 3 elements, and a line
+# longer than any window
+EDGE_LENGTHS = ((1, 4), (2, 5), (3, 3), (40, 57))
+EDGE_CHANNELS = (1, 3, 5, 10)  # 3 takes the unrolled channel loop, the rest the run-time one
 
 
 def record_passes(src: torch.Tensor, theta: torch.Tensor, mode: str = "bicubic") -> list:
@@ -650,32 +689,57 @@ def _pass_bounds(x, p, g, mode) -> dict[str, tuple[float, float]]:
             "resample_gradpos": (x_bytes + g_bytes + 2 * lines, ops + 3 * g.numel())}
 
 
-def time_warp_fwd(src: torch.Tensor, theta: torch.Tensor, card: str) -> dict[str, float]:
-    """The forward kernel over one cubic warp of ``src`` (both passes) with a
-    float32 and a bfloat16 image: eager and device-alone (CUDA graph) ms and
-    the byte bound; two identical runs compared bit for bit."""
-    out = {}
+# the passes of one stn warp each kernel runs: the position gradient both, the
+# adjoint only the y-pass (the x-pass reads the batch, which needs no gradient)
+WARP_PASSES = {"resample_fwd": (0, 1), "resample_adjoint": (1,), "resample_gradpos": (0, 1)}
+
+
+def _warp_call(name: str, x, p, q, g, l_out, *args):
+    if name == "resample_fwd":
+        return rkernel.resample_fwd(x, p, q, l_out, *args)
+    if name == "resample_adjoint":
+        return rkernel.resample_adjoint(g, p, q, x.shape[1], *args)
+    return rkernel.resample_gradpos(x, g, p, q, *args)
+
+
+def time_warp(src: torch.Tensor, theta: torch.Tensor, card: str, gen) -> dict[str, dict]:
+    """Each kernel over its passes of one cubic warp of ``src`` with a float32
+    image, the forward and the position gradient also with a bfloat16 one (the
+    adjoint reads no image): eager and device-alone (CUDA graph) ms and the
+    byte bound; two identical runs compared bit for bit. Returns the keys the
+    kernels' JSON adds: ``graph_ms``, and ``bf16_ms``, ``bf16_graph_ms`` and
+    ``bf16_bound_ms`` where there is a bfloat16 run."""
+    out = {k: {} for k in WARP_PASSES}
     for dtype, tag in ((torch.float32, ""), (torch.bfloat16, "bf16_")):
         passes = record_passes(src.to(dtype), theta)
+        grads = [torch.randn((x.shape[0], l_out, x.shape[2]), device=x.device, generator=gen)
+                 for x, _, _, l_out, *_ in passes]
+        for name, used in WARP_PASSES.items():
+            if dtype == torch.bfloat16 and name == "resample_adjoint":
+                continue
 
-        def warp():
-            return [rkernel.resample_fwd(x, p, q, *rest) for x, p, q, *rest in passes]
+            def warp():
+                return [_warp_call(name, x, p, q, grads[i], *rest)
+                        for i, (x, p, q, *rest) in enumerate(passes) if i in used]
 
-        if not all(torch.equal(a, b) for a, b in zip(warp(), warp())):
-            raise AssertionError(f"resample_fwd {dtype} does not repeat bit for bit")
-        n_bytes = n_ops = 0
-        for x, p, q, l_out, mode, *_ in passes:
-            g = torch.empty((x.shape[0], l_out, x.shape[2]), device=x.device)
-            b, o = _pass_bounds(x, p, g, mode)["resample_fwd"]
-            n_bytes, n_ops = n_bytes + b, n_ops + o
-        ms, alone, (bound, by) = cuda_ms(warp), graph_ms(warp), bound_ms(n_bytes, n_ops)
-        out.update({f"{tag}ms": ms, f"{tag}graph_ms": alone, f"{tag}bound_ms": bound})
-        print(f"kernel resample_fwd: one cubic warp (x- and y-pass) of a {tuple(src.shape)} "
-              f"{str(dtype).split('.')[1]} image: kernel {ms:.4f} ms, device alone (CUDA "
-              f"graph) {alone:.4f} ms, bound {bound:.4f} ms ({by}, {n_bytes / 1e6:.1f} MB): "
-              f"{100 * bound / alone:.1f} % of the bound on the device alone; repeats bit for "
-              f"bit [{card}]")
-    return {k: v for k, v in out.items() if k not in ("ms", "bound_ms")}
+            flat = [[t for r in run for t in (r if isinstance(r, tuple) else (r,))]
+                    for run in (warp(), warp())]
+            if not all(torch.equal(a, b) for a, b in zip(*flat)):
+                raise AssertionError(f"{name} {dtype} does not repeat bit for bit")
+            n_bytes = n_ops = 0
+            for i in used:
+                x, p, _, _, mode, *_ = passes[i]
+                b, o = _pass_bounds(x, p, grads[i], mode)[name]
+                n_bytes, n_ops = n_bytes + b, n_ops + o
+            ms, alone, (bound, by) = cuda_ms(warp), graph_ms(warp), bound_ms(n_bytes, n_ops)
+            out[name].update({f"{tag}ms": ms, f"{tag}graph_ms": alone, f"{tag}bound_ms": bound})
+            print(f"kernel {name}: one cubic warp ({'- and '.join('xy'[i] for i in used)}-pass) "
+                  f"of a {tuple(src.shape)} {str(dtype).split('.')[1]} image: kernel {ms:.4f} "
+                  f"ms, device alone (CUDA graph) {alone:.4f} ms, bound {bound:.4f} ms ({by}, "
+                  f"{n_bytes / 1e6:.1f} MB): {100 * bound / alone:.1f} % of the bound on the "
+                  f"device alone; repeats bit for bit [{card}]")
+    return {name: {k: v for k, v in d.items() if k not in ("ms", "bound_ms")}
+            for name, d in out.items()}
 
 
 def phase_resample(device, card: str) -> dict[str, dict]:
@@ -684,13 +748,15 @@ def phase_resample(device, card: str) -> dict[str, dict]:
     names = KERNELS[2:5]
     worst = dict.fromkeys(names, 0.0)
 
-    def run(x, p, q, l_out, mode, border, channels, what):
+    def run(x, p, q, l_out, mode, border, channels, what, show=True):
         g = torch.randn((x.shape[0], l_out, x.shape[2]), device=device, generator=gen)
         errs = check_resample(x, p, q, g, mode, border, channels, what)
         for k, e in zip(names, errs):
             worst[k] = max(worst[k], e)
-        print(f"kernel resample {what}: max abs err fwd {errs[0]:.3g}, adjoint {errs[1]:.3g}, "
-              f"gradpos {errs[2]:.3g} (max abs)")
+        if show:
+            print(f"kernel resample {what}: max abs err fwd {errs[0]:.3g}, adjoint "
+                  f"{errs[1]:.3g}, gradpos {errs[2]:.3g} (max abs)")
+        return errs
 
     # the path's two passes, near-identity thetas, cubic and border
     for n in (8, 32):
@@ -715,6 +781,27 @@ def phase_resample(device, card: str) -> dict[str, dict]:
                         f"{shape}->{l_out} c{channels} {str(dtype).split('.')[1]} {mode} "
                         f"{'border' if border else 'zeros'}")
 
+    # the adjoint's edge masses and the run-time channel loop: every edge line
+    # of _edge_lines at 1-3 elements and at 40, 1, 3, 5 and 10 channels a line
+    for channels in EDGE_CHANNELS:
+        errs = [0.0, 0.0, 0.0]
+        for l_in, l_out in EDGE_LENGTHS:
+            shape = (8, l_in, 2 * channels)
+            for mode in ("cubic", "linear"):
+                for border in (True, False):
+                    for dtype in (torch.float32, torch.bfloat16):
+                        x = torch.randn(shape, device=device, generator=gen).to(dtype)
+                        p, q = _edge_lines(8, 2, l_in, l_out, gen)
+                        got = run(x, p, q, l_out, mode, border, channels,
+                                  f"edge lines {shape}->{l_out} c{channels} "
+                                  f"{str(dtype).split('.')[1]} {mode} "
+                                  f"{'border' if border else 'zeros'}", show=False)
+                        errs = [max(a, b) for a, b in zip(errs, got)]
+        print(f"kernel resample edge lines, {channels} channels a line, (l_in, l_out) in "
+              f"{EDGE_LENGTHS}, both modes, border and zeros, float32 and bfloat16: max abs "
+              f"err fwd {errs[0]:.3g}, adjoint {errs[1]:.3g}, gradpos {errs[2]:.3g}; adjoint "
+              f"and gradpos repeat bit for bit")
+
     # the separable warp through the kernels against the plain path
     for shape, mode, padding in (((2, 64, 48, 3), "bicubic", "border"),
                                  ((1, 15, 17, 5), "bilinear", "zeros")):
@@ -736,7 +823,7 @@ def phase_resample(device, card: str) -> dict[str, dict]:
     # times and bounds at the path's shape: one warp at (32, 256, 256, 3) float32
     src = torch.rand((32, SIZE, SIZE, 3), device=device, generator=gen) * 2 - 1
     theta = _near_identity_theta(32, gen)
-    used = {"resample_fwd": (0, 1), "resample_adjoint": (1,), "resample_gradpos": (0, 1)}
+    used = WARP_PASSES
     total = {k: [0.0, 0.0, 0.0, 0.0] for k in names}  # kernel ms, plain ms, bytes, operations
     for i, (x, p, q, l_out, mode, border, channels) in enumerate(record_passes(src, theta)):
         g = torch.randn((x.shape[0], l_out, x.shape[2]), device=device, generator=gen)
@@ -760,7 +847,7 @@ def phase_resample(device, card: str) -> dict[str, dict]:
         return F.grid_sample(src_n, grid, mode="bicubic", padding_mode="border",
                              align_corners=True)
 
-    fwd_alone = time_warp_fwd(src, theta, card)
+    alone = time_warp(src, theta, card, gen)
     out = library()
     lib = {"resample_fwd": cuda_ms(lambda: library().detach()),
            "resample_adjoint": cuda_ms(
@@ -770,8 +857,7 @@ def phase_resample(device, card: str) -> dict[str, dict]:
     for k in names:
         b, by = bound_ms(total[k][2], total[k][3])
         results[k] = {"max_abs_err": worst[k], "ms": total[k][0], "plain_ms": total[k][1],
-                      "bound_ms": b, "bound_by": by, "library_ms": lib[k],
-                      **(fwd_alone if k == "resample_fwd" else {})}
+                      "bound_ms": b, "bound_by": by, "library_ms": lib[k], **alone[k]}
         print(f"kernel {k}: all cases within tolerance, worst {worst[k]:.3g}; one warp at "
               f"(32,256,256,3) fp32 (passes {[('x', 'y')[i] for i in used[k]]}): kernel "
               f"{total[k][0]:.4f} ms, plain {total[k][1]:.4f} ms, bound {b:.4f} ms ({by}, "

@@ -341,6 +341,90 @@ def test_resample_forward_repeats_bit_for_bit(cuda, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_resample_backward_repeats_bit_for_bit(cuda, dtype):
+    """The adjoint and the position gradient sum in a fixed order: twice on
+    the same inputs, the warp's two views, the same bits."""
+    g = torch.Generator(device=cuda).manual_seed(10)
+    for x, p, q in _views(8, 256, 256, 3, g, dtype):
+        ct = torch.randn(x.shape, device=cuda, generator=g)
+        first, second = ((rkernel.resample_adjoint(ct, p, q, 256, "cubic", True, 3),
+                          *rkernel.resample_gradpos(x, ct, p, q, "cubic", True, 3))
+                         for _ in range(2))
+        assert all(torch.equal(a, b) for a, b in zip(first, second)), tuple(x.shape)
+
+
+def _edge_lines(outer, lines, l_in, l_out, g):
+    """p in [-4, 4], q in [-l_in, 2 l_in]; the first lines: over both ends (p =
+    2 from q = -3, its flip, a slope that spans the line and 3 elements beyond
+    each end), p = 0 inside, near either end and beyond either end, p < 0
+    across the low end and across both, a half-element shift, a start below 0."""
+    p = torch.empty(outer * lines, device=g.device).uniform_(-4.0, 4.0, generator=g)
+    q = torch.empty(outer * lines, device=g.device).uniform_(-l_in, 2.0 * l_in, generator=g)
+    corner = [(2.0, -3.0), (-2.0, l_in + 2.0), ((l_in + 6.0) / l_out, -3.0),
+              (0.0, 0.5 * (l_in - 1)), (0.0, -0.7), (0.0, l_in - 1.3), (0.0, -5.0),
+              (0.0, l_in + 4.0), (-1.5, l_in + 2.0), (-0.3, 1.0), (-4.0, 3.0 * l_in),
+              (1.0, 0.5), (0.7, -2.5)]
+    for i, (pv, qv) in enumerate(corner[:outer * lines]):
+        p[i], q[i] = pv, qv
+    return p.view(outer, lines), q.view(outer, lines)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("border", [True, False])
+@pytest.mark.parametrize("mode", ["cubic", "linear"])
+def test_resample_edge_lines_match_plain(cuda, mode, border, dtype):
+    """The edge masses the adjoint adds in its own launch (border clamping),
+    at lines of 1-3 elements (the first element also the last at 1) and of 40,
+    and the channel loop at run time (1, 5, 10, 300 channels) beside the
+    unrolled one (3): all three kernels against the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    for channels in (1, 3, 5, 10, 300):
+        for l_in, l_out in ((1, 4), (2, 5), (3, 3), (40, 57)):
+            x = torch.randn((8, l_in, 2 * channels), device=cuda, generator=g).to(dtype)
+            p, q = _edge_lines(8, 2, l_in, l_out, g)
+            ct = torch.randn((8, l_out, 2 * channels), device=cuda, generator=g)
+            out = rkernel.resample_fwd(x, p, q, l_out, mode, border, channels)
+            gx = rkernel.resample_adjoint(ct, p, q, l_in, mode, border, channels)
+            gp, gq = rkernel.resample_gradpos(x, ct, p, q, mode, border, channels)
+            xp, pp, qp = (x.float().requires_grad_(), p.clone().requires_grad_(),
+                          q.clone().requires_grad_())
+            want = resample.resample_axis_plain(xp, pp, qp, l_out, mode, border, channels)
+            wx, wp, wq = torch.autograd.grad(want, (xp, pp, qp), ct)
+            _close(out, want.detach(), 2e-5)
+            _close(gx, wx, 2e-5)
+            _close(gp, wp, 2e-4)
+            _close(gq, wq, 2e-4)
+
+
+def test_resample_adjoint_is_one_launch_without_scratch(cuda):
+    """The edge masses are the adjoint kernel's own work: one kernel on the
+    card and one allocation (dx) a call, at both views."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(device=cuda).manual_seed(12)
+    for x, p, q in _views(2, 32, 40, 3, g, torch.float32):
+        ct = torch.randn(x.shape, device=cuda, generator=g)
+
+        def call():
+            return rkernel.resample_adjoint(ct, p, q, x.shape[1], "cubic", True, 3)
+
+        call()  # built and loaded
+        torch.cuda.synchronize()
+        allocated = torch.cuda.memory_stats()["allocation.all.allocated"]
+        launches = rkernel.ADJOINT_LAUNCHES
+        call()
+        torch.cuda.synchronize()
+        assert torch.cuda.memory_stats()["allocation.all.allocated"] == allocated + 1
+        assert rkernel.ADJOINT_LAUNCHES == launches + 1
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        on_card = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(on_card) == 1 and "resample_adjoint_kernel" in on_card[0], on_card
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("mode,padding", [("bicubic", "border"), ("bilinear", "zeros")])
 def test_separable_warp_autograd_runs_the_kernels(cuda, mode, padding, dtype):
     g = torch.Generator(device=cuda).manual_seed(3)

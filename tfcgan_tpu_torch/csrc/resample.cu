@@ -42,43 +42,74 @@
 // ms. The taps are scalar loads: a vector over j spans pixels of different
 // lines when channels = 3.
 //
-// tfcgan_resample_adjoint: dx = A^T g in gather form, one thread per dx
-// element, no atomics, so the result is deterministic. The thread for (o, v, j)
-// visits every i whose window can hold v, that is floor(p*i + q) in
-// [v - hs, v + hs - 1] (hs = 1 or 2), found by solving for i with one element
-// of slack on each side, and recomputes pos, i0 and t exactly as the forward
-// does (unfused multiply-add), so it transposes the forward's own weights. The
-// loop length follows 2*hs / |p|: the TPU kernel's fixed window of 11 (cubic)
-// or 7 (linear) offsets is exact only for |p| >= 0.5 and drops taps silently
-// below; this loop stays exact for every p, p == 0 included (the whole line).
-// Under border clamping the taps that fell outside [0, l_in) were read from
-// the two edge elements, so their weights belong to dx[.., 0, ..] and
-// dx[.., l_in - 1, ..]: a reduction over the whole line for 2 of its
-// elements. A small kernel run first (resample_edge_kernel, same launcher)
-// computes it into a scratch (outer, 2, inner): a block owns a tile of j and
-// splits the line over the rest of its threads, skips every i whose window
-// lies inside the line without loading g (for near-identity warps that is
-// almost all of them), and sums the partial masses in shared memory with a
-// fixed-order tree. The gather kernel adds the two values where v is an edge.
+// tfcgan_resample_adjoint: dx = A^T g in gather form, one launch, no atomics,
+// no scratch, deterministic. A thread owns a strip of kAdjStrip neighbouring
+// elements v0 .. v0 + 3 of one line (lines fastest, as in the forward) and
+// all of the line's channels. It solves once for the positions i whose window
+// can hold the strip, floor(p*i + q) in [v0 - hs, v0 + 3 + hs - 1] (hs = 1 or
+// 2), with one element of slack on each side, and walks them in ascending
+// order: each position's pos and floor (unfused multiply-add, exactly as the
+// forward computes them) and its g for the line's channels once, then for
+// each element of the strip whose tap the window holds the weight K((pos -
+// i0) - k), the forward's own. Each element's sum is the same fmaf sequence
+// over ascending i that a thread an element (the first design) takes: dx is
+// that design's bit for bit. One element of slack is exact for every p: the
+// rounding of p*i + q only moves a position across a bound onto the bound
+// itself, where the window's end tap weighs 0. The walk's length follows (3 +
+// 2*hs) / |p|: the TPU kernel's fixed window of 11 (cubic) or 7 (linear)
+// offsets is exact only for |p| >= 0.5 and drops taps silently below; this
+// walk stays exact for every p, p == 0 included (the whole line).
+// Border clamping: taps outside [0, l_in) read the edge elements, so their
+// weights belong to dx[.., 0, ..] and dx[.., l_in - 1, ..]. The positions
+// whose window leaves the line at one end form one run at that end of [0,
+// l_out) (which end follows the sign of p; for p == 0 all or none); the
+// thread whose strip holds element 0 solves for the low run as the window is
+// solved and walks it, adding g * (the weights of the taps below 0), and the
+// one that holds l_in - 1 does the same for the high run (at l_in == 1 one
+// thread, both runs). Near identity a run is a position or two. In the
+// first design this was a kernel of its own launched first (a block a tile of j, the whole
+// line split over slices, a shared-memory tree) into a scratch of (outer, 2,
+// inner) floats that the wrapper allocated on every call; the edge elements'
+// sums now run in sequence instead of a tree (within 6e-6 of that kernel's).
+// Timed in turns by tools/kernel_turns.py on an NVIDIA H100 80GB HBM3 (700 W),
+// device alone, the path's y-pass (32, 256, 768) float32 cubic: the two
+// kernels of the first design 0.1209 ms; a thread an element of a line with
+// all its channels 0.0635 ms; strips of 2, 4, 8 elements 0.0452, 0.0453,
+// 0.0481 ms; strips of 4 with the walk unrolled by 2 at 64 registers 0.0420
+// ms (28 % of the 0.0150 ms bound on the device alone; unrolled by 1 0.0453,
+// by 2 at 86 registers 0.0549; strips of 2 unrolled by 4 0.0445). What holds
+// it back is the walk's dependent steps (floor, test, weight) and its slack
+// positions, not bytes: a strip's loads of g serve up to 4 elements each.
 //
-// tfcgan_resample_gradpos: gpos[o, i, j] = g * sum_k K'(t - k) * x[tap] and,
-// fused in the same kernel, gp[line] = sum_{i, channel} gpos * i and
-// gq[line] = sum gpos, so gpos never reaches device memory. Same block shape
-// as the edge kernel: a tile of j (whole lines) times slices of i, a
-// fixed-order tree over the slices in shared memory, then the channels of a
-// line summed in order by one thread.
+// tfcgan_resample_gradpos: gpos = g * sum_k K'(t - k) * x[tap] and, in the
+// same kernel, gp[line] = sum_{i, channel} gpos * i and gq[line] = sum gpos:
+// gpos never reaches device memory. A thread takes positions of one line in
+// the forward's form (each position's taps and K' weights once, the line's
+// channels after, unrolled at 3: 12 tap and 3 g loads in flight) and sums the
+// channels into one gpos, in order. A block holds a tile of up to 32 lines
+// (fastest, so the y-pass's loads coalesce over neighbouring columns) times
+// slices of the positions; a thread walks its slice, at least kGradPer
+// positions unrolled. The slices of a warp are summed with __shfl_down_sync
+// in a fixed pattern, the block's warps through shared memory by one thread a
+// line in warp order: one barrier, no atomics, the same bits run to run.
+// Timed as the adjoint, both passes of the path's warp: the first design (a
+// thread an element, two 7-level shared-memory trees a block and a serial
+// channel sum) 0.1138 ms; this form at one position a thread 0.0580 ms (x-pass
+// 0.0358, y-pass 0.0221); 4 positions a thread 0.0441 ms (x-pass 0.0226,
+// y-pass 0.0216: 68 % of the 0.0301 ms bound); bfloat16 image 0.0430 ms. Also
+// tried: staging the x-pass's row of x in shared memory before p and q are
+// known (x-pass 0.0384, slower: a barrier and a copy for taps that L1 serves),
+// a 3-block cap (40 registers: spills, x-pass 0.0629), the y-pass's walk unrolled by
+// 4 (no change).
 //
 // What bounds all three: bytes. Per pass the forward reads x and writes out,
-// the adjoint reads g (twice where lines leave the image) and writes dx, the
-// position gradient reads x and g and writes two floats a line. The 2 to 4
-// taps of neighbouring outputs overlap and are served by L1/L2.
+// the adjoint reads g and writes dx, the position gradient reads x and g and
+// writes two floats a line. The 2 to 4 taps of neighbouring outputs overlap
+// and are served by L1/L2.
 //
-// Left for later work: the adjoint and the position gradient still compute
-// the taps (and the position gradient its weights, in window_grad_sum) for
-// every element; they take the forward's form next, the edge pass folded into
-// the gather kernel's launch. Also not tried: p and q computed in the kernel from
-// the six affine coefficients, both passes in one kernel through shared
-// memory.
+// Not tried: p and q computed in the kernel from the six affine
+// coefficients; both passes in one kernel through shared memory; the adjoint
+// as a scatter of each position's 4 weights (atomics, or a sort by element).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -87,6 +118,20 @@
 namespace {
 
 constexpr int kThreads = 256;
+// The position gradient: the most threads a block has, and the least
+// positions of a line a thread takes (its walk unrolled by as many, so their
+// loads are in flight together) where the line is short enough to leave the
+// threads idle otherwise (the x-pass). Timed on the path's warp: blocks of
+// 256, 512, 1024 at one position a thread 0.0588, 0.0580, 0.0610 ms; 1, 2, 4,
+// 8 positions a thread at the x-pass 0.0358, 0.0261, 0.0226, 0.0221 ms.
+constexpr int kGradThreads = 512;
+constexpr int kGradPer = 4;
+// The adjoint: neighbouring elements of a line a thread takes (a strip), its
+// walk over the positions unrolled by 2, and blocks an SM it is compiled for:
+// 4, so 64 registers (uncapped it took 86 and was 30 % slower)
+constexpr int kAdjStrip = 4;
+constexpr int kAdjUnroll = 2;
+constexpr int kAdjMinBlocks = 4;
 constexpr float kA = -0.75f;
 
 __device__ __forceinline__ float load_f32(const float* p) { return *p; }
@@ -125,27 +170,6 @@ __device__ __forceinline__ float position(float p, float q, int i) {
   return __fadd_rn(__fmul_rn(p, static_cast<float>(i)), q);
 }
 
-// sum_k K'(t - k) * x[tap k] over the window of pos: the position gradient's
-// sum, over the same taps as window_taps.
-template <typename T, bool Cubic>
-__device__ __forceinline__ float window_grad_sum(const T* xl, float pos, int l_in, int inner,
-                                                 int border) {
-  constexpr int hs = Cubic ? 2 : 1;
-  const float i0 = floorf(pos);
-  const float t = pos - i0;
-  const float last = static_cast<float>(l_in - 1);
-  float acc = 0.f;
-#pragma unroll
-  for (int k = -hs + 1; k <= hs; ++k) {
-    const float u = i0 + static_cast<float>(k);
-    if (!border && !(u >= 0.f && u <= last)) continue;
-    const int uc = static_cast<int>(fminf(fmaxf(u, 0.f), last));
-    const float wgt = kgrad<Cubic>(t - static_cast<float>(k));
-    acc = fmaf(load_f32(xl + static_cast<int64_t>(uc) * inner), wgt, acc);
-  }
-  return acc;
-}
-
 // The window of one output position pos along a line: where each of its 2
 // or 4 taps reads (an element offset from the line's start at u = 0), its
 // weight, and whether it reads at all (with border == 0 a tap outside [0,
@@ -160,7 +184,8 @@ struct Taps {
   bool on[kN];
 };
 
-template <bool Cubic>
+// Deriv: the weights of K' instead of K (the position gradient's taps)
+template <bool Cubic, bool Deriv = false>
 __device__ __forceinline__ Taps<Cubic> window_taps(float pos, int l_in, int inner, int border) {
   constexpr int hs = Cubic ? 2 : 1;
   const float i0 = floorf(pos);
@@ -172,7 +197,8 @@ __device__ __forceinline__ Taps<Cubic> window_taps(float pos, int l_in, int inne
     const float u = i0 + static_cast<float>(k);
     taps.on[k + hs - 1] = border || (u >= 0.f && u <= last);
     taps.off[k + hs - 1] = static_cast<int>(fminf(fmaxf(u, 0.f), last)) * inner;
-    taps.wgt[k + hs - 1] = kfn<Cubic>(t - static_cast<float>(k));
+    taps.wgt[k + hs - 1] = Deriv ? kgrad<Cubic>(t - static_cast<float>(k))
+                                 : kfn<Cubic>(t - static_cast<float>(k));
   }
   return taps;
 }
@@ -219,162 +245,245 @@ resample_fwd_kernel(const T* __restrict__ x, const float* __restrict__ p,
   }
 }
 
-// Block shape of the two reducing kernels: tj neighbouring j (whole lines)
-// times tx slices of the resampled axis; tx_pow2 is the power of two >= tx.
-struct Tile {
-  int tj, tx, tx_pow2;
-};
-
-Tile make_tile(int inner, int channels) {
-  Tile t;
-  t.tj = inner <= 32 ? inner : channels * (32 / channels > 0 ? 32 / channels : 1);
-  t.tx = kThreads / t.tj > 0 ? kThreads / t.tj : 1;
-  t.tx_pow2 = 1;
-  while (t.tx_pow2 < t.tx) t.tx_pow2 *= 2;
-  return t;
-}
-
-// Sum s[tj + tx * tile.tj] over tx into s[tj], pairs in a fixed order. Every
-// thread of the block calls it.
-__device__ __forceinline__ void reduce_slices(float* s, Tile tile, int tx) {
-  __syncthreads();
-  for (int step = tile.tx_pow2 / 2; step > 0; step >>= 1) {
-    if (tx < step && tx + step < tile.tx) s[threadIdx.x] += s[threadIdx.x + step * tile.tj];
-    __syncthreads();
+// The positions i of a line (p != 0) with p * i + q below bound (Below) or at
+// or above it: one end of [0, l_out), as [first, last] with one element of
+// slack, as the adjoint's window is solved.
+template <bool Below>
+__device__ __forceinline__ void solve_side(float pl, float ql, float bound, int l_out, int& first,
+                                           int& last) {
+  const float c = (bound - ql) / pl;
+  first = 0;
+  last = l_out - 1;
+  if ((pl > 0.f) == Below) {
+    last = static_cast<int>(fmaxf(fminf(ceilf(c) + 1.f, static_cast<float>(l_out - 1)), -1.f));
+  } else {
+    first = static_cast<int>(fminf(fmaxf(floorf(c) - 1.f, 0.f), static_cast<float>(l_out)));
   }
 }
 
-// edge[o, 0, j] = sum_i g[o, i, j] * (weight of the taps below 0),
-// edge[o, 1, j] = the same for the taps above l_in - 1.
-// grid.x: o; grid.y: tiles of j; block: tile.tj * tile.tx threads.
-template <bool Cubic>
-__global__ void __launch_bounds__(kThreads)
-resample_edge_kernel(const float* __restrict__ g, const float* __restrict__ p,
-                     const float* __restrict__ q, float* __restrict__ edge, int l_in,
-                     int l_out, int inner, int channels, Tile tile) {
+// The mass that border clamping moves onto an edge element: Low, dx[0] gets
+// sum_i g[i] * (the weights of i's taps below 0); else dx[l_in - 1] gets the
+// same for the taps above l_in - 1. Only the positions whose window leaves
+// the line at that end carry such taps: one run at that end of [0, l_out),
+// solved, and each of its positions tested as a walk over the whole line
+// would test it. acc[c] += the sum, for the channels c < nc of the chunk.
+template <bool Cubic, int CB, bool Low>
+__device__ __forceinline__ void add_edge_mass(const float* __restrict__ gl, float* acc, int nc,
+                                              float pl, float ql, int l_in, int l_out,
+                                              int inner) {
   constexpr int hs = Cubic ? 2 : 1;
-  __shared__ float s_lo[kThreads], s_hi[kThreads];
-  const int tj = threadIdx.x % tile.tj, tx = threadIdx.x / tile.tj;
-  const int j = blockIdx.y * tile.tj + tj;
-  const int64_t o = blockIdx.x;
-  float lo = 0.f, hi = 0.f;
-  if (j < inner) {
-    const int64_t line = o * (inner / channels) + j / channels;
-    const float pl = p[line], ql = q[line];
-    const float last = static_cast<float>(l_in - 1);
-    const float* gl = g + o * l_out * inner + j;
-    for (int i = tx; i < l_out; i += tile.tx) {
-      const float pos = position(pl, ql, i);
-      const float i0 = floorf(pos);
-      if (i0 - static_cast<float>(hs - 1) >= 0.f && i0 + static_cast<float>(hs) <= last) continue;
-      const float t = pos - i0;
-      float m_lo = 0.f, m_hi = 0.f;
+  const float last = static_cast<float>(l_in - 1);
+  // Low: i0 - (hs - 1) < 0, that is pos < hs - 1; else i0 + hs > l_in - 1,
+  // that is pos >= l_in - hs
+  const float bound = Low ? static_cast<float>(hs - 1) : static_cast<float>(l_in - hs);
+  int first = 0, end = l_out - 1;
+  if (pl != 0.f) {
+    solve_side<Low>(pl, ql, bound, l_out, first, end);
+  }
+  float m[CB];
 #pragma unroll
-      for (int k = -hs + 1; k <= hs; ++k) {
-        const float u = i0 + static_cast<float>(k);
-        const float wgt = kfn<Cubic>(t - static_cast<float>(k));
-        if (u < 0.f) m_lo += wgt;
-        if (u > last) m_hi += wgt;
-      }
-      const float gv = gl[static_cast<int64_t>(i) * inner];
-      lo = fmaf(gv, m_lo, lo);
-      hi = fmaf(gv, m_hi, hi);
+  for (int c = 0; c < CB; ++c) m[c] = 0.f;
+  for (int i = first; i <= end; ++i) {
+    const float pos = position(pl, ql, i);
+    const float i0 = floorf(pos);
+    if (Low ? !(i0 - static_cast<float>(hs - 1) < 0.f) : !(i0 + static_cast<float>(hs) > last)) {
+      continue;
+    }
+    const float t = pos - i0;
+    float mass = 0.f;
+#pragma unroll
+    for (int k = -hs + 1; k <= hs; ++k) {
+      const float u = i0 + static_cast<float>(k);
+      const float wgt = kfn<Cubic>(t - static_cast<float>(k));
+      if (Low ? u < 0.f : u > last) mass += wgt;
+    }
+    const float* gi = gl + static_cast<int64_t>(i) * inner;
+#pragma unroll
+    for (int c = 0; c < CB; ++c) {
+      if (c < nc) m[c] = fmaf(gi[c], mass, m[c]);
     }
   }
-  s_lo[threadIdx.x] = lo;
-  s_hi[threadIdx.x] = hi;
-  reduce_slices(s_lo, tile, tx);
-  reduce_slices(s_hi, tile, tx);
-  if (tx == 0 && j < inner) {
-    edge[(o * 2 + 0) * inner + j] = s_lo[tj];
-    edge[(o * 2 + 1) * inner + j] = s_hi[tj];
-  }
+#pragma unroll
+  for (int c = 0; c < CB; ++c) acc[c] += m[c];
 }
 
-// grid.x: o; grid.y: chunks of the (l_in, inner) plane.
-template <bool Cubic>
-__global__ void __launch_bounds__(kThreads)
-resample_adjoint_kernel(const float* __restrict__ g, const float* __restrict__ p,
-                        const float* __restrict__ q, const float* __restrict__ edge,
-                        float* __restrict__ dx, int l_in, int l_out, int inner, int channels,
-                        int border) {
+// dx[v, c] = sum_i g[i, c] * K(pos_i - v) over the positions i whose window
+// holds v, for a strip of nv <= V neighbouring elements v0 .. v0 + nv - 1 and
+// the channels c < nc of one chunk of a line (CB of them at compile time),
+// and the edge masses where v is an edge element. The strip's positions
+// [first, last] are walked once: each one's floor, its g and its test are
+// shared by the strip's elements, and each element's sum is the same sequence
+// of fmaf over ascending i as a thread an element would take.
+template <bool Cubic, int CB, int V>
+__device__ __forceinline__ void adjoint_strip(const float* __restrict__ gl,
+                                              float* __restrict__ dst, int nc, int nv, float pl,
+                                              float ql, int first, int last, int v0, int l_in,
+                                              int l_out, int inner, int border) {
   constexpr int hs = Cubic ? 2 : 1;
-  const int e = blockIdx.y * kThreads + threadIdx.x;  // v * inner + j
-  if (e >= l_in * inner) return;
-  const int64_t o = blockIdx.x;
-  const int v = e / inner;
-  const int j = e - v * inner;
-  const int64_t line = o * (inner / channels) + j / channels;
-  const float pl = p[line], ql = q[line];
-
-  // every i with p*i + q in [v - hs, v + hs), one element of slack each side
-  int first = 0, last = l_out - 1;
-  if (pl != 0.f) {
-    const float a = (static_cast<float>(v - hs) - ql) / pl;
-    const float b = (static_cast<float>(v + hs) - ql) / pl;
-    first = static_cast<int>(fminf(fmaxf(floorf(fminf(a, b)) - 1.f, 0.f),
-                                   static_cast<float>(l_out)));
-    last = static_cast<int>(fmaxf(fminf(ceilf(fmaxf(a, b)) + 1.f, static_cast<float>(l_out - 1)),
-                                  -1.f));
+  float acc[V][CB];
+#pragma unroll
+  for (int d = 0; d < V; ++d) {
+#pragma unroll
+    for (int c = 0; c < CB; ++c) acc[d][c] = 0.f;
   }
-  const float* gl = g + o * l_out * inner + j;
-  const float vf = static_cast<float>(v);
-  float acc = 0.f;
+#pragma unroll kAdjUnroll
   for (int i = first; i <= last; ++i) {
     const float pos = position(pl, ql, i);
     const float i0 = floorf(pos);
-    const float k = vf - i0;  // the tap of i that reads v, if it is in the window
-    if (k >= static_cast<float>(-hs + 1) && k <= static_cast<float>(hs)) {
-      acc = fmaf(gl[static_cast<int64_t>(i) * inner], kfn<Cubic>((pos - i0) - k), acc);
+    const float* gi = gl + static_cast<int64_t>(i) * inner;
+    float gv[CB];
+#pragma unroll
+    for (int c = 0; c < CB; ++c) gv[c] = c < nc ? gi[c] : 0.f;
+#pragma unroll
+    for (int d = 0; d < V; ++d) {
+      const float k = static_cast<float>(v0 + d) - i0;  // the tap of i that reads v0 + d
+      if (d < nv && k >= static_cast<float>(-hs + 1) && k <= static_cast<float>(hs)) {
+        const float wgt = kfn<Cubic>((pos - i0) - k);
+#pragma unroll
+        for (int c = 0; c < CB; ++c) acc[d][c] = fmaf(gv[c], wgt, acc[d][c]);
+      }
     }
   }
   if (border) {
-    if (v == 0) acc += edge[(o * 2 + 0) * inner + j];
-    if (v == l_in - 1) acc += edge[(o * 2 + 1) * inner + j];
+    if (v0 == 0) add_edge_mass<Cubic, CB, true>(gl, acc[0], nc, pl, ql, l_in, l_out, inner);
+    if (v0 + nv == l_in) {
+#pragma unroll
+      for (int d = 0; d < V; ++d) {
+        if (d == nv - 1) {
+          add_edge_mass<Cubic, CB, false>(gl, acc[d], nc, pl, ql, l_in, l_out, inner);
+        }
+      }
+    }
   }
-  dx[o * l_in * inner + e] = acc;
+#pragma unroll
+  for (int d = 0; d < V; ++d) {
+#pragma unroll
+    for (int c = 0; c < CB; ++c) {
+      if (d < nv && c < nc) dst[static_cast<int64_t>(d) * inner + c] = acc[d][c];
+    }
+  }
+}
+
+// grid.x: o; grid.y: chunks of the (strips, lines) plane, a strip kAdjStrip
+// neighbouring elements of a line. A thread: one strip of one line, all the
+// line's channels: the positions whose windows hold the strip solved once,
+// each position's floor and g once, then its weight for each element.
+template <bool Cubic>
+__global__ void __launch_bounds__(kThreads, kAdjMinBlocks)
+resample_adjoint_kernel(const float* __restrict__ g, const float* __restrict__ p,
+                        const float* __restrict__ q, float* __restrict__ dx, int l_in, int l_out,
+                        int inner, int channels, int lines, int border) {
+  constexpr int hs = Cubic ? 2 : 1;
+  const int strips = (l_in + kAdjStrip - 1) / kAdjStrip;
+  const int e = blockIdx.y * kThreads + threadIdx.x;  // strip * lines + line
+  if (e >= strips * lines) return;
+  const int64_t o = blockIdx.x;
+  const int strip = e / lines;
+  const int line = e - strip * lines;
+  const int v0 = strip * kAdjStrip;
+  const int nv = min(kAdjStrip, l_in - v0);
+  const int64_t ln = o * lines + line;
+  const float pl = p[ln], ql = q[ln];
+
+  // every i with p*i + q in [v0 - hs, v0 + nv - 1 + hs), one element of slack
+  // each side (the windows of the strip's elements, solved at its two ends)
+  int first = 0, last = l_out - 1;
+  if (pl != 0.f) {
+    const float a = (static_cast<float>(v0 - hs) - ql) / pl;
+    const float b = (static_cast<float>(v0 + nv - 1 + hs) - ql) / pl;
+    first = static_cast<int>(fminf(fmaxf(floorf(fminf(a, b)) - 1.f, 0.f),
+                                   static_cast<float>(l_out)));
+    last = static_cast<int>(fmaxf(fminf(ceilf(fmaxf(a, b)) + 1.f,
+                                        static_cast<float>(l_out - 1)), -1.f));
+  }
+  const float* gl = g + o * l_out * inner + line * channels;
+  float* dst = dx + (o * l_in + v0) * inner + line * channels;
+  if (channels == 3) {
+    adjoint_strip<Cubic, 3, kAdjStrip>(gl, dst, 3, nv, pl, ql, first, last, v0, l_in, l_out,
+                                       inner, border);
+  } else {
+    for (int c0 = 0; c0 < channels; c0 += 4) {
+      adjoint_strip<Cubic, 4, kAdjStrip>(gl + c0, dst + c0, min(4, channels - c0), nv, pl, ql,
+                                         first, last, v0, l_in, l_out, inner, border);
+    }
+  }
+}
+
+// sum over the line's channels of g * (sum over the taps of K'(t - k) x): the
+// position gradient of one (line, position), channels in order; C as in
+// apply_taps
+template <typename T, bool Cubic, int C>
+__device__ __forceinline__ float channel_grad_sum(const T* xl, const float* gi,
+                                                  const Taps<Cubic>& taps, int channels) {
+  float sum = 0.f;
+#pragma unroll
+  for (int ch = 0; ch < (C > 0 ? C : channels); ++ch) {
+    float acc = 0.f;
+#pragma unroll
+    for (int k = 0; k < Taps<Cubic>::kN; ++k) {
+      if (taps.on[k]) acc = fmaf(load_f32(xl + taps.off[k] + ch), taps.wgt[k], acc);
+    }
+    sum = fmaf(gi[ch], acc, sum);
+  }
+  return sum;
 }
 
 // gp[line] = sum_{i, channel} gpos * i, gq[line] = sum gpos,
 // gpos = g[o, i, j] * sum_k K'(t - k) * x[tap].
-// grid.x: o; grid.y: tiles of j (whole lines); block: tile.tj * tile.tx threads.
+// grid.x: o; grid.y: tiles of 2^tl_log2 <= 32 lines. Block: those lines
+// (fastest) times blockDim.x >> tl_log2 slices of the positions; a thread
+// walks its slice's positions (i = slice, slice + slices, ...), each one's
+// position, taps and K' weights once for the line's channels. The slices of
+// a warp are then summed by shuffles, the block's warps through shared
+// memory, both in a fixed order: the result repeats bit for bit.
 template <typename T, bool Cubic>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kGradThreads)
 resample_gradpos_kernel(const T* __restrict__ x, const float* __restrict__ g,
                         const float* __restrict__ p, const float* __restrict__ q,
                         float* __restrict__ gp, float* __restrict__ gq, int l_in, int l_out,
-                        int inner, int channels, int border, Tile tile) {
-  __shared__ float s_p[kThreads], s_q[kThreads];
-  const int tj = threadIdx.x % tile.tj, tx = threadIdx.x / tile.tj;
-  const int j = blockIdx.y * tile.tj + tj;
+                        int inner, int channels, int lines, int border, int tl_log2) {
+  __shared__ float s_p[kGradThreads / 32][32], s_q[kGradThreads / 32][32];
+  const int tl = 1 << tl_log2;
+  const int slice = threadIdx.x >> tl_log2, slices = blockDim.x >> tl_log2;
+  const int line = blockIdx.y * tl + (threadIdx.x & (tl - 1));
   const int64_t o = blockIdx.x;
-  const int lines = inner / channels;
   float sum_p = 0.f, sum_q = 0.f;
-  if (j < inner) {
-    const int64_t line = o * lines + j / channels;
-    const float pl = p[line], ql = q[line];
-    const T* xl = x + o * l_in * inner + j;
-    const float* gl = g + o * l_out * inner + j;
-    for (int i = tx; i < l_out; i += tile.tx) {
-      const float gpos = gl[static_cast<int64_t>(i) * inner] *
-                         window_grad_sum<T, Cubic>(xl, position(pl, ql, i), l_in, inner, border);
+  if (line < lines) {
+    const int64_t ln = o * lines + line;
+    const float pl = p[ln], ql = q[ln];
+    const T* xl = x + o * l_in * inner + line * channels;
+    const float* gl = g + o * l_out * inner + line * channels;
+#pragma unroll kGradPer
+    for (int i = slice; i < l_out; i += slices) {
+      const Taps<Cubic> taps =
+          window_taps<Cubic, true>(position(pl, ql, i), l_in, inner, border);
+      const float* gi = gl + static_cast<int64_t>(i) * inner;
+      const float gpos = channels == 3 ? channel_grad_sum<T, Cubic, 3>(xl, gi, taps, 3)
+                                       : channel_grad_sum<T, Cubic, 0>(xl, gi, taps, channels);
       sum_p = fmaf(gpos, static_cast<float>(i), sum_p);
       sum_q += gpos;
     }
   }
-  s_p[threadIdx.x] = sum_p;
-  s_q[threadIdx.x] = sum_q;
-  reduce_slices(s_p, tile, tx);
-  reduce_slices(s_q, tile, tx);
-  if (tx == 0 && j < inner && tj % channels == 0) {
-    float tot_p = 0.f, tot_q = 0.f;
-    for (int c = 0; c < channels; ++c) {
-      tot_p += s_p[tj + c];
-      tot_q += s_q[tj + c];
+  // lanes l and l + off hold the same line: after the last step lanes 0 ..
+  // tl - 1 hold their warp's sums
+  for (int off = 16; off >= tl; off >>= 1) {
+    sum_p += __shfl_down_sync(0xffffffffu, sum_p, off);
+    sum_q += __shfl_down_sync(0xffffffffu, sum_q, off);
+  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (lane < tl) {
+    s_p[warp][lane] = sum_p;
+    s_q[warp][lane] = sum_q;
+  }
+  __syncthreads();
+  if (static_cast<int>(threadIdx.x) < tl && line < lines) {
+    float tot_p = s_p[0][threadIdx.x], tot_q = s_q[0][threadIdx.x];
+    for (int w = 1; w < static_cast<int>(blockDim.x >> 5); ++w) {
+      tot_p += s_p[w][threadIdx.x];
+      tot_q += s_q[w][threadIdx.x];
     }
-    const int64_t line = o * lines + j / channels;
-    gp[line] = tot_p;
-    gq[line] = tot_q;
+    gp[o * lines + line] = tot_p;
+    gq[o * lines + line] = tot_q;
   }
 }
 
@@ -382,10 +491,6 @@ dim3 plane_grid(int64_t outer, int length, int inner) {
   return dim3(static_cast<unsigned>(outer),
               static_cast<unsigned>((static_cast<int64_t>(length) * inner + kThreads - 1) /
                                     kThreads));
-}
-
-dim3 tile_grid(int64_t outer, int inner, Tile tile) {
-  return dim3(static_cast<unsigned>(outer), static_cast<unsigned>((inner + tile.tj - 1) / tile.tj));
 }
 
 template <typename T>
@@ -408,16 +513,28 @@ template <typename T>
 void launch_gradpos(const void* x, const float* g, const float* p, const float* q, float* gp,
                     float* gq, int64_t outer, int l_in, int l_out, int inner, int channels,
                     int cubic, int border, cudaStream_t s) {
-  const Tile tile = make_tile(inner, channels);
-  const dim3 grid = tile_grid(outer, inner, tile);
-  const int threads = tile.tj * tile.tx;
+  const int lines = inner / channels;
+  // a tile of the fewest powers of two lines that holds them all, 32 at most;
+  // slices until every position has one or the block is full, a warp at least
+  int tl_log2 = 0;
+  while ((1 << tl_log2) < lines && tl_log2 < 5) ++tl_log2;
+  int threads = 1 << tl_log2;
+  while (threads < kGradThreads &&
+         static_cast<int64_t>(threads) * kGradPer < (static_cast<int64_t>(l_out) << tl_log2)) {
+    threads *= 2;
+  }
+  if (threads < 32) threads = 32;
+  const dim3 grid(static_cast<unsigned>(outer),
+                  static_cast<unsigned>((lines + (1 << tl_log2) - 1) >> tl_log2));
   const T* xs = static_cast<const T*>(x);
   if (cubic) {
     resample_gradpos_kernel<T, true><<<grid, threads, 0, s>>>(xs, g, p, q, gp, gq, l_in, l_out,
-                                                              inner, channels, border, tile);
+                                                              inner, channels, lines, border,
+                                                              tl_log2);
   } else {
     resample_gradpos_kernel<T, false><<<grid, threads, 0, s>>>(xs, g, p, q, gp, gq, l_in, l_out,
-                                                               inner, channels, border, tile);
+                                                               inner, channels, lines, border,
+                                                               tl_log2);
   }
 }
 
@@ -425,9 +542,10 @@ void launch_gradpos(const void* x, const float* g, const float* p, const float* 
 
 // All three take the view (outer, length, inner) of a contiguous tensor on the
 // current device, p and q as contiguous float32 (outer, inner / channels), and
-// return cudaGetLastError(). The caller checks: inner a multiple of channels,
-// channels <= 256, lengths >= 1, outer < 2^31, length * inner <= 65535 * 256.
-// dtype: 0 = float32, 1 = bfloat16 (of x); g, out, dx, gp, gq, edge are float32.
+// return cudaGetLastError(). The caller checks: inner a multiple of channels
+// (any count: a thread loops over a line's channels), lengths >= 1, outer <
+// 2^31, length * inner <= 65535 * 256 (grid.y of the forward and the adjoint).
+// dtype: 0 = float32, 1 = bfloat16 (of x); g, out, dx, gp, gq are float32.
 
 extern "C" int tfcgan_resample_fwd(const void* x, const float* p, const float* q, float* out,
                                    int64_t outer, int l_in, int l_out, int inner, int channels,
@@ -443,35 +561,20 @@ extern "C" int tfcgan_resample_fwd(const void* x, const float* p, const float* q
   return static_cast<int>(cudaGetLastError());
 }
 
-// dx (outer, l_in, inner) = A^T g for g (outer, l_out, inner). With border,
-// edge is a scratch of (outer, 2, inner) floats that the first kernel fills;
-// without, it is not read.
-extern "C" int tfcgan_resample_adjoint(const float* g, const float* p, const float* q,
-                                       float* edge, float* dx, int64_t outer, int l_in,
-                                       int l_out, int inner, int channels, int cubic, int border,
-                                       void* stream) {
+// dx (outer, l_in, inner) = A^T g for g (outer, l_out, inner), the edge
+// masses included: one launch, no scratch.
+extern "C" int tfcgan_resample_adjoint(const float* g, const float* p, const float* q, float* dx,
+                                       int64_t outer, int l_in, int l_out, int inner,
+                                       int channels, int cubic, int border, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (border) {
-    const Tile tile = make_tile(inner, channels);
-    const dim3 grid = tile_grid(outer, inner, tile);
-    const int threads = tile.tj * tile.tx;
-    if (cubic) {
-      resample_edge_kernel<true><<<grid, threads, 0, s>>>(g, p, q, edge, l_in, l_out, inner,
-                                                          channels, tile);
-    } else {
-      resample_edge_kernel<false><<<grid, threads, 0, s>>>(g, p, q, edge, l_in, l_out, inner,
-                                                           channels, tile);
-    }
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const dim3 grid = plane_grid(outer, l_in, inner);
+  const int lines = inner / channels;
+  const dim3 grid = plane_grid(outer, (l_in + kAdjStrip - 1) / kAdjStrip, lines);
   if (cubic) {
-    resample_adjoint_kernel<true><<<grid, kThreads, 0, s>>>(g, p, q, edge, dx, l_in, l_out,
-                                                            inner, channels, border);
+    resample_adjoint_kernel<true><<<grid, kThreads, 0, s>>>(g, p, q, dx, l_in, l_out, inner,
+                                                            channels, lines, border);
   } else {
-    resample_adjoint_kernel<false><<<grid, kThreads, 0, s>>>(g, p, q, edge, dx, l_in, l_out,
-                                                             inner, channels, border);
+    resample_adjoint_kernel<false><<<grid, kThreads, 0, s>>>(g, p, q, dx, l_in, l_out, inner,
+                                                             channels, lines, border);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,9 +9,13 @@ y-pass as ``(N, H, W*C)``.
 
 ``resample_fwd``, ``resample_adjoint`` (the exact transpose, with the clamped
 taps' mass on the two edge elements) and ``resample_gradpos`` (the gradient to
-``p`` and ``q``, reduced per line in the kernel) launch on PyTorch's current
-stream for CUDA tensors and raise on anything the kernels do not take. They
-never copy and never fall back. The plain PyTorch version is
+``p`` and ``q``, reduced per line in the kernel) launch one kernel each on
+PyTorch's current stream for CUDA tensors and raise on anything the kernels
+do not take. They never copy and never fall back, and allocate only their
+results. Each kernel thread takes one (line, position) or (line, element) and
+all of the line's channels, so ``channels`` is any count that divides
+``inner``; the adjoint and the position gradient sum in a fixed order and
+repeat bit for bit. The plain PyTorch version is
 ``tfcgan_tpu_torch.ops.resample.resample_axis_plain``; autograd of it is the
 plain version of the two backward kernels.
 """
@@ -34,16 +38,15 @@ GRADPOS_LAUNCHES = 0
 MODES = ("linear", "cubic")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _GRID_LIMIT = 2**31 - 1
-# grid.y chunks of 256 threads over length * inner (the adjoint) or length *
-# lines (the forward, no more)
+# grid.y chunks of 256 threads over l_out * lines (the forward) or l_in / 4 *
+# lines (the adjoint), checked on length * inner
 _PLANE_LIMIT = 65535 * 256
-_MAX_CHANNELS = 256  # a line's channels are summed inside one block of 256 threads
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _SHAPE_ARGS = [ctypes.c_int64, _INT, _INT, _INT, _INT, _INT, _INT]  # outer .. border
 _ARGTYPES = {
     "tfcgan_resample_fwd": [_PTR] * 4 + _SHAPE_ARGS + [_INT, _PTR],
-    "tfcgan_resample_adjoint": [_PTR] * 5 + _SHAPE_ARGS + [_PTR],
+    "tfcgan_resample_adjoint": [_PTR] * 4 + _SHAPE_ARGS + [_PTR],
     "tfcgan_resample_gradpos": [_PTR] * 6 + _SHAPE_ARGS + [_INT, _PTR],
 }
 
@@ -73,9 +76,9 @@ def _check(what: str, t: torch.Tensor, p: torch.Tensor, q: torch.Tensor, length:
     outer, t_len, inner = t.shape
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
-    if not 1 <= channels <= _MAX_CHANNELS or inner % channels:
-        raise ValueError(f"{what}: inner {inner} must be a multiple of channels {channels} "
-                         f"<= {_MAX_CHANNELS}")
+    # a thread loops over a line's channels: any count >= 1 that divides inner
+    if channels < 1 or inner % channels:
+        raise ValueError(f"{what}: inner {inner} must be a multiple of channels {channels}")
     if t_len < 1 or length < 1:
         raise ValueError(f"{what}: lengths must be >= 1, got {t_len} and {length}")
     if outer > _GRID_LIMIT or max(t_len, length) * inner > _PLANE_LIMIT:
@@ -118,17 +121,15 @@ def resample_fwd(x: torch.Tensor, p: torch.Tensor, q: torch.Tensor, l_out: int, 
 def resample_adjoint(g: torch.Tensor, p: torch.Tensor, q: torch.Tensor, l_in: int, mode: str,
                      border: bool, channels: int) -> torch.Tensor:
     """The gradient of ``resample_fwd`` to x (float32, (outer, l_in, inner))
-    for the float32 output gradient ``g`` (outer, l_out, inner)."""
+    for the float32 output gradient ``g`` (outer, l_out, inner). One launch:
+    the kernel adds the edge masses of border clamping itself."""
     global ADJOINT_LAUNCHES
     _check("resample_adjoint", g, p, q, l_in, mode, channels)
     outer, l_out, inner = g.shape
     dx = torch.empty((outer, l_in, inner), dtype=torch.float32, device=g.device)
     if dx.numel() == 0:
         return dx
-    # scratch of the edge pre-pass; one float stands in when there is none
-    edge = torch.empty((outer, 2, inner) if border else (1,), dtype=torch.float32,
-                       device=g.device)
-    _launch("tfcgan_resample_adjoint", (g, p, q, edge, dx),
+    _launch("tfcgan_resample_adjoint", (g, p, q, dx),
             (outer, l_in, l_out, inner, channels), mode, border, (), g.device)
     ADJOINT_LAUNCHES += 1
     return dx

@@ -1,26 +1,31 @@
 """Time this tree's blur-pool, resampling and grid_sample kernels against another
 tree's, in turns on one CUDA card, and the train steps that run them.
 
-    python tools/kernel_turns.py --other DIR [--steps]
+    python tools/kernel_turns.py --other DIR [--steps | --k2-only]
 
 DIR is another checkout of the repository (for example the parent commit,
 unpacked with ``git archive``, or a copy with a variant of a kernel). Its
 ``tfcgan_tpu_torch/csrc/blurpool.cu``, ``csrc/resample.cu`` and
 ``csrc/gridsample.cu`` are built with this tree's nvcc flags and swapped in
 for this tree's libraries through the wrappers' ``_fn``; every other line of
-code is this tree's. Each measurement runs in the order other, this, this, other, and
-prints every reading:
+code is this tree's. An other tree whose adjoint still takes the edge pre-pass's
+scratch (before the pre-pass was folded into the adjoint's launch) gets it
+allocated on every call, as its wrapper did. Each measurement runs in the
+order other, this, this, other, and prints every reading:
 
 - K1-bwd and K1-fwd: the 11 bfloat16 calls of one batch-8 G pass
   (``chip_smoke.STRIDE2_SHAPES`` and ``STRIDE1_SHAPES``), eager and replayed
   from CUDA graphs (``chip_smoke.graph_ms``: the device alone), and the calls
   of one fft_glo step at batch 128 (``chip_smoke.fft_glo_step_calls``), with
   their byte bounds;
-- K2-fwd: one float32 cubic warp at (32, 256, 256, 3) (its x-pass and y-pass,
-  near-identity thetas) with a float32 and a bfloat16 image, eager and
-  replayed from CUDA graphs, with its byte bound;
+- K2: each kernel over its passes of one cubic warp at (32, 256, 256, 3)
+  (near-identity thetas; the forward and the position gradient both passes,
+  with a float32 and a bfloat16 image; the adjoint the y-pass, as the stn step
+  runs them), eager and replayed from CUDA graphs, with its byte bound, and
+  each pass of the two-pass kernels alone on the device;
 - K3-fwd in float32 and bfloat16 and K3-bwd in float32 at (32, 256, 256, 6),
   offsets of 0.3 pixel;
+- with ``--k2-only`` only the K2 times (to compare variants of resample.cu);
 - with ``--steps``: the bf16 stn_newmodel3 serve forward (``Inferencer``) at
   batch 8 and 32, and the bf16 train step of fft_glo at batch 128,
   stn_newmodel3 and nemar at 32 (256²) and tfc_diff at 32 (128²), through
@@ -29,9 +34,12 @@ prints every reading:
 Before the times it prints the largest difference between the two trees'
 results on the same inputs, float32 and bfloat16: both blur-pool kernels (the
 path's 11 shapes and ``chip_smoke.EXTRA_SHAPES``, each at both strides), all
-three resampling kernels (the path's passes and ``chip_smoke``'s hard lines,
-every mode) and the grid_sample forward. The last line is one JSON object
-with every reading.
+three resampling kernels (the path's passes, ``chip_smoke``'s hard lines and
+its edge lines, every mode; the adjoint's elements 0 and l_in - 1 apart from
+the rest where the border is clamped, since they take the edge masses) and
+the grid_sample forward, and the position gradient's largest error against
+the plain version in both trees, x max(1, max|plain|). The last line is one
+JSON object with every reading.
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ import contextlib
 import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -54,6 +63,7 @@ import chip_smoke  # noqa: E402
 from tfcgan_tpu_torch.ops.kernels import _build  # noqa: E402
 from tfcgan_tpu_torch.ops.kernels import blurpool as kernel  # noqa: E402
 from tfcgan_tpu_torch.ops.kernels import gridsample as gkernel  # noqa: E402
+from tfcgan_tpu_torch.ops import resample  # noqa: E402
 from tfcgan_tpu_torch.ops.kernels import resample as rkernel  # noqa: E402
 
 LIBRARIES = {"blurpool": kernel, "resample": rkernel, "gridsample": gkernel}
@@ -71,15 +81,40 @@ def build_other(root: Path) -> dict[str, ctypes.CDLL]:
         return {name: ctypes.CDLL(str(_build.library_path(name))) for name in LIBRARIES}
 
 
-def swapper(libs: dict[str, ctypes.CDLL]):
+def adjoint_takes_scratch(root: Path) -> bool:
+    """Whether the other tree's ``tfcgan_resample_adjoint`` takes the edge
+    pre-pass's scratch before dx."""
+    src = (root / "tfcgan_tpu_torch" / "csrc" / "resample.cu").read_text()
+    entry = re.search(r'extern "C" int tfcgan_resample_adjoint\(([^)]*)\)', src)
+    return entry is not None and "edge" in entry.group(1)
+
+
+def with_edge_scratch(fn):
+    """The C adjoint of such a tree behind this tree's arguments: an (outer, 2,
+    inner) float32 scratch (one float without border clamping) allocated on
+    the current device and stream for every call."""
+    def call(g, p, q, dx, outer, l_in, l_out, inner, channels, cubic, border, stream):
+        edge = torch.empty((outer, 2, inner) if border else (1,), dtype=torch.float32,
+                           device="cuda")
+        return fn(g, p, q, edge.data_ptr(), dx, outer, l_in, l_out, inner, channels, cubic,
+                  border, stream)
+    return call
+
+
+def swapper(libs: dict[str, ctypes.CDLL], scratch_adjoint: bool = False):
     """A context manager factory: inside, the wrappers launch the other tree's
-    kernels (same C entry points and arguments)."""
+    kernels (same C entry points and arguments, but for the adjoint's scratch
+    where ``scratch_adjoint``)."""
     def fn_of(name: str, module):
         ours_fn = module._fn  # before any patch: this tree's loader
 
         def fn(symbol: str):
             ours = ours_fn(symbol)
             theirs = getattr(libs[name], symbol)
+            if symbol == "tfcgan_resample_adjoint" and scratch_adjoint:
+                theirs.argtypes = [ctypes.c_void_p] + ours.argtypes  # one pointer more
+                theirs.restype = ours.restype
+                return with_edge_scratch(theirs)
             theirs.argtypes, theirs.restype = ours.argtypes, ours.restype
             return theirs
         return fn
@@ -121,11 +156,15 @@ def largest_difference(other, device, gen) -> dict[str, float]:
     """max |this - other| of each kernel's results on the same inputs."""
     diff = {}
 
-    def both(fn):
+    def pair(fn):
         with other():
             theirs = fn()
         ours = fn()
         torch.cuda.synchronize()
+        return ours, theirs
+
+    def both(fn):
+        ours, theirs = pair(fn)
         if isinstance(ours, tuple):
             return max(float((a - b).abs().max()) for a, b in zip(ours, theirs))
         return float((ours.float() - theirs.float()).abs().max())
@@ -150,16 +189,36 @@ def largest_difference(other, device, gen) -> dict[str, float]:
         inp, grid, g = k3_inputs(device, gen, dtype)
         diff[f"gridsample_fwd {tag}"] = max(both(lambda: gkernel.gridsample_fwd(inp, grid, p))
                                             for p in gkernel.PADDING_MODES)
-        k2 = {"resample_fwd": 0.0, "resample_adjoint": 0.0, "resample_gradpos": 0.0}
+        k2 = dict.fromkeys(("resample_fwd", "resample_adjoint interior", "resample_adjoint edge",
+                            "resample_gradpos", "resample_gradpos vs plain",
+                            "other resample_gradpos vs plain"), 0.0)
         for x, p, q, l_out, mode, border, channels in k2_cases(device, gen, dtype):
             args = (mode, border, channels)
+            l_in = x.shape[1]
             g = torch.randn((x.shape[0], l_out, x.shape[2]), device=device, generator=gen)
-            for name, fn in (
-                    ("resample_fwd", lambda: rkernel.resample_fwd(x, p, q, l_out, *args)),
-                    ("resample_adjoint",
-                     lambda: rkernel.resample_adjoint(g, p, q, x.shape[1], *args)),
-                    ("resample_gradpos", lambda: rkernel.resample_gradpos(x, g, p, q, *args))):
-                k2[name] = max(k2[name], both(fn))
+            k2["resample_fwd"] = max(k2["resample_fwd"], both(
+                lambda: rkernel.resample_fwd(x, p, q, l_out, *args)))
+            ours, theirs = pair(lambda: rkernel.resample_adjoint(g, p, q, l_in, *args))
+            edge = torch.zeros(l_in, dtype=torch.bool, device=device)
+            if border:  # the elements that take the edge masses
+                edge[0] = edge[-1] = True
+            d = (ours - theirs).abs()
+            for key, part in (("interior", d[:, ~edge]), ("edge", d[:, edge])):
+                if part.numel():
+                    key = f"resample_adjoint {key}"
+                    k2[key] = max(k2[key], float(part.max()))
+            ours, theirs = pair(lambda: rkernel.resample_gradpos(x, g, p, q, *args))
+            k2["resample_gradpos"] = max(k2["resample_gradpos"], *(
+                float((a - b).abs().max()) for a, b in zip(ours, theirs)))
+            xp = x.float().requires_grad_()
+            pp, qp = p.clone().requires_grad_(), q.clone().requires_grad_()
+            want = resample.resample_axis_plain(xp, pp, qp, l_out, *args)
+            wants = torch.autograd.grad(want, (pp, qp), g)
+            for key, got in (("resample_gradpos vs plain", ours),
+                             ("other resample_gradpos vs plain", theirs)):
+                k2[key] = max(k2[key], *(float((a - w).abs().max())
+                                         / max(1.0, float(w.abs().max()))
+                                         for a, w in zip(got, wants)))
         diff.update({f"{k} {tag}": v for k, v in k2.items()})
     return diff
 
@@ -167,7 +226,8 @@ def largest_difference(other, device, gen) -> dict[str, float]:
 def k2_cases(device, gen, dtype) -> list:
     """(x, p, q, l_out, mode, border, channels) of the resampling kernels: the
     two passes of a bicubic warp at (32, 256, 256, 3) with near-identity
-    thetas, then ``chip_smoke``'s hard lines on small views in every mode."""
+    thetas, then ``chip_smoke``'s hard lines on small views and its edge lines
+    (``_edge_lines``, ``EDGE_LENGTHS``, ``EDGE_CHANNELS``) in every mode."""
     src = torch.rand((32, chip_smoke.SIZE, chip_smoke.SIZE, 3), device=device, generator=gen)
     cases = chip_smoke.record_passes((src * 2 - 1).to(dtype),
                                      chip_smoke._near_identity_theta(32, gen))
@@ -178,6 +238,14 @@ def k2_cases(device, gen, dtype) -> list:
                 x = torch.randn(shape, device=device, generator=gen).to(dtype)
                 p, q = chip_smoke._hard_lines(shape[0], shape[2] // channels, shape[1], gen)
                 cases.append((x, p, q, l_out, mode, border, channels))
+    for channels in chip_smoke.EDGE_CHANNELS:
+        for l_in, l_out in chip_smoke.EDGE_LENGTHS:
+            for mode in rkernel.MODES:
+                for border in (True, False):
+                    x = torch.randn((8, l_in, 2 * channels), device=device,
+                                    generator=gen).to(dtype)
+                    p, q = chip_smoke._edge_lines(8, 2, l_in, l_out, gen)
+                    cases.append((x, p, q, l_out, mode, border, channels))
     return cases
 
 
@@ -189,6 +257,51 @@ def k3_inputs(device, gen, dtype=torch.float32):
     inp = torch.randn((32, size, size, 6), device=device, generator=gen).to(dtype)
     g = torch.randn((32, size, size, 6), device=device, generator=gen).to(dtype)
     return inp, grid, g
+
+
+def k2_turns(device, gen, other, result: dict, card: str) -> None:
+    """Each resampling kernel over its passes of one cubic warp at (32, 256,
+    256, 3), float32 and bfloat16 image (the adjoint reads none: float32
+    only), eager and on the device alone, in turns; readings into ``result``."""
+    src = torch.rand((32, chip_smoke.SIZE, chip_smoke.SIZE, 3), device=device, generator=gen)
+    theta = chip_smoke._near_identity_theta(32, gen)
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).split(".")[1]
+        passes = chip_smoke.record_passes((src * 2 - 1).to(dtype), theta)
+        grads = [torch.randn((x.shape[0], l_out, x.shape[2]), device=device, generator=gen)
+                 for x, _, _, l_out, *_ in passes]
+        for name, used in chip_smoke.WARP_PASSES.items():
+            if dtype == torch.bfloat16 and name == "resample_adjoint":
+                continue
+            n_bytes = n_ops = 0
+            for i in used:
+                x, p, _, _, mode, *_ = passes[i]
+                b, o = chip_smoke._pass_bounds(x, p, grads[i], mode)[name]
+                n_bytes, n_ops = n_bytes + b, n_ops + o
+
+            def warp():
+                for i in used:
+                    x, p, q, *rest = passes[i]
+                    chip_smoke._warp_call(name, x, p, q, grads[i], *rest)
+            ms = in_turns(other, lambda: chip_smoke.cuda_ms(warp))
+            dev = in_turns(other, lambda: chip_smoke.graph_ms(warp))
+            bound, by = chip_smoke.bound_ms(n_bytes, n_ops)
+            what = "- and ".join("xy"[i] for i in used) + "-pass"
+            result[f"{name} {tag} warp (32,256,256,3)"] = {"ms": ms, "graph_ms": dev,
+                                                          "bound_ms": bound, "passes": what}
+            print(f"{name}: one cubic warp ({what}) at (32, 256, 256, 3), {tag} image, "
+                  f"{' / '.join(ORDER)}: " + ", ".join(f"{t:.4f}" for t in ms)
+                  + " ms; device alone (CUDA graphs) " + ", ".join(f"{t:.4f}" for t in dev)
+                  + f" ms; bound {bound:.4f} ms ({by}, {n_bytes / 1e6:.1f} MB) [{card}]")
+            if len(used) > 1:
+                for i in used:  # each pass alone, on the device alone
+                    x, p, q, *rest = passes[i]
+                    dev = in_turns(other, lambda: chip_smoke.graph_ms(
+                        lambda: chip_smoke._warp_call(name, x, p, q, grads[i], *rest)))
+                    result[f"{name} {tag} {'xy'[i]}-pass"] = {"graph_ms": dev}
+                    print(f"{name}: its {'xy'[i]}-pass {tuple(x.shape)} alone, device alone, "
+                          f"{' / '.join(ORDER)}: " + ", ".join(f"{t:.4f}" for t in dev) + " ms")
+    torch.cuda.empty_cache()
 
 
 def stn_serve_turns(device, args, other, bsz: int) -> list[float]:
@@ -212,6 +325,8 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--other", required=True, type=Path, help="root of the other checkout")
     p.add_argument("--steps", action="store_true", help="also time the train steps")
+    p.add_argument("--k2-only", action="store_true",
+                   help="time only the resampling kernels (differences are printed for all)")
     p.add_argument("--init-seed", type=int, default=0)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -224,7 +339,8 @@ def main(argv=None) -> int:
                           check=True).stdout.strip().splitlines()[0]
     print(card)
     _build.build_libraries(list(LIBRARIES))
-    other = swapper(build_other(args.other.resolve()))
+    root = args.other.resolve()
+    other = swapper(build_other(root), adjoint_takes_scratch(root))
     gen = torch.Generator(device=device).manual_seed(0)
     result = {"card": card, "order": ORDER}
 
@@ -232,72 +348,51 @@ def main(argv=None) -> int:
     for k, v in result["max_abs_diff"].items():
         print(f"this tree vs {args.other}: {k} max abs diff {v:.3g}")
 
-    cases = blur_pass(device, gen)
-    bytes_ops = [chip_smoke.blur_work(s, st, 2) for s, st, _, _ in cases]
-    bound, by = chip_smoke.bound_ms(sum(b for b, _ in bytes_ops), sum(o for _, o in bytes_ops))
-    for name, call in (("blurpool_bwd", lambda s, st, x, dy: kernel.blur_pool_bwd(
-            dy, s[1], s[2], st)), ("blurpool_fwd", lambda s, st, x, dy: kernel.blur_pool_fwd(
-                x, st))):
-        ms = in_turns(other, lambda: sum(chip_smoke.cuda_ms(lambda: call(*c)) for c in cases))
-        dev = in_turns(other, lambda: sum(chip_smoke.graph_ms(lambda: call(*c)) for c in cases))
-        result[f"{name} B=8 pass"] = {"ms": ms, "graph_ms": dev, "bound_ms": bound}
-        print(f"{name}: the 11 bf16 calls of a B=8 G pass, {' / '.join(ORDER)}: "
-              + ", ".join(f"{t:.4f}" for t in ms) + " ms; device alone (CUDA graphs) "
-              + ", ".join(f"{t:.4f}" for t in dev) + f" ms; bound {bound:.4f} ms ({by}) "
-              f"[{card}]")
-    del cases
-    torch.cuda.empty_cache()
-    readings = in_turns(other, lambda: chip_smoke.time_step_calls(device, chip_smoke.STEP_BATCH,
-                                                                  gen))
-    for name in ("blurpool_bwd", "blurpool_fwd"):
-        ms = [r[name]["ms"] for r in readings]
-        r = readings[0][name]
-        result[f"{name} fft_glo step"] = {"ms": ms, "bound_ms": r["bound_ms"],
-                                          "calls": r["calls"], "bytes": r["bytes"]}
-        print(f"{name}: the {r['calls']} bf16 calls of an fft_glo step at B="
-              f"{chip_smoke.STEP_BATCH}, {' / '.join(ORDER)}: "
-              + ", ".join(f"{t:.4f}" for t in ms) + f" ms; bound {r['bound_ms']:.4f} ms "
-              f"({r['bytes'] / 1e9:.3f} GB) [{card}]")
+    if not args.k2_only:
+        cases = blur_pass(device, gen)
+        bytes_ops = [chip_smoke.blur_work(s, st, 2) for s, st, _, _ in cases]
+        bound, by = chip_smoke.bound_ms(sum(b for b, _ in bytes_ops),
+                                        sum(o for _, o in bytes_ops))
+        for name, call in (("blurpool_bwd", lambda s, st, x, dy: kernel.blur_pool_bwd(
+                dy, s[1], s[2], st)), ("blurpool_fwd", lambda s, st, x, dy: kernel.blur_pool_fwd(
+                    x, st))):
+            ms = in_turns(other, lambda: sum(chip_smoke.cuda_ms(lambda: call(*c)) for c in cases))
+            dev = in_turns(other,
+                           lambda: sum(chip_smoke.graph_ms(lambda: call(*c)) for c in cases))
+            result[f"{name} B=8 pass"] = {"ms": ms, "graph_ms": dev, "bound_ms": bound}
+            print(f"{name}: the 11 bf16 calls of a B=8 G pass, {' / '.join(ORDER)}: "
+                  + ", ".join(f"{t:.4f}" for t in ms) + " ms; device alone (CUDA graphs) "
+                  + ", ".join(f"{t:.4f}" for t in dev) + f" ms; bound {bound:.4f} ms ({by}) "
+                  f"[{card}]")
+        del cases
+        torch.cuda.empty_cache()
+        readings = in_turns(other, lambda: chip_smoke.time_step_calls(
+            device, chip_smoke.STEP_BATCH, gen))
+        for name in ("blurpool_bwd", "blurpool_fwd"):
+            ms = [r[name]["ms"] for r in readings]
+            r = readings[0][name]
+            result[f"{name} fft_glo step"] = {"ms": ms, "bound_ms": r["bound_ms"],
+                                              "calls": r["calls"], "bytes": r["bytes"]}
+            print(f"{name}: the {r['calls']} bf16 calls of an fft_glo step at B="
+                  f"{chip_smoke.STEP_BATCH}, {' / '.join(ORDER)}: "
+                  + ", ".join(f"{t:.4f}" for t in ms) + f" ms; bound {r['bound_ms']:.4f} ms "
+                  f"({r['bytes'] / 1e9:.3f} GB) [{card}]")
 
-    inp, grid, g = k3_inputs(device, gen)
-    inp16 = inp.to(torch.bfloat16)
-    for name, fn in (("gridsample_fwd fp32", lambda: gkernel.gridsample_fwd(inp, grid)),
-                     ("gridsample_fwd bf16", lambda: gkernel.gridsample_fwd(inp16, grid)),
-                     ("gridsample_bwd fp32", lambda: gkernel.gridsample_bwd(g, inp, grid))):
-        ms = in_turns(other, lambda: chip_smoke.cuda_ms(fn))
-        result[f"{name} (32,256,256,6)"] = {"ms": ms}
-        print(f"{name} at (32, 256, 256, 6), offsets 0.3 px, {' / '.join(ORDER)}: "
-              + ", ".join(f"{t:.4f}" for t in ms) + f" ms [{card}]")
-    del inp, inp16, grid, g
-    torch.cuda.empty_cache()
+        inp, grid, g = k3_inputs(device, gen)
+        inp16 = inp.to(torch.bfloat16)
+        for name, fn in (("gridsample_fwd fp32", lambda: gkernel.gridsample_fwd(inp, grid)),
+                         ("gridsample_fwd bf16", lambda: gkernel.gridsample_fwd(inp16, grid)),
+                         ("gridsample_bwd fp32", lambda: gkernel.gridsample_bwd(g, inp, grid))):
+            ms = in_turns(other, lambda: chip_smoke.cuda_ms(fn))
+            result[f"{name} (32,256,256,6)"] = {"ms": ms}
+            print(f"{name} at (32, 256, 256, 6), offsets 0.3 px, {' / '.join(ORDER)}: "
+                  + ", ".join(f"{t:.4f}" for t in ms) + f" ms [{card}]")
+        del inp, inp16, grid, g
+        torch.cuda.empty_cache()
 
-    src = torch.rand((32, chip_smoke.SIZE, chip_smoke.SIZE, 3), device=device, generator=gen)
-    theta = chip_smoke._near_identity_theta(32, gen)
-    for dtype in (torch.float32, torch.bfloat16):
-        tag = str(dtype).split(".")[1]
-        passes = chip_smoke.record_passes((src * 2 - 1).to(dtype), theta)
-        n_bytes = n_ops = 0
-        for x, p, q, l_out, mode, *_ in passes:
-            g = torch.empty((x.shape[0], l_out, x.shape[2]), device=device)
-            b, o = chip_smoke._pass_bounds(x, p, g, mode)["resample_fwd"]
-            n_bytes, n_ops = n_bytes + b, n_ops + o
+    k2_turns(device, gen, other, result, card)
 
-        def warp():
-            for x, p, q, *rest in passes:
-                rkernel.resample_fwd(x, p, q, *rest)
-        ms = in_turns(other, lambda: chip_smoke.cuda_ms(warp))
-        dev = in_turns(other, lambda: chip_smoke.graph_ms(warp))
-        bound, by = chip_smoke.bound_ms(n_bytes, n_ops)
-        result[f"resample_fwd {tag} warp (32,256,256,3)"] = {"ms": ms, "graph_ms": dev,
-                                                            "bound_ms": bound}
-        print(f"resample_fwd: one cubic warp (x- and y-pass) at (32, 256, 256, 3), {tag} "
-              f"image, {' / '.join(ORDER)}: " + ", ".join(f"{t:.4f}" for t in ms)
-              + " ms; device alone (CUDA graphs) " + ", ".join(f"{t:.4f}" for t in dev)
-              + f" ms; bound {bound:.4f} ms ({by}, {n_bytes / 1e6:.1f} MB) [{card}]")
-    del src, passes, g
-    torch.cuda.empty_cache()
-
-    if args.steps:
+    if args.steps and not args.k2_only:
         for bsz in (8, 32):
             ms = stn_serve_turns(device, args, other, bsz)
             result[f"stn_newmodel3 serve B={bsz}"] = {"ms": ms}
