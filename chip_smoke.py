@@ -67,6 +67,33 @@ Phases, one line or more each; any failure raises and exits non-zero:
    bfloat16, ``pair_metrics`` on the card, and the CLI (``test`` over 8 A|B PNG
    pairs, ``prep-crop``, ``eval``): 11 blur-pool forward launches per G
    forward, no other kernel.
+6b. cli train (its own data seed): 64 train and 8 test synthetic A|B PNG
+   pairs at 256². ``cli train --experiment fft_glo`` at batch 32, bf16, 2
+   epochs, ``--checkpoint-interval 1 --sample-interval 2`` on the default
+   staging (the device pool for this set): 1 + 2 x 2 steps, checkpoints
+   ``step_00000003`` and ``step_00000005``, finite JSONL records, the sample
+   grids and the gallery, 27 forward and 23 backward blur-pool launches a step
+   and 11 forward a sample; the pool's first batch equal to
+   ``batch_iterator``'s bit for bit. ``--resume step_00000003 --n-epochs 1``
+   into a fresh out-dir reaches ``step_00000005`` (the data order restarts, so
+   it is not compared with the straight run). ``test --checkpoint`` writes 8
+   stacks. Timed runs of 16 epochs (32 epoch steps) with no sample hook, on
+   the pool and on ``--staging stream --num-workers 4``: 27 + 23 blur-pool
+   launches a step, and the stream's first device batch equals the pool's bit
+   for bit. The library resume: the fft_glo bf16
+   ``Trainer`` at 256², batch 32, on 5 fixed device batches, 5 steps straight
+   (twice, with ``cudnn.deterministic``: the card's step-repeat difference)
+   against 3 steps, ``save_checkpoint``, ``restore_checkpoint`` into a freshly
+   built recipe and 2 steps, metrics and G/D weights held bit for bit where
+   the straight run repeats bit for bit, else within twice its repeat
+   difference; the checkpoint's save times, synchronous and asynchronous.
+   tfc_diff ``cli train`` at 128², batch 8, 1 epoch (3 steps, 7 + 7 + 7 flash
+   attention launches a step on the tensor cores) with the sample hook after
+   step 3, and ``gen --checkpoint`` on 4 images (each the whole 500-step
+   chain, 7 forward launches a U-Net forward). Printed: the fft_glo wall img/s
+   over the timed runs' 32 epoch steps with data loading included, pool and
+   stream, the time to the first step, the save times and the peak memory,
+   each beside the card's name and power limit.
 7. fft_glo compare: the same G weights in float32 through the kernel and
    through the plain path on the card (atol 1e-4), and G-forward images/s at
    batch 8, 32 and 128.
@@ -163,7 +190,7 @@ In the kernels' JSON, ``launches`` is the count of the kernel's main path, the
 last train path driven that runs it (``main_path``: phase 10's three steps for
 blur-pool and resampling, phase 12's for grid_sample, phase 15's ``tfc_diff``
 steps for flash attention), and the script fails if that is 0;
-``launches_by_path`` gives each of the eight driven paths' counts, and for
+``launches_by_path`` gives each of the ten driven paths' counts, and for
 flash attention ``tensor_core_launches`` how many of the main path's launches
 were the bfloat16 tensor-core kernel. For
 blur-pool, ``ms``/``plain_ms``/``bound_ms`` are sums over the 11 bfloat16 blur
@@ -237,6 +264,10 @@ from tfcgan_tpu_torch.recipes import diffusion as diffusion_recipe
 from tfcgan_tpu_torch.recipes import nemar as nemar_recipe
 from tfcgan_tpu_torch.recipes.stn import build_generators
 from tfcgan_tpu_torch.recipes.tfcgan import build_generator
+from tfcgan_tpu_torch.data.pairs import PairedImageDataset, batch_iterator
+from tfcgan_tpu_torch.train.checkpoint import (STATE_FILE, AsyncCheckpointManager,
+                                               latest_checkpoint, restore_checkpoint,
+                                               save_checkpoint)
 from tfcgan_tpu_torch.train.trainer import Trainer
 
 STRIDE2_SHAPES = [(8, 255, 255, 64), (8, 127, 127, 128), (8, 63, 63, 256), (8, 31, 31, 512),
@@ -1106,12 +1137,13 @@ def phase_serve(device, args) -> tuple[GeneratorUNet, list, int]:
     return g, batches, forwards
 
 
-def _write_pairs(root: str, seed: int, count: int = 8) -> None:
-    """``count`` synthetic A|B PNG pairs at 256² under ``root``/test."""
-    pairs = synthetic_batch(batch_size=count, image_size=SIZE, seed=seed)
+def _write_pairs(root: str, seed: int, count: int = 8, split: str = "test",
+                 size: int = SIZE) -> None:
+    """``count`` synthetic A|B PNG pairs at ``size``² under ``root``/``split``."""
+    pairs = synthetic_batch(batch_size=count, image_size=size, seed=seed)
     for i in range(count):
         save_image_grid([pairs["A"][i], pairs["B"][i]],
-                        os.path.join(root, "test", f"{i:03d}.png"), axis=1)
+                        os.path.join(root, split, f"{i:03d}.png"), axis=1)
 
 
 def phase_cli(args) -> int:
@@ -1144,6 +1176,301 @@ def phase_cli(args) -> int:
           f"{time.perf_counter() - t0:.2f} s: {len(stacks)} stacks, {len(spectra)} spectra, "
           f"{values.shape[0]} x {values.shape[1]} finite metrics")
     return 2
+
+
+# ----------------------------------------------------------------- cli train
+CLI_BATCH = 32        # fft_glo cli train at full width: batch 32, 256², bf16
+CLI_PAIRS = 64        # train pairs: 2 steps an epoch
+CLI_TEST_PAIRS = 8
+CLI_SEED = 50         # the phase's own data seed
+CLI_RATE_EPOCHS = 16  # the timed runs, pool and stream: 32 epoch steps each
+DIFF_CLI_BATCH, DIFF_CLI_PAIRS = 8, 16
+LIB_STEPS, LIB_RESUME_AT = 5, 3  # the library resume: 5 steps vs 3, save, load, 2
+
+
+class _CliClock:
+    """While a CLI command of ``steps`` train steps runs: the number of steps,
+    the end of the first and of the last (the card synchronised there and at
+    no other step), the spans spent in sample hooks and checkpoint saves (the
+    card synchronised at both ends), and the first batch a step was given."""
+
+    def __init__(self, steps: int):
+        self.steps, self.n, self.ends, self.pauses, self.first = steps, 0, [], [], None
+
+    def _pause(self, fn, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        self.pauses.append((t0, time.perf_counter()))
+        return out
+
+    @contextlib.contextmanager
+    def running(self):
+        step, fit, save = Trainer.step, Trainer.fit, AsyncCheckpointManager.save
+
+        def timed_step(trainer, state, batch):
+            if self.first is None:
+                self.first = {k: torch.as_tensor(v).clone() for k, v in batch.items()}
+            out = step(trainer, state, batch)
+            self.n += 1
+            if self.n in (1, self.steps):
+                torch.cuda.synchronize()
+                self.ends.append(time.perf_counter())
+            return out
+
+        def timed_fit(trainer, state, batches, *a, sample_hook=None, **kw):
+            hook = sample_hook and (lambda s, n: self._pause(sample_hook, s, n))
+            return fit(trainer, state, batches, *a, sample_hook=hook, **kw)
+
+        with mock.patch.object(Trainer, "step", timed_step), \
+                mock.patch.object(Trainer, "fit", timed_fit), \
+                mock.patch.object(AsyncCheckpointManager, "save",
+                                  lambda mgr, *a, **kw: self._pause(save, mgr, *a, **kw)):
+            self.t0 = time.perf_counter()
+            yield self
+
+    def rate(self, batch: int) -> tuple[float, float]:
+        """(img/s over the steps after the first, with data loading and
+        without the pauses; seconds from the command's start to the end of
+        the first step)."""
+        if self.n != self.steps:
+            raise AssertionError(f"cli train ran {self.n} steps, not {self.steps}")
+        lo, hi = self.ends[0], self.ends[-1]
+        paused = sum(min(b, hi) - max(a, lo) for a, b in self.pauses if b > lo and a < hi)
+        return (self.steps - 1) * batch / (hi - lo - paused), self.first_step_s()
+
+    def first_step_s(self) -> float:
+        """Seconds from the command's start to the end of its first step."""
+        return self.ends[0] - self.t0
+
+
+def _log_rows(path: str) -> list[dict]:
+    with open(path) as f:
+        rows = [json.loads(line) for line in f]
+    if not rows or not all(np.isfinite(v) for r in rows for v in r.values()):
+        raise AssertionError(f"{path}: {len(rows)} records, or a value not finite")
+    return rows
+
+
+def _bits_equal(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(
+        x.dtype == y.dtype and torch.equal(x.view(torch.int32), y.view(torch.int32))
+        if x.dtype == torch.float32 else torch.equal(x, y) for x, y in
+        ((torch.as_tensor(a[k]).cpu(), torch.as_tensor(b[k]).cpu()) for k in a))
+
+
+def _weights(state) -> dict[str, torch.Tensor]:
+    return {f"{m}.{k}": v.detach().clone() for m, module in (("G", state.G), ("D", state.D))
+            for k, v in module.state_dict().items()}
+
+
+def _max_diff(m1, w1, m2, w2) -> tuple[float, float]:
+    """(largest metric difference over the steps, largest weight difference)."""
+    metrics = max(float((a[k] - b[k]).abs().float()) for a, b in zip(m1, m2) for k in a)
+    weights = max(float((w1[k].float() - w2[k].float()).abs().max()) for k in w1)
+    return metrics, weights
+
+
+def _library_resume(device, args, card, tmp: str) -> None:
+    """fft_glo bf16 ``Trainer`` at full width on fixed device batches: 5 steps
+    straight (twice: the card's step-repeat difference) against 3 steps,
+    ``save_checkpoint``, ``restore_checkpoint`` into a freshly built recipe
+    and 2 steps; the save times, synchronous and asynchronous."""
+    cfg = _cfg("fft_glo", "bfloat16")
+    batches = [_device_batch(CLI_BATCH, CLI_SEED + 10 + i, device) for i in range(LIB_STEPS)]
+
+    def start(seed):
+        trainer = Trainer(cfg, build_recipe(cfg, device))
+        return trainer, trainer.init_state(seed)
+
+    def straight():
+        trainer, state = start(args.init_seed)
+        metrics = [trainer.step(state, b) for b in batches]
+        return metrics, _weights(state)
+
+    deterministic = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        m1, w1 = straight()
+        m2, w2 = straight()
+        trainer, state = start(args.init_seed)
+        resumed = [trainer.step(state, b) for b in batches[:LIB_RESUME_AT]]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save_checkpoint(os.path.join(tmp, "sync"), state)
+        sync_s = time.perf_counter() - t0
+        manager = AsyncCheckpointManager(os.path.join(tmp, "async"))
+        t0 = time.perf_counter()
+        manager.save(state)
+        blocking_s = time.perf_counter() - t0
+        manager.wait()
+        async_s = time.perf_counter() - t0
+        megabytes = os.path.getsize(os.path.join(path, STATE_FILE)) / 2**20
+        del trainer, state
+        trainer, state = start(args.init_seed + 1)
+        state = restore_checkpoint(path, state)
+        resumed += [trainer.step(state, b) for b in batches[LIB_RESUME_AT:]]
+        w3 = _weights(state)
+        del trainer, state
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = deterministic
+    repeat = _max_diff(m1, w1, m2, w2)
+    resume = _max_diff(m1, w1, resumed, w3)
+    if repeat == (0.0, 0.0):
+        held = "bit for bit (the straight run repeats bit for bit with cudnn.deterministic)"
+        if resume != (0.0, 0.0):
+            raise AssertionError(f"library resume: metrics differ by {resume[0]}, weights by "
+                                 f"{resume[1]}; the straight run repeats bit for bit")
+    else:
+        held = f"within 2 x the repeat difference {repeat}"
+        if resume[0] > 2 * repeat[0] or resume[1] > 2 * repeat[1]:
+            raise AssertionError(f"library resume: differences {resume}, straight run "
+                                 f"repeated {repeat}")
+    print(f"cli train library resume bf16 B={CLI_BATCH} {SIZE}²: {LIB_STEPS} steps straight "
+          f"vs {LIB_RESUME_AT} + save + load into a fresh recipe + "
+          f"{LIB_STEPS - LIB_RESUME_AT}: metrics and G/D weights (with u/v) {held}; "
+          f"largest differences resume {resume}, repeat {repeat} [{card}]")
+    print(f"cli train checkpoint ({megabytes:.1f} MiB: G, D, LPIPS, both Adams, generator): "
+          f"save_checkpoint {sync_s:.3f} s; AsyncCheckpointManager.save returns in "
+          f"{blocking_s:.3f} s (the host snapshot), the write done {async_s:.3f} s after the "
+          f"call [{card}]")
+
+
+def phase_cli_train(device, args, card: str) -> dict[str, dict[str, int]]:
+    """``cli train`` on the card: fft_glo at full width (pool staging, 2
+    epochs, checkpoints, log, samples), ``--resume``, ``test --checkpoint``,
+    the stream path, the library resume, and tfc_diff ``train`` + ``gen
+    --checkpoint``; returns the fft_glo and the tfc_diff runs' launch counts."""
+    spe = CLI_PAIRS // CLI_BATCH
+    steps = 1 + 2 * spe  # step 0 on the first batch, then 2 epochs
+    hooks = steps // 2  # --sample-interval 2: after every even step
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        _write_pairs(data, seed=CLI_SEED, count=CLI_PAIRS, split="train")
+        _write_pairs(data, seed=CLI_SEED + 1, count=CLI_TEST_PAIRS)
+        common = ["--experiment", "fft_glo", "--data-root", data, "--image-size", str(SIZE),
+                  "--batch-size", str(CLI_BATCH), "--dtype", "bfloat16", "--device", "cuda"]
+        runs, resumed = os.path.join(tmp, "runs"), os.path.join(tmp, "resumed")
+
+        # fft_glo on the default staging: the pool, for this set
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        with _CliClock(steps).running() as pool_clock:
+            cli.main(["train", *common, "--n-epochs", "2", "--checkpoint-interval", "1",
+                      "--sample-interval", "2", "--out-dir", runs])
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        fft_run = expect_counts("fft_glo cli train", {
+            "blurpool_fwd": FFT_GLO_STEP["blurpool_fwd"] * steps + 11 * hooks,
+            "blurpool_bwd": FFT_GLO_STEP["blurpool_bwd"] * steps}, 1)
+        ckpts = sorted(d for d in os.listdir(runs) if d.startswith("step_"))
+        logged = [r["step"] for r in _log_rows(os.path.join(runs, "logs", "fft_glo.jsonl"))]
+        samples = sorted(os.listdir(os.path.join(runs, "samples")))
+        want_samples = [f"{s:07d}.png" for s in range(2, steps + 1, 2)] + ["index.html"]
+        if (ckpts != [f"step_{1 + spe:08d}", f"step_{steps:08d}"] or pool_clock.n != steps
+                or logged != [1, 2, 2 + spe] or samples != want_samples):
+            raise AssertionError(f"fft_glo cli train: checkpoints {ckpts}, "
+                                 f"{pool_clock.n} steps, log steps {logged}, samples "
+                                 f"{samples}")
+        host = next(batch_iterator(PairedImageDataset(data, "train", SIZE), CLI_BATCH, seed=42))
+        if not _bits_equal(pool_clock.first, host):
+            raise AssertionError("the pool's first batch differs from batch_iterator's")
+
+        # --resume into a fresh out-dir: the data order restarts
+        reset_counts()
+        cli.main(["train", *common, "--n-epochs", "1", "--checkpoint-interval", "1",
+                  "--sample-interval", "2", "--out-dir", resumed,
+                  "--resume", os.path.join(runs, f"step_{1 + spe:08d}")])
+        expect_counts("fft_glo cli train --resume", {
+            "blurpool_fwd": FFT_GLO_STEP["blurpool_fwd"] * spe + 11 * (spe // 2),
+            "blurpool_bwd": FFT_GLO_STEP["blurpool_bwd"] * spe}, 1)
+        r_logged = [r["step"] for r in _log_rows(os.path.join(resumed, "logs", "fft_glo.jsonl"))]
+        if latest_checkpoint(resumed) != os.path.join(resumed, f"step_{steps:08d}") or \
+                r_logged != [2 + spe]:
+            raise AssertionError(f"cli train --resume: {latest_checkpoint(resumed)}, log steps "
+                                 f"{r_logged}")
+
+        # serve the checkpoint
+        served = os.path.join(tmp, "served")
+        reset_counts()
+        cli.main(["test", *common, "--checkpoint", latest_checkpoint(runs), "--out-dir", served])
+        expect_counts("test --checkpoint", {"blurpool_fwd": 11},
+                      -(-CLI_TEST_PAIRS // CLI_BATCH))
+        stacks = [f for f in os.listdir(served) if f.endswith(".png")]
+        if len(stacks) != CLI_TEST_PAIRS:
+            raise AssertionError(f"test --checkpoint wrote {len(stacks)} stacks")
+
+        # the timed runs, pool and then stream (PrefetchLoader +
+        # device_prefetch(via_uint8)): 16 epochs, no sample hook, the one
+        # checkpoint save inside the window (epoch 0's) taken out
+        rate_steps = 1 + CLI_RATE_EPOCHS * spe
+        timed = ["--n-epochs", str(CLI_RATE_EPOCHS), "--sample-interval", str(10 * rate_steps),
+                 "--checkpoint-interval", str(CLI_RATE_EPOCHS)]
+        clocks = {}
+        for staging in ("pool", "stream"):
+            workers = ["--num-workers", "4"] if staging == "stream" else []
+            reset_counts()
+            with _CliClock(rate_steps).running() as clocks[staging]:
+                cli.main(["train", *common, *timed, "--staging", staging, *workers,
+                          "--out-dir", os.path.join(tmp, staging)])
+            expect_counts(f"fft_glo cli train --staging {staging}", FFT_GLO_STEP, rate_steps)
+            torch.cuda.empty_cache()
+        if not _bits_equal(clocks["stream"].first, pool_clock.first):
+            raise AssertionError("the stream path's first batch differs from the pool's")
+        cold_first_s = pool_clock.first_step_s()
+        pool_rate, first_s = clocks["pool"].rate(CLI_BATCH)
+        stream_rate, stream_first_s = clocks["stream"].rate(CLI_BATCH)
+
+        _library_resume(device, args, card, tmp)
+        torch.cuda.empty_cache()
+
+        # tfc_diff: cli train, then gen --checkpoint (the whole chain)
+        diff_data, diff_runs = os.path.join(tmp, "diff"), os.path.join(tmp, "diff_runs")
+        _write_pairs(diff_data, seed=CLI_SEED + 2, count=DIFF_CLI_PAIRS, split="train",
+                     size=DIFF_SIZE)
+        _write_pairs(diff_data, seed=CLI_SEED + 3, count=4, size=DIFF_SIZE)
+        diff_common = ["--config", "tfc_diff", "--data-root", diff_data, "--image-size",
+                       str(DIFF_SIZE), "--dtype", "bfloat16", "--device", "cuda"]
+        reset_counts()
+        diff_steps = 1 + DIFF_CLI_PAIRS // DIFF_CLI_BATCH
+        # the sample hook after the last step: the whole chain on the 4 test pairs
+        cli.main(["train", *diff_common, "--batch-size", str(DIFF_CLI_BATCH), "--n-epochs", "1",
+                  "--sample-interval", str(diff_steps), "--out-dir", diff_runs])
+        chain = diffusion_recipe.schedule_of(get_experiment("tfc_diff")).num_timesteps
+        expect_counts("tfc_diff cli train", {
+            k: DIFF_STEP_BF16.get(k, 0) * diff_steps + DIFF_FORWARD.get(k, 0) * chain
+            for k in COUNTED}, 1)
+        _log_rows(os.path.join(diff_runs, "logs", "tfc_diff.jsonl"))
+        diff_samples = sorted(os.listdir(os.path.join(diff_runs, "samples")))
+        if diff_samples != [f"{diff_steps:07d}.png", "index.html"]:
+            raise AssertionError(f"tfc_diff cli train: samples {diff_samples}")
+        gen_out = os.path.join(tmp, "gen")
+        cli.main(["gen", *diff_common, "--checkpoint", latest_checkpoint(diff_runs),
+                  "--out-dir", gen_out])
+        diff_run = expect_counts("tfc_diff cli train + gen --checkpoint", {
+            k: DIFF_STEP_BF16.get(k, 0) * diff_steps + DIFF_FORWARD.get(k, 0) * 2 * chain
+            for k in COUNTED}, 1)
+        if len([f for f in os.listdir(gen_out) if f.endswith(".png")]) != 4:
+            raise AssertionError("gen --checkpoint did not write 4 stacks")
+    print(f"cli train fft_glo bf16 B={CLI_BATCH} {SIZE}², pool staging: {steps} steps, "
+          f"checkpoints {ckpts}, {len(logged)} finite log records, {hooks} sample grids + "
+          f"gallery; resume to step {steps}; test --checkpoint {len(stacks)} stacks; launches "
+          f"{fft_run['blurpool_fwd']} forward, {fft_run['blurpool_bwd']} backward blur-pool "
+          f"({FFT_GLO_STEP} a step, 11 forward a sample); pool and stream first batches equal "
+          f"batch_iterator's bit for bit")
+    print(f"cli train fft_glo bf16 B={CLI_BATCH} {SIZE}² wall, data loading included (no "
+          f"sample hook; epoch 0's checkpoint save taken out): time to first step "
+          f"{cold_first_s:.2f} s in the phase's first cli train; pool {pool_rate:.1f} img/s "
+          f"over {rate_steps - 1} epoch steps, time to first step {first_s:.2f} s; stream (4 "
+          f"workers, the first epoch decoding, later ones from the cache) {stream_rate:.1f} "
+          f"img/s over {rate_steps - 1} epoch steps, time to first step {stream_first_s:.2f} "
+          f"s; peak memory {peak:.2f} GiB (the 2-epoch run) [{card}]")
+    print(f"cli train tfc_diff bf16 B={DIFF_CLI_BATCH} {DIFF_SIZE}²: {diff_steps} steps + a "
+          f"sample hook + gen --checkpoint over 4 images ({chain}-step chains): launches "
+          f"{ {k: n for k, n in diff_run.items() if n} }")
+    print(f"cli train phase: {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return {"fft_glo_cli_train": fft_run, "tfc_diff_cli_train": diff_run}
 
 
 def _serve_rate(what: str, fwd, batch: int, card: str) -> None:
@@ -1998,6 +2325,10 @@ def main(argv=None) -> int:
         "fft_glo serve", {"blurpool_fwd": 11}, forwards)
     print(f"fft_glo serve path: {forwards} G forwards, blurpool launches "
           f"{by_path['fft_glo_serve']['blurpool_fwd']} (11 per forward), no other kernel")
+
+    # 6b. cli train: fft_glo and tfc_diff through the user's commands
+    by_path.update(phase_cli_train(device, args, card))
+    torch.cuda.empty_cache()
 
     # 7. float32 kernel path vs plain path, and G-forward img/s
     phase_compare(device, g, batches, card)

@@ -46,6 +46,14 @@ def test_rgb_to_luma_matches_jax(mode):
         np.testing.assert_array_equal(got, want)
 
 
+def test_rgb_to_luma_default_mode_matches_jax():
+    """Called without ``mode``, both packages take "exact" (ToPILImage's
+    wraparound): the two defaults once differed by 115 grey levels here."""
+    x = np.random.RandomState(0).uniform(-1, 1, (2, 16, 16, 3)).astype(np.float32)
+    got = quantize.rgb_to_luma_uint8(_t(x)).numpy()
+    np.testing.assert_array_equal(got, np.asarray(jax_quantize.rgb_to_luma_uint8(_j(x))))
+
+
 def test_luma_pil_is_exact_on_all_corners():
     v = np.array(np.meshgrid(*[[0.0, 1.0, 127.0, 128.0, 254.0, 255.0]] * 3)).reshape(3, -1).T
     v = v.astype(np.float32)

@@ -2,7 +2,15 @@
 
 Each file holds A|B side by side; it is split at w/2 and bicubic-resized with
 PIL, which is imported where an image is read (the package imports without
-it). The native C++ decode path of the JAX package is not ported yet.
+it). ``cache=True`` (or ``enable_cache()``) keeps the decoded uint8 pairs in
+RAM, so epochs after the first skip the decode; ``raw_item`` gives the uint8
+pair before normalisation, the input of the device-side paths
+(``data/pool.DevicePool``, ``data/prefetch.device_prefetch(via_uint8=True)``).
+
+The JAX dataset's ``use_native`` switch (its C++ decoder, which gives the PIL
+path's bits) is not taken: the port has no native decoder yet, and the PIL
+path is the one both packages share. Class labels (``labels``, ``LAB3``) wait
+for the conditional recipes.
 
 Batches: {"A": (N,H,W,3) float32 in [-1,1], "B": same, "T_B": (N,H,W) float32
 Celsius}.
@@ -40,20 +48,43 @@ class PairedImageDataset:
     """File-list dataset over a ``root/mode`` directory of A|B pair images."""
 
     def __init__(self, root: str, mode: str = "train", image_size: int = 256,
-                 direction: str = "AtoB"):
+                 direction: str = "AtoB", cache: bool = False):
         self.files = sorted(glob.glob(os.path.join(root, mode, "*.*")))
         if not self.files:
             raise FileNotFoundError(f"no images under {os.path.join(root, mode)}")
         self.image_size = image_size
         self.direction = direction
+        self._cache: dict[int, tuple[np.ndarray, np.ndarray]] | None = {} if cache else None
 
     def __len__(self) -> int:
         return len(self.files)
 
-    def __getitem__(self, idx: int) -> dict[str, np.ndarray]:
-        a_u8, b_u8 = load_pair(self.files[idx % len(self.files)], self.image_size)
+    def enable_cache(self) -> None:
+        """Keep decoded pairs in RAM from now on (the CLI turns it on once it
+        has sized the dataset)."""
+        if self._cache is None:
+            self._cache = {}
+
+    def _raw_pair(self, idx: int) -> tuple[np.ndarray, np.ndarray]:
+        """Decoded (A_u8, B_u8) after the direction swap; cached when on."""
+        idx = idx % len(self.files)
+        if self._cache is not None and idx in self._cache:
+            return self._cache[idx]
+        a_u8, b_u8 = load_pair(self.files[idx], self.image_size)
         if self.direction == "BtoA":
             a_u8, b_u8 = b_u8, a_u8
+        if self._cache is not None:
+            self._cache[idx] = (a_u8, b_u8)
+        return a_u8, b_u8
+
+    def raw_item(self, idx: int) -> dict[str, np.ndarray]:
+        """uint8 item {"A_u8", "B_u8"}: normalisation and the temperature map
+        are applied on the device (``data/pool.finish_uint8``)."""
+        a_u8, b_u8 = self._raw_pair(idx)
+        return {"A_u8": a_u8, "B_u8": b_u8}
+
+    def __getitem__(self, idx: int) -> dict[str, np.ndarray]:
+        a_u8, b_u8 = self._raw_pair(idx)
         t_b = TEMP_MIN_C + b_u8[..., 0].astype(np.float32) * ((TEMP_MAX_C - TEMP_MIN_C) / 255.0)
         return {"A": _normalize(a_u8), "B": _normalize(b_u8), "T_B": t_b}
 

@@ -28,7 +28,7 @@ def luma_pil(rgb_uint8: torch.Tensor) -> torch.Tensor:
     return torch.floor(acc / 65536.0)
 
 
-def rgb_to_luma_uint8(x: torch.Tensor, mode: str = "eval") -> torch.Tensor:
+def rgb_to_luma_uint8(x: torch.Tensor, mode: str = "exact") -> torch.Tensor:
     """Normalized image (N, H, W, 3) in [-1, 1] -> grayscale plane (N, H, W).
 
     mode="eval":   round-and-clip to the on-disk uint8, then PIL luma.

@@ -10,7 +10,10 @@ update: lr * m_hat / (sqrt(v_hat) + eps), eps outside the root.
 ``learning_rate(cfg, step)`` is the closed-form schedule of the update that
 follows ``step`` completed ones (the first update is ``step`` 0), on the
 fractional epoch ``step / steps_per_epoch`` as optax evaluates it: per update,
-not once an epoch. The trainer writes it into both Adams before each step.
+not once an epoch. The trainer writes it into both Adams before each step,
+except under ``plateau``: there the lr lives in the Adams' ``param_groups``
+(as it lives in the JAX opt state's ``hyperparams``), and
+``ReduceLROnPlateau`` sets it between epochs through ``set_learning_rate``.
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ class TrainState:
     opt_d: torch.optim.Adam | None
 
 
-SCHEDULES = ("constant", "linear_decay", "step", "cosine")
+SCHEDULES = ("constant", "linear_decay", "step", "cosine", "plateau")
 
 
 def learning_rate(cfg: ExperimentConfig, step: int) -> float:
@@ -44,10 +47,10 @@ def learning_rate(cfg: ExperimentConfig, step: int) -> float:
     ``linear_decay`` (CycleGAN's LambdaLR): lr * (1 - max(0, epoch - decay) /
     (n_epochs - decay)), floored at 0; ``step``: lr * 0.1 ** floor(epoch /
     decay_start_epoch); ``cosine``: lr * 0.5 * (1 + cos(pi * epoch /
-    n_epochs)). ``plateau`` is driven by a validation metric between epochs
-    and is not ported yet."""
+    n_epochs)); ``plateau``: lr, the value the Adams start from (the
+    controller rewrites it between epochs)."""
     o = cfg.optim
-    if o.schedule == "constant":
+    if o.schedule in ("constant", "plateau"):
         return o.lr
     epoch = step / (cfg.train.steps_per_epoch or 1)
     n, dec = cfg.train.n_epochs, o.decay_start_epoch
@@ -57,10 +60,38 @@ def learning_rate(cfg: ExperimentConfig, step: int) -> float:
         return o.lr * 0.1 ** math.floor(epoch / max(dec, 1))
     if o.schedule == "cosine":
         return o.lr * 0.5 * (1.0 + math.cos(math.pi * epoch / n))
-    if o.schedule == "plateau":
-        raise NotImplementedError("lr schedule 'plateau' is not ported yet (it comes with "
-                                  "the training CLI, which feeds it a validation metric)")
     raise ValueError(f"unknown lr schedule {o.schedule!r}; known: {SCHEDULES}")
+
+
+class ReduceLROnPlateau:
+    """NeMAR's 'plateau' mode, port of ``tfcgan_tpu.train.state.ReduceLROnPlateau``:
+    torch ``ReduceLROnPlateau(mode='min', factor=0.2, threshold=0.01,
+    patience=5)`` on the host. ``step(metric)`` is called once an epoch and
+    returns the lr to install with ``set_learning_rate``. An epoch improves
+    when ``metric < best * (1 - threshold)``; after more than ``patience``
+    epochs without improvement lr <- max(lr * factor, min_lr), and ``best``
+    is kept."""
+
+    def __init__(self, lr: float, factor: float = 0.2, patience: int = 5,
+                 threshold: float = 0.01, min_lr: float = 0.0):
+        self.lr = lr
+        self.factor = factor
+        self.patience = patience
+        self.threshold = threshold
+        self.min_lr = min_lr
+        self.best = float("inf")
+        self.num_bad_epochs = 0
+
+    def step(self, metric: float) -> float:
+        if metric < self.best * (1.0 - self.threshold):
+            self.best = metric
+            self.num_bad_epochs = 0
+        else:
+            self.num_bad_epochs += 1
+        if self.num_bad_epochs > self.patience:
+            self.lr = max(self.lr * self.factor, self.min_lr)
+            self.num_bad_epochs = 0
+        return self.lr
 
 
 def set_learning_rate(state: "TrainState", lr: float) -> None:

@@ -2,8 +2,9 @@
 ``tfcgan_tpu.train.trainer`` (one device).
 
 One step, in the order of the JAX step: the schedule's learning rate into both
-Adams; one spectral power iteration over every discriminator head of
-``recipe.D`` (per-step cadence); then, for a ``g_first`` recipe (the
+Adams (not under ``plateau``, whose controller sets it between epochs); one
+spectral power iteration over every discriminator head of ``recipe.D``
+(per-step cadence); then, for a ``g_first`` recipe (the
 default), the G phase (G forward, D(fake), D(real), G loss) with gradients to
 G's parameters only (for the STN family: G1, G2 and the STN), D frozen for the
 phase; the G Adam step; the D phase on the detached fake of the same G
@@ -35,6 +36,7 @@ import torch
 import torch.nn as nn
 
 from tfcgan_tpu_torch.config import ExperimentConfig
+from tfcgan_tpu_torch.data.prefetch import is_device_batch
 from tfcgan_tpu_torch.models.layers import spectral_power_iteration
 from tfcgan_tpu_torch.train.state import (TrainState, create_state, learning_rate,
                                           set_learning_rate)
@@ -61,6 +63,7 @@ def make_train_step(cfg: ExperimentConfig, recipe) -> Callable:
                          "spectral_cadence='per_forward'")
     if per_forward and order == "d_first":
         raise ValueError("spectral_cadence='per_forward' requires g_first order")
+    scheduled = cfg.optim.schedule != "plateau"  # plateau: the lr is set between epochs
 
     def d_phase(state: TrainState, batch: dict, aux: dict) -> dict:
         loss_d, d_metrics = recipe.d_loss(batch, aux)
@@ -80,7 +83,8 @@ def make_train_step(cfg: ExperimentConfig, recipe) -> Callable:
         return aux, g_metrics
 
     def train_step(state: TrainState, batch: dict, draws) -> dict[str, torch.Tensor]:
-        set_learning_rate(state, learning_rate(cfg, state.step))
+        if scheduled:
+            set_learning_rate(state, learning_rate(cfg, state.step))
         if not per_forward:
             spectral_power_iteration(recipe.D, order="vu")
         if order == "d_first":
@@ -122,31 +126,44 @@ class Trainer:
     def step(self, state: TrainState, batch: dict) -> dict[str, torch.Tensor]:
         """One step on ``batch`` ({"A", "B", "T_B"[, "LAB"]}, numpy or
         tensors; the images as float32, the class labels as integers); returns
-        the metrics as 0-dim tensors on the device."""
+        the metrics as 0-dim tensors on the device. A batch already on the
+        recipe's device (``data.prefetch.is_device_batch``) is used as it is."""
         dev = self.recipe.device
-        images = {k: torch.as_tensor(v).to(dev, torch.float32) for k, v in batch.items()
-                  if k in ("A", "B", "T_B")}
-        labels = {k: torch.as_tensor(v).to(dev, torch.int64) for k, v in batch.items()
-                  if k == "LAB"}
-        batch = {**images, **labels}
+        if not is_device_batch(batch, dev):
+            images = {k: torch.as_tensor(v).to(dev, torch.float32) for k, v in batch.items()
+                      if k in ("A", "B", "T_B")}
+            labels = {k: torch.as_tensor(v).to(dev, torch.int64) for k, v in batch.items()
+                      if k == "LAB"}
+            batch = {**images, **labels}
         metrics = self._step_fn(state, batch, self.draw_fn(state, batch))
-        self.last_metrics = metrics
+        self.last_metrics = metrics  # on the device; a read syncs
         return metrics
 
-    def fit(self, state: TrainState, batches: Iterable[dict], num_steps: int | None = None,
-            log_every: int | None = None, check_finite: bool = False) -> TrainState:
+    def fit(self, state: TrainState, batches: Iterable, num_steps: int | None = None,
+            log_every: int | None = None, sample_hook: Callable | None = None,
+            sample_every: int | None = None, check_finite: bool = False,
+            pool=None) -> TrainState:
         """Steps over ``batches`` (at most ``num_steps``); ``check_finite``
         raises on a NaN/Inf metric; every ``log_every`` steps the metrics go to
-        the logger."""
+        the logger; ``sample_hook(state, step)`` runs after every step whose
+        count is a multiple of ``sample_every`` (default
+        ``cfg.train.sample_interval``: the reference's ``sample_images``).
+        With ``pool`` (a ``data.pool.DevicePool``) ``batches`` yields index
+        arrays, which ``pool.batch`` assembles on the device."""
         log_every = log_every or self.cfg.train.log_interval
+        sample_every = sample_every or self.cfg.train.sample_interval
         t0 = time.time()
         for i, batch in enumerate(batches):
             if num_steps is not None and i >= num_steps:
                 break
+            if pool is not None:
+                batch = pool.batch(batch)
             metrics = self.step(state, batch)
             if check_finite:
                 assert_finite(metrics, state.step)
             if self.logger is not None and i % log_every == 0:
                 self.logger.write({**{k: float(v) for k, v in metrics.items()},
                                    "step": state.step, "wall_s": time.time() - t0})
+            if sample_hook is not None and state.step % sample_every == 0:
+                sample_hook(state, state.step)
         return state
