@@ -23,6 +23,15 @@ is ``(in, out)`` and torch's ``(out, in)``; the attention's q/k/v kernels are
 ``(dim, heads, head_dim)`` and its out kernel ``(heads, head_dim, dim)``, both
 flattened to ``(dim, dim)`` before the transpose.
 
+The debiased family: ``conditional_generator_from_flax`` (``label_fc`` and
+the inner ``unet``), ``aux_discriminator_from_flax`` (the ``patch``
+discriminator with its spectral u/v, and the label heads, whose Dense
+kernels read the NHWC flatten of the input pair in both packages, so they
+need no reordering) and ``resnet18_from_flax`` (both norm forms: a plain
+tree of convs, norms and a Dense). ``regional_cnns_from_flax`` assembles the
+two regional CNNs of a V4-V7 train state from its ``frozen`` backbones and,
+for V4-V6, the heads in its ``g_params``.
+
 The bridge takes numpy-convertible leaves and never imports JAX.
 """
 
@@ -33,7 +42,7 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
-from tfcgan_tpu_torch.train.state import TrainState, make_optimizers
+from tfcgan_tpu_torch.train.state import TrainState, g_parameters, make_optimizers
 
 
 def flatten_params(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
@@ -81,6 +90,26 @@ def generator_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
     return state
 
 
+def conditional_generator_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
+    """JAX ``ConditionalGeneratorUNet`` params ({"label_fc", "unet"}, nested
+    or flat) -> float32 state dict of the port's conditional G."""
+    flat = flatten_params(params)
+    state = {"label_fc.weight": _dense(flat["label_fc/kernel"], 1),
+             "label_fc.bias": _tensor(flat["label_fc/bias"])}
+    unet = {k[len("unet/"):]: v for k, v in flat.items() if k.startswith("unet/")}
+    if len(unet) + 2 != len(flat):
+        raise KeyError(f"not a ConditionalGeneratorUNet tree: {sorted(flat)[:4]}...")
+    state.update({f"unet.{k}": v for k, v in generator_from_flax(unet).items()})
+    return state
+
+
+def tfcgan_generator_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
+    """The G tree of a tfcgan train state, conditional or not."""
+    if "label_fc/kernel" in flatten_params(params):
+        return conditional_generator_from_flax(params)
+    return generator_from_flax(params)
+
+
 def discriminator_from_flax(params: Mapping, spectral: Mapping | None = None
                             ) -> dict[str, torch.Tensor]:
     """JAX ``PatchDiscriminator`` params (and its ``spectral`` collection, for
@@ -101,6 +130,31 @@ def discriminator_from_flax(params: Mapping, spectral: Mapping | None = None
         state[f"{module}.v"] = _tensor(np.asarray(uv["v"]).reshape(kh, kw, cin), (2, 0, 1)
                                        ).reshape(-1)
     return state
+
+
+def aux_discriminator_from_flax(params: Mapping, spectral: Mapping | None = None
+                               ) -> dict[str, torch.Tensor]:
+    """JAX ``AuxClassifierDiscriminator`` params (and its ``spectral``
+    collection) -> state dict of the port's: ``patch.*`` from
+    ``discriminator_from_flax``, the heads ``aux_*`` Dense layers."""
+    state = {f"patch.{k}": v for k, v in discriminator_from_flax(
+        params["patch"], spectral["patch"] if spectral else None).items()}
+    for head, leaves in params.items():
+        if head == "patch":
+            continue
+        if not head.startswith("aux_"):
+            raise KeyError(f"no AuxClassifierDiscriminator parameter {head!r}")
+        state[f"{head}.weight"] = _dense(leaves["kernel"], 1)
+        state[f"{head}.bias"] = _tensor(leaves["bias"])
+    return state
+
+
+def tfcgan_discriminator_from_flax(params: Mapping, spectral: Mapping | None = None
+                                   ) -> dict[str, torch.Tensor]:
+    """The D tree of a tfcgan train state, with or without label heads."""
+    if "patch" in params:
+        return aux_discriminator_from_flax(params, spectral)
+    return discriminator_from_flax(params, spectral)
 
 
 def lpips_from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
@@ -232,8 +286,22 @@ deformable_stn_from_flax = conv_net_from_flax
 cnn_affine_stn_from_flax = conv_net_from_flax
 nlayer_discriminator_from_flax = conv_net_from_flax
 pixel_discriminator_from_flax = conv_net_from_flax
-# and so is the diffusion U-Net, with its GroupNorm scales
+# and so are the diffusion U-Net, with its GroupNorm scales, and ResNet-18
 cond_unet_from_flax = conv_net_from_flax
+resnet18_from_flax = conv_net_from_flax
+
+REGIONAL_CNNS = ("cnn_hair", "cnn_eyes")
+
+
+def regional_cnns_from_flax(g_params: Mapping, frozen: Mapping) -> dict[str, torch.Tensor]:
+    """The regional CNNs of a debiased V4-V7 train state -> state dict of the
+    recipe's ``cnns``: V4-V6 keep the backbones in ``frozen["cnn_*_bb"]`` and
+    the heads in ``g_params["cnn_*"]``, V7 both in ``frozen["cnn_*"]``."""
+    state = {}
+    for name in REGIONAL_CNNS:
+        tree = {**frozen[f"{name}_bb"], **g_params[name]} if name in g_params else frozen[name]
+        state.update({f"{name}.{k}": v for k, v in resnet18_from_flax(tree).items()})
+    return state
 
 
 def _grouped(tree: Mapping) -> dict[str, torch.Tensor]:
@@ -277,24 +345,26 @@ def diffusion_generators_from_flax(g_params: Mapping) -> dict[str, torch.Tensor]
     return state
 
 
-def _load_adam(opt: torch.optim.Adam, module: torch.nn.Module, adam_state,
+def _load_adam(opt: torch.optim.Adam, named: Mapping[str, torch.nn.Parameter], adam_state,
                to_state_dict) -> None:
-    """optax ``ScaleByAdamState`` (count, mu, nu) -> the torch Adam's state."""
+    """optax ``ScaleByAdamState`` (count, mu, nu) -> the torch Adam's state;
+    ``to_state_dict`` maps a moment tree to tensors under ``named``'s names."""
     count = int(np.asarray(adam_state.count))
     if count == 0:
         return
     mu, nu = to_state_dict(adam_state.mu), to_state_dict(adam_state.nu)
-    for name, p in module.named_parameters():
+    for name, p in named.items():
         opt.state[p] = {"step": torch.tensor(float(count)),
                         "exp_avg": mu[name].to(p.device), "exp_avg_sq": nu[name].to(p.device)}
 
 
 def train_state_from_flax(state, recipe, generator: torch.Generator):
-    """A JAX ``GANTrainState`` of the tfcgan, the stn, the nemar or the
-    diffusion recipe -> a port ``TrainState`` over ``recipe``'s modules:
-    weights, spectral u/v, LPIPS, the Adams' moments and counts (one Adam for
-    the diffusion recipe, whose D side is empty), and the step (which fixes
-    the schedule's learning rate). Draws come from ``generator``."""
+    """A JAX ``GANTrainState`` of the tfcgan (conditional or not), the stn,
+    the nemar or the diffusion recipe -> a port ``TrainState`` over
+    ``recipe``'s modules: weights, spectral u/v, LPIPS, the regional CNNs,
+    the Adams' moments and counts (one Adam for the diffusion recipe, whose D
+    side is empty; G's covers the V4-V6 regional heads), and the step (which
+    fixes the schedule's learning rate). Draws come from ``generator``."""
     if recipe.name == "diffusion":
         g_from_flax = diffusion_generators_from_flax
 
@@ -306,27 +376,38 @@ def train_state_from_flax(state, recipe, generator: torch.Generator):
         g_from_flax, d_from_flax = nemar_generators_from_flax, nemar_discriminators_from_flax
     else:
         def g_from_flax(tree):
-            return generator_from_flax(tree["G"])
+            return tfcgan_generator_from_flax(tree["G"])
 
         def d_from_flax(tree, spectral=None):
-            return discriminator_from_flax(tree["D"], spectral["D"] if spectral else None)
+            return tfcgan_discriminator_from_flax(tree["D"], spectral["D"] if spectral else None)
+    cnns = getattr(recipe, "cnns", None)
+
+    def g_moments(tree):  # the G Adam's names: G's, and the V4-V6 heads in the tree
+        heads = {f"cnns.{name}.{k}": v for name in REGIONAL_CNNS if name in tree
+                 for k, v in resnet18_from_flax(tree[name]).items()}
+        return {**{f"G.{k}": v for k, v in g_from_flax(tree).items()}, **heads}
+
     recipe.G.load_state_dict(g_from_flax(state.g_params))
     recipe.D.load_state_dict(d_from_flax(state.d_params, state.spectral))
     if recipe.lpips is not None:
         recipe.lpips.load_state_dict(lpips_from_flax(state.frozen["lpips"]))
+    if cnns is not None:
+        cnns.load_state_dict(regional_cnns_from_flax(state.g_params, state.frozen))
     step = int(np.asarray(state.step))
     opt_g, opt_d = make_optimizers(recipe.cfg, recipe, step)
-    _load_adam(opt_g, recipe.G, state.g_opt_state[0], g_from_flax)
+    _load_adam(opt_g, g_parameters(recipe), state.g_opt_state[0], g_moments)
     if opt_d is not None:
-        _load_adam(opt_d, recipe.D, state.d_opt_state[0], d_from_flax)
-    return TrainState(step=step, generator=generator, G=recipe.G,
-                      D=recipe.D, lpips=recipe.lpips, opt_g=opt_g, opt_d=opt_d)
+        _load_adam(opt_d, dict(recipe.D.named_parameters()), state.d_opt_state[0], d_from_flax)
+    return TrainState(step=step, generator=generator, G=recipe.G, D=recipe.D,
+                      lpips=recipe.lpips, opt_g=opt_g, opt_d=opt_d, cnns=cnns)
 
 
 def load_generator_npz(path: str) -> dict[str, torch.Tensor]:
-    """``g_params.npz`` (from ``tools/export_g_params.py``) -> state dict."""
+    """``g_params.npz`` of a tfcgan experiment (from
+    ``tools/export_g_params.py``) -> state dict of its G, the conditional
+    one's for a debiased experiment."""
     with np.load(path) as npz:
-        return generator_from_flax({k: npz[k] for k in npz.files})
+        return tfcgan_generator_from_flax({k: npz[k] for k in npz.files})
 
 
 def load_stn_generators_npz(path: str) -> dict[str, torch.Tensor]:

@@ -34,6 +34,16 @@ the nemar stacks real_A | real_B | registered_A | fake_B | fake_TR_B |
 fake_RT_B (``--roles real_A,real_B,reg_A,fake_B,fake_TR_B,fake_RT_B``).
 ``gen`` runs the on-device ancestral sampler of a diffusion experiment over
 the test set, batch 4 by default, and writes real_A | sample stacks.
+
+The debiased (conditional) experiments, ``fft_patch_debiased_v1`` ... ``_v6``
+and ``fft_patch_debiased``, train on the labels of ``--annots CSV``: a header
+row, then one row an image, columns file, gender, ethnicity, age (read by
+position; the file column's basename keys the image). Without ``--annots``
+they are refused; the other experiments ignore it, as the JAX CLI does. Their
+``train`` writes no sample grids and their ``test`` is refused: the test split
+carries no labels (the JAX CLI reads none there either, and its Inferencer
+then conditions every image on the labels (0, 0, 0)); serve them through
+``infer.Inferencer`` with a batch's ``LAB3``.
 ``--device`` defaults to ``cuda``, and the commands refuse to run when CUDA
 is absent unless ``--device cpu`` is given.
 """
@@ -46,6 +56,8 @@ import os
 
 import numpy as np
 import torch
+
+from tfcgan_tpu_torch.models.layers import without_draws
 
 
 def _device(name: str) -> torch.device:
@@ -96,12 +108,19 @@ def _serve_constructor(cfg):
 def _make_sample_hook(cfg, args, device):
     """``sample_hook(state, step)``: generate on the first (up to) 4 test
     pairs and write A | output | B columns to OUT/samples/%07d.png and the
-    gallery; None when the dataset has no test split."""
+    gallery; None when the dataset has no test split, or for a conditional
+    experiment, whose test split has no labels."""
     from tfcgan_tpu_torch.data.pairs import PairedImageDataset, batch_iterator
     from tfcgan_tpu_torch.evaluation.gallery import write_gallery
     from tfcgan_tpu_torch.evaluation.suite import save_image_grid
     from tfcgan_tpu_torch.infer import Inferencer
 
+    if cfg.loss.conditional:
+        # the JAX hook's test batch has no labels, so its Inferencer
+        # conditions the samples on (0, 0, 0); no labelled test set is read here
+        print(f"\nsample grids off: {cfg.name!r} is conditional and the test split has no "
+              "labels")
+        return None
     try:
         test_ds = PairedImageDataset(cfg.data.root, "test", cfg.data.image_size,
                                      cfg.data.direction)
@@ -113,7 +132,8 @@ def _make_sample_hook(cfg, args, device):
 
     def sample_hook(state, step):
         if not serve:
-            serve.append(_serve_constructor(cfg)(cfg, device, torch.Generator().manual_seed(0)))
+            with without_draws():  # the state's weights are loaded next
+                serve.append(_serve_constructor(cfg)(cfg, device))
         serve[0].load_state_dict(state.G.state_dict())
         out = Inferencer(cfg, serve[0])(batch)
         out = (out["fake_B"] if isinstance(out, dict) else out).float().cpu().numpy()
@@ -129,7 +149,8 @@ def _make_sample_hook(cfg, args, device):
 
 def cmd_train(args):
     from tfcgan_tpu_torch.data.mixture import BalancedMixture
-    from tfcgan_tpu_torch.data.pairs import PairedImageDataset, batch_iterator
+    from tfcgan_tpu_torch.data.pairs import (PairedImageDataset, batch_iterator,
+                                             load_annotations_csv)
     from tfcgan_tpu_torch.data.prefetch import device_prefetch
     from tfcgan_tpu_torch.recipes import build_recipe
     from tfcgan_tpu_torch.train.checkpoint import AsyncCheckpointManager, restore_checkpoint
@@ -138,12 +159,11 @@ def cmd_train(args):
     from tfcgan_tpu_torch.train.state import ReduceLROnPlateau, set_learning_rate
     from tfcgan_tpu_torch.train.trainer import Trainer
 
-    if args.annots:
-        raise SystemExit("--annots feeds the conditional (debiased) recipes, which the port "
-                         "does not build yet")
     device = _device(args.device)
     cfg = _cfg_from_args(args)
-    recipe = build_recipe(cfg, device)
+    if cfg.loss.conditional and not args.annots:
+        raise SystemExit(f"experiment {cfg.name!r} is conditional: pass its labels with "
+                         "--annots CSV (columns file, gender, ethnicity, age)")
     roots = [cfg.data.root, *(args.extra_root or cfg.data.extra_roots or [])]
     roots = [r for r in roots if r]
     if cfg.extra.get("needs_extra_root") and len(roots) < 2:
@@ -151,11 +171,15 @@ def cmd_train(args):
             f"experiment {cfg.name!r} trains a balanced two-dataset mixture "
             f"(favtgan_..._TripTemp_ED.py:349-374): pass the second dataset "
             f"via --extra-root <path>")
+    labels = None
+    if cfg.loss.conditional:
+        labels = load_annotations_csv(args.annots, label_cols=(1, 2, 3))
+    recipe = build_recipe(cfg, device)
     if getattr(recipe, "variant", None) in ("label", "hybrid"):
         raise SystemExit(f"experiment {cfg.name!r} trains on class labels, which the port's "
                          "loader does not read yet")
-    datasets = [PairedImageDataset(r, "train", cfg.data.image_size, cfg.data.direction)
-                for r in roots]
+    datasets = [PairedImageDataset(r, "train", cfg.data.image_size, cfg.data.direction,
+                                   labels=labels) for r in roots]
     # kept local, as in the JAX CLI: the closed-form schedules see
     # cfg.train.steps_per_epoch (None -> 1), not the dataset's
     steps_per_epoch = min(len(d) for d in datasets) // cfg.data.batch_size
@@ -194,7 +218,7 @@ def cmd_train(args):
         else:
             it = batch_iterator(datasets[0], cfg.data.batch_size, seed=cfg.train.seed)
     first = next(it)
-    state = trainer.init_state(cfg.train.seed)
+    state = trainer.init_state(cfg.train.seed, draw=not args.resume)
     print(f"G params: {count_params(state.G):,} | D params: {count_params(state.D):,} | "
           f"device: {device}")
     if args.resume:
@@ -233,8 +257,10 @@ def _serve_weights(args, cfg, device) -> torch.nn.Module:
     if sum(w is not None for w in (args.checkpoint, args.params, args.init_seed)) != 1:
         raise SystemExit("pass exactly one of --checkpoint DIR, --params g_params.npz and "
                          "--init-seed N")
-    seed = 0 if args.init_seed is None else args.init_seed
-    module = _serve_constructor(cfg)(cfg, device, torch.Generator().manual_seed(seed))
+    if args.init_seed is not None:
+        return _serve_constructor(cfg)(cfg, device, torch.Generator().manual_seed(args.init_seed))
+    with without_draws():  # the file's weights are loaded next
+        module = _serve_constructor(cfg)(cfg, device)
     if args.checkpoint is not None:
         module.load_state_dict(load_generator_state(args.checkpoint))
     elif args.params is not None:
@@ -253,6 +279,9 @@ def cmd_test(args):
     cfg = _cfg_from_args(args)
     if cfg.recipe == "diffusion":
         raise SystemExit("test serves the GAN recipes; use gen for a diffusion experiment")
+    if cfg.loss.conditional:
+        raise SystemExit(f"experiment {cfg.name!r} is conditional and the test split has no "
+                         "labels: serve it through infer.Inferencer with a batch's LAB3")
     g = _serve_weights(args, cfg, device)
     ds = PairedImageDataset(cfg.data.root, "test", cfg.data.image_size, cfg.data.direction)
     # drop_last=False: every test image is served
@@ -317,8 +346,10 @@ def main(argv=None):
     common.add_argument("--dtype", default=None, choices=[None, "bfloat16", "float32"])
     common.add_argument("--out-dir", default="runs")
     common.add_argument("--annots", default=None,
-                        help="annotations CSV of the conditional recipes (not built by the "
-                             "port yet: refused)")
+                        help="train: the labels CSV of the conditional (debiased) experiments "
+                             "fft_patch_debiased_v1 ... _v6 and fft_patch_debiased, required "
+                             "there and ignored elsewhere; a header row, then columns file, "
+                             "gender, ethnicity, age")
     common.add_argument("--device", default="cuda")
 
     train_help = ("train an experiment (weight and gradient histograms, the JAX CLI's "

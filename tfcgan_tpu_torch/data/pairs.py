@@ -9,15 +9,20 @@ pair before normalisation, the input of the device-side paths
 
 The JAX dataset's ``use_native`` switch (its C++ decoder, which gives the PIL
 path's bits) is not taken: the port has no native decoder yet, and the PIL
-path is the one both packages share. Class labels (``labels``, ``LAB3``) wait
-for the conditional recipes.
+path is the one both packages share.
+
+Class labels: ``labels`` maps a file's basename to an int (``LAB``) or to a
+(gender, ethnicity, age) triple (``LAB3``, int32, and ``LAB`` = its
+ethnicity), as ``load_annotations_csv`` reads them; a file the map lacks
+gets the label 0, as in the JAX loader, and so no ``LAB3``.
 
 Batches: {"A": (N,H,W,3) float32 in [-1,1], "B": same, "T_B": (N,H,W) float32
-Celsius}.
+Celsius[, "LAB": (N,) int32][, "LAB3": (N, 3) int32]}.
 """
 
 from __future__ import annotations
 
+import csv
 import glob
 import os
 
@@ -48,12 +53,13 @@ class PairedImageDataset:
     """File-list dataset over a ``root/mode`` directory of A|B pair images."""
 
     def __init__(self, root: str, mode: str = "train", image_size: int = 256,
-                 direction: str = "AtoB", cache: bool = False):
+                 direction: str = "AtoB", labels: dict | None = None, cache: bool = False):
         self.files = sorted(glob.glob(os.path.join(root, mode, "*.*")))
         if not self.files:
             raise FileNotFoundError(f"no images under {os.path.join(root, mode)}")
         self.image_size = image_size
         self.direction = direction
+        self.labels = labels
         self._cache: dict[int, tuple[np.ndarray, np.ndarray]] | None = {} if cache else None
 
     def __len__(self) -> int:
@@ -77,16 +83,26 @@ class PairedImageDataset:
             self._cache[idx] = (a_u8, b_u8)
         return a_u8, b_u8
 
+    def _label_fields(self, idx: int) -> dict[str, np.ndarray]:
+        if self.labels is None:
+            return {}
+        lab = self.labels.get(os.path.basename(self.files[idx % len(self.files)]), 0)
+        if isinstance(lab, (tuple, list, np.ndarray)):  # (gender, ethnicity, age)
+            lab3 = np.asarray(lab, np.int32)
+            return {"LAB3": lab3, "LAB": np.int32(lab3[1])}
+        return {"LAB": np.int32(lab)}
+
     def raw_item(self, idx: int) -> dict[str, np.ndarray]:
-        """uint8 item {"A_u8", "B_u8"}: normalisation and the temperature map
-        are applied on the device (``data/pool.finish_uint8``)."""
+        """uint8 item {"A_u8", "B_u8"[, labels]}: normalisation and the
+        temperature map are applied on the device (``data/pool.finish_uint8``)."""
         a_u8, b_u8 = self._raw_pair(idx)
-        return {"A_u8": a_u8, "B_u8": b_u8}
+        return {"A_u8": a_u8, "B_u8": b_u8, **self._label_fields(idx)}
 
     def __getitem__(self, idx: int) -> dict[str, np.ndarray]:
         a_u8, b_u8 = self._raw_pair(idx)
         t_b = TEMP_MIN_C + b_u8[..., 0].astype(np.float32) * ((TEMP_MAX_C - TEMP_MIN_C) / 255.0)
-        return {"A": _normalize(a_u8), "B": _normalize(b_u8), "T_B": t_b}
+        return {"A": _normalize(a_u8), "B": _normalize(b_u8), "T_B": t_b,
+                **self._label_fields(idx)}
 
 
 def batch_iterator(dataset, batch_size: int, shuffle: bool = True, seed: int = 42,
@@ -103,3 +119,27 @@ def batch_iterator(dataset, batch_size: int, shuffle: bool = True, seed: int = 4
             items = [dataset[int(j)] for j in order[i * batch_size:(i + 1) * batch_size]]
             yield {k: np.stack([it[k] for it in items]) for k in items[0]}
         epoch += 1
+
+
+def load_annotations_csv(path: str, file_col: int = 0, label_col: int = 2,
+                         label_cols: tuple[int, int, int] | None = None) -> dict:
+    """The annotations CSV of the debiased family -> {basename: int label},
+    or {basename: (gender, ethnicity, age)} with ``label_cols`` (the CLI's
+    (1, 2, 3): columns file, gender, ethnicity, age). As the JAX function
+    reads it with pandas: the first row is the header, columns are taken by
+    position, keys are the file column's basenames, labels go through int."""
+    with open(path, newline="") as f:
+        rows = list(csv.reader(f))[1:]
+    rows = [r for r in rows if r]  # pandas skips blank lines
+    if label_cols is not None:
+        return {os.path.basename(r[file_col]): tuple(_int(r[c]) for c in label_cols)
+                for r in rows}
+    return {os.path.basename(r[file_col]): _int(r[label_col]) for r in rows}
+
+
+def _int(cell: str) -> int:
+    """pandas' ``astype(int)`` of a cell: an integer, or a float truncated."""
+    try:
+        return int(cell)
+    except ValueError:
+        return int(float(cell))

@@ -15,6 +15,9 @@ the device: divided by a Python number, CUDA tensors are multiplied by the
 float32 reciprocal instead, which misses the quotient by 1 ulp for 126 of
 the 256 values.
 
+Class labels (``LAB``, ``LAB3``), where the dataset has them, are staged
+beside the images and gathered with the same indices, as the JAX pool does.
+
 The JAX pool's assembly runs inside the jitted train step; eager PyTorch has
 no program to fuse the gather into, so ``Trainer.fit(pool=...)`` calls
 ``batch`` before each step.
@@ -65,8 +68,10 @@ class DevicePool:
     def batch(self, idx) -> dict[str, torch.Tensor]:
         """The batch of the integer indices ``idx``, assembled on the device."""
         idx = torch.as_tensor(np.asarray(idx), dtype=torch.int64).to(self.device)
-        return finish_uint8(self.arrays["A_u8"].index_select(0, idx),
-                            self.arrays["B_u8"].index_select(0, idx))
+        labels = {k: v.index_select(0, idx) for k, v in self.arrays.items()
+                  if k in ("LAB", "LAB3")}
+        return {**finish_uint8(self.arrays["A_u8"].index_select(0, idx),
+                               self.arrays["B_u8"].index_select(0, idx)), **labels}
 
     def index_batches(self, batch_size: int, seed: int = 42, epochs: int | None = None
                       ) -> Iterator[np.ndarray]:

@@ -11,7 +11,7 @@
   before the batch is used; two batches ahead at most, a double buffer. With
   ``via_uint8`` the uint8 batches of ``PrefetchLoader(raw=True)`` cross
   (4x fewer bytes) and are normalised on the device (``pool.finish_uint8``,
-  bit for bit the host path's values).
+  bit for bit the host path's values); class labels pass through as they are.
 - ``is_device_batch``: ``Trainer.step`` uses such a batch as it is.
 """
 

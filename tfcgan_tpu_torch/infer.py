@@ -7,8 +7,11 @@ writes the reference-style stacked PNGs: real_A | fake_B | real_B vertically
 for tfcgan (and, with ``save_spectra``, the fake/real log-magnitude spectra
 side by side), real_A | real_B | warped_B | fake_A1 | fake_A2 | fake_B for
 stn, real_A | real_B | registered_A | fake_B | fake_TR_B | fake_RT_B for
-nemar. For a diffusion experiment a call samples x_0 over the whole ancestral
-chain and ``run_test_set`` writes real_A | sample. The other recipes and the
+nemar. A debiased (conditional) experiment's G takes the batch's
+``LAB3`` labels as floats, the saliency-mask experiment's the image with its
+mask as a 4th channel; both write the tfcgan stacks. For a diffusion
+experiment a call samples x_0 over the whole ancestral chain and
+``run_test_set`` writes real_A | sample. The other recipes and the
 multi-device mesh are not ported yet.
 """
 
@@ -25,6 +28,7 @@ from tfcgan_tpu_torch.ops.fftloss import fft_log_magnitude
 from tfcgan_tpu_torch.recipes.diffusion import diffusion_sample, schedule_of
 from tfcgan_tpu_torch.recipes.nemar import nemar_forward
 from tfcgan_tpu_torch.recipes.stn import stn_condition, stn_serve
+from tfcgan_tpu_torch.recipes.tfcgan import g_input
 
 # the generated images of a six-image stack, after real_A and real_B
 STACKS = {"stn": ("warped_B", "fake_A1", "fake_A2", "fake_B"),
@@ -39,14 +43,15 @@ class Inferencer:
     ``DiffusionGenerators`` of ``recipes.diffusion.build_generators``."""
 
     def __init__(self, cfg: ExperimentConfig, generator: torch.nn.Module):
-        if cfg.recipe not in ("tfcgan", "stn", "nemar", "diffusion") or cfg.loss.conditional:
+        if cfg.recipe not in ("tfcgan", "stn", "nemar", "diffusion"):
             raise NotImplementedError(f"no inference path for {cfg.name!r} in the port yet")
         self.cfg = cfg
         self.generator = generator.eval()
         self.device = next(generator.parameters()).device
 
     def __call__(self, batch: dict, seed: int = 0) -> torch.Tensor | dict[str, torch.Tensor]:
-        """batch["A"] (and, for stn and nemar, batch["B"]): (N, H, W, 3) in
+        """batch["A"] (and, for stn and nemar, batch["B"]; for a debiased
+        experiment batch["LAB3"], (N, 3) integers): (N, H, W, 3) in
         [-1, 1], numpy or tensor -> on the device, fake_B (tfcgan), {"fake_B",
         "fake_A1", "warped_B", "fake_A2"} (stn), {"registered_A", "fake_B",
         "fake_TR_B", "fake_RT_B"} (nemar) or, for a diffusion experiment, the
@@ -60,8 +65,15 @@ class Inferencer:
                     self.generator, schedule_of(self.cfg), {"A": a, "LAB": lab.to(self.device)},
                     torch.Generator(self.device).manual_seed(seed))
         with torch.inference_mode():
+            if self.cfg.recipe == "tfcgan" and self.cfg.loss.conditional:
+                if "LAB3" not in batch:
+                    # the JAX Inferencer conditions such a batch on (0, 0, 0)
+                    raise ValueError(f"{self.cfg.name!r} is conditional: the batch needs its "
+                                     "(gender, ethnicity, age) labels as LAB3")
+                lab3 = torch.as_tensor(batch["LAB3"]).to(self.device, torch.float32)
+                return self.generator(a, lab3)
             if self.cfg.recipe == "tfcgan":
-                return self.generator(a)
+                return self.generator(g_input(self.cfg, a))
             b = torch.as_tensor(batch["B"]).to(self.device, torch.float32)
             if self.cfg.recipe == "stn":
                 return stn_serve(self.generator, stn_condition(self.cfg), a, b)

@@ -31,10 +31,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from tfcgan_tpu_torch.models.layers import TorchConv
+from tfcgan_tpu_torch.models.layers import GroupNorm, TorchConv
 from tfcgan_tpu_torch.models.vit import Dense
 from tfcgan_tpu_torch.ops.flashattn import flash_attention
-from tfcgan_tpu_torch.ops.norm import group_norm
 
 
 # ------------------------------------------------------------------ schedule
@@ -103,21 +102,6 @@ def timestep_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
                       * torch.arange(half, dtype=torch.float32, device=t.device) / half)
     args = t.float()[:, None] * freqs[None, :]
     return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
-
-
-class GroupNorm(nn.Module):
-    """Flax ``GroupNorm(num_groups, epsilon, dtype)`` on NHWC: float32
-    statistics, the result in ``dtype``."""
-
-    def __init__(self, channels: int, groups: int = 32, eps: float = 1e-5,
-                 dtype: torch.dtype = torch.float32, device=None):
-        super().__init__()
-        self.groups, self.eps, self.dtype = groups, eps, dtype
-        self.weight = nn.Parameter(torch.ones(channels, device=device))
-        self.bias = nn.Parameter(torch.zeros(channels, device=device))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return group_norm(x, self.groups, self.weight, self.bias, self.eps).to(self.dtype)
 
 
 def _conv3(in_channels: int, features: int, stride: int = 1, **kw) -> TorchConv:

@@ -1,5 +1,7 @@
 """Discriminators, port of ``tfcgan_tpu.models.discriminator``: the TFC-GAN
-relativistic ``PatchDiscriminator`` and NeMAR's ``NLayerDiscriminator`` (the
+relativistic ``PatchDiscriminator``, the debiased family's
+``AuxClassifierDiscriminator`` (the PatchDiscriminator plus softmax label
+heads) and NeMAR's ``NLayerDiscriminator`` (the
 70x70 PatchGAN: stride-2 convs with instance norm) and ``PixelDiscriminator``
 (a 1x1 conv stack), both on an already concatenated input.
 
@@ -19,7 +21,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from tfcgan_tpu_torch.models.layers import SpectralConv, TorchConv, init_normal_
+from tfcgan_tpu_torch.models.layers import SpectralConv, TorchConv, draws_on, init_normal_
+from tfcgan_tpu_torch.models.vit import Dense, lecun_normal_
 from tfcgan_tpu_torch.ops.blurpool import blur_pool
 from tfcgan_tpu_torch.ops.norm import instance_norm
 
@@ -49,6 +52,8 @@ class PatchDiscriminator(nn.Module):
         """Kernels normal(0, 0.02) and zero biases, as the JAX init; u a
         normalized normal draw, v the normalized ones vector. Drawn on the CPU
         from ``generator``."""
+        if not draws_on():
+            return
         init_normal_(self, generator)
         for block in self.blocks():
             u = torch.randn(block.u.shape, generator=generator)
@@ -60,6 +65,48 @@ class PatchDiscriminator(nn.Module):
         for block in self.blocks():
             x = blur_pool(F.leaky_relu(block(x), 0.2), stride=2)
         return self.final_conv(x)
+
+
+class AuxClassifierDiscriminator(nn.Module):
+    """(img_a, img_b) NHWC -> (logits, probs): the ``patch`` discriminator's
+    logits, and softmax heads, each a Dense layer over concat(img_a, img_b)
+    flattened in NHWC order (H x W x 2C features: 393,216 at 256²), as the
+    JAX module flattens it. With ``num_gender`` > 0 (V1-V5) probs is the
+    (gender, ethnicity, age) tuple of the ``aux_gender``, ``aux_ethn`` and
+    ``aux_age`` heads, in the reference's head order; else (V6, V7) the
+    ethnicity head's alone."""
+
+    def __init__(self, in_channels: int = 6, image_size: int = 256, num_classes: int = 4,
+                 num_gender: int = 0, num_age: int = 0, dtype: torch.dtype = torch.float32,
+                 device=None, generator: torch.Generator | None = None):
+        super().__init__()
+        self.dtype = dtype
+        self.patch = PatchDiscriminator(in_channels, dtype=dtype, device=device)
+        feats = image_size * image_size * in_channels
+        kw = dict(dtype=dtype, device=device)
+        self.aux_ethn = Dense(feats, num_classes, **kw)
+        self.multi_head = num_gender > 0
+        if self.multi_head:
+            self.aux_gender = Dense(feats, num_gender, **kw)
+            self.aux_age = Dense(feats, num_age, **kw)
+        self.reset_parameters(generator)
+
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        """The patch discriminator's init (kernels normal(0, 0.02), u and v),
+        then the heads lecun-normal with zero biases, as flax's Dense."""
+        self.patch.reset_parameters(generator)
+        for head in self.heads():
+            lecun_normal_(head, generator)
+
+    def heads(self) -> list[Dense]:
+        return [self.aux_gender, self.aux_ethn, self.aux_age] if self.multi_head \
+            else [self.aux_ethn]
+
+    def forward(self, img_a: torch.Tensor, img_b: torch.Tensor):
+        logits = self.patch(img_a, img_b)
+        flat = torch.cat([img_a, img_b], dim=-1).reshape(img_a.shape[0], -1).to(self.dtype)
+        probs = [torch.softmax(head(flat), dim=-1) for head in self.heads()]
+        return logits, (tuple(probs) if self.multi_head else probs[0])
 
 
 class NLayerDiscriminator(nn.Module):

@@ -16,14 +16,39 @@ power-iteration vectors u and v as buffers, which
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from tfcgan_tpu_torch.ops.blurpool import blur_pool
-from tfcgan_tpu_torch.ops.norm import instance_norm
+from tfcgan_tpu_torch.ops.norm import group_norm, instance_norm
 
 Padding = tuple[tuple[int, int], tuple[int, int]]
+
+
+_DRAWS_ON = True
+
+
+@contextlib.contextmanager
+def without_draws():
+    """Modules built inside draw no weights: their parameters are allocated
+    and left for ``recipe.init`` (``Trainer.init_state``), a checkpoint or
+    the bridge to fill. Every weight-drawing init of the port
+    (``init_normal_``, ``vit.lecun_normal_``, the ``reset_parameters`` of
+    the discriminators, LPIPS and ResNet-18) returns at once while it holds."""
+    global _DRAWS_ON
+    before, _DRAWS_ON = _DRAWS_ON, False
+    try:
+        yield
+    finally:
+        _DRAWS_ON = before
+
+
+def draws_on() -> bool:
+    """False inside ``without_draws``."""
+    return _DRAWS_ON
 
 
 def init_normal_(module: nn.Module, generator: torch.Generator | None = None,
@@ -31,6 +56,8 @@ def init_normal_(module: nn.Module, generator: torch.Generator | None = None,
     """The reference's ``weights_init_normal`` for the generator: every conv
     weight ~ normal(0, std), biases zero. Draws are made on the CPU from
     ``generator``, so one seed gives the same weights on every device."""
+    if not _DRAWS_ON:
+        return
     with torch.no_grad():
         for name, p in module.named_parameters():
             if name.endswith("bias"):
@@ -135,6 +162,21 @@ def spectral_power_iteration(module: nn.Module, order: str = "vu") -> None:
             else:
                 m.v = _l2_normalize(torch.mv(w.t(), m.u))
                 m.u = _l2_normalize(torch.mv(w, m.v))
+
+
+class GroupNorm(nn.Module):
+    """Flax ``GroupNorm(num_groups, epsilon, dtype)`` on NHWC: float32
+    statistics, the result in ``dtype``."""
+
+    def __init__(self, channels: int, groups: int = 32, eps: float = 1e-5,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        self.groups, self.eps, self.dtype = groups, eps, dtype
+        self.weight = nn.Parameter(torch.ones(channels, device=device))
+        self.bias = nn.Parameter(torch.zeros(channels, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return group_norm(x, self.groups, self.weight, self.bias, self.eps).to(self.dtype)
 
 
 def _dropout(x: torch.Tensor, keep: torch.Tensor | None) -> torch.Tensor:

@@ -23,7 +23,7 @@ import os
 import torch
 import torch.nn as nn
 
-from tfcgan_tpu_torch.models.layers import TorchConv
+from tfcgan_tpu_torch.models.layers import TorchConv, draws_on
 from tfcgan_tpu_torch.ops.pooling import pool22
 
 _SHIFT = (-0.030, -0.088, -0.188)
@@ -91,6 +91,8 @@ class LPIPS(nn.Module):
         """The JAX init's distributions, drawn on the CPU from ``generator``:
         lecun-normal conv kernels (truncated at 2 std, fan-in 9 * C_in), zero
         biases, lin weights uniform(0, 0.1)."""
+        if not draws_on():
+            return
         for name, p in self.named_parameters():
             if name.endswith("bias"):
                 p.zero_()

@@ -4,8 +4,9 @@
 upsample + asymmetric pad + conv + tanh head. Channel plan (256² input):
 64-128-256-512-512-512 down / 512-512-256-128-64 up. Parameter names follow
 the JAX module tree (``down1.conv.weight`` <- ``down1/conv/kernel``, see
-``tfcgan_tpu_torch.bridge``). The label-conditional generator comes with the
-debiased family.
+``tfcgan_tpu_torch.bridge``). ``ConditionalGeneratorUNet`` is the debiased
+family's label-conditional G: a Dense layer maps the (gender, ethnicity, age)
+labels to an H x W plane, the image's 4th input channel.
 
 Dropout (p = 0.5 in down3, down4, up2 and up3) takes explicit keep-masks:
 ``draw_dropout_masks`` makes them from a ``torch.Generator``, and in training
@@ -18,6 +19,7 @@ import torch
 import torch.nn as nn
 
 from tfcgan_tpu_torch.models.layers import UNetDown, UNetUp, Upsample2xConv, init_normal_
+from tfcgan_tpu_torch.models.vit import Dense, lecun_normal_
 from tfcgan_tpu_torch.ops.kernels.blurpool import out_len
 
 
@@ -91,3 +93,37 @@ class GeneratorUNet(nn.Module):
         u4 = self.up4(u3, d2)
         u5 = self.up5(u4, d1)
         return torch.tanh(self.final_conv(u5))
+
+
+class ConditionalGeneratorUNet(nn.Module):
+    """(x (N, H, W, C), labels (N, 3) float) -> (N, H, W, out_channels):
+    ``label_fc`` takes the labels to an H x W plane, concatenated to x as an
+    extra input channel of the inner ``unet``. The image side is fixed at
+    construction (the Dense layer's width is H x W)."""
+
+    def __init__(self, in_channels: int = 3, out_channels: int = 3, image_size: int = 256,
+                 dtype: torch.dtype = torch.float32, device=None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.dtype = dtype
+        # the labels: (gender, ethnicity, age)
+        self.label_fc = Dense(3, image_size * image_size, dtype=dtype, device=device)
+        self.unet = GeneratorUNet(in_channels + 1, out_channels, dtype=dtype, device=device,
+                                  generator=generator)
+        lecun_normal_(self.label_fc, generator)
+
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        """The JAX init's distributions, drawn on the CPU from ``generator``:
+        the U-Net's kernels normal(0, 0.02), ``label_fc`` lecun-normal, zero biases."""
+        init_normal_(self.unet, generator)
+        lecun_normal_(self.label_fc, generator)
+
+    def draw_dropout_masks(self, n: int, h: int, w: int, generator: torch.Generator
+                           ) -> dict[str, torch.Tensor]:
+        return self.unet.draw_dropout_masks(n, h, w, generator)
+
+    def forward(self, x: torch.Tensor, labels: torch.Tensor,
+                dropout_masks: dict[str, torch.Tensor] | None = None) -> torch.Tensor:
+        n, h, w, _ = x.shape
+        plane = self.label_fc(labels.to(self.dtype)).reshape(n, h, w, 1)
+        return self.unet(torch.cat([x.to(self.dtype), plane], dim=-1), dropout_masks)

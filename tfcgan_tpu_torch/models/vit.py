@@ -18,6 +18,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from tfcgan_tpu_torch.models.layers import draws_on
+
 _LN_EPS = 1e-6
 
 
@@ -26,6 +28,8 @@ def lecun_normal_(module: nn.Module, generator: torch.Generator | None = None) -
     """Flax's default init for every ``Dense`` and ``nn.Conv2d`` in ``module``:
     weights a truncated normal (+-2 sigma) rescaled to std sqrt(1 / fan_in),
     biases zero. Drawn on the CPU from ``generator``."""
+    if not draws_on():
+        return
     for m in module.modules():
         if isinstance(m, (Dense, nn.Conv2d)):
             fan_in = m.weight[0].numel()

@@ -5,10 +5,12 @@ holding ``state.pt`` (``torch.save``) with the whole ``TrainState``:
 
 - ``step``;
 - ``G`` and ``D``: the modules' ``state_dict``s (D's spectral u/v included);
-- ``lpips``: the frozen LPIPS module's, or None (the JAX state's ``frozen``
-  tree), so that a resume does not depend on the init seed;
+- ``lpips`` and ``cnns``: the frozen LPIPS module's and the debiased
+  V4-V7 regional CNNs' (backbones and heads), or None (the JAX state's
+  ``frozen`` tree, and the heads of its ``g_params``), so that a resume does
+  not depend on the init seed;
 - ``opt_g`` and ``opt_d``: the Adams' ``state_dict``s (``opt_d`` None without
-  a discriminator);
+  a discriminator; ``opt_g`` holds the V4-V6 heads' moments);
 - ``generator``: ``state.generator.get_state()``, of a CPU or a CUDA
   generator.
 
@@ -40,6 +42,7 @@ def checkpoint_path(ckpt_dir: str, step: int) -> str:
 def _state_dict(state: TrainState) -> dict:
     return {"step": int(state.step), "G": state.G.state_dict(), "D": state.D.state_dict(),
             "lpips": None if state.lpips is None else state.lpips.state_dict(),
+            "cnns": None if state.cnns is None else state.cnns.state_dict(),
             "opt_g": state.opt_g.state_dict(),
             "opt_d": None if state.opt_d is None else state.opt_d.state_dict(),
             "generator": state.generator.get_state()}
@@ -87,12 +90,15 @@ def restore_checkpoint(path: str, state: TrainState) -> TrainState:
     recipe's device) in place from the checkpoint directory ``path``; returns it."""
     ckpt = _load(path)
     if (ckpt["lpips"] is None) != (state.lpips is None) or \
+            (ckpt.get("cnns") is None) != (state.cnns is None) or \
             (ckpt["opt_d"] is None) != (state.opt_d is None):
         raise ValueError(f"{path} holds the state of another recipe")
     state.G.load_state_dict(ckpt["G"])
     state.D.load_state_dict(ckpt["D"])
     if state.lpips is not None:
         state.lpips.load_state_dict(ckpt["lpips"])
+    if state.cnns is not None:
+        state.cnns.load_state_dict(ckpt["cnns"])
     state.opt_g.load_state_dict(ckpt["opt_g"])
     if state.opt_d is not None:
         state.opt_d.load_state_dict(ckpt["opt_d"])

@@ -2,8 +2,11 @@
 
 A plain dataclass: the step count, the ``torch.Generator`` the step's draws
 come from, the recipe's modules (their float32 parameters and the spectral
-u/v buffers) and the two Adams (``opt_d`` is None for a recipe without a
-discriminator: ``D`` has no parameters, as in the TFC-Diff family).
+u/v buffers; the frozen LPIPS and, for the debiased V4-V7, the regional
+CNNs, ``cnns``) and the two Adams (``opt_d`` is None for a recipe without a
+discriminator: ``D`` has no parameters, as in the TFC-Diff family). G's Adam
+steps G and whatever loss-network parameters train with it (the V4-V6
+regional classifier heads: ``g_parameters``).
 ``torch.optim.Adam(lr, betas=(b1, b2), eps=1e-8)`` computes optax's ``adam``
 update: lr * m_hat / (sqrt(v_hat) + eps), eps outside the root.
 
@@ -36,6 +39,7 @@ class TrainState:
     lpips: nn.Module | None
     opt_g: torch.optim.Adam
     opt_d: torch.optim.Adam | None
+    cnns: nn.Module | None = None
 
 
 SCHEDULES = ("constant", "linear_decay", "step", "cosine", "plateau")
@@ -101,22 +105,38 @@ def set_learning_rate(state: "TrainState", lr: float) -> None:
             group["lr"] = lr
 
 
+def g_parameters(recipe) -> dict[str, nn.Parameter]:
+    """What G's Adam steps, by name: ``G.<name>`` for G's parameters and
+    ``cnns.<name>`` for the trainable ones of ``recipe.cnns`` (the debiased
+    V4-V6 regional heads; their backbones, and all of V7's, are frozen)."""
+    named = {f"G.{k}": p for k, p in recipe.G.named_parameters()}
+    cnns = getattr(recipe, "cnns", None)
+    if cnns is not None:
+        named.update({f"cnns.{k}": p for k, p in cnns.named_parameters() if p.requires_grad})
+    return named
+
+
 def make_optimizers(cfg: ExperimentConfig, recipe, step: int = 0
                     ) -> tuple[torch.optim.Adam, torch.optim.Adam | None]:
-    """Adam on G's and on D's parameters, at the schedule's lr for ``step``;
-    None for a D without parameters (torch's Adam refuses an empty list)."""
+    """Adam on ``g_parameters`` and on D's parameters, at the schedule's lr
+    for ``step``; None for a D without parameters (torch's Adam refuses an
+    empty list)."""
     o = cfg.optim
     lr = learning_rate(cfg, step)
     return tuple(torch.optim.Adam(params, lr=lr, betas=(o.b1, o.b2), eps=1e-8)
                  if params else None
-                 for params in (list(recipe.G.parameters()), list(recipe.D.parameters())))
+                 for params in (list(g_parameters(recipe).values()),
+                                list(recipe.D.parameters())))
 
 
-def create_state(cfg: ExperimentConfig, recipe, seed: int) -> TrainState:
+def create_state(cfg: ExperimentConfig, recipe, seed: int, draw: bool = True) -> TrainState:
     """Weights drawn on the CPU from ``seed`` (the same on every device), step
     draws from a generator on the recipe's device seeded with ``seed``, fresh
-    Adams."""
-    recipe.init(torch.Generator().manual_seed(seed))
+    Adams. ``draw=False`` leaves the weights as they are, for a checkpoint
+    about to overwrite them."""
+    if draw:
+        recipe.init(torch.Generator().manual_seed(seed))
     opt_g, opt_d = make_optimizers(cfg, recipe)
     return TrainState(step=0, generator=torch.Generator(recipe.device).manual_seed(seed),
-                      G=recipe.G, D=recipe.D, lpips=recipe.lpips, opt_g=opt_g, opt_d=opt_d)
+                      G=recipe.G, D=recipe.D, lpips=recipe.lpips, opt_g=opt_g, opt_d=opt_d,
+                      cnns=getattr(recipe, "cnns", None))

@@ -120,12 +120,12 @@ class Trainer:
         self._step_fn = make_train_step(cfg, recipe)
         self.last_metrics = None
 
-    def init_state(self, seed: int) -> TrainState:
-        return create_state(self.cfg, self.recipe, seed)
+    def init_state(self, seed: int, draw: bool = True) -> TrainState:
+        return create_state(self.cfg, self.recipe, seed, draw)
 
     def step(self, state: TrainState, batch: dict) -> dict[str, torch.Tensor]:
-        """One step on ``batch`` ({"A", "B", "T_B"[, "LAB"]}, numpy or
-        tensors; the images as float32, the class labels as integers); returns
+        """One step on ``batch`` ({"A", "B", "T_B"[, "LAB"][, "LAB3"]}, numpy
+        or tensors; the images as float32, the class labels as integers); returns
         the metrics as 0-dim tensors on the device. A batch already on the
         recipe's device (``data.prefetch.is_device_batch``) is used as it is."""
         dev = self.recipe.device
@@ -133,7 +133,7 @@ class Trainer:
             images = {k: torch.as_tensor(v).to(dev, torch.float32) for k, v in batch.items()
                       if k in ("A", "B", "T_B")}
             labels = {k: torch.as_tensor(v).to(dev, torch.int64) for k, v in batch.items()
-                      if k == "LAB"}
+                      if k in ("LAB", "LAB3")}
             batch = {**images, **labels}
         metrics = self._step_fn(state, batch, self.draw_fn(state, batch))
         self.last_metrics = metrics  # on the device; a read syncs

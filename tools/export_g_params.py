@@ -7,7 +7,9 @@ weights file of the PyTorch port (``tfcgan_tpu_torch.cli test --params``).
 The checkpoint is restored as ``tfcgan_tpu.cli test`` restores it; the npz
 holds the ``params["G"]`` tree as float32 arrays under "/"-joined keys
 ("down1/conv/kernel", ...), which ``tfcgan_tpu_torch.bridge`` maps to the
-port's state dict. For an stn experiment (``--experiment stn_newmodel3``) it
+port's state dict; for a debiased experiment (``fft_patch_debiased`` and its
+V1-V6) the conditional G, "label_fc/..." and "unet/...", which
+``bridge.load_generator_npz`` recognises. For an stn experiment (``--experiment stn_newmodel3``) it
 holds the whole generator side, "G1/...", "G2/..." and "STN/..."; for
 ``--experiment nemar`` the translator and the registration net, "T/..." and
 "R/..."; for a diffusion experiment (``tfc_diff``, ``tfc_diff_label``,

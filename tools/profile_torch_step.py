@@ -95,7 +95,7 @@ def main(argv=None) -> int:
     state = trainer.init_state(0)
     batch = {k: torch.as_tensor(v, device="cuda") for k, v in synthetic_batch(
         batch_size=args.batch, image_size=cfg.data.image_size, seed=40,
-        with_labels=cfg.recipe == "diffusion").items()}
+        with_labels=cfg.recipe == "diffusion" or cfg.loss.conditional).items()}
 
     with contextlib.ExitStack() as stack:
         if args.plain:
