@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's fft_glo, stn_newmodel3, nemar and tfc_diff serve paths
-and train steps, and the rest of the TFC-GAN-FFT family (the debiased chain,
-mask, regional FFT, favtgan temperature forms), on one CUDA card.
+and train steps, the rest of the TFC-GAN-FFT family (the debiased chain,
+mask, regional FFT, favtgan temperature forms), and the two baseline families
+(ThermalGAN in both registry entries, CycleGAN), on one CUDA card.
 
     python3 chip_smoke.py [--params g_params.npz] [--init-seed 0]
 
@@ -203,7 +204,28 @@ Phases, one line or more each; any failure raises and exits non-zero:
    ``--resume``, the conditional ``test`` refused; the library resume of V4
    at batch 8 (3 steps against 1 + save + load + 2) bit for bit where the
    straight run repeats with ``cudnn.deterministic``.
-17. the card's ``nvidia-smi`` line, one JSON line for the kernels, and last
+17. the baselines at full width (ResNet-9-block CycleGAN generators, the
+   full G1, Encoder and G2), 256², no kernel on their paths: ``thermalgan``
+   (detached D_vae), ``thermalgan_bn`` and ``cyclegan`` 3 bf16 steps each at
+   batch 8 (every term finite and taking 3 values, but thermalgan's frozen
+   pyramid score, a bf16 value as in JAX; 0 launches of every
+   kernel, read after each step: the paths ``thermalgan_train``,
+   ``thermalgan_bn_train``, ``cyclegan_train``); one float32 step at batch 2
+   of ``thermalgan`` and of ``cyclegan`` (its replay buffers full) on the
+   card against the same step on the CPU from the same weights, batch and
+   draws (loss terms rtol 1e-4; every gradient within ``BASELINE_TOL``: the
+   card's convs round otherwise than the CPU's, and the G chains' ReLU kinks
+   turn that into gradient differences, see ``main``); train-step images/s
+   over 20 steps after 3 warm-up steps (CUDA events around every step:
+   median, min, max) and peak memory, ``thermalgan`` at batch 32 and 128,
+   ``thermalgan_bn`` at 32, ``cyclegan`` at 16; ``Inferencer`` images/s at
+   batch 8 and 32 for both families and ``cli test`` writing their stacks
+   (3 and 4 images high); ``cli train`` of ``cyclegan`` at batch 8 on 16
+   identical A|B pairs (so that every epoch's batches are the same whatever
+   the order), 2 epochs, and ``--resume`` from the first epoch's checkpoint:
+   weights, replay buffers and Adam states of the two final checkpoints equal
+   bit for bit, under ``cudnn.deterministic``.
+18. the card's ``nvidia-smi`` line, one JSON line for the kernels, and last
    ``{"ok": true, "device": {...}}``.
 
 In the kernels' JSON, ``launches`` is the count of the kernel's main path, the
@@ -280,7 +302,9 @@ from tfcgan_tpu_torch.ops.kernels import gridsample as gkernel
 from tfcgan_tpu_torch.ops.kernels import resample as rkernel
 from tfcgan_tpu_torch.ops.warp import affine_grid
 from tfcgan_tpu_torch.recipes import build_recipe
+from tfcgan_tpu_torch.recipes import cyclegan as cyclegan_recipe
 from tfcgan_tpu_torch.recipes import diffusion as diffusion_recipe
+from tfcgan_tpu_torch.recipes import thermalgan as thermalgan_recipe
 from tfcgan_tpu_torch.recipes import nemar as nemar_recipe
 from tfcgan_tpu_torch.recipes.stn import build_generators
 from tfcgan_tpu_torch.recipes.tfcgan import build_generator
@@ -1601,14 +1625,17 @@ def phase_train(device, args, name: str, terms, per_step: dict[str, int], after=
     return run
 
 
-def _step_terms_and_grads(recipe, batch, draws) -> tuple[dict, dict]:
-    """One step's loss terms and G- and D-phase gradients, no update."""
+def _step_terms_and_grads(recipe, batch, draws, extra=None) -> tuple[dict, dict]:
+    """One step's loss terms and G- and D-phase gradients, no update; the
+    recipe's ``pre_d`` hook on ``extra`` between the two phases, where it has one."""
     for p in [*recipe.G.parameters(), *recipe.D.parameters()]:
         p.grad = None
     recipe.D.requires_grad_(False)
     loss_g, aux, terms = recipe.g_loss(batch, draws)
     loss_g.backward()
     recipe.D.requires_grad_(True)
+    if hasattr(recipe, "pre_d"):
+        _, aux = recipe.pre_d(extra, aux, draws)
     loss_d, d_terms = recipe.d_loss(batch, aux)
     if loss_d.requires_grad:  # a constant for a recipe without a discriminator
         loss_d.backward()
@@ -2348,7 +2375,10 @@ def phase_family_train(device, args) -> dict[str, int]:
                 raise AssertionError(f"{name} after step {i}: launches {got}; want "
                                      f"{FFT_GLO_STEP} a step")
         terms = sorted(k for k in log.rows[0] if k not in ("step", "wall_s", "counts"))
-        stuck = [k for k in terms if len({row[k] for row in log.rows}) != 3]
+        # the frozen pyramid's L1 is taken in the outputs' dtype, as in JAX: in
+        # bf16 (8 bits of mantissa) it may round to one value for 3 batches
+        coarse = ("g_vae_gan",) if name == "thermalgan" else ()
+        stuck = [k for k in terms if len({row[k] for row in log.rows}) != 3 and k not in coarse]
         missing = _family_terms(cfg) - set(terms)
         if len(log.rows) != 3 or state.step != 3 or stuck or missing:
             raise AssertionError(f"{name} train: {len(log.rows)} rows, step {state.step}, "
@@ -2492,6 +2522,283 @@ def phase_family_cli(device, args, card: str) -> None:
         _library_resume(device, args, card, tmp, "fft_patch_debiased_v4", batch=8, steps=3,
                         resume_at=1)
     print(f"family cli phase: {time.perf_counter() - t0:.1f} s [{card}]")
+
+
+# ---------------------------------------------- the baselines: ThermalGAN, CycleGAN
+THERMAL_TERMS = ("loss_G", "g_ge", "g_kl", "g_vae_gan", "g_pixel_bic", "g_latent", "g_gan_pix",
+                 "g_pixel_pix", "loss_D", "d_pix")
+BASELINES = {"thermalgan": THERMAL_TERMS, "thermalgan_bn": THERMAL_TERMS + ("d_vae",),
+             "cyclegan": ("loss_G", "g_adv", "g_cycle", "g_id", "loss_D", "d_A", "d_B")}
+BASELINE_RATES = (("thermalgan", 32), ("thermalgan", 128), ("thermalgan_bn", 32),
+                  ("cyclegan", 16))
+BASELINE_RATE_STEPS = 20
+# their float32 step on the card against the CPU: (L2, elementwise x max|g|), see main
+BASELINE_TOL = (3e-2, 0.3)
+BASELINE_CLI_BATCH = 8
+BASELINE_CLI_PAIRS = 16  # 2 steps an epoch
+
+
+def phase_baselines_train(device, args) -> dict[str, dict[str, int]]:
+    """3 bf16 steps at B=8, 256², of each baseline entry: every term finite
+    and taking 3 values, no kernel launched (read after each step). Returns
+    the launch counts by path."""
+    by_path = {}
+    for name, terms in BASELINES.items():
+        cfg = _cfg(name, "bfloat16")
+        log = _Rows()
+        trainer = Trainer(cfg, build_recipe(cfg, device), logger=log)
+        state = trainer.init_state(args.init_seed)
+        batches = [_device_batch(8, 100 + i, device) for i in range(3)]
+        reset_counts()
+        t0 = time.perf_counter()
+        trainer.fit(state, batches, num_steps=3, log_every=1, check_finite=True)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        for i, row in enumerate(log.rows, 1):
+            if row["counts"] != scaled({}, i):
+                raise AssertionError(f"{name} after step {i}: launches {row['counts']}, want none")
+        # the frozen pyramid's L1 is taken in the outputs' dtype, as in JAX: in
+        # bf16 (8 bits of mantissa) it may round to one value for 3 batches
+        coarse = ("g_vae_gan",) if name == "thermalgan" else ()
+        stuck = [k for k in terms if len({row[k] for row in log.rows}) != 3 and k not in coarse]
+        if len(log.rows) != 3 or state.step != 3 or stuck:
+            raise AssertionError(f"{name} train: {len(log.rows)} rows, step {state.step}, "
+                                 f"terms not moving {stuck}")
+        by_path[f"{name}_train"] = expect_counts(f"{name} train", {}, 3)
+        extra = ""
+        if state.extra is not None:
+            extra = ", replay buffers " + ", ".join(
+                f"{k} {int(v['count'])}" for k, v in state.extra.items())
+        frozen = "" if state.frozen is None else \
+            f", frozen D_vae {count_params(state.frozen):,}"
+        print(f"{name} train (G {count_params(state.G):,}, D {count_params(state.D):,}"
+              f"{frozen} parameters): 3 bf16 steps at B=8, {SIZE}² in {seconds:.2f} s (with "
+              f"set-up), {len(terms)} terms finite and moving, no kernel launched{extra}; step 3: "
+              + ", ".join(f"{k} {log.rows[-1][k]:.5g}" for k in terms))
+        del trainer, state
+        torch.cuda.empty_cache()
+    return by_path
+
+
+def _to(obj, device):
+    """``obj`` (a tensor, a dict or a dataclass of them, or None) on ``device``."""
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device)
+    if isinstance(obj, dict):
+        return {k: _to(v, device) for k, v in obj.items()}
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(obj, **{f.name: _to(getattr(obj, f.name), device)
+                                           for f in dataclasses.fields(obj)})
+    return obj
+
+
+def phase_baselines_compare(device, args) -> None:
+    """fp32, TF32 off: one step of ``thermalgan`` (detached D_vae, G2's
+    dropout on with the same keep-masks) and of ``cyclegan`` (both replay
+    buffers full, the same coins and slots) at B=2, 256², on the card and on
+    the CPU from the same weights, batch and draws. Loss terms rtol 1e-4;
+    every gradient within ``BASELINE_TOL``."""
+    l2_tol, elem_tol = BASELINE_TOL
+    for name in ("thermalgan", "cyclegan"):
+        t0 = time.perf_counter()
+        cfg = _cfg(name, "float32")
+        host = build_recipe(cfg, "cpu")
+        host.init(torch.Generator().manual_seed(args.init_seed))
+        card_recipe = build_recipe(cfg, device)
+        card_recipe.G.load_state_dict(host.G.state_dict())
+        card_recipe.D.load_state_dict(host.D.state_dict())
+        if getattr(host, "frozen", None) is not None:
+            card_recipe.frozen.load_state_dict(host.frozen.state_dict())
+        batch = {k: torch.as_tensor(v) for k, v in synthetic_batch(2, SIZE, seed=110).items()}
+        draws = host.draw(torch.Generator().manual_seed(args.init_seed), batch)
+        extra = None
+        if hasattr(host, "initial_extra"):
+            extra = host.initial_extra()
+            gen = torch.Generator().manual_seed(111)
+            for buf in extra.values():
+                buf["data"].copy_(torch.rand(buf["data"].shape, generator=gen) * 2 - 1)
+                buf["count"].fill_(buf["data"].shape[0])
+        reset_counts()
+        c_terms, c_grads = _step_terms_and_grads(card_recipe, _to(batch, device),
+                                                 _to(draws, device), _to(extra, device))
+        expect_counts(f"{name} fp32 step", {}, 1)
+        c_grads = {k: v.double().cpu() for k, v in c_grads.items()}
+        h_terms, h_grads = _step_terms_and_grads(host, batch, draws, extra)
+        h_grads = {k: v.double() for k, v in h_grads.items()}
+        for k, v in h_terms.items():
+            if abs(c_terms[k] - v) > 1e-4 * abs(v):
+                raise AssertionError(f"{name} fp32 {k}: card {c_terms[k]}, CPU {v}")
+        # a bias in front of an instance norm: zero in exact arithmetic
+        skip = [n for n, g in h_grads.items() if n.endswith(".bias") and
+                float(g.abs().max()) < 1e-4 * float(h_grads[n[:-4] + "weight"].abs().max())]
+        worst, worst_name = 0.0, ""
+        for n, g in h_grads.items():
+            if n in skip:
+                continue
+            diff = c_grads[n] - g
+            ratio = max(float(diff.norm()) / (l2_tol * float(g.norm()) + 1e-12),
+                        float(diff.abs().max()) / (elem_tol * float(g.abs().max()) + 1e-7))
+            if ratio > worst:
+                worst, worst_name = ratio, n
+        if worst > 1.0:
+            raise AssertionError(f"{name} fp32 gradient {worst_name}: {worst:.3g} x its bound")
+        rel = max(abs(c_terms[k] - v) / max(abs(v), 1e-30) for k, v in h_terms.items())
+        print(f"{name} train compare fp32 (B=2, {SIZE}², TF32 off), card vs CPU: "
+              f"{len(h_terms)} loss terms within rtol 1e-4 (max rel {rel:.3g}); "
+              f"{len(h_grads) - len(skip)} gradients within {l2_tol} of their L2 norm and "
+              f"{elem_tol} max|g|, worst {worst:.3g} of the bound ({worst_name}); no kernel "
+              f"launched; {time.perf_counter() - t0:.1f} s")
+        del host, card_recipe
+        torch.cuda.empty_cache()
+
+
+def phase_baselines_rate(device, args, card: str) -> None:
+    """Train-step img/s over ``BASELINE_RATE_STEPS`` steps after 3 warm-up
+    steps (CUDA events around every step: median, min, max), no kernel
+    launched, and the peak memory, for each of ``BASELINE_RATES``. A batch
+    that does not fit in the card's memory is reported as such."""
+    for name, bsz in BASELINE_RATES:
+        cfg = _cfg(name, "bfloat16")
+        trainer = Trainer(cfg, build_recipe(cfg, device))
+        state = trainer.init_state(args.init_seed)
+        batch = _device_batch(bsz, 120, device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(BASELINE_RATE_STEPS + 1)]
+        try:
+            for _ in range(3):
+                trainer.step(state, batch)
+            reset_counts()
+            events[0].record()
+            for i in range(BASELINE_RATE_STEPS):
+                metrics = trainer.step(state, batch)
+                events[i + 1].record()
+            events[-1].synchronize()
+        except torch.cuda.OutOfMemoryError:
+            print(f"{name} train step bf16 B={bsz} {SIZE}²: does not fit in the card's memory "
+                  f"(peak before the failure {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+                  f"GiB) [{card}]")
+            del trainer, state, batch
+            torch.cuda.empty_cache()
+            continue
+        expect_counts(f"{name} timed steps", {}, BASELINE_RATE_STEPS)
+        if not all(bool(torch.isfinite(v)) for v in metrics.values()):
+            raise AssertionError(f"{name} rate B={bsz}: a loss is not finite")
+        step_ms = sorted(a.elapsed_time(b) for a, b in zip(events, events[1:]))
+        total = events[0].elapsed_time(events[-1])
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"{name} train step bf16 B={bsz} {SIZE}²: "
+              f"{bsz * 1000 * BASELINE_RATE_STEPS / total:.1f} img/s over "
+              f"{BASELINE_RATE_STEPS} steps ({total / BASELINE_RATE_STEPS:.2f} ms a step; median "
+              f"{step_ms[len(step_ms) // 2]:.2f}, min {step_ms[0]:.2f}, max {step_ms[-1]:.2f} "
+              f"ms), no kernel launched, peak memory {peak:.2f} GiB [{card}]")
+        del trainer, state, batch, metrics
+        torch.cuda.empty_cache()
+
+
+def phase_baselines_serve(device, args, card: str) -> dict[str, dict[str, int]]:
+    """``Inferencer`` of both families at full width in bf16, B=8 and 32:
+    outputs finite, in [-1, 1], of the batch's shape, no kernel launched;
+    img/s; then ``cli test`` of each over 8 A|B PNG pairs (3-image stacks for
+    thermalgan, 4-image for cyclegan). Returns the launch counts by path."""
+    by_path = {}
+    builders = {"thermalgan": thermalgan_recipe.build_generators,
+                "cyclegan": cyclegan_recipe.build_generators}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        _write_pairs(data, seed=CLI_SEED + 40, count=8, size=SIZE)
+        for name, build in builders.items():
+            cfg = _cfg(name, "bfloat16")
+            inf = Inferencer(cfg, build(cfg, device, torch.Generator().manual_seed(args.init_seed)))
+            reset_counts()
+            for bsz in (8, 32):
+                batch = _device_batch(bsz, 130, device)
+                out = inf(batch)
+                for k, y in (out.items() if isinstance(out, dict) else [("fake_B", out)]):
+                    if y.shape != batch["A"].shape or not bool(torch.isfinite(y).all()) or \
+                            float(y.abs().max()) > 1.0:
+                        raise AssertionError(f"{name} serve B={bsz} {k}: shape {tuple(y.shape)}, "
+                                             "values not finite or outside [-1, 1]")
+                ms = cuda_ms(lambda: inf(batch), 10)
+                print(f"{name} serve bf16 B={bsz} {SIZE}² (Inferencer"
+                      f"{', both generators' if name == 'cyclegan' else ', G2(G1(A, T_B))'}): "
+                      f"{ms:.3f} ms = {bsz * 1000 / ms:.1f} img/s [{card}]")
+            out_dir = os.path.join(tmp, f"served_{name}")
+            cli.main(["test", "--experiment", name, "--init-seed", str(args.init_seed),
+                      "--data-root", data, "--image-size", str(SIZE), "--dtype", "bfloat16",
+                      "--device", "cuda", "--out-dir", out_dir])
+            stacks = sorted(f for f in os.listdir(out_dir) if f.endswith(".png"))
+            from PIL import Image
+
+            with Image.open(os.path.join(out_dir, stacks[0])) as im:
+                height = im.size[1]
+            images = 4 if name == "cyclegan" else 3
+            if len(stacks) != 8 or height != images * SIZE:
+                raise AssertionError(f"cli test {name}: {len(stacks)} stacks, {height} px high")
+            by_path[f"{name}_serve"] = expect_counts(f"{name} serve", {}, 1)
+            print(f"cli test {name}: 8 stacks of {images} images; no kernel launched")
+            del inf
+            torch.cuda.empty_cache()
+    return by_path
+
+
+def phase_baselines_cli(device, args, card: str) -> None:
+    """``cli train`` of cyclegan at full width, B=8, bf16, on 16 identical A|B
+    pairs (2 steps an epoch): 2 epochs straight, then ``--resume`` from the
+    first epoch's checkpoint for 1 epoch, both under ``cudnn.deterministic``;
+    the two final checkpoints' weights, replay buffers, Adam states and
+    generator state equal bit for bit, no kernel launched."""
+    t0 = time.perf_counter()
+    deterministic, benchmark = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            data = os.path.join(tmp, "data")
+            pair = synthetic_batch(batch_size=1, image_size=SIZE, seed=CLI_SEED + 50)
+            for i in range(BASELINE_CLI_PAIRS):
+                save_image_grid([pair["A"][0], pair["B"][0]],
+                                os.path.join(data, "train", f"{i:03d}.png"), axis=1)
+            common = ["--experiment", "cyclegan", "--data-root", data, "--image-size", str(SIZE),
+                      "--batch-size", str(BASELINE_CLI_BATCH), "--dtype", "bfloat16",
+                      "--device", "cuda", "--checkpoint-interval", "1"]
+            runs, resumed = os.path.join(tmp, "runs"), os.path.join(tmp, "resumed")
+            spe = BASELINE_CLI_PAIRS // BASELINE_CLI_BATCH
+            reset_counts()
+            cli.main(["train", *common, "--n-epochs", "2", "--out-dir", runs])
+            ckpts = sorted(d for d in os.listdir(runs) if d.startswith("step_"))
+            if ckpts != [f"step_{1 + spe:08d}", f"step_{1 + 2 * spe:08d}"]:
+                raise AssertionError(f"cli train cyclegan: checkpoints {ckpts}")
+            cli.main(["train", *common, "--n-epochs", "1", "--out-dir", resumed,
+                      "--resume", os.path.join(runs, ckpts[0])])
+            expect_counts("cli train cyclegan", {}, 1)
+            straight = torch.load(os.path.join(runs, ckpts[1], STATE_FILE), weights_only=True)
+            again = torch.load(os.path.join(resumed, ckpts[1], STATE_FILE), weights_only=True)
+            flat = {}
+            for label, ckpt in (("straight", straight), ("resumed", again)):
+                flat[label] = {
+                    **{f"G.{k}": v for k, v in ckpt["G"].items()},
+                    **{f"D.{k}": v for k, v in ckpt["D"].items()},
+                    **{f"extra.{b}.{k}": v for b, buf in ckpt["extra"].items()
+                       for k, v in buf.items()},
+                    **{f"opt_{o}.{i}.{k}": v for o in ("g", "d")
+                       for i, st in ckpt[f"opt_{o}"]["state"].items() for k, v in st.items()},
+                    "generator": ckpt["generator"]}
+            if not _bits_equal(flat["straight"], flat["resumed"]):
+                bad = [k for k in flat["straight"] if not torch.equal(
+                    torch.as_tensor(flat["straight"][k]), torch.as_tensor(flat["resumed"][k]))]
+                raise AssertionError(f"cli train cyclegan --resume differs from the straight "
+                                     f"run in {len(bad)} tensors, first {bad[:4]}")
+            counts_ = {b: int(buf["count"]) for b, buf in straight["extra"].items()}
+            rows = _log_rows(os.path.join(runs, "logs", "cyclegan.jsonl"))
+            print(f"cli train cyclegan bf16 B={BASELINE_CLI_BATCH} {SIZE}²: {1 + 2 * spe} "
+                  f"steps, checkpoints {ckpts}, {len(rows)} finite log records; --resume from "
+                  f"{ckpts[0]} to {ckpts[1]}: {len(flat['straight'])} tensors (weights, replay "
+                  f"buffers {counts_}, Adam states, generator) bit for bit against the straight "
+                  f"run; no kernel launched")
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            deterministic, benchmark
+    print(f"baseline cli leg: {time.perf_counter() - t0:.1f} s [{card}]")
 
 
 def main(argv=None) -> int:
@@ -2655,7 +2962,25 @@ def main(argv=None) -> int:
     phase_family_cli(device, args, card)
     torch.cuda.empty_cache()
 
-    # 17. result
+    # 17. the baselines: ThermalGAN (thermalgan, thermalgan_bn) and CycleGAN.
+    # No kernel lies on their paths. Their float32 step on the card is held to
+    # the same step on the CPU: on the CPU (tests/test_torch_thermalgan.py,
+    # tests/test_torch_cyclegan.py) the port's float32 gradients are 7e-4 to
+    # 1e-2 (L2) and up to 0.12 x max|g| (elementwise) from the JAX package's
+    # and from the port's own float64 ones, since the generators' (leaky) ReLU
+    # kinks behind instance norms over up to 128 x 128 x 64 values turn the
+    # convs' rounding differences into gradient differences; the card's cuDNN
+    # rounds otherwise again, so BASELINE_TOL is about three times that.
+    t0 = time.perf_counter()
+    by_path.update(phase_baselines_train(device, args))
+    phase_baselines_compare(device, args)
+    phase_baselines_rate(device, args, card)
+    by_path.update(phase_baselines_serve(device, args, card))
+    phase_baselines_cli(device, args, card)
+    torch.cuda.empty_cache()
+    print(f"baseline phase: {time.perf_counter() - t0:.1f} s [{card}]")
+
+    # 18. result
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(card)
     sources = {"blurpool": "tfcgan_tpu_torch/csrc/blurpool.cu",

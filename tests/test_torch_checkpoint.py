@@ -228,7 +228,7 @@ def test_jsonl_records_match_the_jax_logger(tmp_path, capsys):
 def test_profiling_hooks_on_the_cpu(tmp_path):
     recipe = _OneParameterRecipe()
     assert count_params(recipe.G) == 2 and device_memory_summary("cpu") == {}
-    timer = StepTimer(batch_size=4)
+    timer = StepTimer(batch_size=4, device="cpu")
     assert timer.tick() is None
     with trace(str(tmp_path)):
         recipe.g_loss({"A": torch.ones(2, 1)}, None)

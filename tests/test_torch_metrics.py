@@ -144,7 +144,7 @@ def test_crop_and_evaluate_dirs_match_jax(tmp_path):
     for f in sorted(stacks.iterdir()):
         suite.crop_stack(str(f), roles)
     csv_path = tmp_path / "m.csv"
-    got = suite.evaluate_dirs(roles[1], roles[2], str(csv_path))
+    got = suite.evaluate_dirs(roles[1], roles[2], str(csv_path), device="cpu")
     want = jax_suite.evaluate_dirs(roles[1], roles[2])
     assert got["file"] == list(want["file"]) == ["00000.png", "00001.png", "00002.png"]
     for k in want.columns[1:]:

@@ -32,6 +32,14 @@ tree of convs, norms and a Dense). ``regional_cnns_from_flax`` assembles the
 two regional CNNs of a V4-V7 train state from its ``frozen`` backbones and,
 for V4-V6, the heads in its ``g_params``.
 
+ThermalGAN (``thermalgan_generators_from_flax``: G1, E, G2, whose up blocks
+are transposed convs; ``thermalgan_discriminators_from_flax``: D_pix, D_vae,
+the pyramid's ``disc_i`` included) and CycleGAN
+(``cyclegan_generators_from_flax``, ``cyclegan_discriminators_from_flax``)
+are trees of convs, norms and Dense layers; ``train_state_from_flax`` also
+carries a state's ``frozen`` D_vae and its ``extra`` (the replay buffers and
+counts, ``extra_from_flax``).
+
 The bridge takes numpy-convertible leaves and never imports JAX.
 """
 
@@ -345,6 +353,55 @@ def diffusion_generators_from_flax(g_params: Mapping) -> dict[str, torch.Tensor]
     return state
 
 
+def cyclegan_generators_from_flax(g_params: Mapping) -> dict[str, torch.Tensor]:
+    """The cyclegan recipe's ``g_params`` {"G_AB", "G_BA"} (two ResNet
+    generators) -> state dict of ``recipe.G``."""
+    return _grouped(g_params)
+
+
+def cyclegan_discriminators_from_flax(d_params: Mapping, spectral: Mapping | None = None
+                                      ) -> dict[str, torch.Tensor]:
+    """The cyclegan recipe's ``d_params`` {"D_A", "D_B"} -> state dict of
+    ``recipe.D`` (no spectral norm)."""
+    return _grouped(d_params)
+
+
+def thermalgan_generators_from_flax(g_params: Mapping) -> dict[str, torch.Tensor]:
+    """The thermalgan recipe's ``g_params`` {"G1", "E", "G2"} (nested, or flat
+    with "/"-joined keys) -> state dict of ``recipe.G``. G2's up blocks are
+    transposed convs, (kh, kw, in, out) -> torch's (in, out, kh, kw); every
+    other leaf converts as a plain conv net (the Encoder's Dense kernels read
+    the NHWC flatten in both packages, so they only transpose)."""
+    flat = flatten_params(g_params)
+    transposed = {k: v for k, v in flat.items()
+                  if k.startswith("G2/up") and k.endswith("/conv/kernel")}
+    state = _grouped({k: v for k, v in flat.items() if k not in transposed})
+    state.update({k[:-len("kernel")].replace("/", ".") + "weight": _tensor(v, (2, 3, 0, 1))
+                  for k, v in transposed.items()})
+    return state
+
+
+def thermalgan_discriminators_from_flax(d_params: Mapping, spectral: Mapping | None = None
+                                        ) -> dict[str, torch.Tensor]:
+    """The thermalgan recipe's ``d_params`` {"D_pix"[, "D_vae"]} (or its
+    ``frozen`` {"D_vae"}) -> state dict of ``recipe.D`` (or ``recipe.frozen``)."""
+    return _grouped(d_params)
+
+
+def extra_from_flax(extra, device) -> dict | None:
+    """A JAX state's recipe-owned ``extra`` (nested dicts of arrays) -> the
+    same nesting of tensors on ``device``: float arrays as float32, integer
+    ones (the replay buffers' counts) as int64."""
+    if extra is None:
+        return None
+    if isinstance(extra, Mapping):
+        return {k: extra_from_flax(v, device) for k, v in extra.items()}
+    arr = np.asarray(extra)
+    if np.issubdtype(arr.dtype, np.integer):
+        return torch.tensor(arr, dtype=torch.int64, device=device)
+    return torch.from_numpy(np.array(arr, dtype=np.float32)).to(device)
+
+
 def _load_adam(opt: torch.optim.Adam, named: Mapping[str, torch.nn.Parameter], adam_state,
                to_state_dict) -> None:
     """optax ``ScaleByAdamState`` (count, mu, nu) -> the torch Adam's state;
@@ -359,9 +416,11 @@ def _load_adam(opt: torch.optim.Adam, named: Mapping[str, torch.nn.Parameter], a
 
 
 def train_state_from_flax(state, recipe, generator: torch.Generator):
-    """A JAX ``GANTrainState`` of the tfcgan (conditional or not), the stn,
-    the nemar or the diffusion recipe -> a port ``TrainState`` over
-    ``recipe``'s modules: weights, spectral u/v, LPIPS, the regional CNNs,
+    """A JAX ``GANTrainState`` of any recipe (the tfcgan, conditional or not,
+    stn, nemar, diffusion, cyclegan or thermalgan) -> a port ``TrainState``
+    over ``recipe``'s modules: weights, spectral u/v, LPIPS, the regional CNNs,
+    the frozen modules (ThermalGAN's detached D_vae), the recipe-owned
+    ``extra`` (CycleGAN's replay buffers and counts),
     the Adams' moments and counts (one Adam for the diffusion recipe, whose D
     side is empty; G's covers the V4-V6 regional heads), and the step (which
     fixes the schedule's learning rate). Draws come from ``generator``."""
@@ -374,6 +433,11 @@ def train_state_from_flax(state, recipe, generator: torch.Generator):
         g_from_flax, d_from_flax = stn_generators_from_flax, stn_discriminators_from_flax
     elif recipe.name == "nemar":
         g_from_flax, d_from_flax = nemar_generators_from_flax, nemar_discriminators_from_flax
+    elif recipe.name == "cyclegan":
+        g_from_flax, d_from_flax = cyclegan_generators_from_flax, cyclegan_discriminators_from_flax
+    elif recipe.name == "thermalgan":
+        g_from_flax = thermalgan_generators_from_flax
+        d_from_flax = thermalgan_discriminators_from_flax
     else:
         def g_from_flax(tree):
             return tfcgan_generator_from_flax(tree["G"])
@@ -393,13 +457,17 @@ def train_state_from_flax(state, recipe, generator: torch.Generator):
         recipe.lpips.load_state_dict(lpips_from_flax(state.frozen["lpips"]))
     if cnns is not None:
         cnns.load_state_dict(regional_cnns_from_flax(state.g_params, state.frozen))
+    frozen = getattr(recipe, "frozen", None)
+    if frozen is not None:  # ThermalGAN's detached D_vae
+        frozen.load_state_dict(thermalgan_discriminators_from_flax(state.frozen))
     step = int(np.asarray(state.step))
     opt_g, opt_d = make_optimizers(recipe.cfg, recipe, step)
     _load_adam(opt_g, g_parameters(recipe), state.g_opt_state[0], g_moments)
     if opt_d is not None:
         _load_adam(opt_d, dict(recipe.D.named_parameters()), state.d_opt_state[0], d_from_flax)
     return TrainState(step=step, generator=generator, G=recipe.G, D=recipe.D,
-                      lpips=recipe.lpips, opt_g=opt_g, opt_d=opt_d, cnns=cnns)
+                      lpips=recipe.lpips, opt_g=opt_g, opt_d=opt_d, cnns=cnns, frozen=frozen,
+                      extra=extra_from_flax(getattr(state, "extra", None), recipe.device))
 
 
 def load_generator_npz(path: str) -> dict[str, torch.Tensor]:
@@ -430,3 +498,17 @@ def load_diffusion_generators_npz(path: str) -> dict[str, torch.Tensor]:
     ``recipes.diffusion.build_generators``."""
     with np.load(path) as npz:
         return diffusion_generators_from_flax({k: npz[k] for k in npz.files})
+
+
+def load_cyclegan_generators_npz(path: str) -> dict[str, torch.Tensor]:
+    """The cyclegan recipe's ``g_params.npz`` (G_AB and G_BA, from
+    ``tools/export_g_params.py``) -> state dict of ``recipes.cyclegan.build_generators``."""
+    with np.load(path) as npz:
+        return cyclegan_generators_from_flax({k: npz[k] for k in npz.files})
+
+
+def load_thermalgan_generators_npz(path: str) -> dict[str, torch.Tensor]:
+    """The thermalgan recipe's ``g_params.npz`` (G1, E and G2, from
+    ``tools/export_g_params.py``) -> state dict of ``recipes.thermalgan.build_generators``."""
+    with np.load(path) as npz:
+        return thermalgan_generators_from_flax({k: npz[k] for k in npz.files})

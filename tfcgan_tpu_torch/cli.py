@@ -1,5 +1,6 @@
 """Command-line interface of the port: training, the serve and eval chain of
-the tfcgan, stn and nemar recipes, and the diffusion family's sampler:
+the GAN recipes (tfcgan, stn, nemar, cyclegan, thermalgan), and the diffusion
+family's sampler:
 
     python -m tfcgan_tpu_torch.cli train --experiment fft_glo --data-root DATA \
         --batch-size 32 --n-epochs 201 --out-dir runs/fft_glo
@@ -31,7 +32,12 @@ holds G1, G2 and the STN, for nemar T and R) or random ones (``--init-seed
 N``). The stn stacks are real_A | real_B | warped_B | fake_A1 | fake_A2 |
 fake_B (``prep-crop --roles real_A,real_B,warped_B,fake_A1,fake_A2,fake_B``),
 the nemar stacks real_A | real_B | registered_A | fake_B | fake_TR_B |
-fake_RT_B (``--roles real_A,real_B,reg_A,fake_B,fake_TR_B,fake_RT_B``).
+fake_RT_B (``--roles real_A,real_B,reg_A,fake_B,fake_TR_B,fake_RT_B``), the
+cyclegan stacks real_A | fake_B | real_B | fake_A (``--roles
+real_A,fake_B,real_B,fake_A``); thermalgan writes the tfcgan stacks, its
+fake_B G2(G1(A, T_B)). The cyclegan ``g_params.npz`` holds G_AB and G_BA, the
+thermalgan one G1, E and G2. Both families train on the paired A|B files, as
+in the JAX CLI.
 ``gen`` runs the on-device ancestral sampler of a diffusion experiment over
 the test set, batch 4 by default, and writes real_A | sample stacks.
 
@@ -96,12 +102,12 @@ def _cfg_from_args(args):
 def _serve_constructor(cfg):
     """The function that makes the recipe's serve-side modules: they have
     ``recipe.G``'s layout."""
-    from tfcgan_tpu_torch.recipes import diffusion, nemar, stn, tfcgan
+    from tfcgan_tpu_torch.recipes import cyclegan, diffusion, nemar, stn, tfcgan, thermalgan
 
     constructors = {"tfcgan": tfcgan.build_generator, "stn": stn.build_generators,
-                    "nemar": nemar.build_generators, "diffusion": diffusion.build_generators}
-    if cfg.recipe not in constructors:
-        raise SystemExit(f"recipe {cfg.recipe!r} has no serve path in the port yet")
+                    "nemar": nemar.build_generators, "diffusion": diffusion.build_generators,
+                    "cyclegan": cyclegan.build_generators,
+                    "thermalgan": thermalgan.build_generators}
     return constructors[cfg.recipe]
 
 
@@ -266,7 +272,9 @@ def _serve_weights(args, cfg, device) -> torch.nn.Module:
     elif args.params is not None:
         npz = {"tfcgan": bridge.load_generator_npz, "stn": bridge.load_stn_generators_npz,
                "nemar": bridge.load_nemar_generators_npz,
-               "diffusion": bridge.load_diffusion_generators_npz}[cfg.recipe]
+               "diffusion": bridge.load_diffusion_generators_npz,
+               "cyclegan": bridge.load_cyclegan_generators_npz,
+               "thermalgan": bridge.load_thermalgan_generators_npz}[cfg.recipe]
         module.load_state_dict(npz(args.params))
     return module
 

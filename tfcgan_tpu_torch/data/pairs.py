@@ -18,6 +18,9 @@ gets the label 0, as in the JAX loader, and so no ``LAB3``.
 
 Batches: {"A": (N,H,W,3) float32 in [-1,1], "B": same, "T_B": (N,H,W) float32
 Celsius[, "LAB": (N,) int32][, "LAB3": (N, 3) int32]}.
+
+``UnpairedImageDataset`` is CycleGAN's loader of two unaligned directories
+(the JAX CLI, like this one, trains every family on the paired files).
 """
 
 from __future__ import annotations
@@ -119,6 +122,43 @@ def batch_iterator(dataset, batch_size: int, shuffle: bool = True, seed: int = 4
             items = [dataset[int(j)] for j in order[i * batch_size:(i + 1) * batch_size]]
             yield {k: np.stack([it[k] for it in items]) for k in items[0]}
         epoch += 1
+
+
+class UnpairedImageDataset:
+    """CycleGAN's unpaired loader: ``root/{mode}A`` and ``root/{mode}B``
+    directories, each image bicubic-resized with PIL; with ``unaligned`` B
+    comes from a random index of a ``np.random.RandomState(seed)`` stream,
+    one draw an item, as in the JAX loader. Items {"A", "B": (H, W, 3)
+    float32 in [-1, 1], "T_B": (H, W) Celsius from B's red channel as a
+    float}."""
+
+    def __init__(self, root: str, mode: str = "train", image_size: int = 256,
+                 unaligned: bool = True, seed: int = 42):
+        self.files_a = sorted(glob.glob(os.path.join(root, f"{mode}A", "*.*")))
+        self.files_b = sorted(glob.glob(os.path.join(root, f"{mode}B", "*.*")))
+        if not self.files_a or not self.files_b:
+            raise FileNotFoundError(f"no images under {root}/{mode}A|B")
+        self.image_size = image_size
+        self.unaligned = unaligned
+        self.rng = np.random.RandomState(seed)
+
+    def __len__(self) -> int:
+        return len(self.files_a)
+
+    def _load(self, path: str) -> np.ndarray:
+        from PIL import Image
+
+        with Image.open(path) as f:
+            img = f.convert("RGB").resize((self.image_size, self.image_size),
+                                          Image.Resampling.BICUBIC)
+        return _normalize(np.asarray(img, np.uint8))
+
+    def __getitem__(self, idx: int) -> dict[str, np.ndarray]:
+        a = self._load(self.files_a[idx % len(self.files_a)])
+        j = self.rng.randint(0, len(self.files_b)) if self.unaligned else idx % len(self.files_b)
+        b = self._load(self.files_b[j])
+        t_b = TEMP_MIN_C + ((b[..., 0] * 0.5 + 0.5) * 255.0) * ((TEMP_MAX_C - TEMP_MIN_C) / 255.0)
+        return {"A": a, "B": b, "T_B": t_b.astype(np.float32)}
 
 
 def load_annotations_csv(path: str, file_col: int = 0, label_col: int = 2,

@@ -90,9 +90,11 @@ def _load_dir(d: str) -> tuple[list[str], np.ndarray]:
 
 
 def evaluate_dirs(fake_dir: str, real_dir: str, out_csv: str | None = None,
-                  device="cpu") -> dict[str, list]:
-    """Offline eval over two directories of PNGs, matched by sort order.
-    Returns {"file": [...], metric: [...]} and writes it as CSV if asked."""
+                  device="cuda") -> dict[str, list]:
+    """Offline eval over two directories of PNGs, matched by sort order, the
+    metrics computed on ``device`` (the card, unless the caller names
+    another). Returns {"file": [...], metric: [...]} and writes it as CSV if
+    asked."""
     files_f, fakes = _load_dir(fake_dir)
     files_r, reals = _load_dir(real_dir)
     if len(files_f) != len(files_r):

@@ -1,5 +1,6 @@
-"""Inference ("serve") path, port of ``tfcgan_tpu.infer`` for the tfcgan, stn
-and nemar recipes, and the diffusion family's sampling (the JAX CLI's ``gen``).
+"""Inference ("serve") path, port of ``tfcgan_tpu.infer`` for the tfcgan, stn,
+nemar, cyclegan and thermalgan recipes, and the diffusion family's sampling
+(the JAX CLI's ``gen``).
 
 ``Inferencer`` runs the eval-mode generator(s) on the device that holds their
 weights under ``torch.inference_mode``; ``run_test_set`` streams batches and
@@ -7,12 +8,16 @@ writes the reference-style stacked PNGs: real_A | fake_B | real_B vertically
 for tfcgan (and, with ``save_spectra``, the fake/real log-magnitude spectra
 side by side), real_A | real_B | warped_B | fake_A1 | fake_A2 | fake_B for
 stn, real_A | real_B | registered_A | fake_B | fake_TR_B | fake_RT_B for
-nemar. A debiased (conditional) experiment's G takes the batch's
+nemar, real_A | fake_B | real_B | fake_A for cyclegan (G_AB(A) and G_BA(B)),
+and the tfcgan stack for thermalgan, whose fake_B is G2(G1(A, T_B)) with
+T_B normalised along H for both variants (the JAX Inferencer does so for
+thermalgan_bn too, which trained on raw temperatures: mirrored, not fixed).
+A debiased (conditional) experiment's G takes the batch's
 ``LAB3`` labels as floats, the saliency-mask experiment's the image with its
 mask as a 4th channel; both write the tfcgan stacks. For a diffusion
 experiment a call samples x_0 over the whole ancestral chain and
-``run_test_set`` writes real_A | sample. The other recipes and the
-multi-device mesh are not ported yet.
+``run_test_set`` writes real_A | sample. The multi-device mesh is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -29,32 +34,39 @@ from tfcgan_tpu_torch.recipes.diffusion import diffusion_sample, schedule_of
 from tfcgan_tpu_torch.recipes.nemar import nemar_forward
 from tfcgan_tpu_torch.recipes.stn import stn_condition, stn_serve
 from tfcgan_tpu_torch.recipes.tfcgan import g_input
+from tfcgan_tpu_torch.recipes.thermalgan import thermalgan_serve
 
-# the generated images of a six-image stack, after real_A and real_B
-STACKS = {"stn": ("warped_B", "fake_A1", "fake_A2", "fake_B"),
-          "nemar": ("registered_A", "fake_B", "fake_TR_B", "fake_RT_B")}
+# the images of a stack, top to bottom: real_A and real_B from the batch, the
+# others from the forward's outputs
+STACKS = {"stn": ("real_A", "real_B", "warped_B", "fake_A1", "fake_A2", "fake_B"),
+          "nemar": ("real_A", "real_B", "registered_A", "fake_B", "fake_TR_B", "fake_RT_B"),
+          "cyclegan": ("real_A", "fake_B", "real_B", "fake_A")}
 
 
 class Inferencer:
     """Eval-mode generation on the device that holds the weights of
     ``generator``: the G of ``recipes.tfcgan.build_generator``, the
     {"G1", "G2", "STN"} modules of ``recipes.stn.build_generators``, the
-    {"T", "R"} modules of ``recipes.nemar.build_generators``, or the
+    {"T", "R"} modules of ``recipes.nemar.build_generators``, the {"G_AB",
+    "G_BA"} of ``recipes.cyclegan.build_generators``, the {"G1", "E", "G2"}
+    of ``recipes.thermalgan.build_generators``, or the
     ``DiffusionGenerators`` of ``recipes.diffusion.build_generators``."""
 
     def __init__(self, cfg: ExperimentConfig, generator: torch.nn.Module):
-        if cfg.recipe not in ("tfcgan", "stn", "nemar", "diffusion"):
-            raise NotImplementedError(f"no inference path for {cfg.name!r} in the port yet")
+        if cfg.recipe not in ("tfcgan", "stn", "nemar", "diffusion", "cyclegan", "thermalgan"):
+            raise ValueError(f"no inference path for recipe {cfg.recipe!r}")
         self.cfg = cfg
         self.generator = generator.eval()
         self.device = next(generator.parameters()).device
 
     def __call__(self, batch: dict, seed: int = 0) -> torch.Tensor | dict[str, torch.Tensor]:
-        """batch["A"] (and, for stn and nemar, batch["B"]; for a debiased
+        """batch["A"] (and, for stn, nemar and cyclegan, batch["B"]; for
+        thermalgan batch["T_B"], (N, H, W) Celsius; for a debiased
         experiment batch["LAB3"], (N, 3) integers): (N, H, W, 3) in
-        [-1, 1], numpy or tensor -> on the device, fake_B (tfcgan), {"fake_B",
-        "fake_A1", "warped_B", "fake_A2"} (stn), {"registered_A", "fake_B",
-        "fake_TR_B", "fake_RT_B"} (nemar) or, for a diffusion experiment, the
+        [-1, 1], numpy or tensor -> on the device, fake_B (tfcgan,
+        thermalgan), {"fake_B", "fake_A1", "warped_B", "fake_A2"} (stn),
+        {"registered_A", "fake_B", "fake_TR_B", "fake_RT_B"} (nemar),
+        {"fake_B", "fake_A"} (cyclegan) or, for a diffusion experiment, the
         float32 sample of the whole chain (its draws from ``seed``; class
         labels from batch["LAB"], 0 where the batch has none)."""
         a = torch.as_tensor(batch["A"]).to(self.device, torch.float32)
@@ -74,17 +86,24 @@ class Inferencer:
                 return self.generator(a, lab3)
             if self.cfg.recipe == "tfcgan":
                 return self.generator(g_input(self.cfg, a))
+            if self.cfg.recipe == "thermalgan":
+                t_b = torch.as_tensor(batch["T_B"]).to(self.device, torch.float32)
+                return thermalgan_serve(self.generator, a, t_b)
             b = torch.as_tensor(batch["B"]).to(self.device, torch.float32)
+            if self.cfg.recipe == "cyclegan":
+                return {"fake_B": self.generator["G_AB"](a), "fake_A": self.generator["G_BA"](b)}
             if self.cfg.recipe == "stn":
                 return stn_serve(self.generator, stn_condition(self.cfg), a, b)
             return nemar_forward(self.generator, a, b)[0]
 
-    def _run_six_image_test_set(self, batches, out_dir: str) -> int:
+    def _run_stack_test_set(self, batches, out_dir: str) -> int:
+        """One ``STACKS`` stack of the recipe per image."""
         n = 0
         for batch in batches:
             out = self(batch)
-            stacks = [np.asarray(batch["A"]), np.asarray(batch["B"]),
-                      *(out[k].float().cpu().numpy() for k in STACKS[self.cfg.recipe])]
+            real = {"real_A": batch["A"], "real_B": batch["B"]}
+            stacks = [np.asarray(real[k]) if k in real else out[k].float().cpu().numpy()
+                      for k in STACKS[self.cfg.recipe]]
             for i in range(stacks[0].shape[0]):
                 save_image_grid([s[i] for s in stacks], os.path.join(out_dir, f"{n:05d}.png"))
                 n += 1
@@ -105,13 +124,13 @@ class Inferencer:
 
     def run_test_set(self, batches, out_dir: str, save_spectra: bool = False,
                      seed: int = 0) -> int:
-        """Write one stack per image (and, for tfcgan, its spectra); returns
-        images written. ``seed`` is the diffusion sampler's."""
+        """Write one stack per image (and, for tfcgan and thermalgan, its
+        spectra); returns images written. ``seed`` is the diffusion sampler's."""
         os.makedirs(out_dir, exist_ok=True)
         if self.cfg.recipe == "diffusion":
             return self._run_sampling_test_set(batches, out_dir, seed)
         if self.cfg.recipe in STACKS:
-            return self._run_six_image_test_set(batches, out_dir)
+            return self._run_stack_test_set(batches, out_dir)
         n = 0
         for batch in batches:
             fake = self(batch).float()

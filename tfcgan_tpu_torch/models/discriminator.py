@@ -3,7 +3,10 @@ relativistic ``PatchDiscriminator``, the debiased family's
 ``AuxClassifierDiscriminator`` (the PatchDiscriminator plus softmax label
 heads) and NeMAR's ``NLayerDiscriminator`` (the
 70x70 PatchGAN: stride-2 convs with instance norm) and ``PixelDiscriminator``
-(a 1x1 conv stack), both on an already concatenated input.
+(a 1x1 conv stack), both on an already concatenated input; the
+``StridedPatchDiscriminator`` of ThermalGAN and CycleGAN (stride-2 convs with
+instance norm, a head per family) and ThermalGAN's three-scale
+``MultiDiscriminator`` with ``multiscale_loss``.
 
 ``PatchDiscriminator``:
 
@@ -25,6 +28,7 @@ from tfcgan_tpu_torch.models.layers import SpectralConv, TorchConv, draws_on, in
 from tfcgan_tpu_torch.models.vit import Dense, lecun_normal_
 from tfcgan_tpu_torch.ops.blurpool import blur_pool
 from tfcgan_tpu_torch.ops.norm import instance_norm
+from tfcgan_tpu_torch.ops.resize import avg_pool_2x
 
 WIDTHS = (64, 128, 256, 512)
 
@@ -160,3 +164,84 @@ class PixelDiscriminator(nn.Module):
         x = F.leaky_relu(self.conv0(x.to(self.dtype)), 0.2)
         x = F.leaky_relu(instance_norm(self.conv1(x)), 0.2)
         return self.final(x)
+
+
+class StridedPatchDiscriminator(nn.Module):
+    """x: (N, H, W, in_channels) -> logits (N, h, w, 1): 4 x (conv(k4, s2, p1)
+    with bias -> [instance norm, from the second block on] -> leaky_relu(0.2))
+    at widths 64-128-256-512, then the head conv ``final`` to one feature.
+    The head varies by family: ThermalGAN's pyramid discriminator (k3, p1,
+    bias), its ``VAEDiscriminator2`` (k4, p1, no bias), its pix2pix
+    ``DiscriminatorPix`` and CycleGAN's discriminator (k4, padding ((2, 1),
+    (2, 1)): the reference's ZeroPad2d((1, 0, 1, 0)) + conv(p1); no bias and
+    bias)."""
+
+    def __init__(self, in_channels: int = 3, head_kernel: int = 4,
+                 head_padding=((1, 1), (1, 1)), head_bias: bool = True,
+                 dtype: torch.dtype = torch.float32, device=None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.dtype = dtype
+        kw = dict(dtype=dtype, device=device)
+        cin = in_channels
+        for i, feats in enumerate(WIDTHS):
+            setattr(self, f"conv{i}", TorchConv(cin, feats, stride=2, **kw))
+            cin = feats
+        self.final = TorchConv(cin, 1, kernel_size=head_kernel, padding=head_padding,
+                               use_bias=head_bias, **kw)
+        self.reset_parameters(generator)
+
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        """Kernels normal(0, 0.02), biases zero, as the JAX ``TorchConv`` init."""
+        init_normal_(self, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.dtype)
+        for i in range(len(WIDTHS)):
+            x = getattr(self, f"conv{i}")(x)
+            if i > 0:
+                x = instance_norm(x)
+            x = F.leaky_relu(x, 0.2)
+        return self.final(x)
+
+
+class MultiDiscriminator(nn.Module):
+    """ThermalGAN's pyramid: ``num_scales`` discriminators (``disc_0`` ...,
+    each a ``StridedPatchDiscriminator`` with a k3 p1 biased head), the input
+    average-pooled 2x (``ops.resize.avg_pool_2x``) between them. Returns the
+    list of per-scale logit maps, scored by ``multiscale_loss``."""
+
+    def __init__(self, in_channels: int = 3, num_scales: int = 3,
+                 dtype: torch.dtype = torch.float32, device=None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.dtype, self.num_scales = dtype, num_scales
+        for i in range(num_scales):
+            setattr(self, f"disc_{i}", StridedPatchDiscriminator(
+                in_channels, head_kernel=3, head_padding=((1, 1), (1, 1)), dtype=dtype,
+                device=device, generator=generator))
+
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        for i in range(self.num_scales):
+            getattr(self, f"disc_{i}").reset_parameters(generator)
+
+    def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
+        outs = []
+        x = x.to(self.dtype)
+        for i in range(self.num_scales):
+            outs.append(getattr(self, f"disc_{i}")(x))
+            if i + 1 < self.num_scales:
+                x = avg_pool_2x(x)
+        return outs
+
+
+def multiscale_loss(outputs: list[torch.Tensor], target: float, loss: str = "l1"
+                    ) -> torch.Tensor:
+    """The mean over scales of each scale's mean L1 (``loss="l1"``, the
+    reference's in-forward loss) or squared error against ``target``, in
+    the outputs' dtype (no float32 cast, as in the JAX function)."""
+    if loss not in ("l1", "mse"):
+        raise ValueError(f"unknown multiscale loss {loss!r}")
+    terms = [((out - target).abs() if loss == "l1" else (out - target).square()).mean()
+             for out in outputs]
+    return torch.stack(terms).mean()

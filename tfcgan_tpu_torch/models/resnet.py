@@ -53,6 +53,28 @@ def _conv(cin: int, feats: int, k: int, stride: int, bias: bool, **kw) -> TorchC
                      use_bias=bias, **kw)
 
 
+@torch.no_grad()
+def flax_init_(module: nn.Module, generator: torch.Generator | None = None) -> None:
+    """Flax's init for every conv, Dense and GroupNorm in ``module``, drawn on
+    the CPU from ``generator``: lecun-normal conv and Dense kernels (a
+    truncated normal, +-2 sigma, rescaled to std sqrt(1 / fan_in)), zero
+    biases, norm scales one."""
+    if not draws_on():
+        return
+    for m in module.modules():
+        if isinstance(m, GroupNorm):
+            m.weight.fill_(1.0)
+        elif isinstance(m, (TorchConv, Dense)):
+            std = math.sqrt(1.0 / m.weight[0].numel()) / 0.87962566103423978
+            w = torch.empty(m.weight.shape)
+            nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=generator)
+            m.weight.copy_(w)
+        else:
+            continue
+        if m.bias is not None:
+            m.bias.zero_()
+
+
 class BasicBlock(nn.Module):
     """conv3x3(stride) -> [norm] -> relu -> conv3x3 -> [norm], plus the input
     (through a 1x1 conv(stride) -> [norm] where the shape changes), relu."""
@@ -105,25 +127,8 @@ class ResNet18(nn.Module):
         self.fc = Dense(cin, num_classes, **kw)
         self.reset_parameters(generator)
 
-    @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
-        """Flax's init, drawn on the CPU from ``generator``: lecun-normal conv
-        and Dense kernels (a truncated normal, +-2 sigma, rescaled to std
-        sqrt(1 / fan_in)), zero biases, norm scales one."""
-        if not draws_on():
-            return
-        for m in self.modules():
-            if isinstance(m, GroupNorm):
-                m.weight.fill_(1.0)
-            elif isinstance(m, (TorchConv, Dense)):
-                std = math.sqrt(1.0 / m.weight[0].numel()) / 0.87962566103423978
-                w = torch.empty(m.weight.shape)
-                nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=generator)
-                m.weight.copy_(w)
-            else:
-                continue
-            if m.bias is not None:
-                m.bias.zero_()
+        flax_init_(self, generator)
 
     def blocks(self) -> list[BasicBlock]:
         return [getattr(self, f"layer{i}_{b}") for i, (_, n, _) in enumerate(STAGES)

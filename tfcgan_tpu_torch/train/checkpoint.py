@@ -9,6 +9,10 @@ holding ``state.pt`` (``torch.save``) with the whole ``TrainState``:
   V4-V7 regional CNNs' (backbones and heads), or None (the JAX state's
   ``frozen`` tree, and the heads of its ``g_params``), so that a resume does
   not depend on the init seed;
+- ``frozen``: the recipe's other frozen modules (ThermalGAN's detached
+  stage-1 discriminator), or None;
+- ``extra``: the recipe-owned tensors (CycleGAN's replay buffers and their
+  counts), or None;
 - ``opt_g`` and ``opt_d``: the Adams' ``state_dict``s (``opt_d`` None without
   a discriminator; ``opt_g`` holds the V4-V6 heads' moments);
 - ``generator``: ``state.generator.get_state()``, of a CPU or a CUDA
@@ -43,6 +47,8 @@ def _state_dict(state: TrainState) -> dict:
     return {"step": int(state.step), "G": state.G.state_dict(), "D": state.D.state_dict(),
             "lpips": None if state.lpips is None else state.lpips.state_dict(),
             "cnns": None if state.cnns is None else state.cnns.state_dict(),
+            "frozen": None if state.frozen is None else state.frozen.state_dict(),
+            "extra": state.extra,
             "opt_g": state.opt_g.state_dict(),
             "opt_d": None if state.opt_d is None else state.opt_d.state_dict(),
             "generator": state.generator.get_state()}
@@ -85,12 +91,29 @@ def _load(path: str) -> dict:
     return torch.load(os.path.join(path, STATE_FILE), map_location="cpu", weights_only=True)
 
 
+def _copy_into(dst: dict, src: dict) -> None:
+    """Copy the tensors of ``src`` into those of ``dst`` (the same nesting of
+    dicts, the same shapes), in place on ``dst``'s device."""
+    if set(dst) != set(src):
+        raise ValueError(f"recipe state keys {sorted(dst)} != checkpoint's {sorted(src)}")
+    for k, v in dst.items():
+        if isinstance(v, dict):
+            _copy_into(v, src[k])
+        elif v.shape != src[k].shape:
+            raise ValueError(f"recipe state {k!r}: shape {tuple(v.shape)} != checkpoint's "
+                             f"{tuple(src[k].shape)}")
+        else:
+            v.copy_(src[k])
+
+
 def restore_checkpoint(path: str, state: TrainState) -> TrainState:
     """Fill the built ``state`` (its modules, Adams and generator, on the
     recipe's device) in place from the checkpoint directory ``path``; returns it."""
     ckpt = _load(path)
     if (ckpt["lpips"] is None) != (state.lpips is None) or \
             (ckpt.get("cnns") is None) != (state.cnns is None) or \
+            (ckpt.get("frozen") is None) != (state.frozen is None) or \
+            (ckpt.get("extra") is None) != (state.extra is None) or \
             (ckpt["opt_d"] is None) != (state.opt_d is None):
         raise ValueError(f"{path} holds the state of another recipe")
     state.G.load_state_dict(ckpt["G"])
@@ -99,6 +122,10 @@ def restore_checkpoint(path: str, state: TrainState) -> TrainState:
         state.lpips.load_state_dict(ckpt["lpips"])
     if state.cnns is not None:
         state.cnns.load_state_dict(ckpt["cnns"])
+    if state.frozen is not None:
+        state.frozen.load_state_dict(ckpt["frozen"])
+    if state.extra is not None:
+        _copy_into(state.extra, ckpt["extra"])
     state.opt_g.load_state_dict(ckpt["opt_g"])
     if state.opt_d is not None:
         state.opt_d.load_state_dict(ckpt["opt_d"])

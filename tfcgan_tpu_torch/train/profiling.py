@@ -31,9 +31,10 @@ def trace(log_dir: str):
 
 class StepTimer:
     """Images/s since the first ``tick``; each tick waits for the card when
-    ``device`` is a CUDA device."""
+    ``device`` is a CUDA device (the default: pass ``device="cpu"`` to time
+    host work)."""
 
-    def __init__(self, batch_size: int, device="cpu"):
+    def __init__(self, batch_size: int, device="cuda"):
         self.batch_size = batch_size
         self.device = torch.device(device)
         self._t0 = None

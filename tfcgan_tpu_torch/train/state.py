@@ -3,8 +3,12 @@
 A plain dataclass: the step count, the ``torch.Generator`` the step's draws
 come from, the recipe's modules (their float32 parameters and the spectral
 u/v buffers; the frozen LPIPS and, for the debiased V4-V7, the regional
-CNNs, ``cnns``) and the two Adams (``opt_d`` is None for a recipe without a
-discriminator: ``D`` has no parameters, as in the TFC-Diff family). G's Adam
+CNNs, ``cnns``; ``frozen``, any other frozen module of the recipe, as
+ThermalGAN's detached stage-1 discriminator), ``extra``, the recipe-owned
+state on the device (CycleGAN's replay buffers and their counts, the JAX
+state's ``extra``: ``recipe.initial_extra()``), and the two Adams (``opt_d``
+is None for a recipe without a discriminator: ``D`` has no parameters, as in
+the TFC-Diff family). G's Adam
 steps G and whatever loss-network parameters train with it (the V4-V6
 regional classifier heads: ``g_parameters``).
 ``torch.optim.Adam(lr, betas=(b1, b2), eps=1e-8)`` computes optax's ``adam``
@@ -40,6 +44,8 @@ class TrainState:
     opt_g: torch.optim.Adam
     opt_d: torch.optim.Adam | None
     cnns: nn.Module | None = None
+    frozen: nn.Module | None = None
+    extra: dict | None = None
 
 
 SCHEDULES = ("constant", "linear_decay", "step", "cosine", "plateau")
@@ -132,11 +138,12 @@ def make_optimizers(cfg: ExperimentConfig, recipe, step: int = 0
 def create_state(cfg: ExperimentConfig, recipe, seed: int, draw: bool = True) -> TrainState:
     """Weights drawn on the CPU from ``seed`` (the same on every device), step
     draws from a generator on the recipe's device seeded with ``seed``, fresh
-    Adams. ``draw=False`` leaves the weights as they are, for a checkpoint
-    about to overwrite them."""
+    Adams and the recipe's initial ``extra``. ``draw=False`` leaves the
+    weights as they are, for a checkpoint about to overwrite them."""
     if draw:
         recipe.init(torch.Generator().manual_seed(seed))
     opt_g, opt_d = make_optimizers(cfg, recipe)
     return TrainState(step=0, generator=torch.Generator(recipe.device).manual_seed(seed),
                       G=recipe.G, D=recipe.D, lpips=recipe.lpips, opt_g=opt_g, opt_d=opt_d,
-                      cnns=getattr(recipe, "cnns", None))
+                      cnns=getattr(recipe, "cnns", None), frozen=getattr(recipe, "frozen", None),
+                      extra=recipe.initial_extra() if hasattr(recipe, "initial_extra") else None)

@@ -8,7 +8,10 @@ spectral power iteration over every discriminator head of ``recipe.D``
 default), the G phase (G forward, D(fake), D(real), G loss) with gradients to
 G's parameters only (for the STN family: G1, G2 and the STN), D frozen for the
 phase; the G Adam step; the D phase on the detached fake of the same G
-forward, against the pre-update D; the D Adam step.
+forward, against the pre-update D; the D Adam step. A recipe with a
+``pre_d(extra, aux, draws)`` hook (CycleGAN's replay buffers) gets it between
+the two phases, where the JAX step calls it, in either order: it returns the
+new recipe-owned state, kept in ``state.extra``, and the D phase's ``aux``.
 
 A recipe with ``update_order = "d_first"`` (NeMAR) gets the reference's other
 interleaving: the generator side's forward once, with its graph; the D phase
@@ -64,6 +67,13 @@ def make_train_step(cfg: ExperimentConfig, recipe) -> Callable:
     if per_forward and order == "d_first":
         raise ValueError("spectral_cadence='per_forward' requires g_first order")
     scheduled = cfg.optim.schedule != "plateau"  # plateau: the lr is set between epochs
+    pre_d = getattr(recipe, "pre_d", None)
+
+    def before_d(state: TrainState, aux: dict, draws) -> dict:
+        if pre_d is None:
+            return aux
+        state.extra, aux = pre_d(state.extra, aux, draws)
+        return aux
 
     def d_phase(state: TrainState, batch: dict, aux: dict) -> dict:
         loss_d, d_metrics = recipe.d_loss(batch, aux)
@@ -89,11 +99,11 @@ def make_train_step(cfg: ExperimentConfig, recipe) -> Callable:
             spectral_power_iteration(recipe.D, order="vu")
         if order == "d_first":
             forward = recipe.forward(batch, draws)
-            d_metrics = d_phase(state, batch, recipe.d_aux(forward))
+            d_metrics = d_phase(state, batch, before_d(state, recipe.d_aux(forward), draws))
             _, g_metrics = g_phase(state, batch, draws, forward)
         else:
             aux, g_metrics = g_phase(state, batch, draws)
-            d_metrics = d_phase(state, batch, aux)
+            d_metrics = d_phase(state, batch, before_d(state, aux, draws))
         state.step += 1
         return {k: v.detach() for k, v in {**g_metrics, **d_metrics}.items()}
 

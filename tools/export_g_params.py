@@ -14,7 +14,9 @@ holds the whole generator side, "G1/...", "G2/..." and "STN/..."; for
 ``--experiment nemar`` the translator and the registration net, "T/..." and
 "R/..."; for a diffusion experiment (``tfc_diff``, ``tfc_diff_label``,
 ``tfc_diff_hybrid``) the denoiser "unet/..." and, where the variant has them,
-"class_emb" and "G/...".
+"class_emb" and "G/..."; for ``--experiment cyclegan`` both generators,
+"G_AB/..." and "G_BA/..."; for a thermalgan experiment (``thermalgan``,
+``thermalgan_bn``) both stages and the encoder, "G1/...", "E/..." and "G2/...".
 """
 
 from __future__ import annotations
@@ -63,7 +65,7 @@ def restore_g_params(experiment: str, checkpoint: str) -> Mapping:
     template = trainer.init_state(jax.random.PRNGKey(0), first)
     state = restore_checkpoint(checkpoint, jax.device_get(template))
     g_params = jax.device_get(state.g_params)
-    return g_params if cfg.recipe in ("stn", "nemar", "diffusion") else g_params["G"]
+    return g_params if cfg.recipe != "tfcgan" else g_params["G"]
 
 
 def main(argv=None):

@@ -3,6 +3,7 @@
     python tools/profile_torch_step.py --experiment stn_newmodel3 --batch 32
     python tools/profile_torch_step.py --experiment nemar --batch 32
     python tools/profile_torch_step.py --experiment tfc_diff --batch 32
+    python tools/profile_torch_step.py --experiment cyclegan --batch 16
 
 Runs ``--warmup`` steps, then ``--steps`` steps of the full-width bf16 recipe
 at its config's image size (256², 128² for the tfc_diff family) under
