@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's fft_glo, stn_newmodel3, nemar and tfc_diff serve paths
 and train steps, the rest of the TFC-GAN-FFT family (the debiased chain,
-mask, regional FFT, favtgan temperature forms), and the two baseline families
-(ThermalGAN in both registry entries, CycleGAN), on one CUDA card.
+mask, regional FFT, favtgan temperature forms), the two baseline families
+(ThermalGAN in both registry entries, CycleGAN), and the data and evaluation
+chain, on one CUDA card.
 
     python3 chip_smoke.py [--params g_params.npz] [--init-seed 0]
 
 Phases, one line or more each; any failure raises and exits non-zero:
 
 1. environment: torch/CUDA versions, the card, its power limit; TF32 off.
-2. build: nvcc builds ``tfcgan_tpu_torch/csrc/blurpool.cu`` (blur-pool forward
+2. build: g++ builds ``tfcgan_tpu_torch/csrc/fastpair.cpp`` (the pair
+   decoder) and nvcc ``csrc/blurpool.cu`` (blur-pool forward
    and backward), ``csrc/resample.cu`` (1-D affine resampling: forward,
    adjoint, position gradient) and ``csrc/gridsample.cu`` (dense bilinear
    grid_sample, forward and backward) and ``csrc/flashattn.cu`` (flash
@@ -225,8 +227,34 @@ Phases, one line or more each; any failure raises and exits non-zero:
    the order), 2 epochs, and ``--resume`` from the first epoch's checkpoint:
    weights, replay buffers and Adam states of the two final checkpoints equal
    bit for bit, under ``cudnn.deterministic``.
-18. the card's ``nvidia-smi`` line, one JSON line for the kernels, and last
-   ``{"ok": true, "device": {...}}``.
+18. the result, printed after 19: the card's ``nvidia-smi`` line, one JSON
+   line for the kernels, and last ``{"ok": true, "device": {...}}``.
+19. the data and evaluation chain at 256², bf16, on 64 synthetic A|B PNG
+   pairs, 32 of 320x640 (resized) and 32 of 256x512: (a) the native decoder:
+   ``process_pair_batch`` with 8 threads = ``process_pair`` bit for bit, the
+   default ``PairedImageDataset``'s batches = the ``DevicePool``'s and the
+   uint8 stream's bit for bit (phase 6b's check on the native path), decode
+   images/s native (a dataset item, and the resize stage alone at 1 and 8
+   threads) against PIL on the card machine's host; (b) ``cli train fft_glo
+   --hist-every 4`` at batch 32, 4 epochs of 2 steps after step 0: records
+   at each epoch's first step (2, 4, 6, 8; the JAX CLI's rule), weights and
+   grads of every parameter of G (29,238,275) and D (2,767,808), each
+   tensor's counts summing to its size, every stat finite, ``hists.html``
+   written, 27 + 23 blur-pool launches asserted after every step, the median
+   ms of a histogram step against a plain one (path ``hist_train``); (c)
+   ``make_registered_dataset`` through the full-width stn_newmodel3
+   ``Inferencer`` (the dtheta head random, as in phase 9), batch 32: 64 PNGs,
+   33 blur-pool and 2 resampling forward launches a batch (path
+   ``registered_set``), images/s with the PNG writes; (d) ``eval-reg --device
+   cuda`` over (c)'s real_A / real_B / reg_B: 6 finite columns, and
+   ``registration_metrics`` on the card = on the CPU within ``REG_TOL``
+   (float32 reductions in another order; the bins are equal: the luma is
+   divided by a tensor); (e) ``eval --iqa niqe`` over 32 pairs: columns and
+   seconds an image; (f) ``prep-combine``, ``prep-crop``, ``prep-morphs``
+   (the card's PNGs = the CPU's bit for bit), ``gallery``, and ``mesh``,
+   which must refuse with the mediapipe message; (g) ``test_time_augment``
+   with erasing at (32, 256, 256, 3): the card = the CPU bit for bit for the
+   same draws.
 
 In the kernels' JSON, ``launches`` is the count of the kernel's main path, the
 last train path driven that runs it (``main_path``: phase 10's three steps for
@@ -272,6 +300,7 @@ import csv
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -286,7 +315,16 @@ from tfcgan_tpu_torch import cli
 from tfcgan_tpu_torch.bridge import load_generator_npz
 from tfcgan_tpu_torch.config import get_experiment
 from tfcgan_tpu_torch.data.synth import synthetic_batch
-from tfcgan_tpu_torch.evaluation.suite import pair_metrics, save_image_grid
+from tfcgan_tpu_torch.data import native
+from tfcgan_tpu_torch.data.augment import draw_test_time_augment, test_time_augment
+from tfcgan_tpu_torch.data.pairs import _to_u8
+from tfcgan_tpu_torch.data.pool import DevicePool
+from tfcgan_tpu_torch.data.prefetch import PrefetchLoader, device_prefetch
+from tfcgan_tpu_torch.data.prep import make_registered_dataset
+from tfcgan_tpu_torch.evaluation.suite import (_load_dir, _read_rgb, pair_metrics,
+                                               registration_metrics, save_image_grid, to_uint8,
+                                               write_png)
+from tfcgan_tpu_torch.train import histograms
 from tfcgan_tpu_torch.infer import Inferencer
 from tfcgan_tpu_torch.models import diffusion as diffusion_models
 from tfcgan_tpu_torch.models import discriminator, layers
@@ -2801,6 +2839,333 @@ def phase_baselines_cli(device, args, card: str) -> None:
     print(f"baseline cli leg: {time.perf_counter() - t0:.1f} s [{card}]")
 
 
+# ------------------------------------------------- the data and evaluation chain
+DATA_FILES = ((320, 32), (SIZE, 32))  # A|B files (side, count): resized, and not
+DATA_BATCH = 32
+HIST_EPOCHS, HIST_EVERY = 4, 4  # 2 steps an epoch: each epoch's first step is logged
+G_PARAMS, D_PARAMS = 29_238_275, 2_767_808  # fft_glo's G and D (phase 6b prints them)
+IQA_PAIRS = 32
+REG_TOL = (1e-4, 1e-5)  # registration_metrics, card against the CPU: rtol, atol
+
+
+def _noisy_pairs(root: str, side: int, count: int, seed: int, offset: int) -> None:
+    """``count`` synthetic A|B PNG pairs of ``side``² halves with noise (so
+    that a resize has work to do), named from ``offset``."""
+    pairs = synthetic_batch(batch_size=count, image_size=side, seed=seed)
+    noise = np.random.RandomState(seed).uniform(-0.3, 0.3, pairs["A"].shape).astype(np.float32)
+    os.makedirs(root, exist_ok=True)
+    for i in range(count):
+        a = np.clip(pairs["A"][i] + noise[i], -1, 1)
+        b = np.clip(pairs["B"][i] - noise[i], -1, 1)
+        write_png(os.path.join(root, f"{offset + i:03d}.png"),
+                  np.concatenate([to_uint8(a), to_uint8(b)], axis=1))
+
+
+def _decode_rates(root: str, stack: np.ndarray, card: str) -> None:
+    """a's decode rates on the card machine's host: a dataset item (PNG read,
+    split, resize, normalise, temperature) through the native decoder and
+    through PIL, one thread; and the decoder's split-resize-normalise stage
+    alone on ``stack``, the decoded 320x640 files, 1 and 8 threads."""
+    rates = {}
+    for label, use_native in (("native", True), ("PIL", False)):
+        ds = PairedImageDataset(root, "train", SIZE, use_native=use_native)
+        ds[0]
+        t0 = time.perf_counter()
+        for i in range(len(ds)):
+            ds[i]
+        rates[label] = len(ds) / (time.perf_counter() - t0)
+    stage = {}
+    for threads in (1, 8):
+        native.process_pair_batch(stack[:2], SIZE, threads=threads)
+        t0 = time.perf_counter()
+        native.process_pair_batch(stack, SIZE, threads=threads)
+        stage[threads] = len(stack) / (time.perf_counter() - t0)
+    print(f"decode on the card machine's host ({os.cpu_count()} cores): dataset items "
+          f"(PNG read + split + resize + normalise + temperature, one thread, {len(ds)} "
+          f"files, half resized from {DATA_FILES[0][0]}²) native {rates['native']:.1f} img/s, "
+          f"PIL {rates['PIL']:.1f} img/s; the decoder's split-resize-normalise stage alone on "
+          f"{len(stack)} {DATA_FILES[0][0]}x{2 * DATA_FILES[0][0]} images: 1 thread "
+          f"{stage[1]:.1f} img/s, 8 threads {stage[8]:.1f} img/s [{card}]")
+
+
+def _native_decoder(device, data: str, card: str) -> None:
+    """a. The native decoder: the batch call equals the single one, and the
+    default dataset's batches equal the device pool's and the uint8 stream's."""
+    files = sorted(os.path.join(data, "train", f) for f in os.listdir(os.path.join(data, "train")))
+    big = np.stack([_read_rgb(f) for f in files[:DATA_FILES[0][1]]])
+    batched = native.process_pair_batch(big, SIZE, threads=8)
+    for i in range(len(big)):
+        for got, want in zip(batched, native.process_pair(big[i], SIZE)):
+            if got[i].tobytes() != want.tobytes():
+                raise AssertionError(f"process_pair_batch differs from process_pair at {i}")
+    ds = PairedImageDataset(data, "train", SIZE)
+    if ds._native is None:
+        raise AssertionError("the default dataset does not decode natively")
+    want = list(batch_iterator(ds, DATA_BATCH, seed=42, epochs=1))
+    pool = DevicePool(ds, device)
+    for idx, w in zip(pool.index_batches(DATA_BATCH, seed=42, epochs=1), want, strict=True):
+        if not _bits_equal(pool.batch(idx), w):
+            raise AssertionError("a device pool batch differs from the native dataset's")
+    loader = PrefetchLoader(ds, DATA_BATCH, num_workers=4, seed=42, epochs=1, raw=True)
+    for got, w in zip(device_prefetch(iter(loader), device, via_uint8=True), want, strict=True):
+        if not _bits_equal(got, w):
+            raise AssertionError("a uint8-stream batch differs from the native dataset's")
+    print(f"native decoder: process_pair_batch (8 threads) = process_pair bit for bit on "
+          f"{len(big)} {big.shape[1]}x{big.shape[2]} files; the default dataset's "
+          f"{len(want)} batches of {DATA_BATCH} = the device pool's and the uint8 stream's "
+          f"bit for bit ({len(files)} files, {DATA_FILES[0][1]} resized)")
+    _decode_rates(data, big, card)
+
+
+def _hist_train(device, data: str, out: str, card: str) -> dict[str, int]:
+    """b. cli train fft_glo --hist-every: the records, the page, the launches
+    after every step, and a histogram step's time against a plain one's."""
+    steps = 1 + HIST_EPOCHS * (sum(n for _, n in DATA_FILES) // DATA_BATCH)
+    times, states = [], []
+    step, write = Trainer.step, histograms.HistogramLogger.write
+
+    def timed_step(trainer, state, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = step(trainer, state, batch)
+        torch.cuda.synchronize()
+        times.append([t0, time.perf_counter(), None])
+        states[:] = [state]
+        expect_counts(f"cli train --hist-every, step {len(times)}", FFT_GLO_STEP, len(times))
+        return metrics
+
+    def timed_write(logger, *a, **kw):
+        write(logger, *a, **kw)  # reads the histograms: the card synchronises
+        times[-1][2] = time.perf_counter()
+
+    reset_counts()
+    with mock.patch.object(Trainer, "step", timed_step), \
+            mock.patch.object(histograms.HistogramLogger, "write", timed_write):
+        cli.main(["train", "--experiment", "fft_glo", "--data-root", data, "--image-size",
+                  str(SIZE), "--batch-size", str(DATA_BATCH), "--dtype", "bfloat16",
+                  "--device", "cuda", "--n-epochs", str(HIST_EPOCHS), "--hist-every",
+                  str(HIST_EVERY), "--checkpoint-interval", str(10 * HIST_EPOCHS),
+                  "--sample-interval", str(10 * steps), "--out-dir", out])
+    run = expect_counts("cli train --hist-every", FFT_GLO_STEP, steps)
+    sizes = {f"{m}/{k}": p.numel() for m, module in (("G", states[0].G), ("D", states[0].D))
+             for k, p in module.named_parameters()}
+    with open(os.path.join(out, "hists.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    spe = (steps - 1) // HIST_EPOCHS
+    logged = [2 + spe * e for e in range(HIST_EPOCHS)]  # each epoch's first step
+    if [(r["step"], r["kind"]) for r in records] != [(n, k) for n in logged
+                                                     for k in ("weights", "grads")]:
+        raise AssertionError(f"hists.jsonl records {[(r['step'], r['kind']) for r in records]}")
+    for r in records:
+        leaves = r["leaves"]
+        if {k: sum(v["counts"]) for k, v in leaves.items()} != sizes:
+            raise AssertionError(f"step {r['step']} {r['kind']}: a leaf's counts do not sum "
+                                 "to its size, or a parameter is missing")
+        for m, want in (("G", G_PARAMS), ("D", D_PARAMS)):
+            if sum(sum(v["counts"]) for k, v in leaves.items() if k.startswith(m + "/")) != want:
+                raise AssertionError(f"step {r['step']} {r['kind']}: {m} is not {want:,}")
+        if not all(np.isfinite(v[s]) for v in leaves.values()
+                   for s in ("lo", "hi", "mean", "std", "l2")):
+            raise AssertionError(f"step {r['step']} {r['kind']}: a stat is not finite")
+    if not os.path.getsize(os.path.join(out, "hists.html")):
+        raise AssertionError("hists.html is empty")
+    hist_ms = [(t[2] - t[0]) * 1e3 for t in times if t[2] is not None]
+    plain_ms = [(t[1] - t[0]) * 1e3 for i, t in enumerate(times) if t[2] is None and i > 0]
+    print(f"cli train fft_glo --hist-every {HIST_EVERY} bf16 B={DATA_BATCH} {SIZE}²: {steps} "
+          f"steps, records at steps {logged} (weights and grads of G {G_PARAMS:,} and D "
+          f"{D_PARAMS:,} parameters, {len(sizes)} tensors, every count summing to its "
+          f"tensor's size, every stat finite), hists.html written; {FFT_GLO_STEP} blur-pool "
+          f"launches after every step; median step {np.median(plain_ms):.2f} ms plain, "
+          f"{np.median(hist_ms):.2f} ms with its histograms written [{card}]")
+    return run
+
+
+def _registered_set(device, args, data: str, tmp: str, card: str) -> tuple[dict, str]:
+    """c. make_registered_dataset through the full-width stn Inferencer."""
+    cfg = _cfg("stn_newmodel3", "bfloat16")
+    nets = build_generators(cfg, device, torch.Generator().manual_seed(args.init_seed))
+    _random_dtheta_head(nets["STN"], args.init_seed)
+    ds = PairedImageDataset(data, "train", SIZE)
+    batches = list(batch_iterator(ds, DATA_BATCH, shuffle=False, epochs=1))
+    out = os.path.join(tmp, "registered")
+    inf = Inferencer(cfg, nets)
+    inf({k: v[:2] for k, v in batches[0].items()})  # warm-up, not counted
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    written = make_registered_dataset(inf, batches, out)
+    seconds = time.perf_counter() - t0
+    run = expect_counts("make_registered_dataset", STN_SERVE_BATCH, len(batches))
+    pngs = sorted(f for f in os.listdir(out) if f.endswith(".png"))
+    if written != len(ds) or pngs != [f"{i:05d}.png" for i in range(len(ds))]:
+        raise AssertionError(f"make_registered_dataset wrote {written}: {pngs[:3]}...")
+    # the eval dirs: real_A and reg_B from the registered pairs, real_B from the set
+    for role in ("real_A", "real_B", "reg_B"):
+        os.makedirs(os.path.join(tmp, role))
+    n = 0
+    for batch in batches:
+        for b in batch["B"]:
+            pair = _read_rgb(os.path.join(out, f"{n:05d}.png"))
+            write_png(os.path.join(tmp, "real_A", f"{n:05d}.png"), np.array(pair[:, :SIZE]))
+            write_png(os.path.join(tmp, "reg_B", f"{n:05d}.png"), np.array(pair[:, SIZE:]))
+            write_png(os.path.join(tmp, "real_B", f"{n:05d}.png"), _to_u8(b))
+            n += 1
+    print(f"make_registered_dataset (stn_newmodel3, full width, bf16, dtheta head random): "
+          f"{written} A|warped_B PNGs from {len(batches)} batches of {DATA_BATCH} in "
+          f"{seconds:.2f} s, {written / seconds:.1f} img/s with the PNG writes; launches a "
+          f"batch {STN_SERVE_BATCH} [{card}]")
+    return run, out
+
+
+def _eval_chain(device, tmp: str, card: str) -> None:
+    """d. eval-reg on the card, and registration_metrics card against CPU;
+    e. eval --iqa niqe."""
+    dirs = [os.path.join(tmp, r) for r in ("real_A", "real_B", "reg_B")]
+    csv_path = os.path.join(tmp, "reg.csv")
+    t0 = time.perf_counter()
+    cli.main(["eval-reg", "--real-a-dir", dirs[0], "--real-b-dir", dirs[1], "--reg-b-dir",
+              dirs[2], "--out-csv", csv_path, "--device", "cuda"])
+    reg_s = time.perf_counter() - t0
+    with open(csv_path, newline="") as f:
+        rows = list(csv.reader(f))
+    values = np.array([r[1:] for r in rows[1:]], np.float64)
+    if rows[0] != ["file", "ssim_before", "ssim_after", "ncc_before", "ncc_after", "mi_before",
+                   "mi_after"] or values.shape != (len(os.listdir(dirs[0])), 6) \
+            or not np.isfinite(values).all():
+        raise AssertionError(f"eval-reg: header {rows[0]}, values {values.shape}, finite "
+                             f"{np.isfinite(values).all()}")
+    arrays = [torch.from_numpy(_load_dir(d)[1] / 127.5 - 1.0) for d in dirs]
+    on_card = registration_metrics(*(x.to(device) for x in arrays))
+    on_cpu = registration_metrics(*arrays)
+    errs = {}
+    for k in on_cpu:
+        got, want = on_card[k].cpu(), on_cpu[k]
+        errs[k] = float((got - want).abs().max())
+        if not torch.allclose(got, want, rtol=REG_TOL[0], atol=REG_TOL[1]):
+            raise AssertionError(f"registration_metrics {k}: card vs CPU max abs err {errs[k]}")
+    print(f"eval-reg --device cuda over {values.shape[0]} real_A/real_B/reg_B images in "
+          f"{reg_s:.2f} s: 6 finite columns, means "
+          + ", ".join(f"{k} {v:.4f}" for k, v in zip(rows[0][1:], values.mean(0)))
+          + f"; registration_metrics on the card vs the CPU (float32) max abs err "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+          + f" (rtol {REG_TOL[0]}, atol {REG_TOL[1]}) [{card}]")
+
+    fake, real = (os.path.join(tmp, f"iqa_{r}") for r in ("fake", "real"))
+    for src, dst in ((dirs[2], fake), (dirs[1], real)):
+        os.makedirs(dst)
+        for f in sorted(os.listdir(src))[:IQA_PAIRS]:
+            shutil.copyfile(os.path.join(src, f), os.path.join(dst, f))
+    iqa_csv = os.path.join(tmp, "iqa.csv")
+    t0 = time.perf_counter()
+    cli.main(["eval", "--fake-dir", fake, "--real-dir", real, "--iqa", "niqe", "--out-csv",
+              iqa_csv, "--device", "cuda"])
+    iqa_s = time.perf_counter() - t0
+    with open(iqa_csv, newline="") as f:
+        rows = list(csv.reader(f))
+    columns = rows[0]
+    values = np.array([r[1:] for r in rows[1:]], np.float64)
+    if columns[-2:] != ["niqe_fake", "niqe_real"] or values.shape[0] != IQA_PAIRS \
+            or not np.isfinite(values).all():
+        raise AssertionError(f"eval --iqa niqe: columns {columns}, values {values.shape}")
+    print(f"eval --iqa niqe --device cuda over {IQA_PAIRS} pairs at {SIZE}²: columns "
+          f"{columns[1:]}; niqe_fake mean {values[:, -2].mean():.4f}, niqe_real mean "
+          f"{values[:, -1].mean():.4f}; {iqa_s:.2f} s, {iqa_s / (2 * IQA_PAIRS):.4f} s an image "
+          f"(pair metrics on the card, NIQE on the host) [{card}]")
+
+
+def _host_commands(device, tmp: str, registered: str, card: str) -> None:
+    """f. prep-combine, prep-crop, prep-morphs (card = CPU bit for bit),
+    gallery, and mesh's refusal without mediapipe."""
+    a_dir, b_dir, reg_dir = (os.path.join(tmp, r) for r in ("real_A", "real_B", "reg_B"))
+    combined = os.path.join(tmp, "combined")
+    cli.main(["prep-combine", "--dir-a", a_dir, "--dir-b", reg_dir, "--dir-ab", combined,
+              "--device", "cuda"])
+    first = sorted(os.listdir(combined))
+    if len(first) != len(os.listdir(a_dir)) or _read_rgb(os.path.join(combined, first[0])).shape \
+            != (SIZE, 2 * SIZE, 3):
+        raise AssertionError(f"prep-combine wrote {len(first)} files")
+    stacks = os.path.join(tmp, "stacks")
+    os.makedirs(stacks)
+    names = sorted(os.listdir(a_dir))[:8]
+    for f in names:
+        write_png(os.path.join(stacks, f), np.concatenate(
+            [_read_rgb(os.path.join(d, f)) for d in (a_dir, reg_dir, b_dir)], axis=0))
+    crops = os.path.join(tmp, "crops")
+    cli.main(["prep-crop", "--stack-dir", stacks, "--out-root", crops, "--device", "cuda"])
+    for role, src in (("real_A", a_dir), ("fake_B", reg_dir), ("real_B", b_dir)):
+        for f in names:
+            if not np.array_equal(_read_rgb(os.path.join(crops, role, f)),
+                                  _read_rgb(os.path.join(src, f))):
+                raise AssertionError(f"prep-crop {role}/{f} differs from its source")
+    morphs = {}
+    for dev in ("cuda", "cpu"):
+        morphs[dev] = os.path.join(tmp, f"morphs_{dev}")
+        cli.main(["prep-morphs", "--in-dir", b_dir, "--out-dir", morphs[dev], "--device", dev])
+    files = sorted(os.listdir(morphs["cpu"]))
+    if sorted(os.listdir(morphs["cuda"])) != files or len(files) != len(os.listdir(b_dir)):
+        raise AssertionError("prep-morphs wrote other files on the card than on the CPU")
+    for f in files:
+        if not np.array_equal(_read_rgb(os.path.join(morphs["cuda"], f)),
+                              _read_rgb(os.path.join(morphs["cpu"], f))):
+            raise AssertionError(f"prep-morphs {f}: the card's output differs from the CPU's")
+    cli.main(["gallery", "--dir", registered, "--device", "cuda"])
+    if not os.path.getsize(os.path.join(registered, "index.html")):
+        raise AssertionError("gallery wrote an empty index.html")
+    try:
+        cli.main(["mesh", "--src-dir", a_dir, "--out-dir", os.path.join(tmp, "mesh"),
+                  "--device", "cuda"])
+    except ImportError as e:  # the expected outcome: no mediapipe here
+        refusal = str(e)
+        if "mediapipe" not in refusal:
+            raise
+    else:
+        raise AssertionError("mesh ran: mediapipe is not expected on this machine")
+    print(f"host commands: prep-combine {len(first)} A|B files of {SIZE}x{2 * SIZE}; "
+          f"prep-crop {len(names)} stacks into 3 roles equal to their sources; prep-morphs "
+          f"{len(files)} images, card = CPU bit for bit; gallery index.html; mesh refused as "
+          f"expected: {refusal!r} [{card}]")
+
+
+def _test_time_augment(device, data: str) -> None:
+    """g. test_time_augment with erasing: the card = the CPU for the same draws."""
+    batch = next(batch_iterator(PairedImageDataset(data, "train", SIZE), DATA_BATCH,
+                                shuffle=False))
+    draws = draw_test_time_augment(torch.Generator().manual_seed(7), DATA_BATCH)
+    on_cpu = test_time_augment(batch, draws, erase=True)
+    on_card = test_time_augment({k: torch.as_tensor(v, device=device) for k, v in batch.items()},
+                                {k: v.to(device) for k, v in draws.items()}, erase=True)
+    erased = 0
+    for k in ("A", "B"):
+        if not torch.equal(on_card[k].cpu(), on_cpu[k]):
+            raise AssertionError(f"test_time_augment {k}: the card differs from the CPU")
+        erased += int((on_cpu[k] == 0).all(-1).sum())
+    print(f"test_time_augment with erasing at {tuple(on_cpu['A'].shape)}: card = CPU bit for "
+          f"bit (flips {int(draws['hflip'].sum())} h, {int(draws['vflip'].sum())} v of "
+          f"{DATA_BATCH}; {erased} erased pixels over A and B)")
+
+
+def phase_data_eval(device, args, card: str) -> dict[str, dict[str, int]]:
+    """Phase 19, the data and evaluation chain; returns the launch counts of
+    ``cli train --hist-every`` and of ``make_registered_dataset``."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        offset = 0
+        for i, (side, count) in enumerate(DATA_FILES):
+            _noisy_pairs(os.path.join(data, "train"), side, count, seed=90 + i, offset=offset)
+            offset += count
+        _native_decoder(device, data, card)
+        hist = _hist_train(device, data, os.path.join(tmp, "hist_run"), card)
+        torch.cuda.empty_cache()
+        registered, reg_dir = _registered_set(device, args, data, tmp, card)
+        torch.cuda.empty_cache()
+        _eval_chain(device, tmp, card)
+        _host_commands(device, tmp, reg_dir, card)
+        _test_time_augment(device, data)
+    print(f"data and evaluation phase: {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return {"hist_train": hist, "registered_set": registered}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--params", default=None, help="g_params.npz (tools/export_g_params.py)")
@@ -2824,7 +3189,8 @@ def main(argv=None) -> int:
 
     # 2. build: all sources at once, one nvcc each
     t0 = time.perf_counter()
-    symbols = {"blurpool": ("tfcgan_blurpool_fwd", "tfcgan_blurpool_bwd"),
+    symbols = {"fastpair": ("process_pair", "process_pair_batch"),  # g++: the pair decoder
+               "blurpool": ("tfcgan_blurpool_fwd", "tfcgan_blurpool_bwd"),
                "resample": ("tfcgan_resample_fwd", "tfcgan_resample_adjoint",
                             "tfcgan_resample_gradpos"),
                "gridsample": ("tfcgan_gridsample_fwd", "tfcgan_gridsample_bwd"),
@@ -2835,7 +3201,7 @@ def main(argv=None) -> int:
         lib = _build.load_library(name)
         for symbol in functions:
             getattr(lib, symbol)
-    print(f"build: {', '.join(f'{n}.cu' for n in symbols)} "
+    print(f"build: {', '.join(_build._source(n).name for n in symbols)} "
           f"({', '.join(sum(symbols.values(), ()))}) in {time.perf_counter() - t0:.2f} s -> "
           f"{_build.BUILD_DIR}")
 
@@ -2979,6 +3345,12 @@ def main(argv=None) -> int:
     phase_baselines_cli(device, args, card)
     torch.cuda.empty_cache()
     print(f"baseline phase: {time.perf_counter() - t0:.1f} s [{card}]")
+
+    # 19. the data and evaluation chain: the native decoder, cli train
+    # --hist-every, the registered set, eval-reg, eval --iqa, the host
+    # commands and test-time augmentation
+    by_path.update(phase_data_eval(device, args, card))
+    torch.cuda.empty_cache()
 
     # 18. result
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")

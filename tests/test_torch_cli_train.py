@@ -101,16 +101,34 @@ def test_prefetch_paths_equal_batch_iterator(pair_set):
         list(device_prefetch(iter(PrefetchLoader(Broken(), 2, num_workers=2, epochs=1)), "cpu"))
 
 
-def test_mixture_equals_the_jax_mixture(pair_set):
-    roots = [pair_set, os.path.join(pair_set, "second")]
-    ours = [PairedImageDataset(r, "train", 32) for r in roots]
-    theirs = [JaxPairedImageDataset(r, "train", 32, use_native=False) for r in roots]
+def _check_mixture(roots, **kw):
+    ours = [PairedImageDataset(r, "train", 32, **kw) for r in roots]
+    theirs = [JaxPairedImageDataset(r, "train", 32, **kw) for r in roots]
     got = BalancedMixture([lambda d=d: batch_iterator(d, 2, seed=42, epochs=1) for d in ours],
                           4, seed=42)
     want = JaxBalancedMixture(
         [lambda d=d: jax_batch_iterator(d, 2, seed=42, epochs=1) for d in theirs], 4, seed=42)
     for _ in range(5):  # past the second set's epoch of 2 batches: its iterator refills
         _assert_bits_equal(next(got), next(want))
+
+
+def test_mixture_equals_the_jax_mixture(pair_set):
+    _check_mixture([pair_set, os.path.join(pair_set, "second")], use_native=False)
+
+
+def test_mixture_equals_the_jax_mixture_native_default(pair_set, tmp_path):
+    """Both packages' default decoder, on the set and on a copy of its second
+    root that needs a resize (40 x 80 files at image size 32)."""
+    from PIL import Image
+
+    resized = str(tmp_path / "resized")
+    os.makedirs(os.path.join(resized, "train"))
+    for f in sorted(glob.glob(os.path.join(pair_set, "second", "train", "*.png"))):
+        with Image.open(f) as img:
+            img.resize((80, 40), Image.Resampling.BILINEAR).save(
+                os.path.join(resized, "train", os.path.basename(f)))
+    _check_mixture([pair_set, os.path.join(pair_set, "second")])
+    _check_mixture([pair_set, resized])
 
 
 def _log_steps(out):

@@ -50,10 +50,10 @@ def test_resample_source_ships_with_the_package():
 
     with open(os.path.join(REPO, "pyproject.toml"), "rb") as f:
         data = tomllib.load(f)["tool"]["setuptools"]["package-data"]["tfcgan_tpu_torch"]
-    assert "csrc/*.cu" in data
+    assert "csrc/*.cu" in data and "csrc/*.cpp" in data and "evaluation/*.npz" in data
     csrc = os.path.join(REPO, "tfcgan_tpu_torch", "csrc")
-    assert sorted(os.listdir(csrc)) == ["blurpool.cu", "flashattn.cu", "gridsample.cu",
-                                        "resample.cu"]
+    assert sorted(os.listdir(csrc)) == ["blurpool.cu", "fastpair.cpp", "flashattn.cu",
+                                        "gridsample.cu", "resample.cu"]
     with open(os.path.join(REPO, ".gitignore")) as f:
         assert "tfcgan_tpu_torch/_build/" in f.read().split()
     from tfcgan_tpu_torch.ops.kernels import _build

@@ -180,10 +180,10 @@ def labelled_set(tmp_path_factory):
     return root, labels
 
 
-def test_labels_through_the_input_paths(labelled_set):
+def _check_labels_through_the_input_paths(labelled_set, size=16, **kw):
     root, labels = labelled_set
-    ds = PairedImageDataset(root, "train", 16, labels=labels)
-    jds = JaxPairedImageDataset(root, "train", 16, labels=labels, use_native=False)
+    ds = PairedImageDataset(root, "train", size, labels=labels, **kw)
+    jds = JaxPairedImageDataset(root, "train", size, labels=labels, **kw)
     assert set(ds[0]) == {"A", "B", "T_B", "LAB3", "LAB"} and ds[0]["LAB3"].dtype == np.int32
     want = list(jax_batch_iterator(jds, 2, seed=3, epochs=2))
     got = list(batch_iterator(ds, 2, seed=3, epochs=2))
@@ -198,9 +198,20 @@ def test_labels_through_the_input_paths(labelled_set):
         _assert_bits_equal(g, w)
     # a file the annotations lack: label 0 and no LAB3, as in the JAX loader
     partial = {k: v for k, v in labels.items() if k != "001.png"}
-    item = PairedImageDataset(root, "train", 16, labels=partial)[1]
-    jitem = JaxPairedImageDataset(root, "train", 16, labels=partial, use_native=False)[1]
+    item = PairedImageDataset(root, "train", size, labels=partial, **kw)[1]
+    jitem = JaxPairedImageDataset(root, "train", size, labels=partial, **kw)[1]
     assert set(item) == set(jitem) == {"A", "B", "T_B", "LAB"} and item["LAB"] == jitem["LAB"] == 0
+    _assert_bits_equal(item, jitem)
+
+
+def test_labels_through_the_input_paths(labelled_set):
+    _check_labels_through_the_input_paths(labelled_set, use_native=False)
+
+
+def test_labels_through_the_input_paths_native_default(labelled_set):
+    # both packages' default decoder, at the file's size and resized from it
+    _check_labels_through_the_input_paths(labelled_set)
+    _check_labels_through_the_input_paths(labelled_set, size=12)
 
 
 @pytest.mark.parametrize("name", ["fft_patch_debiased", "fft_patch_mask"])

@@ -15,7 +15,14 @@ family's sampler:
     python -m tfcgan_tpu_torch.cli gen --config tfc_diff --data-root DATA \
         --checkpoint runs/tfc_diff/step_00000201 --out-dir samples/ --seed 0
     python -m tfcgan_tpu_torch.cli prep-crop --stack-dir results/ --out-root crops/
-    python -m tfcgan_tpu_torch.cli eval --fake-dir crops/fake_B --real-dir crops/real_B
+    python -m tfcgan_tpu_torch.cli eval --fake-dir crops/fake_B --real-dir crops/real_B \
+        --iqa niqe
+    python -m tfcgan_tpu_torch.cli eval-reg --real-a-dir crops/real_A \
+        --real-b-dir crops/real_B --reg-b-dir crops/warped_B --plots-dir plots/
+    python -m tfcgan_tpu_torch.cli prep-combine --dir-a A/ --dir-b B/ --dir-ab AB/
+    python -m tfcgan_tpu_torch.cli prep-morphs --in-dir crops/real_B --out-dir morphs/
+    python -m tfcgan_tpu_torch.cli gallery --dir results/
+    python -m tfcgan_tpu_torch.cli mesh --src-dir crops/real_A --out-dir mesh/
 
 ``train`` follows the JAX CLI's ``cmd_train``: the dataset under
 ``DATA/train`` (and ``--extra-root`` for the balanced two-dataset entries),
@@ -50,8 +57,20 @@ they are refused; the other experiments ignore it, as the JAX CLI does. Their
 carries no labels (the JAX CLI reads none there either, and its Inferencer
 then conditions every image on the labels (0, 0, 0)); serve them through
 ``infer.Inferencer`` with a batch's ``LAB3``.
-``--device`` defaults to ``cuda``, and the commands refuse to run when CUDA
-is absent unless ``--device cpu`` is given.
+``train --hist-every N`` logs the weight and gradient histograms of every
+N-th step of each epoch's loop to ``OUT/hists.jsonl`` and renders
+``OUT/hists.html`` at the end. ``eval --iqa niqe[,maniqa,dbcnn]`` adds
+``<metric>_fake`` and ``<metric>_real`` columns (maniqa and dbcnn need
+weights the repository does not have, and raise). ``eval-reg`` writes SSIM,
+NCC and mutual information before and after registration (``--plots-dir``:
+the 5-panel figures, with matplotlib); ``prep-combine`` pairs an A and a B
+directory into A|B files; ``prep-morphs`` writes 1 - the morphological
+gradient of each PNG; ``gallery`` an index.html over a directory; ``mesh``
+face-landmark overlays, which need the optional mediapipe.
+``--device`` defaults to ``cuda``, and the commands that compute on tensors
+refuse to run when CUDA is absent unless ``--device cpu`` is given (the JAX
+CLI's ``--cpu``); ``prep-combine``, ``prep-crop``, ``gallery`` and ``mesh``
+take the flag as the JAX ones take ``--cpu``, and compute on the host.
 """
 
 from __future__ import annotations
@@ -235,6 +254,11 @@ def cmd_train(args):
         state = trainer.fit(state, [first], pool=pool)  # step 0
 
     sample_hook = _make_sample_hook(cfg, args, device)
+    hist_logger = None
+    if args.hist_every:
+        from tfcgan_tpu_torch.train.histograms import HistogramLogger
+
+        hist_logger = HistogramLogger(os.path.join(args.out_dir or ".", "hists.jsonl"))
     ckpt_mgr = AsyncCheckpointManager(cfg.train.checkpoint_dir)
     # metric-driven lr (NeMAR 'plateau'): stepped once an epoch on loss_G; a
     # resume starts a fresh controller, as the JAX CLI does
@@ -243,7 +267,8 @@ def cmd_train(args):
         it = device_prefetch(it, device)  # copies overlap the running step
     for epoch in range(cfg.train.n_epochs):
         state = trainer.fit(state, it, num_steps=steps_per_epoch, check_finite=True,
-                            sample_hook=sample_hook, pool=pool)
+                            sample_hook=sample_hook, hist_logger=hist_logger,
+                            hist_every=args.hist_every, pool=pool)
         if plateau is not None and trainer.last_metrics is not None:
             set_learning_rate(state, plateau.step(float(trainer.last_metrics["loss_G"])))
         if cfg.train.checkpoint_interval > 0 and epoch % cfg.train.checkpoint_interval == 0:
@@ -252,6 +277,11 @@ def cmd_train(args):
     ckpt_mgr.save(state)
     ckpt_mgr.close()
     logger.close()
+    if hist_logger is not None:
+        from tfcgan_tpu_torch.train.histograms import write_histogram_html
+
+        hist_logger.close()
+        print(f"\nhistograms -> {write_histogram_html(hist_logger.path)}")
 
 
 def _serve_weights(args, cfg, device) -> torch.nn.Module:
@@ -315,23 +345,97 @@ def cmd_gen(args):
 
 
 def cmd_prep_crop(args):
-    from tfcgan_tpu_torch.evaluation.suite import crop_stack
+    from tfcgan_tpu_torch.data.prep import crop_stacks
 
-    roles = args.roles.split(",")
-    files = sorted(f for f in os.listdir(args.stack_dir) if f.endswith(".png"))
-    out_dirs = [os.path.join(args.out_root, r) for r in roles]
+    n = crop_stacks(args.stack_dir, args.out_root, args.roles.split(","))
+    print(f"cropped {n} stacks -> {args.out_root}")
+
+
+def cmd_prep_combine(args):
+    from tfcgan_tpu_torch.data.prep import combine_a_and_b
+
+    n = combine_a_and_b(args.dir_a, args.dir_b, args.dir_ab)
+    print(f"combined {n} pairs -> {args.dir_ab}")
+
+
+def cmd_prep_morphs(args):
+    """1 - the morphological gradient of every PNG of --in-dir (the map the
+    STN's morph triplet trains on), computed on --device, for comparing the
+    edge structure of registered and unregistered images by eye."""
+    from tfcgan_tpu_torch.evaluation.suite import _read_rgb, to_uint8, write_png
+    from tfcgan_tpu_torch.ops.morphology import morphological_gradient
+
+    device = _device(args.device)
+    d127 = torch.tensor(127.5, device=device)  # a true division on CUDA too
+    os.makedirs(args.out_dir, exist_ok=True)
+    files = sorted(f for f in os.listdir(args.in_dir) if f.endswith(".png"))
     for f in files:
-        crop_stack(os.path.join(args.stack_dir, f), out_dirs, num=len(roles))
-    print(f"cropped {len(files)} stacks -> {args.out_root}")
+        img = torch.from_numpy(np.array(_read_rgb(os.path.join(args.in_dir, f))[None])).to(device)
+        m = 1.0 - morphological_gradient(img.float() / d127 - 1.0)
+        write_png(os.path.join(args.out_dir, f), to_uint8(m[0].cpu().numpy()))
+    print(f"morph plots for {len(files)} images -> {args.out_dir}")
 
 
-def cmd_eval(args):
-    from tfcgan_tpu_torch.evaluation.suite import evaluate_dirs
-
-    table = evaluate_dirs(args.fake_dir, args.real_dir, args.out_csv, _device(args.device))
+def _print_means(table: dict) -> None:
     for key, values in table.items():
         if key != "file":
             print(f"{key:<12} {np.mean(values):.6f}")
+
+
+def cmd_eval(args):
+    from tfcgan_tpu_torch.evaluation.suite import _load_dir, evaluate_dirs, write_csv
+
+    table = evaluate_dirs(args.fake_dir, args.real_dir, None, _device(args.device))
+    if args.iqa:
+        # the reference protocol's NR-IQA stage: a score an image of both dirs
+        from tfcgan_tpu_torch.evaluation.iqa import compute_iqa
+
+        metrics = tuple(m.strip() for m in args.iqa.split(","))
+        for tag, d in (("fake", args.fake_dir), ("real", args.real_dir)):
+            for m, v in compute_iqa(list(_load_dir(d)[1]), metrics).items():
+                table[f"{m}_{tag}"] = v.tolist()
+    if args.out_csv:
+        write_csv(table, args.out_csv)
+    _print_means(table)
+
+
+def cmd_eval_reg(args):
+    """SSIM, NCC and MI of real_A against real_B (before) and against reg_B
+    (after), over three directories matched by sort order."""
+    from tfcgan_tpu_torch.evaluation.suite import (_load_dir, difference_plot,
+                                                   registration_metrics, write_csv)
+
+    device = _device(args.device)
+    (files, a), (fb, b), (fr, rb) = (_load_dir(d) for d in (args.real_a_dir, args.real_b_dir,
+                                                            args.reg_b_dir))
+    if not len(files) == len(fb) == len(fr):
+        raise SystemExit(f"directory size mismatch: real_A={len(files)} real_B={len(fb)} "
+                         f"reg_B={len(fr)}")
+    a, b, rb = (x / 127.5 - 1.0 for x in (a, b, rb))
+    table = {"file": files}
+    table.update({k: v.cpu().tolist() for k, v in registration_metrics(
+        *(torch.from_numpy(x).to(device) for x in (a, b, rb))).items()})
+    if args.out_csv:
+        write_csv(table, args.out_csv)
+    if args.plots_dir:
+        for i, f in enumerate(files):
+            difference_plot(a[i], b[i], rb[i],
+                            os.path.join(args.plots_dir, f"{os.path.splitext(f)[0]}.png"))
+        print(f"difference plots -> {args.plots_dir}")
+    _print_means(table)
+
+
+def cmd_gallery(args):
+    from tfcgan_tpu_torch.evaluation.gallery import write_gallery
+
+    print(f"gallery -> {write_gallery(args.dir, title=args.title)}")
+
+
+def cmd_mesh(args):
+    from tfcgan_tpu_torch.evaluation.face_mesh import overlay_directory
+
+    n = overlay_directory(args.src_dir, args.out_dir)
+    print(f"annotated {n} faces -> {args.out_dir}")
 
 
 def main(argv=None):
@@ -360,11 +464,13 @@ def main(argv=None):
                              "gender, ethnicity, age")
     common.add_argument("--device", default="cuda")
 
-    train_help = ("train an experiment (weight and gradient histograms, the JAX CLI's "
-                  "--hist-every, are not ported yet)")
-    sp = sub.add_parser("train", parents=[common], help=train_help, description=train_help)
+    sp = sub.add_parser("train", parents=[common], help="train an experiment")
     sp.add_argument("--experiment", "--config", dest="experiment", default="fft_glo")
     sp.add_argument("--resume", default=None, help="checkpoint directory to resume from")
+    sp.add_argument("--hist-every", type=int, default=0,
+                    help="log weight and gradient histograms every N steps of an epoch's "
+                         "loop to <out-dir>/hists.jsonl, rendered to hists.html at the end "
+                         "(0: off)")
     sp.add_argument("--extra-root", action="append", default=None,
                     help="additional dataset root(s) for balanced mixtures")
     sp.set_defaults(fn=cmd_train)
@@ -384,18 +490,55 @@ def main(argv=None):
             sp.add_argument("--seed", type=int, default=0, help="the sampler's seed")
         sp.set_defaults(fn=fn)
 
-    sp = sub.add_parser("prep-crop")
+    # the host-side commands; --device is the JAX CLI's --cpu
+    host = argparse.ArgumentParser(add_help=False)
+    host.add_argument("--device", default="cuda",
+                      help="where eval, eval-reg and prep-morphs compute (cpu: the JAX "
+                           "CLI's --cpu); the other host commands take it and ignore it")
+
+    sp = sub.add_parser("eval", parents=[host])
+    sp.add_argument("--fake-dir", required=True)
+    sp.add_argument("--real-dir", required=True)
+    sp.add_argument("--out-csv", default=None)
+    sp.add_argument("--iqa", default=None, metavar="METRICS",
+                    help="comma-separated NR-IQA metrics over both dirs (niqe, maniqa, dbcnn)")
+    sp.set_defaults(fn=cmd_eval)
+
+    sp = sub.add_parser("prep-morphs", parents=[host])
+    sp.add_argument("--in-dir", required=True)
+    sp.add_argument("--out-dir", required=True)
+    sp.set_defaults(fn=cmd_prep_morphs)
+
+    sp = sub.add_parser("eval-reg", parents=[host])
+    sp.add_argument("--real-a-dir", required=True)
+    sp.add_argument("--real-b-dir", required=True)
+    sp.add_argument("--reg-b-dir", required=True)
+    sp.add_argument("--out-csv", default=None)
+    sp.add_argument("--plots-dir", default=None,
+                    help="write 5-panel before/after difference plots (needs matplotlib)")
+    sp.set_defaults(fn=cmd_eval_reg)
+
+    sp = sub.add_parser("prep-combine", parents=[host])
+    sp.add_argument("--dir-a", required=True)
+    sp.add_argument("--dir-b", required=True)
+    sp.add_argument("--dir-ab", required=True)
+    sp.set_defaults(fn=cmd_prep_combine)
+
+    sp = sub.add_parser("prep-crop", parents=[host])
     sp.add_argument("--stack-dir", required=True)
     sp.add_argument("--out-root", required=True)
     sp.add_argument("--roles", default="real_A,fake_B,real_B")
     sp.set_defaults(fn=cmd_prep_crop)
 
-    sp = sub.add_parser("eval")
-    sp.add_argument("--fake-dir", required=True)
-    sp.add_argument("--real-dir", required=True)
-    sp.add_argument("--out-csv", default=None)
-    sp.add_argument("--device", default="cuda")
-    sp.set_defaults(fn=cmd_eval)
+    sp = sub.add_parser("mesh", parents=[host], help="face-landmark overlays (needs mediapipe)")
+    sp.add_argument("--src-dir", required=True)
+    sp.add_argument("--out-dir", required=True)
+    sp.set_defaults(fn=cmd_mesh)
+
+    sp = sub.add_parser("gallery", parents=[host], help="index.html over a sample or eval dir")
+    sp.add_argument("--dir", required=True)
+    sp.add_argument("--title", default=None)
+    sp.set_defaults(fn=cmd_gallery)
 
     args = p.parse_args(argv)
     args.fn(args)

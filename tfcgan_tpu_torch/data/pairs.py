@@ -1,15 +1,23 @@
 """Paired side-by-side image dataset, port of ``tfcgan_tpu.data.pairs``.
 
-Each file holds A|B side by side; it is split at w/2 and bicubic-resized with
-PIL, which is imported where an image is read (the package imports without
-it). ``cache=True`` (or ``enable_cache()``) keeps the decoded uint8 pairs in
-RAM, so epochs after the first skip the decode; ``raw_item`` gives the uint8
+Each file holds A|B side by side; it is split at w/2 and bicubic-resized.
+PIL reads the file; it is imported where an image is read (the package
+imports without it). ``cache=True`` (or ``enable_cache()``) keeps the decoded
+uint8 pairs in RAM, so epochs after the first skip the decode; ``raw_item`` gives the uint8
 pair before normalisation, the input of the device-side paths
 (``data/pool.DevicePool``, ``data/prefetch.device_prefetch(via_uint8=True)``).
 
-The JAX dataset's ``use_native`` switch (its C++ decoder, which gives the PIL
-path's bits) is not taken: the port has no native decoder yet, and the PIL
-path is the one both packages share.
+Decoding, as in the JAX dataset: with ``use_native=True`` (the default) the
+split, resize, normalisation and temperature map run in the C++ decoder
+(``data/native.py``, built with g++ at first use; a failed build raises).
+It resizes with Pillow's bicubic weights in float64, where Pillow works in
+fixed point and rounds between its passes: a pair that needs a resize comes
+out a grey level (up to 22 on upscaled noise) from the PIL path
+(``use_native=False``), and bit for bit as the JAX default.
+``__getitem__`` of an ``AtoB`` dataset without a cache takes the decoder's
+floats; everything else (``raw_item``, ``BtoA``, the cache, so the device
+pool and the uint8 stream) takes its output turned back into uint8 with
+``np.rint``, which is exact.
 
 Class labels: ``labels`` maps a file's basename to an int (``LAB``) or to a
 (gender, ethnicity, age) triple (``LAB3``, int32, and ``LAB`` = its
@@ -31,6 +39,7 @@ import os
 
 import numpy as np
 
+from tfcgan_tpu_torch.evaluation.suite import _read_rgb
 from tfcgan_tpu_torch.ops.temperature import TEMP_MAX_C, TEMP_MIN_C
 
 
@@ -52,11 +61,17 @@ def _normalize(u8: np.ndarray) -> np.ndarray:
     return (u8.astype(np.float32) / 255.0 - 0.5) / 0.5
 
 
+def _to_u8(x: np.ndarray) -> np.ndarray:
+    """The inverse of ``_normalize`` on its outputs."""
+    return np.rint((x * 0.5 + 0.5) * 255.0).astype(np.uint8)
+
+
 class PairedImageDataset:
     """File-list dataset over a ``root/mode`` directory of A|B pair images."""
 
     def __init__(self, root: str, mode: str = "train", image_size: int = 256,
-                 direction: str = "AtoB", labels: dict | None = None, cache: bool = False):
+                 direction: str = "AtoB", labels: dict | None = None,
+                 use_native: bool = True, cache: bool = False):
         self.files = sorted(glob.glob(os.path.join(root, mode, "*.*")))
         if not self.files:
             raise FileNotFoundError(f"no images under {os.path.join(root, mode)}")
@@ -64,6 +79,16 @@ class PairedImageDataset:
         self.direction = direction
         self.labels = labels
         self._cache: dict[int, tuple[np.ndarray, np.ndarray]] | None = {} if cache else None
+        self._native = None
+        if use_native:
+            from tfcgan_tpu_torch.data import native
+
+            try:
+                native.load()
+            except (RuntimeError, OSError) as e:
+                raise RuntimeError("the native pair decoder did not build or load; pass "
+                                   "use_native=False to decode with PIL") from e
+            self._native = native
 
     def __len__(self) -> int:
         return len(self.files)
@@ -79,7 +104,12 @@ class PairedImageDataset:
         idx = idx % len(self.files)
         if self._cache is not None and idx in self._cache:
             return self._cache[idx]
-        a_u8, b_u8 = load_pair(self.files[idx], self.image_size)
+        if self._native is not None:
+            # the decoder's floats back to uint8: (u8 / 255 - .5) / .5 inverts exactly
+            a, b, _ = self._native.process_pair(_read_rgb(self.files[idx]), self.image_size)
+            a_u8, b_u8 = _to_u8(a), _to_u8(b)
+        else:
+            a_u8, b_u8 = load_pair(self.files[idx], self.image_size)
         if self.direction == "BtoA":
             a_u8, b_u8 = b_u8, a_u8
         if self._cache is not None:
@@ -102,6 +132,10 @@ class PairedImageDataset:
         return {"A_u8": a_u8, "B_u8": b_u8, **self._label_fields(idx)}
 
     def __getitem__(self, idx: int) -> dict[str, np.ndarray]:
+        if self._native is not None and self.direction == "AtoB" and self._cache is None:
+            a, b, t_b = self._native.process_pair(
+                _read_rgb(self.files[idx % len(self.files)]), self.image_size)
+            return {"A": a, "B": b, "T_B": t_b, **self._label_fields(idx)}
         a_u8, b_u8 = self._raw_pair(idx)
         t_b = TEMP_MIN_C + b_u8[..., 0].astype(np.float32) * ((TEMP_MAX_C - TEMP_MIN_C) / 255.0)
         return {"A": _normalize(a_u8), "B": _normalize(b_u8), "T_B": t_b,

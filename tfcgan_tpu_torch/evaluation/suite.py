@@ -3,9 +3,13 @@
 
 - ``pair_metrics``: PSNR / multichannel and gray SSIM / Bhattacharyya /
   FFT-magnitude MSE and MAE per pair, on whatever device the tensors are on.
+- ``registration_metrics``: SSIM / NCC / mutual information of the grayscale
+  planes before and after registration (``eval-reg``), likewise; and
+  ``difference_plot``, its 5-panel figure (matplotlib, imported where used).
 - ``save_image_grid`` writes 8-bit RGB PNGs with a small stdlib encoder
   (``zlib`` + ``struct``), so the serve path needs no imaging library.
-- ``crop_stack`` and ``evaluate_dirs`` read PNGs with PIL, imported where used.
+- ``crop_stack`` and ``evaluate_dirs`` read PNGs with PIL, imported where used;
+  ``write_csv`` writes a metric table.
 """
 
 from __future__ import annotations
@@ -37,6 +41,26 @@ def pair_metrics(real_b: torch.Tensor, fake_b: torch.Tensor) -> dict[str, torch.
         "bhatt": metrics.bhattacharyya(r255, f255),
         "fft_mag_mse": metrics.fft_mag_mse(real_b, fake_b),
         "fft_mag_mae": metrics.fft_mag_mae(real_b, fake_b),
+    }
+
+
+def registration_metrics(real_a: torch.Tensor, real_b: torch.Tensor,
+                         reg_b: torch.Tensor) -> dict[str, torch.Tensor]:
+    """(N, H, W, 3) in [-1, 1] -> per-image SSIM, NCC and MI of real_A against
+    real_B (before) and against reg_B (after), on [0, 1] luma planes."""
+    d255 = torch.tensor(255.0, device=real_a.device)  # a true division on CUDA too
+
+    def gray01(x):
+        return rgb_to_luma_uint8(x, mode="smooth") / d255
+
+    a, b, rb = gray01(real_a), gray01(real_b), gray01(reg_b)
+    return {
+        "ssim_before": metrics.ssim(a, b, data_range=1.0),
+        "ssim_after": metrics.ssim(a, rb, data_range=1.0),
+        "ncc_before": metrics.ncc(a, b),
+        "ncc_after": metrics.ncc(a, rb),
+        "mi_before": metrics.mutual_information(a, b),
+        "mi_after": metrics.mutual_information(a, rb),
     }
 
 
@@ -89,6 +113,14 @@ def _load_dir(d: str) -> tuple[list[str], np.ndarray]:
     return files, np.stack([_read_rgb(os.path.join(d, f)).astype(np.float32) for f in files])
 
 
+def write_csv(table: dict[str, list], path: str) -> None:
+    """{column: values} -> a CSV with a header row."""
+    with open(path, "w", newline="") as f:
+        writer = csv.writer(f)
+        writer.writerow(table)
+        writer.writerows(zip(*table.values()))
+
+
 def evaluate_dirs(fake_dir: str, real_dir: str, out_csv: str | None = None,
                   device="cuda") -> dict[str, list]:
     """Offline eval over two directories of PNGs, matched by sort order, the
@@ -104,8 +136,43 @@ def evaluate_dirs(fake_dir: str, real_dir: str, out_csv: str | None = None,
     table = {"file": files_f}
     table.update({k: v.cpu().tolist() for k, v in pair_metrics(real, fake).items()})
     if out_csv:
-        with open(out_csv, "w", newline="") as f:
-            writer = csv.writer(f)
-            writer.writerow(table)
-            writer.writerows(zip(*table.values()))
+        write_csv(table, out_csv)
     return table
+
+
+def difference_plot(real_a: np.ndarray, real_b: np.ndarray, reg_b: np.ndarray,
+                    out_path: str) -> None:
+    """The 5-panel before/after registration figure of VTF-STN's evaluation:
+    Visible | Before | Registered | Diff. Before | Diff. Registered, the
+    images in the 'bone' colour map and the differences in 'RdBu' over
+    (-200, 50). Inputs (H, W, 3) in [-1, 1]. Needs matplotlib."""
+    from PIL import Image
+
+    try:
+        from matplotlib.backends.backend_agg import FigureCanvasAgg
+        from matplotlib.figure import Figure
+    except ImportError as e:
+        raise ImportError("difference_plot needs matplotlib, which is not installed; "
+                          "eval-reg without --plots-dir needs no plotting library") from e
+
+    def gray(x):
+        return np.asarray(Image.fromarray(to_uint8(x)).convert("L"), np.float64)
+
+    a, rb, gb = gray(real_a), gray(real_b), gray(reg_b)
+    # a Figure with its own Agg canvas: the process-global backend is not touched
+    fig = Figure(figsize=(16, 6))
+    FigureCanvasAgg(fig)
+    fig.subplots_adjust(wspace=0.0, hspace=0.0)
+    panels = [(a, "Visible", dict(cmap="bone", vmax=255)),
+              (rb, "Before", dict(cmap="bone", vmax=255)),
+              (gb, "Registered", dict(cmap="bone", vmax=255)),
+              (a - rb, "Diff. Before", dict(cmap="RdBu", vmin=-200, vmax=50)),
+              (a - gb, "Diff. Registered", dict(cmap="RdBu", vmin=-200, vmax=50))]
+    for i, (img, title, kw) in enumerate(panels):
+        ax = fig.add_subplot(1, 5, i + 1)
+        ax.imshow(img, **kw)
+        ax.set_xticks([])
+        ax.set_yticks([])
+        ax.set_title(title)
+    os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
+    fig.savefig(out_path, bbox_inches="tight")

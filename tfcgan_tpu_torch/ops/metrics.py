@@ -7,8 +7,8 @@
 - Bhattacharyya: 8×8×8 RGB histograms, L2-normalized, OpenCV
   HISTCMP_BHATTACHARYYA.
 - FFT magnitude MSE and MAE of log|fftshift(fft2(gray))|.
-
-NCC and mutual information come with the registration eval (``eval-reg``).
+- NCC and mutual information of grayscale planes (the registration eval,
+  ``eval-reg``).
 """
 
 from __future__ import annotations
@@ -84,3 +84,41 @@ def fft_mag_mse(real: torch.Tensor, fake: torch.Tensor) -> torch.Tensor:
 def fft_mag_mae(real: torch.Tensor, fake: torch.Tensor) -> torch.Tensor:
     """MAE of log-magnitude spectra. real/fake: (N, H, W, 3) in [-1, 1]."""
     return (fft_log_magnitude(real) - fft_log_magnitude(fake)).abs().mean(dim=(1, 2))
+
+
+def ncc(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Normalized cross-correlation per image: the planes standardised with
+    their population std (``jnp.std``), summed products over n - 1.
+    a/b: (N, H, W)."""
+    dims = (1, 2)
+    az = (a - a.mean(dims, keepdim=True)) / a.std(dims, keepdim=True, correction=0)
+    bz = (b - b.mean(dims, keepdim=True)) / b.std(dims, keepdim=True, correction=0)
+    return (az * bz).sum(dims) / (a.shape[1] * a.shape[2] - 1)
+
+
+def _bin_index(x: torch.Tensor, bins: int) -> torch.Tensor:
+    """(N, P) -> (N, P) equal-width bin of each value over its row's range,
+    float32 in the JAX order, ((x - min) / max(max - min, 1e-12) * bins),
+    truncated and clipped. The span is a tensor: CUDA turns a division by a
+    Python number into a multiply by its reciprocal, which can move a value
+    across a bin edge."""
+    lo = x.amin(1, keepdim=True)
+    span = torch.clamp_min(x.amax(1, keepdim=True) - lo, 1e-12)
+    return torch.clamp(((x - lo) / span * bins).to(torch.int32), 0, bins - 1).long()
+
+
+def mutual_information(a: torch.Tensor, b: torch.Tensor, bins: int = 20) -> torch.Tensor:
+    """Mutual information per image from a ``bins`` x ``bins`` joint histogram
+    of equal-width bins over each plane's range (``np.histogram2d``), counted
+    exactly; empty cells add 0. a/b: (N, H, W) in [0, 1]."""
+    n = a.shape[0]
+    xi = _bin_index(a.reshape(n, -1).float(), bins)
+    yi = _bin_index(b.reshape(n, -1).float(), bins)
+    cell = xi * bins + yi + bins * bins * torch.arange(n, device=a.device)[:, None]
+    h = torch.bincount(cell.reshape(-1), minlength=n * bins * bins).float().view(n, -1)
+    pxy = (h / h.sum(1, keepdim=True)).view(n, bins, bins)
+    px = pxy.sum(2, keepdim=True)
+    py = pxy.sum(1, keepdim=True)
+    nz = pxy > 0
+    ratio = torch.where(nz, pxy / torch.where(nz, px * py, 1.0), 1.0)
+    return torch.where(nz, pxy * torch.log(ratio), 0.0).sum((1, 2))

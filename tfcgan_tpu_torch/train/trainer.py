@@ -110,6 +110,16 @@ def make_train_step(cfg: ExperimentConfig, recipe) -> Callable:
     return train_step
 
 
+def _log_histograms(hist_logger, state: TrainState) -> None:
+    from tfcgan_tpu_torch.train.histograms import tree_histograms
+
+    weights = {"G": dict(state.G.named_parameters()), "D": dict(state.D.named_parameters())}
+    grads = {m: {k: torch.zeros_like(p) if p.grad is None else p.grad for k, p in params.items()}
+             for m, params in weights.items()}
+    hist_logger.write(state.step, "weights", tree_histograms(weights))
+    hist_logger.write(state.step, "grads", tree_histograms(grads))
+
+
 def assert_finite(metrics: dict, step: int) -> None:
     values = {k: float(v) for k, v in metrics.items()}
     bad = [k for k, v in values.items() if not math.isfinite(v)]
@@ -152,12 +162,17 @@ class Trainer:
     def fit(self, state: TrainState, batches: Iterable, num_steps: int | None = None,
             log_every: int | None = None, sample_hook: Callable | None = None,
             sample_every: int | None = None, check_finite: bool = False,
-            pool=None) -> TrainState:
+            hist_logger=None, hist_every: int | None = None, pool=None) -> TrainState:
         """Steps over ``batches`` (at most ``num_steps``); ``check_finite``
         raises on a NaN/Inf metric; every ``log_every`` steps the metrics go to
         the logger; ``sample_hook(state, step)`` runs after every step whose
         count is a multiple of ``sample_every`` (default
         ``cfg.train.sample_interval``: the reference's ``sample_images``).
+        ``hist_logger`` (a ``train.histograms.HistogramLogger``) records, after
+        every loop step ``i`` with ``i % hist_every == 0``, the histograms of
+        G's and D's weights after the update and of the step's gradients (G's
+        from the G phase, D's from the D phase: still in ``.grad``, which the
+        next step zeroes; a parameter without one counts as a zero gradient).
         With ``pool`` (a ``data.pool.DevicePool``) ``batches`` yields index
         arrays, which ``pool.batch`` assembles on the device."""
         log_every = log_every or self.cfg.train.log_interval
@@ -169,6 +184,8 @@ class Trainer:
             if pool is not None:
                 batch = pool.batch(batch)
             metrics = self.step(state, batch)
+            if hist_logger is not None and hist_every and i % hist_every == 0:
+                _log_histograms(hist_logger, state)
             if check_finite:
                 assert_finite(metrics, state.step)
             if self.logger is not None and i % log_every == 0:
