@@ -227,7 +227,7 @@ Phases, one line or more each; any failure raises and exits non-zero:
    the order), 2 epochs, and ``--resume`` from the first epoch's checkpoint:
    weights, replay buffers and Adam states of the two final checkpoints equal
    bit for bit, under ``cudnn.deterministic``.
-18. the result, printed after 19: the card's ``nvidia-smi`` line, one JSON
+18. the result, printed after 20: the card's ``nvidia-smi`` line, one JSON
    line for the kernels, and last ``{"ok": true, "device": {...}}``.
 19. the data and evaluation chain at 256², bf16, on 64 synthetic A|B PNG
    pairs, 32 of 320x640 (resized) and 32 of 256x512: (a) the native decoder:
@@ -255,6 +255,22 @@ Phases, one line or more each; any failure raises and exits non-zero:
    which must refuse with the mediapipe message; (g) ``test_time_augment``
    with erasing at (32, 256, 256, 3): the card = the CPU bit for bit for the
    same draws.
+20. ``parallel/``, the data axis over ``torch.distributed``: (a) phase 6b's
+   first ``cli train`` (fft_glo, bf16, B=32, 2 epochs, checkpoints, samples)
+   again under ``python -m torch.distributed.run --standalone
+   --nproc_per_node 1``, a world of one over NCCL: its JSONL log equals 6b's
+   plain run bit for bit (without the clock fields), 2 gradient all-reduces
+   a step and 27 + 23 blur-pool launches a step (11 a sample hook), read
+   from the run's summary line (path ``dp_cli_train``); (b) in this process
+   an NCCL world of one: the fft_glo ``Trainer`` at B=128 bf16 with and
+   without the mesh in turns (step ms, the flat buffers' MiB), and the GPipe
+   trunk (``resnet_trunk_pipeline``, 9 residual blocks of 256 channels) at
+   one stage: the serial trunk bit for bit at 1 microbatch; (c) two gloo
+   ranks on the card (NCCL refuses two ranks on one device), fft_glo and
+   thermalgan_bn float32 at global B=32: the first step's metrics and G
+   gradients against one process within the CPU tests' bounds (rel 1e-5;
+   1e-4 x max|g|), the replicas' checksums equal after 3 steps, 27 + 23
+   blur-pool launches a fft_glo step on each rank (path ``dp_two_ranks``).
 
 In the kernels' JSON, ``launches`` is the count of the kernel's main path, the
 last train path driven that runs it (``main_path``: phase 10's three steps for
@@ -1455,7 +1471,8 @@ def phase_cli_train(device, args, card: str) -> dict[str, dict[str, int]]:
             "blurpool_fwd": FFT_GLO_STEP["blurpool_fwd"] * steps + 11 * hooks,
             "blurpool_bwd": FFT_GLO_STEP["blurpool_bwd"] * steps}, 1)
         ckpts = sorted(d for d in os.listdir(runs) if d.startswith("step_"))
-        logged = [r["step"] for r in _log_rows(os.path.join(runs, "logs", "fft_glo.jsonl"))]
+        _PLAIN_CLI_LOG[:] = _log_rows(os.path.join(runs, "logs", "fft_glo.jsonl"))
+        logged = [r["step"] for r in _PLAIN_CLI_LOG]
         samples = sorted(os.listdir(os.path.join(runs, "samples")))
         want_samples = [f"{s:07d}.png" for s in range(2, steps + 1, 2)] + ["index.html"]
         if (ckpts != [f"step_{1 + spe:08d}", f"step_{steps:08d}"] or pool_clock.n != steps
@@ -3166,6 +3183,346 @@ def phase_data_eval(device, args, card: str) -> dict[str, dict[str, int]]:
     return {"hist_train": hist, "registered_set": registered}
 
 
+# ----------------------------------------------------------------- 20. parallel
+DP_SEED = 60            # the two-rank phase's batches
+DP_BATCH = 32           # global batch of the two-rank runs (16 a rank)
+DP_STEPS = 3            # two-rank steps whose replicas are compared
+DP_RATE_BATCH = 128     # the world-of-one timing: fft_glo B=128 bf16
+DP_RATE_STEPS = 5
+DP_NAMES = ("fft_glo", "thermalgan_bn")
+PIPE_BLOCKS, PIPE_BATCH = 9, 8  # the CycleGAN/NeMAR trunk at 256²: 9 x 256 ch at 64²
+# the CPU tests' bounds of world 2 against world 1 (test_torch_parallel_dp.py);
+# on the card at least 3 x the floor that cuDNN's other algorithms give one
+# process (the ranks' half batches run other algorithms than the whole batch)
+DP_METRIC_TOL = (1e-5, 1e-6)  # rel, abs
+DP_GRAD_TOL = 1e-4            # x max|g| of each tensor
+_PLAIN_CLI_LOG: list[dict] = []  # phase 6b's plain fft_glo run, its log records
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _metric_values(rows: list[dict]) -> list[dict]:
+    """The log records without their clock fields."""
+    return [{k: v for k, v in r.items() if k not in ("ts", "wall_s")} for r in rows]
+
+
+def _dp_cfg(name: str):
+    cfg = _cfg(name, "float32")
+    return cfg.replace(data=dataclasses.replace(cfg.data, batch_size=DP_BATCH, image_size=SIZE))
+
+
+def _dp_grads(state) -> dict[str, torch.Tensor]:
+    return {k: p.grad.detach().float().cpu().clone() for k, p in state.G.named_parameters()
+            if p.grad is not None}
+
+
+def _dp_rank(rank: int, world: int, port: int, tmp: str, results) -> None:
+    """One of two gloo ranks on card 0: for each of ``DP_NAMES`` the float32
+    step of the global batch from seed 0 (metrics; rank 0 saves the averaged
+    G gradients), then ``DP_STEPS`` - 1 more steps and the replicas' checksums."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from tfcgan_tpu_torch.parallel import make_mesh
+
+    try:
+        torch.cuda.set_device(0)
+        device = torch.device("cuda", 0)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                                world_size=world, timeout=datetime.timedelta(seconds=300))
+        mesh = make_mesh(world, device=device)
+        out = {}
+        for name in DP_NAMES:
+            cfg = _dp_cfg(name)
+            trainer = Trainer(cfg, build_recipe(cfg, device), mesh=mesh)
+            state = trainer.init_state(0)
+            reset_counts()
+            metrics, sums = [], []
+            for i in range(DP_STEPS):
+                batch = synthetic_batch(DP_BATCH, SIZE, seed=DP_SEED + i)
+                try:
+                    m = trainer.step(state, batch)
+                except RuntimeError as e:  # name the op gloo refused
+                    raise RuntimeError(f"{name} step {i} on two gloo ranks, CUDA tensors: {e}")
+                metrics.append({k: float(v) for k, v in m.items()})
+                if i == 0 and rank == 0:
+                    torch.save(_dp_grads(state), os.path.join(tmp, f"{name}_grads.pt"))
+                sums.append(float(sum(float(p.double().sum()) * (j + 1) for j, p in
+                                      enumerate(list(state.G.state_dict().values())
+                                                + list(state.D.state_dict().values())))))
+            torch.cuda.synchronize()
+            gathered = [None] * world
+            dist.all_gather_object(gathered, sums)
+            out[name] = {"metrics": metrics, "sums": gathered, "counts": counts(),
+                         "allreduces": trainer.stats.grad_allreduces,
+                         "bytes": trainer.stats.flat_bytes}
+            del trainer, state
+            torch.cuda.empty_cache()
+        results.put((rank, out))
+        dist.destroy_process_group()
+    except BaseException as e:
+        import traceback
+
+        results.put((rank, RuntimeError(traceback.format_exc())))
+        raise SystemExit(1) from e
+
+
+def _two_ranks(card: str) -> dict[str, int]:
+    """Two gloo ranks on the one card (NCCL refuses two ranks on one device)
+    against one process at the same global batch."""
+    import multiprocessing as mp
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.get_context("spawn")
+        results = ctx.Queue()
+        port = _free_port()
+        procs = [ctx.Process(target=_dp_rank, args=(r, 2, port, tmp, results)) for r in range(2)]
+        for p in procs:
+            p.start()
+        got = {}
+        try:
+            while len(got) < 2:
+                rank, out = results.get(timeout=600)
+                if isinstance(out, BaseException):
+                    raise AssertionError(f"two-rank phase, rank {rank}: {out}")
+                got[rank] = out
+        finally:
+            for p in procs:
+                p.join(timeout=60)
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        two_s = time.perf_counter() - t0
+
+        # one process, the same first step: with the deterministic algorithms,
+        # and with cuDNN's benchmarked ones (the floor: the same sums in other
+        # algorithms, as the ranks' half batches pick other algorithms too)
+        deterministic = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+        device = torch.device("cuda", 0)
+        try:
+            for name in DP_NAMES:
+                cfg = _dp_cfg(name)
+                runs = []
+                for det in (True, False):
+                    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det, not det
+                    trainer = Trainer(cfg, build_recipe(cfg, device))
+                    state = trainer.init_state(0)
+                    m = trainer.step(state, synthetic_batch(DP_BATCH, SIZE, seed=DP_SEED))
+                    runs.append(({k: float(v) for k, v in m.items()}, _dp_grads(state)))
+                    del trainer, state
+                    torch.cuda.empty_cache()
+                two = got[0][name]
+                g2 = torch.load(os.path.join(tmp, f"{name}_grads.pt"))
+
+                def metric_err(a, b):
+                    return max(abs(a[k] - b[k]) / max(abs(b[k]), DP_METRIC_TOL[1] /
+                                                      DP_METRIC_TOL[0]) for k in b)
+
+                def grad_errs(a, b):
+                    return {k: float((a[k] - b[k]).abs().max() / (b[k].abs().max() + 1e-12))
+                            for k in b}
+
+                def l2(a, b):
+                    num = sum(float((a[k] - b[k]).double().square().sum()) for k in b)
+                    return (num / sum(float(b[k].double().square().sum()) for k in b)) ** 0.5
+
+                floor_g = grad_errs(runs[1][1], runs[0][1])
+                errs = grad_errs(g2, runs[0][1])
+                floor = (metric_err(runs[1][0], runs[0][0]), max(floor_g.values()),
+                         l2(runs[1][1], runs[0][1]))
+                err = (metric_err(two["metrics"][0], runs[0][0]), max(errs.values()),
+                       l2(g2, runs[0][1]))
+                bound = (max(DP_METRIC_TOL[0], 3 * floor[0]), max(DP_GRAD_TOL, 3 * floor[1]))
+                worst = sorted(errs, key=errs.get)[-3:]
+                if sorted(two["metrics"][0]) != sorted(runs[0][0]):
+                    raise AssertionError(f"{name}: two-rank metrics {sorted(two['metrics'][0])}")
+                detail = (f"metrics {err[0]:.3g} relative (bound {bound[0]:.3g}), G gradients "
+                          f"{err[1]:.3g} x max|g| (bound {bound[1]:.3g}; worst "
+                          f"{ {k: round(errs[k], 6) for k in worst} }), {err[2]:.3g} in L2; one "
+                          f"process with cuDNN's benchmarked algorithms against the "
+                          f"deterministic ones: {floor[0]:.3g}, {floor[1]:.3g} (worst "
+                          f"{ {k: round(floor_g[k], 6) for k in sorted(floor_g, key=floor_g.get)[-3:]} }), "
+                          f"{floor[2]:.3g} in L2")
+                if err[0] > bound[0] or err[1] > bound[1]:
+                    raise AssertionError(f"{name} two gloo ranks vs one process, float32 "
+                                         f"B={DP_BATCH} {SIZE}²: {detail}")
+                sums = two["sums"]
+                if sums[0] != sums[1] or got[1][name]["sums"] != sums:
+                    raise AssertionError(f"{name}: the replicas differ after {DP_STEPS} steps: "
+                                         f"{sums}")
+                want = scaled(FFT_GLO_STEP if name == "fft_glo" else {}, DP_STEPS)
+                for r in (0, 1):
+                    if got[r][name]["counts"] != want or got[r][name]["allreduces"] != 2 * DP_STEPS:
+                        raise AssertionError(f"{name} rank {r}: launches "
+                                             f"{got[r][name]['counts']}, want {want}; "
+                                             f"{got[r][name]['allreduces']} gradient all-reduces")
+                print(f"parallel {name} two gloo ranks on one card, float32 global B={DP_BATCH} "
+                      f"{SIZE}² (16 a rank), against one process: {detail}; replicas' "
+                      f"checksums equal after {DP_STEPS} steps "
+                      f"({sums[0][-1]:.17g}); {two['allreduces']} gradient all-reduces, flat "
+                      f"buffers {{{', '.join(f'{k}: {v / 2**20:.2f} MiB' for k, v in two['bytes'].items())}}}; "
+                      f"launches a rank {two['counts']['blurpool_fwd']} / "
+                      f"{two['counts']['blurpool_bwd']} K1 [{card}]")
+        finally:
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = deterministic
+    print(f"parallel two-rank part: {two_s:.1f} s for the ranks [{card}]")
+    return got[0]["fft_glo"]["counts"]
+
+
+def _torchrun_cli_train(card: str) -> dict[str, int]:
+    """Phase 6b's first ``cli train`` (fft_glo, bf16, B=32, pool staging, 2
+    epochs, checkpoints, samples) under ``torchrun --nproc_per_node 1``: a
+    world of one over NCCL; its log must equal the plain run's bit for bit."""
+    spe = CLI_PAIRS // CLI_BATCH
+    steps = 1 + 2 * spe
+    hooks = steps // 2
+    with tempfile.TemporaryDirectory() as tmp:
+        data, runs = os.path.join(tmp, "data"), os.path.join(tmp, "runs")
+        _write_pairs(data, seed=CLI_SEED, count=CLI_PAIRS, split="train")
+        _write_pairs(data, seed=CLI_SEED + 1, count=CLI_TEST_PAIRS)
+        t0 = time.perf_counter()
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", "1", "-m", "tfcgan_tpu_torch.cli", "train",
+               "--experiment", "fft_glo", "--data-root", data, "--image-size", str(SIZE),
+               "--batch-size", str(CLI_BATCH), "--dtype", "bfloat16", "--device", "cuda",
+               "--n-epochs", "2", "--checkpoint-interval", "1", "--sample-interval", "2",
+               "--out-dir", runs]
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"torchrun cli train exited {proc.returncode}:\n"
+                                 f"{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+        summary = [line for line in proc.stdout.splitlines()
+                   if line.startswith("data-parallel run: ")]
+        if len(summary) != 1:
+            raise AssertionError(f"torchrun cli train printed no summary:\n{proc.stdout[-3000:]}")
+        run = json.loads(summary[0][len("data-parallel run: "):])
+        rows = _metric_values(_log_rows(os.path.join(runs, "logs", "fft_glo.jsonl")))
+        plain = _metric_values(_PLAIN_CLI_LOG)
+        want = scaled({"blurpool_fwd": FFT_GLO_STEP["blurpool_fwd"] * steps + 11 * hooks,
+                       "blurpool_bwd": FFT_GLO_STEP["blurpool_bwd"] * steps}, 1)
+        if run["kernel_launches"] != want or run["grad_allreduces"] != 2 * steps or \
+                run["world"] != 1 or run["steps"] != steps:
+            raise AssertionError(f"torchrun cli train: {run}, want launches {want} and "
+                                 f"{2 * steps} gradient all-reduces")
+        if rows != plain:
+            raise AssertionError(f"torchrun cli train's log differs from the plain run's:\n"
+                                 f"{rows}\n{plain}")
+        ckpts = sorted(d for d in os.listdir(runs) if d.startswith("step_"))
+        if ckpts != [f"step_{1 + spe:08d}", f"step_{steps:08d}"]:
+            raise AssertionError(f"torchrun cli train checkpoints {ckpts}")
+    print(f"parallel torchrun --nproc_per_node 1 cli train (NCCL world of one): fft_glo bf16 "
+          f"B={CLI_BATCH} {SIZE}², {steps} steps: its {len(rows)} log records equal phase 6b's "
+          f"plain run bit for bit; {run['grad_allreduces']} gradient all-reduces (2 a step), "
+          f"flat buffers {{{', '.join(f'{k}: {v / 2**20:.2f} MiB' for k, v in run['flat_buffer_bytes'].items())}}}; "
+          f"launches {want['blurpool_fwd']} / {want['blurpool_bwd']} K1; {wall:.1f} s with "
+          f"the process start [{card}]")
+    return run["kernel_launches"]
+
+
+def _world_of_one(device, card: str) -> None:
+    """An NCCL world of one in this process: the fft_glo ``Trainer`` at
+    B=128 bf16 with and without the mesh in turns, and the GPipe trunk at
+    one stage against the serial trunk."""
+    import torch.distributed as dist
+
+    from tfcgan_tpu_torch.models.resnet_gen import ResidualBlock
+    from tfcgan_tpu_torch.parallel import make_mesh, make_pipe_mesh, resnet_trunk_pipeline
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            world_size=1, rank=0, device_id=device)
+    try:
+        mesh = make_mesh(1, device=device)
+        cfg = _cfg("fft_glo", "bfloat16")
+        recipe = build_recipe(cfg, device)
+        plain, meshed = Trainer(cfg, recipe), Trainer(cfg, recipe, mesh=mesh)
+        state = plain.init_state(0)
+        batch = _device_batch(DP_RATE_BATCH, DP_SEED, device)
+
+        def timed(trainer):
+            trainer.step(state, batch)  # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(DP_RATE_STEPS):
+                trainer.step(state, batch)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) / DP_RATE_STEPS * 1e3
+
+        reset_counts()
+        ms = {"plain": [], "mesh": []}
+        for which in ("plain", "mesh", "mesh", "plain"):
+            ms[which].append(timed(plain if which == "plain" else meshed))
+        expect_counts("fft_glo Trainer, plain and world-of-one mesh", FFT_GLO_STEP,
+                      4 * (DP_RATE_STEPS + 1))
+        if meshed.stats.grad_allreduces != 2 * 2 * (DP_RATE_STEPS + 1):
+            raise AssertionError(f"{meshed.stats.grad_allreduces} gradient all-reduces")
+        mib = {k: v / 2**20 for k, v in meshed.stats.flat_bytes.items()}
+        print(f"parallel fft_glo Trainer bf16 B={DP_RATE_BATCH} {SIZE}², step ms in turns "
+              f"(plain, mesh, mesh, plain; {DP_RATE_STEPS} steps after 1 warm-up each): plain "
+              f"{ms['plain'][0]:.3f} / {ms['plain'][1]:.3f}, NCCL world-of-one mesh "
+              f"{ms['mesh'][0]:.3f} / {ms['mesh'][1]:.3f}; flat buffers "
+              f"{{{', '.join(f'{k}: {v:.2f} MiB' for k, v in mib.items())}}} a step [{card}]")
+        del plain, meshed, state, recipe, batch
+        torch.cuda.empty_cache()
+
+        # the GPipe trunk at one stage over NCCL: the serial trunk bit for bit
+        pipe = make_pipe_mesh(1, device=device)
+        gen = torch.Generator().manual_seed(0)
+        block = ResidualBlock(256, device=device)
+        params = [{k: (torch.randn(v.shape, generator=gen) * 0.02).to(device)
+                   for k, v in block.named_parameters()} for _ in range(PIPE_BLOCKS)]
+        x = torch.randn(PIPE_BATCH, SIZE // 4, SIZE // 4, 256, generator=gen).to(device)
+
+        def apply(p, h):
+            return torch.func.functional_call(block, p, (h,))
+
+        with torch.no_grad():
+            serial = x
+            for p in params:
+                serial = apply(p, serial)
+            one = resnet_trunk_pipeline(apply, params, x, mesh=pipe, microbatches=1)
+            four = resnet_trunk_pipeline(apply, params, x, mesh=pipe, microbatches=4)
+        if not torch.equal(one, serial):
+            raise AssertionError("the one-stage GPipe trunk differs from the serial trunk")
+        err4 = float((four - serial).abs().max())
+        if err4 > 1e-4 * float(serial.abs().max()):
+            raise AssertionError(f"GPipe at 4 microbatches: {err4} from the serial trunk")
+        print(f"parallel GPipe trunk ({PIPE_BLOCKS} ResidualBlocks of 256 channels, "
+              f"({PIPE_BATCH}, {SIZE // 4}, {SIZE // 4}, 256) float32): one stage on NCCL, 1 "
+              f"microbatch = the serial trunk bit for bit, 4 microbatches within {err4:.3g}; "
+              f"more than one stage is held on the CPU only (one card hosts one NCCL rank, "
+              f"and gloo's send/recv is not tried on CUDA tensors) [{card}]")
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_parallel(device, args, card: str) -> dict[str, dict[str, int]]:
+    """``parallel/``: ``cli train`` under ``torchrun`` as a world of one over
+    NCCL, the fft_glo Trainer with and without that mesh, the GPipe trunk at
+    one stage, and two gloo ranks on the card against one process."""
+    t0 = time.perf_counter()
+    by_path = {"dp_cli_train": _torchrun_cli_train(card)}
+    _world_of_one(device, card)
+    torch.cuda.empty_cache()
+    by_path["dp_two_ranks"] = _two_ranks(card)
+    torch.cuda.empty_cache()
+    print(f"parallel phase: {time.perf_counter() - t0:.1f} s [{card}]")
+    return by_path
+
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--params", default=None, help="g_params.npz (tools/export_g_params.py)")
@@ -3351,6 +3708,11 @@ def main(argv=None) -> int:
     # commands and test-time augmentation
     by_path.update(phase_data_eval(device, args, card))
     torch.cuda.empty_cache()
+
+    # 20. parallel/: cli train under torchrun (an NCCL world of one), the
+    # Trainer with and without that mesh, the GPipe trunk at one stage, and
+    # two gloo ranks on the card
+    by_path.update(phase_parallel(device, args, card))
 
     # 18. result
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")

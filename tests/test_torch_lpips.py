@@ -90,12 +90,16 @@ def test_random_init_has_the_jax_distributions():
 
 
 def test_recipe_refuses_to_train_on_random_weights_where_jax_loads_them(monkeypatch, tmp_path):
+    # the recipe loads the file where the JAX recipe does (test_torch_weights_msgpack.py);
+    # a file it cannot read stops the init instead of leaving LPIPS random
     weights = tmp_path / "lpips_flax.msgpack"
     weights.write_bytes(b"")
     monkeypatch.setenv("TFCGAN_LPIPS_WEIGHTS", str(weights))
     cfg = get_experiment("fft_glo")
-    with pytest.raises(NotImplementedError, match="loading them waits for a later PR"):
-        build_recipe(cfg, "cpu")
+    recipe = build_recipe(cfg, "cpu")
+    assert recipe.perceptual == "lpips"
+    with pytest.raises(ValueError, match="truncated msgpack"):
+        recipe.init(torch.Generator().manual_seed(0))
     monkeypatch.delenv("TFCGAN_LPIPS_WEIGHTS")
     # msrecon builds no LPIPS module, so it trains with no weights to load
     cfg = cfg.replace(loss=dataclasses.replace(cfg.loss, perceptual="msrecon"))

@@ -86,10 +86,33 @@ from tfcgan_tpu_torch.models.layers import without_draws
 
 
 def _device(name: str) -> torch.device:
+    """``--device``; under ``torchrun`` "cuda" is this process's card,
+    ``cuda:$LOCAL_RANK``."""
     device = torch.device(name)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("CUDA is not available: pass --device cpu to run on the host")
+    if device.type == "cuda" and device.index is None and "LOCAL_RANK" in os.environ:
+        device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
     return device
+
+
+def _data_mesh(device: torch.device):
+    """Under ``torchrun`` (``WORLD_SIZE`` set): the process group (NCCL for a
+    card, gloo for the host) and the data mesh over it, even for a world of
+    one; None otherwise."""
+    if "WORLD_SIZE" not in os.environ:
+        return None
+    from tfcgan_tpu_torch.parallel import initialize, make_mesh
+
+    initialize(backend="nccl" if device.type == "cuda" else "gloo")
+    return make_mesh(device=device)
+
+
+def _leave_mesh(mesh) -> None:
+    if mesh is not None:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
 
 
 def _cfg_from_args(args):
@@ -185,6 +208,8 @@ def cmd_train(args):
     from tfcgan_tpu_torch.train.trainer import Trainer
 
     device = _device(args.device)
+    mesh = _data_mesh(device)
+    lead = mesh is None or mesh.rank == 0  # logs, samples, histograms, checkpoints
     cfg = _cfg_from_args(args)
     if cfg.loss.conditional and not args.annots:
         raise SystemExit(f"experiment {cfg.name!r} is conditional: pass its labels with "
@@ -208,8 +233,8 @@ def cmd_train(args):
     # kept local, as in the JAX CLI: the closed-form schedules see
     # cfg.train.steps_per_epoch (None -> 1), not the dataset's
     steps_per_epoch = min(len(d) for d in datasets) // cfg.data.batch_size
-    logger = JsonlLogger(os.path.join(cfg.train.log_dir, f"{cfg.name}.jsonl"))
-    trainer = Trainer(cfg, recipe, logger=logger)
+    logger = JsonlLogger(os.path.join(cfg.train.log_dir, f"{cfg.name}.jsonl")) if lead else None
+    trainer = Trainer(cfg, recipe, logger=logger, mesh=mesh)
     staged = False  # True when `it` yields batches on the device (or pool indices)
     pool = None
     if len(datasets) > 1:
@@ -227,7 +252,7 @@ def cmd_train(args):
         if staging == "pool":
             from tfcgan_tpu_torch.data.pool import DevicePool
 
-            pool = DevicePool(datasets[0], device, log_every=500)
+            pool = DevicePool(datasets[0], device, log_every=500 if lead else 0, mesh=mesh)
             it = pool.index_batches(cfg.data.batch_size, seed=cfg.train.seed)
             staged = True
         elif cfg.data.num_workers > 0:
@@ -237,33 +262,40 @@ def cmd_train(args):
                 datasets[0].enable_cache()
             loader = PrefetchLoader(datasets[0], cfg.data.batch_size,
                                     num_workers=cfg.data.num_workers, seed=cfg.train.seed,
-                                    raw=True)
+                                    raw=True, mesh=mesh)
             it = device_prefetch(iter(loader), device, via_uint8=True)
             staged = True
         else:
             it = batch_iterator(datasets[0], cfg.data.batch_size, seed=cfg.train.seed)
     first = next(it)
     state = trainer.init_state(cfg.train.seed, draw=not args.resume)
-    print(f"G params: {count_params(state.G):,} | D params: {count_params(state.D):,} | "
-          f"device: {device}")
+    if lead:
+        world = "" if mesh is None else f" | world {mesh.world_size} mesh={mesh.shape}"
+        print(f"G params: {count_params(state.G):,} | D params: {count_params(state.D):,} | "
+              f"device: {device}{world}")
     if args.resume:
         # the data order restarts: `first` was drawn and is not stepped
         state = restore_checkpoint(args.resume, state)
-        print(f"resumed from {args.resume} at step {state.step}")
+        if lead:
+            print(f"resumed from {args.resume} at step {state.step}")
     else:
         state = trainer.fit(state, [first], pool=pool)  # step 0
 
-    sample_hook = _make_sample_hook(cfg, args, device)
+    sample_hook = _make_sample_hook(cfg, args, device) if lead else None
     hist_logger = None
-    if args.hist_every:
+    if args.hist_every and lead:
         from tfcgan_tpu_torch.train.histograms import HistogramLogger
 
         hist_logger = HistogramLogger(os.path.join(args.out_dir or ".", "hists.jsonl"))
-    ckpt_mgr = AsyncCheckpointManager(cfg.train.checkpoint_dir)
+    ckpt_mgr = AsyncCheckpointManager(cfg.train.checkpoint_dir, mesh=mesh)
     # metric-driven lr (NeMAR 'plateau'): stepped once an epoch on loss_G; a
     # resume starts a fresh controller, as the JAX CLI does
     plateau = ReduceLROnPlateau(cfg.optim.lr) if cfg.optim.schedule == "plateau" else None
     if not staged:
+        if mesh is not None:  # host batches are global: each rank places its share
+            from tfcgan_tpu_torch.parallel import local_batch_slice
+
+            it = map(local_batch_slice, it)
         it = device_prefetch(it, device)  # copies overlap the running step
     for epoch in range(cfg.train.n_epochs):
         state = trainer.fit(state, it, num_steps=steps_per_epoch, check_finite=True,
@@ -273,15 +305,28 @@ def cmd_train(args):
             set_learning_rate(state, plateau.step(float(trainer.last_metrics["loss_G"])))
         if cfg.train.checkpoint_interval > 0 and epoch % cfg.train.checkpoint_interval == 0:
             path = ckpt_mgr.save(state)  # the write overlaps the next epoch
-            print(f"\n[epoch {epoch}] checkpoint -> {path}")
+            if lead:
+                print(f"\n[epoch {epoch}] checkpoint -> {path}")
     ckpt_mgr.save(state)
     ckpt_mgr.close()
-    logger.close()
+    if logger is not None:
+        logger.close()
     if hist_logger is not None:
         from tfcgan_tpu_torch.train.histograms import write_histogram_html
 
         hist_logger.close()
         print(f"\nhistograms -> {write_histogram_html(hist_logger.path)}")
+    if mesh is not None and lead:
+        import json
+
+        from tfcgan_tpu_torch.ops.kernels import launch_counts
+
+        print("\ndata-parallel run: " + json.dumps({
+            "world": mesh.world_size, "steps": state.step,
+            "grad_allreduces": trainer.stats.grad_allreduces,
+            "flat_buffer_bytes": trainer.stats.flat_bytes,
+            "kernel_launches": launch_counts()}))
+    _leave_mesh(mesh)
 
 
 def _serve_weights(args, cfg, device) -> torch.nn.Module:
@@ -314,6 +359,7 @@ def cmd_test(args):
     from tfcgan_tpu_torch.infer import Inferencer
 
     device = _device(args.device)
+    mesh = _data_mesh(device)
     cfg = _cfg_from_args(args)
     if cfg.recipe == "diffusion":
         raise SystemExit("test serves the GAN recipes; use gen for a diffusion experiment")
@@ -324,8 +370,11 @@ def cmd_test(args):
     ds = PairedImageDataset(cfg.data.root, "test", cfg.data.image_size, cfg.data.direction)
     # drop_last=False: every test image is served
     batches = batch_iterator(ds, args.batch_size or 8, shuffle=False, epochs=1, drop_last=False)
-    n = Inferencer(cfg, g).run_test_set(batches, args.out_dir, save_spectra=args.spectra)
-    print(f"wrote {n} stacks to {args.out_dir}")
+    inferencer = Inferencer(cfg, g, mesh=mesh)
+    n = inferencer.run_test_set(batches, args.out_dir, save_spectra=args.spectra)
+    if inferencer.writes:
+        print(f"wrote {n} stacks to {args.out_dir}")
+    _leave_mesh(mesh)
 
 
 def cmd_gen(args):

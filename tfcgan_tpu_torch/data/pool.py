@@ -21,6 +21,11 @@ beside the images and gathered with the same indices, as the JAX pool does.
 The JAX pool's assembly runs inside the jitted train step; eager PyTorch has
 no program to fuse the gather into, so ``Trainer.fit(pool=...)`` calls
 ``batch`` before each step.
+
+In a data-parallel run (``mesh``) every rank holds the whole set on its own
+card, as the JAX pool is replicated over its mesh, draws the same global
+index batches (one seed), and ``batch`` gathers only this rank's share of
+them: no traffic between cards.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ import numpy as np
 import torch
 
 from tfcgan_tpu_torch.ops.temperature import TEMP_MAX_C, TEMP_MIN_C
+from tfcgan_tpu_torch.parallel.mesh import local_share
 
 
 def finish_uint8(a_u8: torch.Tensor, b_u8: torch.Tensor) -> dict[str, torch.Tensor]:
@@ -59,15 +65,20 @@ class DevicePool:
     """The decoded set (``dataset.raw_item`` of every pair) as uint8 tensors
     on ``device``, with on-device batch assembly."""
 
-    def __init__(self, dataset, device="cuda", log_every: int = 0):
+    def __init__(self, dataset, device="cuda", log_every: int = 0, mesh=None):
         host = _decode_all(dataset, log_every)
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = torch.device(device if mesh is None else mesh.device)
         self.arrays = {k: torch.from_numpy(v).to(self.device) for k, v in host.items()}
         self.n = int(host["A_u8"].shape[0])
 
     def batch(self, idx) -> dict[str, torch.Tensor]:
-        """The batch of the integer indices ``idx``, assembled on the device."""
-        idx = torch.as_tensor(np.asarray(idx), dtype=torch.int64).to(self.device)
+        """The batch of the integer indices ``idx`` (under a mesh, this rank's
+        share of the global indices), assembled on the device."""
+        idx = np.asarray(idx)
+        if self.mesh is not None:
+            idx = idx[local_share(len(idx), self.mesh)]
+        idx = torch.as_tensor(idx, dtype=torch.int64).to(self.device)
         labels = {k: v.index_select(0, idx) for k, v in self.arrays.items()
                   if k in ("LAB", "LAB3")}
         return {**finish_uint8(self.arrays["A_u8"].index_select(0, idx),

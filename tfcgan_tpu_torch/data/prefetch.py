@@ -13,6 +13,11 @@
   (4x fewer bytes) and are normalised on the device (``pool.finish_uint8``,
   bit for bit the host path's values); class labels pass through as they are.
 - ``is_device_batch``: ``Trainer.step`` uses such a batch as it is.
+
+In a data-parallel run each rank's ``PrefetchLoader(mesh=...)`` shuffles with
+the same seed and decodes only its share of each global batch, and
+``device_prefetch`` places that share on the rank's card (``mesh.device``),
+as the JAX loader feeds each host its shard.
 """
 
 from __future__ import annotations
@@ -28,16 +33,19 @@ import numpy as np
 import torch
 
 from tfcgan_tpu_torch.data.pool import finish_uint8
+from tfcgan_tpu_torch.parallel.mesh import local_share
 
 
 class PrefetchLoader:
     """Deterministic threaded batcher over an indexable dataset: the
     semantics of ``pairs.batch_iterator`` (seeded shuffle an epoch,
-    ``drop_last``) with ``num_workers`` batches assembled concurrently."""
+    ``drop_last``) with ``num_workers`` batches assembled concurrently.
+    ``batch_size`` is the global batch; under ``mesh`` each batch holds only
+    this rank's share of it."""
 
     def __init__(self, dataset, batch_size: int, num_workers: int = 4, shuffle: bool = True,
                  seed: int = 42, drop_last: bool = True, epochs: int | None = None,
-                 raw: bool = False):
+                 raw: bool = False, mesh=None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.num_workers = max(1, num_workers)
@@ -46,12 +54,15 @@ class PrefetchLoader:
         self.drop_last = drop_last
         self.epochs = epochs
         self.raw = raw
+        self.mesh = mesh
 
     def __len__(self) -> int:
         n = len(self.dataset)
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def _load_batch(self, idxs: np.ndarray) -> dict[str, np.ndarray]:
+        if self.mesh is not None:
+            idxs = idxs[local_share(len(idxs), self.mesh)]
         get = self.dataset.raw_item if self.raw else self.dataset.__getitem__
         items = [get(int(j)) for j in idxs]
         return {k: np.stack([it[k] for it in items]) for k in items[0]}

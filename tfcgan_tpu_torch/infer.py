@@ -16,8 +16,15 @@ A debiased (conditional) experiment's G takes the batch's
 ``LAB3`` labels as floats, the saliency-mask experiment's the image with its
 mask as a 4th channel; both write the tfcgan stacks. For a diffusion
 experiment a call samples x_0 over the whole ancestral chain and
-``run_test_set`` writes real_A | sample. The multi-device mesh is not
-ported yet.
+``run_test_set`` writes real_A | sample.
+
+With a data ``mesh`` (``parallel.make_mesh``) the serve path is
+data-parallel, as the JAX Inferencer is over its mesh: a batch is padded with
+copies of its first sample to a multiple of the data axis, each rank serves
+its share, ``parallel.all_gather_batch`` collects the outputs on every rank
+and the padding is trimmed; ``run_test_set`` writes on rank 0 only. Every
+rank calls with the same batches. The diffusion sampler is not data-parallel
+(its noise is drawn for the batch it is given).
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ import torch
 from tfcgan_tpu_torch.config import ExperimentConfig
 from tfcgan_tpu_torch.evaluation.suite import save_image_grid
 from tfcgan_tpu_torch.ops.fftloss import fft_log_magnitude
+from tfcgan_tpu_torch.parallel.mesh import all_gather_batch, local_part, loss_mesh
 from tfcgan_tpu_torch.recipes.diffusion import diffusion_sample, schedule_of
 from tfcgan_tpu_torch.recipes.nemar import nemar_forward
 from tfcgan_tpu_torch.recipes.stn import stn_condition, stn_serve
@@ -52,14 +60,40 @@ class Inferencer:
     of ``recipes.thermalgan.build_generators``, or the
     ``DiffusionGenerators`` of ``recipes.diffusion.build_generators``."""
 
-    def __init__(self, cfg: ExperimentConfig, generator: torch.nn.Module):
+    def __init__(self, cfg: ExperimentConfig, generator: torch.nn.Module, mesh=None):
         if cfg.recipe not in ("tfcgan", "stn", "nemar", "diffusion", "cyclegan", "thermalgan"):
             raise ValueError(f"no inference path for recipe {cfg.recipe!r}")
+        if mesh is not None and cfg.recipe == "diffusion":
+            raise NotImplementedError("the diffusion sampler is not data-parallel: serve it "
+                                      "without a mesh")
         self.cfg = cfg
         self.generator = generator.eval()
         self.device = next(generator.parameters()).device
+        self.mesh = mesh
+        self.writes = mesh is None or mesh.rank == 0
 
     def __call__(self, batch: dict, seed: int = 0) -> torch.Tensor | dict[str, torch.Tensor]:
+        """The outputs for ``batch`` (see ``_forward``); under a mesh every
+        rank computes its share and gets the whole batch's outputs."""
+        if self.mesh is None:
+            return self._forward(batch, seed)
+        n = int(np.shape(batch["A"])[0])
+        pad = (-n) % self.mesh.world_size
+        share = {}
+        for k, v in batch.items():
+            v = torch.as_tensor(v)
+            if pad:
+                v = torch.cat([v, v[:1].expand(pad, *v.shape[1:])])
+            share[k] = local_part(v, self.mesh)
+        with loss_mesh(self.mesh):
+            out = self._forward(share, seed)
+
+        def whole(x):
+            return all_gather_batch(x.contiguous(), self.mesh)[:n]
+
+        return {k: whole(v) for k, v in out.items()} if isinstance(out, dict) else whole(out)
+
+    def _forward(self, batch: dict, seed: int = 0) -> torch.Tensor | dict[str, torch.Tensor]:
         """batch["A"] (and, for stn, nemar and cyclegan, batch["B"]; for
         thermalgan batch["T_B"], (N, H, W) Celsius; for a debiased
         experiment batch["LAB3"], (N, 3) integers): (N, H, W, 3) in
@@ -105,7 +139,7 @@ class Inferencer:
             stacks = [np.asarray(real[k]) if k in real else out[k].float().cpu().numpy()
                       for k in STACKS[self.cfg.recipe]]
             for i in range(stacks[0].shape[0]):
-                save_image_grid([s[i] for s in stacks], os.path.join(out_dir, f"{n:05d}.png"))
+                self._save([s[i] for s in stacks], os.path.join(out_dir, f"{n:05d}.png"))
                 n += 1
         return n
 
@@ -118,15 +152,21 @@ class Inferencer:
             a = np.asarray(batch["A"])
             for i in range(out.shape[0]):
                 img = out[i].repeat(3, -1) if out.shape[-1] == 1 else out[i]
-                save_image_grid([a[i], img], os.path.join(out_dir, f"{n:05d}.png"))
+                self._save([a[i], img], os.path.join(out_dir, f"{n:05d}.png"))
                 n += 1
         return n
+
+    def _save(self, images: list, path: str) -> None:
+        if self.writes:
+            save_image_grid(images, path)
 
     def run_test_set(self, batches, out_dir: str, save_spectra: bool = False,
                      seed: int = 0) -> int:
         """Write one stack per image (and, for tfcgan and thermalgan, its
-        spectra); returns images written. ``seed`` is the diffusion sampler's."""
-        os.makedirs(out_dir, exist_ok=True)
+        spectra); returns images written (by rank 0, under a mesh). ``seed``
+        is the diffusion sampler's."""
+        if self.writes:
+            os.makedirs(out_dir, exist_ok=True)
         if self.cfg.recipe == "diffusion":
             return self._run_sampling_test_set(batches, out_dir, seed)
         if self.cfg.recipe in STACKS:
@@ -141,7 +181,7 @@ class Inferencer:
             fake = fake.cpu().numpy()
             a, b = np.asarray(batch["A"]), np.asarray(batch["B"])
             for i in range(fake.shape[0]):
-                save_image_grid([a[i], fake[i], b[i]], os.path.join(out_dir, f"{n:05d}.png"))
+                self._save([a[i], fake[i], b[i]], os.path.join(out_dir, f"{n:05d}.png"))
                 if save_spectra:
                     lo = min(spec_f[i].min(), spec_r[i].min())
                     hi = max(spec_f[i].max(), spec_r[i].max())
@@ -149,7 +189,7 @@ class Inferencer:
                     def norm(s):
                         return ((s - lo) / max(hi - lo, 1e-9) * 2 - 1)[..., None].repeat(3, -1)
 
-                    save_image_grid([norm(spec_f[i]), norm(spec_r[i])],
-                                    os.path.join(out_dir, "spectra", f"{n:05d}_mag.png"))
+                    self._save([norm(spec_f[i]), norm(spec_r[i])],
+                               os.path.join(out_dir, "spectra", f"{n:05d}_mag.png"))
                 n += 1
         return n

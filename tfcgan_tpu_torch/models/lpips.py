@@ -9,10 +9,10 @@ over the 5 taps. The parameters are frozen; the real-image tower runs under
 
 Pretrained weights are not in the repository, so fft_glo trains with random
 ones, as the JAX package does without weights: lecun-normal convs with zero
-biases and uniform(0, 0.1) lin weights. Where the JAX package would load
-converted weights (``lpips_weights``, ``$TFCGAN_LPIPS_WEIGHTS`` or
-``weights/lpips_flax.msgpack``), the port refuses to run instead of training
-on random ones.
+biases and uniform(0, 0.1) lin weights. Where the JAX package loads converted
+weights (``lpips_weights``, ``$TFCGAN_LPIPS_WEIGHTS`` or
+``weights/lpips_flax.msgpack``, the file ``tools/convert_lpips.py`` writes),
+the recipes load the same file through ``load_lpips_params``.
 """
 
 from __future__ import annotations
@@ -145,3 +145,34 @@ def resolve_perceptual(loss_cfg) -> str:
         return mode
     path = resolve_lpips_weights(loss_cfg)
     return "lpips" if (path and os.path.exists(path)) else "msrecon"
+
+
+def load_lpips_params(path: str) -> dict[str, torch.Tensor]:
+    """The state dict of ``LPIPS`` from a converted flax file (the JAX
+    ``load_lpips_params``), validated against the module's structure: a
+    missing, extra or misshaped leaf raises ``ValueError``."""
+    from tfcgan_tpu_torch.bridge import lpips_from_flax
+    from tfcgan_tpu_torch.models.layers import without_draws
+    from tfcgan_tpu_torch.weights_msgpack import check_state_dict, read_flax_msgpack
+
+    tree = read_flax_msgpack(path)
+    try:
+        state = lpips_from_flax(tree)
+    except KeyError as e:
+        raise ValueError(f"{path}: {e.args[0]}") from None
+    with without_draws():
+        template = LPIPS(device="meta").state_dict()
+    return check_state_dict(state, template, path)
+
+
+def load_lpips_weights(lpips: LPIPS, loss_cfg, generator: torch.Generator | None = None
+                       ) -> None:
+    """Fill a recipe's ``lpips``: from the converted file where
+    ``resolve_lpips_weights`` finds one (as the JAX recipes' init does), else
+    drawn from ``generator``."""
+    path = resolve_lpips_weights(loss_cfg)
+    if path:
+        with torch.no_grad():
+            lpips.load_state_dict(load_lpips_params(path))
+    else:
+        lpips.reset_parameters(generator)

@@ -14,8 +14,9 @@ flax tree (``layer1_0.conv1.weight`` <- ``layer1_0/conv1/kernel``, a norm's
 ``scale`` -> ``weight``), so ``bridge.conv_net_from_flax`` converts them.
 
 No converted torchvision weights are in the repository; where the JAX
-package would load them (``resolve_resnet_weights``), the recipe refuses to
-run instead of training on random ones.
+package loads them (``resolve_resnet_weights``: the file
+``tools/convert_resnet.py`` writes), the recipe builds the ``folded`` form
+and loads the backbone through ``load_resnet18_backbone``.
 """
 
 from __future__ import annotations
@@ -143,3 +144,23 @@ class ResNet18(nn.Module):
         for block in self.blocks():
             h = block(h)
         return self.fc(h.mean(dim=(1, 2)))
+
+
+def load_resnet18_backbone(path: str) -> dict[str, torch.Tensor]:
+    """The backbone of ``ResNet18(norm="folded")`` from a converted flax file
+    (the JAX ``load_resnet18_backbone``): every parameter but the classifier
+    ``fc``, which is trained fresh, validated against the module's structure:
+    a missing, extra or misshaped leaf raises ``ValueError``."""
+    from tfcgan_tpu_torch.bridge import resnet18_from_flax
+    from tfcgan_tpu_torch.models.layers import without_draws
+    from tfcgan_tpu_torch.weights_msgpack import check_state_dict, read_flax_msgpack
+
+    tree = read_flax_msgpack(path)
+    try:
+        state = resnet18_from_flax(tree.get("params", tree))
+    except KeyError as e:
+        raise ValueError(f"{path}: {e.args[0]}") from None
+    with without_draws():
+        template = ResNet18(1, norm="folded", device="meta").state_dict()
+    template = {k: v for k, v in template.items() if not k.startswith("fc.")}
+    return check_state_dict(state, template, path)

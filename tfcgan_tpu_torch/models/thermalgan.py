@@ -30,6 +30,7 @@ from tfcgan_tpu_torch.models.layers import (GroupNorm, TorchConv, TorchConvTrans
 from tfcgan_tpu_torch.models.resnet import BasicBlock, flax_init_
 from tfcgan_tpu_torch.models.vit import Dense
 from tfcgan_tpu_torch.ops.norm import instance_norm
+from tfcgan_tpu_torch.parallel.mesh import active_mesh, all_reduce_sum
 
 _PAD1 = ((1, 1), (1, 1))
 
@@ -39,7 +40,9 @@ class TrainBatchNorm(nn.Module):
     positional 0.8 lands on **eps**. Batch statistics always (the reference
     never runs the net in eval mode), the biased variance, in float32; no
     running statistics. ``weight`` and ``bias`` are the JAX ``scale`` and
-    ``bias`` (init 1 + 0.02 N(0, 1) and 0)."""
+    ``bias`` (init 1 + 0.02 N(0, 1) and 0). In a data-parallel step the
+    moments are the global batch's, as GSPMD computes them in the JAX step
+    (not DataParallel's per-card ones)."""
 
     def __init__(self, channels: int, eps: float = 0.8, device=None):
         super().__init__()
@@ -48,9 +51,19 @@ class TrainBatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.batch_norm(x.float().permute(0, 3, 1, 2), None, None, self.weight, self.bias,
-                         training=True, eps=self.eps)
-        return y.permute(0, 2, 3, 1).to(x.dtype)
+        mesh = active_mesh()
+        if mesh is None:
+            y = F.batch_norm(x.float().permute(0, 3, 1, 2), None, None, self.weight, self.bias,
+                             training=True, eps=self.eps)
+            return y.permute(0, 2, 3, 1).to(x.dtype)
+        # a data-parallel step: the global batch's moments, the mean and then
+        # the centred (two-pass) variance, each summed over the ranks
+        xf = x.float()
+        count = xf.shape[0] * xf.shape[1] * xf.shape[2] * mesh.world_size
+        mean = all_reduce_sum(xf.sum(dim=(0, 1, 2)), mesh) / count
+        var = all_reduce_sum((xf - mean).square().sum(dim=(0, 1, 2)), mesh) / count
+        y = (xf - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
+        return y.to(x.dtype)
 
 
 class _DownBic(nn.Module):

@@ -11,7 +11,9 @@ kornia's semantics: grayscale 0.299 R + 0.587 G + 0.114 B (not
 divided by its absolute sum, the Gaussian the sampled exp(-x² / 2 sigma²)
 normalised to sum 1 and applied along W then H, every filter on a reflect
 padded map. The batch-global normalisation couples the samples of a batch,
-as the reference's does. All in float32 whatever the compute dtype: plain
+as the reference's does; in a data-parallel step the min and max are the
+global batch's (``parallel.mesh.all_reduce_min``/``all_reduce_max``), as
+GSPMD computes them over the sharded batch. All in float32 whatever the compute dtype: plain
 convolutions without TF32 (``ops.exact``), no kernel of the port's own.
 """
 
@@ -21,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from tfcgan_tpu_torch.ops.exact import conv2d_fp32
+from tfcgan_tpu_torch.parallel.mesh import active_mesh, all_reduce_max, all_reduce_min
 
 _GRAY = (0.299, 0.587, 0.114)
 
@@ -62,7 +65,8 @@ def saliency_mask(img: torch.Tensor) -> torch.Tensor:
     """(N, H, W, C) images (any range) -> (N, H, W, 1) float32 in [0, 1]."""
     gray = rgb_to_grayscale_kornia(img) if img.shape[-1] == 3 else img.float()
     lap = _filter2d_reflect(gray.permute(0, 3, 1, 2), laplacian_kernel2d(7)).abs()
-    lo, hi = lap.amin(), lap.amax()
+    mesh = active_mesh()  # inside a data-parallel step: the global batch's min and max
+    lo, hi = all_reduce_min(lap, mesh), all_reduce_max(lap, mesh)
     norm = (lap - lo) / torch.clamp_min(hi - lo, 1e-12)
     blur = gaussian_blur(norm, 9, 1.6)
-    return (blur / torch.clamp_min(blur.amax(), 1e-12)).permute(0, 2, 3, 1)
+    return (blur / torch.clamp_min(all_reduce_max(blur, mesh), 1e-12)).permute(0, 2, 3, 1)

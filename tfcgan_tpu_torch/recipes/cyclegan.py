@@ -22,6 +22,7 @@ slots, are a ``CycleDraws``.
 from __future__ import annotations
 
 import dataclasses
+from typing import ClassVar
 
 import torch
 import torch.nn as nn
@@ -31,6 +32,7 @@ from tfcgan_tpu_torch.models.discriminator import StridedPatchDiscriminator
 from tfcgan_tpu_torch.models.layers import init_normal_, without_draws
 from tfcgan_tpu_torch.models.resnet_gen import ResNetGenerator
 from tfcgan_tpu_torch.ops.gan_losses import lsgan_loss
+from tfcgan_tpu_torch.parallel.mesh import active_mesh, all_gather_batch, local_part
 
 BUFFER_SIZE = 50
 
@@ -85,6 +87,8 @@ def replay_push_sample(buffer: dict, fakes: torch.Tensor, swap: torch.Tensor,
 @dataclasses.dataclass
 class CycleDraws:
     """The replay buffers' draws: a coin (True = swap) and a slot an image."""
+
+    PER_SAMPLE: ClassVar[tuple[str, ...]] = ()
 
     swap_a: torch.Tensor
     slots_a: torch.Tensor
@@ -164,12 +168,18 @@ class CycleGANRecipe:
         return total, aux, metrics
 
     def pre_d(self, extra: dict, aux: dict, draws: CycleDraws) -> tuple[dict, dict]:
-        """Push the step's fakes through the replay buffers."""
-        buf_a, fa = replay_push_sample(extra["buf_A"], aux["fake_a"], draws.swap_a,
-                                       draws.slots_a)
-        buf_b, fb = replay_push_sample(extra["buf_B"], aux["fake_b"], draws.swap_b,
-                                       draws.slots_b)
-        return {"buf_A": buf_a, "buf_B": buf_b}, {**aux, "fake_a_buf": fa, "fake_b_buf": fb}
+        """Push the step's fakes through the replay buffers. In a
+        data-parallel step every rank pushes the global batch's fakes (all
+        gathered) with the global draws, as the JAX step pushes its sharded
+        batch, so the buffers stay the same on every rank; each rank keeps its
+        share of the returned images."""
+        mesh = active_mesh()
+        buf_a, fa = replay_push_sample(extra["buf_A"], all_gather_batch(aux["fake_a"], mesh),
+                                       draws.swap_a, draws.slots_a)
+        buf_b, fb = replay_push_sample(extra["buf_B"], all_gather_batch(aux["fake_b"], mesh),
+                                       draws.swap_b, draws.slots_b)
+        return {"buf_A": buf_a, "buf_B": buf_b}, {
+            **aux, "fake_a_buf": local_part(fa, mesh), "fake_b_buf": local_part(fb, mesh)}
 
     def d_loss(self, batch: dict, aux: dict) -> tuple[torch.Tensor, dict]:
         a, b = batch["A"], batch["B"]

@@ -23,6 +23,7 @@ device (``models.diffusion.sample``).
 from __future__ import annotations
 
 import dataclasses
+from typing import ClassVar
 
 import torch
 import torch.nn as nn
@@ -124,6 +125,8 @@ def diffusion_sample(nets: DiffusionGenerators, schedule: DDPMSchedule, batch: d
 @dataclasses.dataclass
 class DiffusionStepDraws:
     """Every random draw of one TFC-Diff train step."""
+
+    PER_SAMPLE: ClassVar[tuple[str, ...]] = ('noise', 't', 'dropout_masks')
 
     noise: torch.Tensor  # the target image's shape, float32 standard normal
     t: torch.Tensor  # (N,) int64 timesteps in [0, T - 2]

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+from typing import ClassVar
 
 import torch
 import torch.nn as nn
@@ -35,7 +36,7 @@ import torch.nn as nn
 from tfcgan_tpu_torch.config import ExperimentConfig
 from tfcgan_tpu_torch.models.discriminator import PatchDiscriminator
 from tfcgan_tpu_torch.models.layers import init_normal_
-from tfcgan_tpu_torch.models.lpips import LPIPS, resolve_lpips_weights, resolve_perceptual
+from tfcgan_tpu_torch.models.lpips import LPIPS, load_lpips_weights, resolve_perceptual
 from tfcgan_tpu_torch.models.stn import AffineSTN, warp_src
 from tfcgan_tpu_torch.models.unet import GeneratorUNet
 from tfcgan_tpu_torch.ops.fftloss import fft_l1_loss
@@ -120,6 +121,8 @@ class STNStepDraws:
     three generator passes, each None when ``deterministic_g`` (and ``g2_b``
     also for dark_visible, which has no G2(B) pass)."""
 
+    PER_SAMPLE: ClassVar[tuple[str, ...]] = ('g1_a', 'g2_b', 'g2_warped')
+
     g1_a: dict[str, torch.Tensor] | None
     g2_b: dict[str, torch.Tensor] | None
     g2_warped: dict[str, torch.Tensor] | None
@@ -154,11 +157,6 @@ class STNRecipe:
             raise ValueError(f"unknown perceptual mode {self.perceptual!r}")
         self.lpips = None
         if self.perceptual == "lpips":
-            if resolve_lpips_weights(cfg.loss):
-                raise NotImplementedError(
-                    f"converted LPIPS weights were found ({resolve_lpips_weights(cfg.loss)}); "
-                    "loading them waits for a later PR, and the port does not train on "
-                    "random LPIPS weights where the JAX package would load pretrained ones")
             self.lpips = LPIPS(**kw)
 
     G1 = property(lambda self: self.G["G1"])
@@ -173,7 +171,7 @@ class STNRecipe:
             d.reset_parameters(generator)
         self.STN.reset_parameters(generator)
         if self.lpips is not None:
-            self.lpips.reset_parameters(generator)
+            load_lpips_weights(self.lpips, self.cfg.loss, generator)
 
     def draw(self, generator: torch.Generator, batch: dict) -> STNStepDraws:
         """One step's keep-masks on ``generator``'s device, in the order of the

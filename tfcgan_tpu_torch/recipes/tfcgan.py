@@ -28,6 +28,7 @@ from __future__ import annotations
 import dataclasses
 import os
 from collections.abc import Sequence
+from typing import ClassVar
 
 import torch
 import torch.nn as nn
@@ -36,8 +37,9 @@ from tfcgan_tpu_torch.config import ExperimentConfig
 from tfcgan_tpu_torch.models.discriminator import AuxClassifierDiscriminator, PatchDiscriminator
 from tfcgan_tpu_torch.models.layers import (init_normal_, spectral_power_iteration,
                                              without_draws)
-from tfcgan_tpu_torch.models.lpips import LPIPS, resolve_lpips_weights, resolve_perceptual
-from tfcgan_tpu_torch.models.resnet import ResNet18, resolve_resnet_weights
+from tfcgan_tpu_torch.models.lpips import LPIPS, load_lpips_weights, resolve_perceptual
+from tfcgan_tpu_torch.models.resnet import (ResNet18, load_resnet18_backbone,
+                                            resolve_resnet_weights)
 from tfcgan_tpu_torch.models.unet import ConditionalGeneratorUNet, GeneratorUNet
 from tfcgan_tpu_torch.ops.color import JITTER_RANGES, color_jitter
 from tfcgan_tpu_torch.ops.exact import bmm_fp32
@@ -48,18 +50,11 @@ from tfcgan_tpu_torch.ops.perceptual import multiscale_recon
 from tfcgan_tpu_torch.ops.saliency import saliency_mask
 from tfcgan_tpu_torch.ops.temperature import temperature_lut
 from tfcgan_tpu_torch.ops.triplet import triplet_margin_loss
+from tfcgan_tpu_torch.parallel.mesh import active_mesh, all_gather_batch
 
 
 def _dtype(cfg: ExperimentConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.train.compute_dtype == "bfloat16" else torch.float32
-
-
-def _refuse_converted_weights(what: str, path: str) -> None:
-    if path:
-        raise NotImplementedError(
-            f"converted {what} weights were found ({path}); loading them waits for a later "
-            f"PR, and the port does not train on random {what} weights where the JAX package "
-            "would load pretrained ones")
 
 
 def build_generator(cfg: ExperimentConfig, device, generator: torch.Generator | None = None
@@ -94,6 +89,8 @@ def g_input(cfg: ExperimentConfig, a: torch.Tensor) -> torch.Tensor:
 @dataclasses.dataclass
 class StepDraws:
     """Every random draw of one train step."""
+
+    PER_SAMPLE: ClassVar[tuple[str, ...]] = ('dropout_masks', 'g_labels', 'd_fake_labels')
 
     patch_neg: torch.Tensor  # (grid²,) int64: the real patch each patch term uses as negative
     jitter_factors: torch.Tensor  # (4,) float32: brightness, contrast, saturation, hue
@@ -193,8 +190,9 @@ def region_bands(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 def regional_fft_loss(fake: torch.Tensor, real: torch.Tensor, lc) -> torch.Tensor:
     """The FFT amp and phase of the hair and eye bands: ``region_fft="l1"``
     sums the bands' L1 terms; ``"kl"`` sums torch's KLDivLoss(log_target=True)
-    between log-softmaxes over the BATCH axis, as the reference does. Returns
-    0.5 (amp + phase)."""
+    between log-softmaxes over the BATCH axis, as the reference does (in a
+    data-parallel step, the global batch, all gathered). Returns 0.5 (amp +
+    phase)."""
     comps = [fft_amp_phase(x, mode=lc.fft_quantize) for x in (*region_bands(fake),
                                                                *region_bands(real))]
     (ah_f, ph_f), (ae_f, pe_f), (ah_r, ph_r), (ae_r, pe_r) = comps
@@ -202,7 +200,10 @@ def regional_fft_loss(fake: torch.Tensor, real: torch.Tensor, lc) -> torch.Tenso
         def term(f, r):
             return (f - r).abs().mean()
     elif lc.region_fft == "kl":
+        mesh = active_mesh()  # a data-parallel step: the softmax over the global batch
+
         def term(f, r):
+            f, r = all_gather_batch(f, mesh), all_gather_batch(r, mesh)
             li, lt = torch.log_softmax(f, dim=0), torch.log_softmax(r, dim=0)
             return (torch.exp(lt) * (lt - li)).mean()
     else:
@@ -266,16 +267,18 @@ class TFCGANRecipe:
         self.G = build_generator(cfg, device)
         self.G.train(not self.deterministic_g)
         self.axes = debias_axes(lc) if lc.conditional else None
-        self.cnns = None
+        self.cnns, self.resnet_weights = None, ""
         if lc.conditional:
             mh = self.axes["multi_head"]
             self.D = AuxClassifierDiscriminator(
                 2 * c, size, lc.num_classes, lc.num_gender if mh else 0,
                 lc.num_age if mh else 0, dtype=dtype, device=device)
             if self.axes["regional"]:
-                _refuse_converted_weights("ResNet-18", resolve_resnet_weights(lc))
+                # converted torchvision weights run in the BN-folded form
+                self.resnet_weights = resolve_resnet_weights(lc)
+                norm = "folded" if self.resnet_weights else "gn"
                 self.cnns = nn.ModuleDict({
-                    k: ResNet18(lc.num_classes, c, dtype=dtype, device=device).eval()
+                    k: ResNet18(lc.num_classes, c, norm=norm, dtype=dtype, device=device).eval()
                     for k in ("cnn_hair", "cnn_eyes")})
                 # frozen backbones; the heads train with G in V4-V6, frozen in V7
                 self.cnns.requires_grad_(False)
@@ -289,20 +292,27 @@ class TFCGANRecipe:
             raise ValueError(f"unknown perceptual mode {self.perceptual!r}")
         self.lpips = None
         if self.perceptual == "lpips":
-            _refuse_converted_weights("LPIPS", resolve_lpips_weights(lc))
             self.lpips = LPIPS(dtype=dtype, device=device)
 
     def init(self, generator: torch.Generator) -> None:
-        """Draw G, D (with spectral u/v), LPIPS and the regional CNNs from ``generator``."""
+        """Draw G, D (with spectral u/v), LPIPS and the regional CNNs from
+        ``generator``; where converted weights resolve, LPIPS and the CNNs'
+        backbones are loaded from them instead, as the JAX init does, and the
+        classifier heads stay drawn."""
         if self.cfg.loss.conditional:
             self.G.reset_parameters(generator)
         else:
             init_normal_(self.G, generator)
         self.D.reset_parameters(generator)
         if self.lpips is not None:
-            self.lpips.reset_parameters(generator)
+            load_lpips_weights(self.lpips, self.cfg.loss, generator)
+        backbone = (load_resnet18_backbone(self.resnet_weights)
+                    if self.cnns is not None and self.resnet_weights else None)
         for cnn in (self.cnns or {}).values():
             cnn.reset_parameters(generator)
+            if backbone is not None:
+                missing, _ = cnn.load_state_dict(backbone, strict=False)
+                assert all(k.startswith("fc.") for k in missing), missing
 
     def draw(self, generator: torch.Generator, batch: dict) -> StepDraws:
         """One step's draws on ``generator``'s device, with the JAX ranges."""

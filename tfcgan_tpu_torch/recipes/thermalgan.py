@@ -35,6 +35,7 @@ reference's separate updates. G2's dropout keep-masks are the step's draws
 from __future__ import annotations
 
 import dataclasses
+from typing import ClassVar
 
 import torch
 import torch.nn as nn
@@ -80,6 +81,8 @@ def thermalgan_serve(nets: nn.ModuleDict, a: torch.Tensor, t_b: torch.Tensor) ->
 
 @dataclasses.dataclass
 class ThermalDraws:
+
+    PER_SAMPLE: ClassVar[tuple[str, ...]] = ('dropout_masks',)
     dropout_masks: dict[str, torch.Tensor] | None  # G2's keep-masks; None when deterministic_g
 
 

@@ -20,7 +20,11 @@ holding ``state.pt`` (``torch.save``) with the whole ``TrainState``:
 
 A save writes into a temporary directory beside the target and renames it
 into place, so a checkpoint directory is whole or absent; a repeated save of
-a step already on disk changes nothing. A JAX (Orbax) checkpoint reaches the
+a step already on disk changes nothing. In a data-parallel run (``mesh``)
+the replicas are equal, so rank 0 writes, synchronously or asynchronously,
+and every rank waits at a barrier after the save; every rank restores. The
+format does not depend on the world size: a checkpoint of two ranks restores
+into one process and the other way round. A JAX (Orbax) checkpoint reaches the
 port only through ``tools/export_g_params.py`` and
 ``bridge.train_state_from_flax``.
 """
@@ -33,6 +37,7 @@ import tempfile
 import threading
 
 import torch
+import torch.distributed as dist
 
 from tfcgan_tpu_torch.train.state import TrainState
 
@@ -79,11 +84,21 @@ def _write(path: str, snapshot: dict) -> None:
         raise
 
 
-def save_checkpoint(ckpt_dir: str, state: TrainState) -> str:
+def _barrier(mesh) -> None:
+    if mesh is not None and mesh.group is not None:
+        dist.barrier(group=mesh.group)
+
+
+def _writes(mesh) -> bool:
+    return mesh is None or mesh.rank == 0
+
+
+def save_checkpoint(ckpt_dir: str, state: TrainState, mesh=None) -> str:
+    """``state`` into ``ckpt_dir``/step_%08d (by rank 0 under ``mesh``)."""
     path = checkpoint_path(ckpt_dir, int(state.step))
-    if os.path.isdir(path):  # idempotent: this step is already on disk
-        return path
-    _write(path, _to_host(_state_dict(state)))
+    if _writes(mesh) and not os.path.isdir(path):  # idempotent: a step on disk stays
+        _write(path, _to_host(_state_dict(state)))
+    _barrier(mesh)
     return path
 
 
@@ -144,17 +159,19 @@ class AsyncCheckpointManager:
     """``save`` copies the state to host memory and returns; a background
     thread writes it. One save is in flight at a time: ``save`` first waits
     for the previous one, then skips a step already on disk. ``wait`` (and
-    ``close``) returns once the write is done and re-raises its error."""
+    ``close``) returns once the write is done and re-raises its error. Under
+    ``mesh`` rank 0 writes and the ranks meet at a barrier in ``wait``."""
 
-    def __init__(self, ckpt_dir: str):
+    def __init__(self, ckpt_dir: str, mesh=None):
         self.ckpt_dir = os.path.abspath(ckpt_dir)
+        self.mesh = mesh
         self._thread: threading.Thread | None = None
         self._error: BaseException | None = None
 
     def save(self, state: TrainState) -> str:
         path = checkpoint_path(self.ckpt_dir, int(state.step))
         self.wait()  # before isdir: the in-flight save commits first
-        if os.path.isdir(path):  # idempotent: this step is already on disk
+        if not _writes(self.mesh) or os.path.isdir(path):  # a step on disk stays
             return path
         snapshot = _to_host(_state_dict(state))
         self._thread = threading.Thread(target=self._write, args=(path, snapshot),
@@ -169,9 +186,12 @@ class AsyncCheckpointManager:
             self._error = e
 
     def wait(self) -> None:
+        """Under a mesh every rank calls it: rank 0's write ends before any
+        rank passes the barrier."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        _barrier(self.mesh)
         if self._error is not None:
             error, self._error = self._error, None
             raise error

@@ -26,6 +26,20 @@ for its empty tree.
 
 The step's random draws come from ``draw_fn(state, batch)``, by default the
 recipe's draws on ``state.generator``.
+
+With a data ``mesh`` (``parallel.make_mesh``: the ``torch.distributed``
+world, one process a card) the step is data-parallel, as the JAX step is
+over its mesh: each rank takes its equal share of the global batch
+(``parallel.shard_batch``; a batch already on the device is taken as this
+rank's share), the draws are made for the global batch on every rank from
+generators kept equal and cut to the rank's samples
+(``parallel.shard_draws``), each phase's gradients are averaged over the
+ranks through one coalesced flat buffer after its ``backward`` and before its
+Adam step (NCCL on the cards), and the metrics are averaged too, so that the
+logged numbers are the global batch's. The step runs inside
+``parallel.loss_mesh``: the ops that couple the samples of a batch read the
+global batch there. D runs several times a phase and is frozen through the G
+phase, so the gradients are reduced by hand and not by the DDP wrapper.
 """
 
 from __future__ import annotations
@@ -41,6 +55,8 @@ import torch.nn as nn
 from tfcgan_tpu_torch.config import ExperimentConfig
 from tfcgan_tpu_torch.data.prefetch import is_device_batch
 from tfcgan_tpu_torch.models.layers import spectral_power_iteration
+from tfcgan_tpu_torch.parallel.mesh import (Mesh, all_reduce_mean_, loss_mesh, place_state,
+                                            shard_batch, shard_draws)
 from tfcgan_tpu_torch.train.state import (TrainState, create_state, learning_rate,
                                           set_learning_rate)
 
@@ -55,8 +71,20 @@ def _frozen(module: nn.Module):
         module.requires_grad_(True)
 
 
-def make_train_step(cfg: ExperimentConfig, recipe) -> Callable:
-    """``train_step(state, batch, draws) -> metrics``; updates ``state`` in place."""
+class CollectiveStats:
+    """What the data axis moved: gradient all-reduces and the bytes of each
+    phase's flat buffer."""
+
+    def __init__(self):
+        self.grad_allreduces = 0
+        self.flat_bytes: dict[str, int] = {}
+
+
+def make_train_step(cfg: ExperimentConfig, recipe, mesh: Mesh | None = None,
+                    stats: CollectiveStats | None = None) -> Callable:
+    """``train_step(state, batch, draws) -> metrics``; updates ``state`` in
+    place. With ``mesh`` each phase's gradients are averaged over its ranks
+    before the Adam step (counted in ``stats``)."""
     order = getattr(recipe, "update_order", "g_first")
     if order not in ("g_first", "d_first"):
         raise ValueError(f"unknown update_order {order!r}")
@@ -75,12 +103,23 @@ def make_train_step(cfg: ExperimentConfig, recipe) -> Callable:
         state.extra, aux = pre_d(state.extra, aux, draws)
         return aux
 
+    def average_grads(opt: torch.optim.Adam, phase: str) -> None:
+        if mesh is None:
+            return
+        grads = [p.grad for group in opt.param_groups for p in group["params"]
+                 if p.grad is not None]
+        nbytes = all_reduce_mean_(grads, mesh)
+        if stats is not None and nbytes:
+            stats.grad_allreduces += 1
+            stats.flat_bytes[phase] = nbytes
+
     def d_phase(state: TrainState, batch: dict, aux: dict) -> dict:
         loss_d, d_metrics = recipe.d_loss(batch, aux)
         if state.opt_d is None:  # no discriminator: nothing to differentiate or step
             return d_metrics
         state.opt_d.zero_grad(set_to_none=True)
         loss_d.backward()
+        average_grads(state.opt_d, "D")
         state.opt_d.step()
         return d_metrics
 
@@ -89,6 +128,7 @@ def make_train_step(cfg: ExperimentConfig, recipe) -> Callable:
             loss_g, aux, g_metrics = recipe.g_loss(batch, draws, *forward)
             state.opt_g.zero_grad(set_to_none=True)
             loss_g.backward()
+        average_grads(state.opt_g, "G")
         state.opt_g.step()
         return aux, g_metrics
 
@@ -105,9 +145,19 @@ def make_train_step(cfg: ExperimentConfig, recipe) -> Callable:
             aux, g_metrics = g_phase(state, batch, draws)
             d_metrics = d_phase(state, batch, before_d(state, aux, draws))
         state.step += 1
-        return {k: v.detach() for k, v in {**g_metrics, **d_metrics}.items()}
+        metrics = {k: v.detach() for k, v in {**g_metrics, **d_metrics}.items()}
+        if mesh is not None and mesh.group is not None:  # the global batch's means
+            names = sorted(metrics)
+            values = [metrics[k].float().reshape(1) for k in names]
+            all_reduce_mean_(values, mesh)
+            metrics = {k: v.reshape(()) for k, v in zip(names, values)}
+        return metrics
 
-    return train_step
+    def step_on_mesh(state: TrainState, batch: dict, draws) -> dict[str, torch.Tensor]:
+        with loss_mesh(mesh):
+            return train_step(state, batch, draws)
+
+    return train_step if mesh is None else step_on_mesh
 
 
 def _log_histograms(hist_logger, state: TrainState) -> None:
@@ -131,31 +181,51 @@ def assert_finite(metrics: dict, step: int) -> None:
 class Trainer:
     """Runs the step on the recipe's device. ``draw_fn(state, batch)`` gives
     each step's draws (default: ``recipe.draw(state.generator, batch)``);
-    ``logger`` is anything with ``write(dict)``."""
+    ``logger`` is anything with ``write(dict)``; ``mesh`` a data mesh
+    (``parallel.make_mesh``), None for one process. Under a mesh,
+    ``draw_fn`` sees the global batch's shapes (its tensors are on the meta
+    device) and its draws are cut to this rank's samples."""
 
     def __init__(self, cfg: ExperimentConfig, recipe, draw_fn: Callable | None = None,
-                 logger=None):
-        self.cfg, self.recipe, self.logger = cfg, recipe, logger
+                 logger=None, mesh: Mesh | None = None):
+        self.cfg, self.recipe, self.logger, self.mesh = cfg, recipe, logger, mesh
         self.draw_fn = draw_fn or (lambda state, batch: recipe.draw(state.generator, batch))
-        self._step_fn = make_train_step(cfg, recipe)
+        self.stats = CollectiveStats()
+        self._step_fn = make_train_step(cfg, recipe, mesh, self.stats)
         self.last_metrics = None
 
     def init_state(self, seed: int, draw: bool = True) -> TrainState:
-        return create_state(self.cfg, self.recipe, seed, draw)
+        """A fresh state; under a mesh its drawn weights and draw generator are
+        broadcast from rank 0 (``parallel.place_state``)."""
+        state = create_state(self.cfg, self.recipe, seed, draw)
+        if draw and self.mesh is not None:
+            place_state(state, self.mesh)
+        return state
 
     def step(self, state: TrainState, batch: dict) -> dict[str, torch.Tensor]:
         """One step on ``batch`` ({"A", "B", "T_B"[, "LAB"][, "LAB3"]}, numpy
         or tensors; the images as float32, the class labels as integers); returns
         the metrics as 0-dim tensors on the device. A batch already on the
-        recipe's device (``data.prefetch.is_device_batch``) is used as it is."""
+        recipe's device (``data.prefetch.is_device_batch``) is used as it is;
+        under a mesh such a batch is this rank's share, any other the global
+        batch, which ``parallel.shard_batch`` cuts."""
         dev = self.recipe.device
         if not is_device_batch(batch, dev):
+            if self.mesh is not None:
+                batch = shard_batch(batch, self.mesh)
             images = {k: torch.as_tensor(v).to(dev, torch.float32) for k, v in batch.items()
                       if k in ("A", "B", "T_B")}
             labels = {k: torch.as_tensor(v).to(dev, torch.int64) for k, v in batch.items()
                       if k in ("LAB", "LAB3")}
             batch = {**images, **labels}
-        metrics = self._step_fn(state, batch, self.draw_fn(state, batch))
+        if self.mesh is None:
+            draws = self.draw_fn(state, batch)
+        else:
+            world = self.mesh.world_size
+            shapes = {k: torch.empty((v.shape[0] * world, *v.shape[1:]), dtype=v.dtype,
+                                     device="meta") for k, v in batch.items()}
+            draws = shard_draws(self.draw_fn(state, shapes), self.mesh)
+        metrics = self._step_fn(state, batch, draws)
         self.last_metrics = metrics  # on the device; a read syncs
         return metrics
 
@@ -174,9 +244,15 @@ class Trainer:
         from the G phase, D's from the D phase: still in ``.grad``, which the
         next step zeroes; a parameter without one counts as a zero gradient).
         With ``pool`` (a ``data.pool.DevicePool``) ``batches`` yields index
-        arrays, which ``pool.batch`` assembles on the device."""
+        arrays, which ``pool.batch`` assembles on the device. Under a mesh only
+        rank 0 logs, samples and records histograms."""
         log_every = log_every or self.cfg.train.log_interval
         sample_every = sample_every or self.cfg.train.sample_interval
+        if self.mesh is not None and self.mesh.rank != 0:
+            hist_logger = sample_hook = None
+            logger = None
+        else:
+            logger = self.logger
         t0 = time.time()
         for i, batch in enumerate(batches):
             if num_steps is not None and i >= num_steps:
@@ -188,8 +264,8 @@ class Trainer:
                 _log_histograms(hist_logger, state)
             if check_finite:
                 assert_finite(metrics, state.step)
-            if self.logger is not None and i % log_every == 0:
-                self.logger.write({**{k: float(v) for k, v in metrics.items()},
+            if logger is not None and i % log_every == 0:
+                logger.write({**{k: float(v) for k, v in metrics.items()},
                                    "step": state.step, "wall_s": time.time() - t0})
             if sample_hook is not None and state.step % sample_every == 0:
                 sample_hook(state, state.step)
