@@ -7,7 +7,8 @@ chain, on one CUDA card.
 
     python3 chip_smoke.py [--params g_params.npz] [--init-seed 0]
 
-Phases, one line or more each; any failure raises and exits non-zero:
+Phases, one line or more each; any failure raises and exits non-zero (20
+and 21 run after 19, and 18 last):
 
 1. environment: torch/CUDA versions, the card, its power limit; TF32 off.
 2. build: g++ builds ``tfcgan_tpu_torch/csrc/fastpair.cpp`` (the pair
@@ -227,7 +228,7 @@ Phases, one line or more each; any failure raises and exits non-zero:
    the order), 2 epochs, and ``--resume`` from the first epoch's checkpoint:
    weights, replay buffers and Adam states of the two final checkpoints equal
    bit for bit, under ``cudnn.deterministic``.
-18. the result, printed after 20: the card's ``nvidia-smi`` line, one JSON
+18. the result, printed after 21: the card's ``nvidia-smi`` line, one JSON
    line for the kernels, and last ``{"ok": true, "device": {...}}``.
 19. the data and evaluation chain at 256², bf16, on 64 synthetic A|B PNG
    pairs, 32 of 320x640 (resized) and 32 of 256x512: (a) the native decoder:
@@ -271,6 +272,19 @@ Phases, one line or more each; any failure raises and exits non-zero:
    gradients against one process within the CPU tests' bounds (rel 1e-5;
    1e-4 x max|g|), the replicas' checksums equal after 3 steps, 27 + 23
    blur-pool launches a fft_glo step on each rank (path ``dp_two_ranks``).
+21. the tensor axis (``parallel/tensor.py``), as gloo ranks of the card:
+   (a) fft_glo float32 at global B=8, 256², on four ranks as (2 data x 2
+   tensor): the first step's metrics and gathered G gradients against one
+   process within 3 x the floor of cuDNN's algorithms (one process,
+   benchmarked against deterministic), as phase 20 holds two ranks; the
+   step-1 metrics equal on the four ranks; 27 + 23 blur-pool launches a step
+   on each rank over 3 steps (path ``tensor_fft_glo``); each rank's bytes of
+   G, D and LPIPS parameters and Adam moments against one process's (a
+   share in [0.5, 0.6)); the steps' ms a rank; (b) tfc_diff bf16 at global
+   B=8, 128², on two ranks as (1 x 2 tensor): 7 + 7 + 7 flash attention
+   launches a step on each rank, all on the tensor cores (path
+   ``tensor_tfc_diff``), finite metrics, step 1 within ``TENSOR_DIFF_TOL``
+   of one process's.
 
 In the kernels' JSON, ``launches`` is the count of the kernel's main path, the
 last train path driven that runs it (``main_path``: phase 10's three steps for
@@ -3523,6 +3537,263 @@ def phase_parallel(device, args, card: str) -> dict[str, dict[str, int]]:
 
 
 
+# ------------------------------------------------------------------ 21. tensor
+TENSOR_BATCH = 8        # global batch of both legs
+TENSOR_STEPS = 3        # fft_glo steps a rank; the first's metrics and G gradients compared
+TENSOR_DIFF_STEPS = 2   # tfc_diff bf16 steps a rank
+TENSOR_SEED = 70        # the legs' batches
+# tfc_diff in bfloat16 on a (1 x 2) tensor pair against one process: the
+# first step's metrics, relative. The pair computes each conv over half the
+# out-channels (cuDNN may take other algorithms there) and sums the input
+# gradients' two halves in bfloat16 (ulp 7.8e-3); the forward of step 1 sees
+# the same weights, so its losses differ only by the forward's rounding
+TENSOR_DIFF_TOL = 2e-2
+
+
+def _tensor_cfg(job: str):
+    if job == "fft_glo":
+        cfg = _cfg("fft_glo", "float32")
+        size = SIZE
+    else:
+        cfg = _cfg("tfc_diff", "bfloat16")
+        size = DIFF_SIZE
+    return cfg.replace(data=dataclasses.replace(cfg.data, batch_size=TENSOR_BATCH,
+                                                image_size=size))
+
+
+def _tensor_batches(job: str) -> list[dict]:
+    cfg = _tensor_cfg(job)
+    steps = TENSOR_STEPS if job == "fft_glo" else TENSOR_DIFF_STEPS
+    return [synthetic_batch(TENSOR_BATCH, cfg.data.image_size, seed=TENSOR_SEED + i,
+                            with_labels=job != "fft_glo") for i in range(steps)]
+
+
+def _state_bytes(state) -> dict[str, int]:
+    """Bytes of G's, D's and LPIPS's parameters and of their Adam moments
+    held by this process."""
+    out = {}
+    for name, module, opt in (("G", state.G, state.opt_g), ("D", state.D, state.opt_d),
+                              ("lpips", state.lpips, None)):
+        if module is None:
+            continue
+        params = list(module.parameters())
+        out[name] = sum(p.numel() * p.element_size() for p in params)
+        if opt is not None:
+            out[name] += sum(t.numel() * t.element_size() for p in params
+                             for k, t in opt.state.get(p, {}).items()
+                             if k in ("exp_avg", "exp_avg_sq"))
+    return out
+
+
+def _tensor_rank(rank: int, world: int, port: int, tmp: str, results, job: str) -> None:
+    """One gloo rank on card 0 of a (world / 2 data x 2 tensor) mesh: the
+    leg's steps from seed 0 (metrics, step ms, launch counts, this rank's
+    bytes of parameters and Adam moments); for fft_glo rank 0 saves the first
+    step's G gradients, gathered."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from tfcgan_tpu_torch.parallel import make_mesh
+    from tfcgan_tpu_torch.parallel.tensor import full_tensors
+
+    try:
+        torch.cuda.set_device(0)
+        device = torch.device("cuda", 0)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                                world_size=world, timeout=datetime.timedelta(seconds=300))
+        mesh = make_mesh(world, tensor=2, device=device)
+        cfg = _tensor_cfg(job)
+        trainer = Trainer(cfg, build_recipe(cfg, device), mesh=mesh)
+        state = trainer.init_state(0)
+        reset_counts()
+        metrics, ms = [], []
+        for i, batch in enumerate(_tensor_batches(job)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = trainer.step(state, batch)
+            metrics.append({k: float(v) for k, v in m.items()})  # reads sync
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if i == 0 and job == "fft_glo":
+                grads = full_tensors(state.G, {k: p.grad for k, p in state.G.named_parameters()
+                                               if p.grad is not None})
+                if rank == 0:
+                    torch.save({k: g.float().cpu() for k, g in grads.items()},
+                               os.path.join(tmp, "tensor_grads.pt"))
+        torch.cuda.synchronize()
+        results.put((rank, {"metrics": metrics, "ms": ms, "counts": counts(),
+                            "bytes": _state_bytes(state),
+                            "coords": (mesh.data_rank, mesh.tensor.rank)}))
+        dist.destroy_process_group()
+    except BaseException as e:
+        import traceback
+
+        results.put((rank, RuntimeError(traceback.format_exc())))
+        raise SystemExit(1) from e
+
+
+def _run_tensor_ranks(world: int, tmp: str, job: str) -> tuple[dict, float]:
+    """``world`` gloo ranks of ``_tensor_rank`` on the card; their results
+    and the seconds they took."""
+    import multiprocessing as mp
+
+    t0 = time.perf_counter()
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=_tensor_rank, args=(r, world, port, tmp, results, job))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        while len(got) < world:
+            rank, out = results.get(timeout=600)
+            if isinstance(out, BaseException):
+                raise AssertionError(f"tensor phase, {job} rank {rank}: {out}")
+            got[rank] = out
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return got, time.perf_counter() - t0
+
+
+def _tensor_fft_glo(device, tmp: str, card: str) -> dict[str, int]:
+    """fft_glo float32 at global B=8, 256², on four gloo ranks as (2 data x
+    2 tensor) against one process (deterministic algorithms, and cuDNN's
+    benchmarked ones for the floor, as the two-rank part of phase 20)."""
+    got, seconds = _run_tensor_ranks(4, tmp, "fft_glo")
+    cfg = _tensor_cfg("fft_glo")
+    batch = _tensor_batches("fft_glo")[0]
+    deterministic = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    runs = []
+    try:
+        for det in (True, False):
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det, not det
+            trainer = Trainer(cfg, build_recipe(cfg, device))
+            state = trainer.init_state(0)
+            m = trainer.step(state, batch)
+            runs.append(({k: float(v) for k, v in m.items()}, _dp_grads(state), _state_bytes(state)))
+            if det:  # one more step, timed as a rank times its steps
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                float(trainer.step(state, _tensor_batches("fft_glo")[1])["loss_G"])
+                one_ms = (time.perf_counter() - t0) * 1e3
+            del trainer, state
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = deterministic
+    g4 = torch.load(os.path.join(tmp, "tensor_grads.pt"))
+
+    def metric_err(a, b):
+        return max(abs(a[k] - b[k]) / max(abs(b[k]), DP_METRIC_TOL[1] / DP_METRIC_TOL[0])
+                   for k in b)
+
+    def grad_errs(a, b):
+        return {k: float((a[k] - b[k]).abs().max() / (b[k].abs().max() + 1e-12)) for k in b}
+
+    floor_g = grad_errs(runs[1][1], runs[0][1])
+    errs = grad_errs(g4, runs[0][1])
+    floor = (metric_err(runs[1][0], runs[0][0]), max(floor_g.values()))
+    err = (metric_err(got[0]["metrics"][0], runs[0][0]), max(errs.values()))
+    bound = (max(DP_METRIC_TOL[0], 3 * floor[0]), max(DP_GRAD_TOL, 3 * floor[1]))
+    worst = sorted(errs, key=errs.get)[-3:]
+    detail = (f"metrics {err[0]:.3g} relative (bound {bound[0]:.3g}, floor {floor[0]:.3g}), "
+              f"G gradients {err[1]:.3g} x max|g| (bound {bound[1]:.3g}, floor {floor[1]:.3g}; "
+              f"worst { {k: round(errs[k], 6) for k in worst} })")
+    if sorted(got[0]["metrics"][0]) != sorted(runs[0][0]) or sorted(g4) != sorted(runs[0][1]):
+        raise AssertionError(f"fft_glo tensor mesh: metrics {sorted(got[0]['metrics'][0])}, "
+                             f"{len(g4)} gradients")
+    if err[0] > bound[0] or err[1] > bound[1]:
+        raise AssertionError(f"fft_glo (2 data x 2 tensor) vs one process, float32 "
+                             f"B={TENSOR_BATCH} {SIZE}²: {detail}")
+    if any(got[r]["metrics"][0] != got[0]["metrics"][0] for r in got):
+        raise AssertionError(f"fft_glo tensor mesh: the ranks' step-1 metrics differ: "
+                             f"{[got[r]['metrics'][0] for r in got]}")
+    want = scaled(FFT_GLO_STEP, TENSOR_STEPS)
+    for r in got:
+        if got[r]["counts"] != want:
+            raise AssertionError(f"fft_glo tensor rank {r}: launches {got[r]['counts']}, "
+                                 f"want {want}")
+    one = runs[0][2]
+    share = {r: sum(got[r]["bytes"].values()) / sum(one.values()) for r in got}
+    if not all(0.5 <= v < 0.6 for v in share.values()):
+        raise AssertionError(f"fft_glo tensor mesh: parameter + Adam bytes a rank against one "
+                             f"process {share}")
+    mib = {k: f"{got[0]['bytes'][k] / 2**20:.2f} / {one[k] / 2**20:.2f}" for k in one}
+    ms = {r: [round(t, 3) for t in got[r]["ms"]] for r in got}
+    print(f"tensor fft_glo (2 data x 2 tensor) on four gloo ranks of one card, float32 global "
+          f"B={TENSOR_BATCH} {SIZE}² (2 a data share), against one process: {detail}; step-1 "
+          f"metrics equal on the four ranks; launches a rank {want['blurpool_fwd']} / "
+          f"{want['blurpool_bwd']} K1 over {TENSOR_STEPS} steps ({FFT_GLO_STEP['blurpool_fwd']} / "
+          f"{FFT_GLO_STEP['blurpool_bwd']} a step, one process's); parameters + Adam moments a "
+          f"rank / one process, MiB: {mib}, share {share[0]:.4f} (rank 0; "
+          f"{ {r: round(v, 4) for r, v in share.items()} }); step ms a rank {ms} (step 1 with "
+          f"set-up; the four ranks share the card and move activations through gloo on the "
+          f"host), one process's step 2 {one_ms:.3f} ms; the ranks took {seconds:.1f} s with "
+          f"their start [{card}]")
+    return got[0]["counts"]
+
+
+def _tensor_tfc_diff(device, tmp: str, card: str) -> dict[str, int]:
+    """tfc_diff bf16 at global B=8, 128², on two gloo ranks as (1 data x 2
+    tensor) against one process from the same init, batches and draws."""
+    got, seconds = _run_tensor_ranks(2, tmp, "tfc_diff")
+    cfg = _tensor_cfg("tfc_diff")
+    trainer = Trainer(cfg, build_recipe(cfg, device))
+    state = trainer.init_state(0)
+    one, one_ms = [], []
+    for b in _tensor_batches("tfc_diff"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one.append({k: float(v) for k, v in trainer.step(state, b).items()})
+        one_ms.append((time.perf_counter() - t0) * 1e3)
+    del trainer, state
+    torch.cuda.empty_cache()
+    want = scaled(DIFF_STEP_BF16, TENSOR_DIFF_STEPS)
+    for r in got:
+        if got[r]["counts"] != want:
+            raise AssertionError(f"tfc_diff tensor rank {r}: launches {got[r]['counts']}, "
+                                 f"want {want}")
+    two = got[0]["metrics"]
+    if not all(np.isfinite(v) for m in two for v in m.values()) or sorted(two[0]) != sorted(one[0]):
+        raise AssertionError(f"tfc_diff tensor pair: metrics {two}")
+    err = {k: abs(two[0][k] - one[0][k]) / max(abs(one[0][k]), 1e-6) for k in one[0]
+           if one[0][k] != 0}
+    if max(err.values()) > TENSOR_DIFF_TOL:
+        raise AssertionError(f"tfc_diff (1 x 2 tensor) vs one process, bf16: step-1 metrics "
+                             f"{two[0]} against {one[0]}: {err} (bound {TENSOR_DIFF_TOL})")
+    ms = {r: [round(t, 3) for t in got[r]["ms"]] for r in got}
+    print(f"tensor tfc_diff (1 data x 2 tensor) on two gloo ranks of one card, bf16 global "
+          f"B={TENSOR_BATCH} {DIFF_SIZE}²: step-1 metrics {two[0]} against one process's "
+          f"{one[0]} (relative {max(err.values()):.3g}, bound {TENSOR_DIFF_TOL}); step 2 "
+          f"{two[1]} against {one[1]}; launches a rank "
+          f"{ {k: v for k, v in got[0]['counts'].items() if v} } over {TENSOR_DIFF_STEPS} steps "
+          f"(7 / 7 / 7 a step, all on the tensor cores); step ms a rank {ms}, one process "
+          f"{[round(t, 3) for t in one_ms]}; the ranks took {seconds:.1f} s with their start "
+          f"[{card}]")
+    return got[0]["counts"]
+
+
+def phase_tensor(device, card: str) -> dict[str, dict[str, int]]:
+    """The tensor axis on gloo ranks of the one card: fft_glo on (2 data x 2
+    tensor) and tfc_diff on (1 x 2)."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        by_path = {"tensor_fft_glo": _tensor_fft_glo(device, tmp, card)}
+        torch.cuda.empty_cache()
+        by_path["tensor_tfc_diff"] = _tensor_tfc_diff(device, tmp, card)
+        torch.cuda.empty_cache()
+    print(f"tensor phase: {time.perf_counter() - t0:.1f} s [{card}]")
+    return by_path
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--params", default=None, help="g_params.npz (tools/export_g_params.py)")
@@ -3713,6 +3984,9 @@ def main(argv=None) -> int:
     # Trainer with and without that mesh, the GPipe trunk at one stage, and
     # two gloo ranks on the card
     by_path.update(phase_parallel(device, args, card))
+
+    # 21. the tensor axis: column-parallel layers over gloo ranks of the card
+    by_path.update(phase_tensor(device, card))
 
     # 18. result
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")

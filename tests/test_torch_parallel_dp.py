@@ -23,7 +23,8 @@ holds the replicas, CycleGAN's buffers and a world-2 checkpoint).
   bound by orders of magnitude; the saliency mask at world 2 equals world 1
   (values, and input gradients to 1e-5 of their max).
 - ``shard_batch`` refuses an indivisible batch; ``make_mesh`` refuses the
-  spatial and tensor axes and a world it was not given.
+  spatial axis, a tensor axis that does not divide the world, and a world it
+  was not given.
 """
 
 import jax
@@ -111,13 +112,20 @@ def test_fft_glo_world_two_matches_world_one_and_the_jax_mesh(tmp_path):
 
 
 def test_batch_norm_and_saliency_read_the_global_batch(tmp_path):
+    check_batch_coupled_ops(tmp_path, world=2)
+
+
+def check_batch_coupled_ops(tmp_path, world, tensor=1):
+    """``TrainBatchNorm``, the saliency mask and the collectives on ``world``
+    ranks of a mesh with two data shares, against the whole batch."""
     rng = np.random.RandomState(0)
     x = (rng.randn(4, 8, 8, 6) * 2 + rng.randn(4, 1, 1, 6) * 3).astype(np.float32)
     w = (1 + 0.02 * rng.randn(6)).astype(np.float32)
     b = (0.1 * rng.randn(6)).astype(np.float32)
     img = rng.uniform(-1, 1, (4, 32, 32, 3)).astype(np.float32)
-    out = ranks.spawn("batchnorm_and_saliency", 2, tmp_path, x=x, w=w, b=b, img=img)
-    assert all(np.array_equal(out[0]["bn"][i], out[1]["bn"][i]) for i in (0, 1))
+    out = ranks.spawn("batchnorm_and_saliency", world, tmp_path, x=x, w=w, b=b, img=img,
+                      tensor=tensor)
+    assert all(np.array_equal(o["bn"][i], out[0]["bn"][i]) for o in out for i in (0, 1))
 
     # the JAX module over the whole batch, and its input gradient
     cot = np.linspace(-1, 1, x.size, dtype=np.float32).reshape(x.shape)
@@ -137,7 +145,8 @@ def test_batch_norm_and_saliency_read_the_global_batch(tmp_path):
     # the collectives: values, and backward = the ranks' summed upstream
     # gradients (here 1 + 2 = 3 times each rank's own), cut or routed
     base = np.arange(6.0).reshape(3, 2)
-    for rank, o in enumerate(out):
+    for o in out:
+        rank = o["data_rank"]
         c = o["collectives"]
         w6 = np.arange(1.0, 7.0).reshape(3, 2)
         np.testing.assert_array_equal(c["sum"][0], 2 * base + 10)
@@ -164,8 +173,9 @@ def test_refusals():
     with pytest.raises(ValueError, match="not divisible"):
         shard_batch(synthetic_batch(5, 16), two)
     assert shard_batch(synthetic_batch(4, 16), two)["A"].shape[0] == 2
-    for axis in ("spatial", "tensor"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for axis in ("spatial", "tensor"):  # spatial is not ported; a world of 1 has no tensor pair
+        with pytest.raises(NotImplementedError if axis == "spatial" else ValueError,
+                           match="ROADMAP" if axis == "spatial" else "not divisible"):
             make_mesh(**{axis: 2})
     with pytest.raises(ValueError, match="world of 1"):
         make_mesh(2)  # no torch.distributed group: never a quiet world of one

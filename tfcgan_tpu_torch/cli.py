@@ -96,16 +96,20 @@ def _device(name: str) -> torch.device:
     return device
 
 
-def _data_mesh(device: torch.device):
+def _data_mesh(device: torch.device, mesh_cfg=None):
     """Under ``torchrun`` (``WORLD_SIZE`` set): the process group (NCCL for a
-    card, gloo for the host) and the data mesh over it, even for a world of
-    one; None otherwise."""
+    card, gloo for the host) and the mesh over it, even for a world of one:
+    the data mesh, or the (data, tensor) mesh that ``mesh_cfg`` (the
+    experiment's ``cfg.mesh``) asks for; None otherwise."""
     if "WORLD_SIZE" not in os.environ:
         return None
     from tfcgan_tpu_torch.parallel import initialize, make_mesh
 
     initialize(backend="nccl" if device.type == "cuda" else "gloo")
-    return make_mesh(device=device)
+    if mesh_cfg is None:
+        return make_mesh(device=device)
+    return make_mesh(mesh_cfg.num_devices, spatial=mesh_cfg.spatial, tensor=mesh_cfg.tensor,
+                     device=device)
 
 
 def _leave_mesh(mesh) -> None:
@@ -153,21 +157,25 @@ def _serve_constructor(cfg):
     return constructors[cfg.recipe]
 
 
-def _make_sample_hook(cfg, args, device):
+def _make_sample_hook(cfg, args, device, writes: bool = True):
     """``sample_hook(state, step)``: generate on the first (up to) 4 test
     pairs and write A | output | B columns to OUT/samples/%07d.png and the
     gallery; None when the dataset has no test split, or for a conditional
-    experiment, whose test split has no labels."""
+    experiment, whose test split has no labels. The served copy of G gets
+    the state's weights gathered (a collective over G's tensor group, whose
+    ranks all run the hook); only a hook with ``writes`` writes."""
     from tfcgan_tpu_torch.data.pairs import PairedImageDataset, batch_iterator
     from tfcgan_tpu_torch.evaluation.gallery import write_gallery
     from tfcgan_tpu_torch.evaluation.suite import save_image_grid
     from tfcgan_tpu_torch.infer import Inferencer
+    from tfcgan_tpu_torch.parallel.tensor import full_state_dict
 
     if cfg.loss.conditional:
         # the JAX hook's test batch has no labels, so its Inferencer
         # conditions the samples on (0, 0, 0); no labelled test set is read here
-        print(f"\nsample grids off: {cfg.name!r} is conditional and the test split has no "
-              "labels")
+        if writes:
+            print(f"\nsample grids off: {cfg.name!r} is conditional and the test split has "
+                  "no labels")
         return None
     try:
         test_ds = PairedImageDataset(cfg.data.root, "test", cfg.data.image_size,
@@ -182,7 +190,9 @@ def _make_sample_hook(cfg, args, device):
         if not serve:
             with without_draws():  # the state's weights are loaded next
                 serve.append(_serve_constructor(cfg)(cfg, device))
-        serve[0].load_state_dict(state.G.state_dict())
+        serve[0].load_state_dict(full_state_dict(state.G))
+        if not writes:
+            return
         out = Inferencer(cfg, serve[0])(batch)
         out = (out["fake_B"] if isinstance(out, dict) else out).float().cpu().numpy()
         if out.shape[-1] == 1:  # a gray diffusion sample
@@ -208,9 +218,9 @@ def cmd_train(args):
     from tfcgan_tpu_torch.train.trainer import Trainer
 
     device = _device(args.device)
-    mesh = _data_mesh(device)
-    lead = mesh is None or mesh.rank == 0  # logs, samples, histograms, checkpoints
     cfg = _cfg_from_args(args)
+    mesh = _data_mesh(device, cfg.mesh)
+    lead = mesh is None or mesh.rank == 0  # logs, samples, histograms, checkpoints
     if cfg.loss.conditional and not args.annots:
         raise SystemExit(f"experiment {cfg.name!r} is conditional: pass its labels with "
                          "--annots CSV (columns file, gender, ethnicity, age)")
@@ -270,18 +280,25 @@ def cmd_train(args):
     first = next(it)
     state = trainer.init_state(cfg.train.seed, draw=not args.resume)
     if lead:
-        world = "" if mesh is None else f" | world {mesh.world_size} mesh={mesh.shape}"
+        world = "" if mesh is None else (f" | world {mesh.world_size}: data {mesh.data_size} "
+                                         f"x tensor {mesh.tensor_size}")
         print(f"G params: {count_params(state.G):,} | D params: {count_params(state.D):,} | "
               f"device: {device}{world}")
     if args.resume:
         # the data order restarts: `first` was drawn and is not stepped
         state = restore_checkpoint(args.resume, state)
+        if mesh is not None:  # every rank restored the whole state: keep this rank's slices
+            from tfcgan_tpu_torch.parallel import place_state
+
+            place_state(state, mesh)
         if lead:
             print(f"resumed from {args.resume} at step {state.step}")
     else:
         state = trainer.fit(state, [first], pool=pool)  # step 0
 
-    sample_hook = _make_sample_hook(cfg, args, device) if lead else None
+    # on a tensor mesh the ranks of rank 0's tensor group gather G with it
+    hook_ranks = lead or (mesh.tensor is not None and mesh.data_rank == 0)
+    sample_hook = _make_sample_hook(cfg, args, device, writes=lead) if hook_ranks else None
     hist_logger = None
     if args.hist_every and lead:
         from tfcgan_tpu_torch.train.histograms import HistogramLogger
@@ -292,10 +309,11 @@ def cmd_train(args):
     # resume starts a fresh controller, as the JAX CLI does
     plateau = ReduceLROnPlateau(cfg.optim.lr) if cfg.optim.schedule == "plateau" else None
     if not staged:
-        if mesh is not None:  # host batches are global: each rank places its share
-            from tfcgan_tpu_torch.parallel import local_batch_slice
+        if mesh is not None:  # host batches are global: each rank places its data share
+            from tfcgan_tpu_torch.parallel import local_share
 
-            it = map(local_batch_slice, it)
+            it = ({k: np.asarray(v)[local_share(len(v), mesh)] for k, v in b.items()}
+                  for b in it)
         it = device_prefetch(it, device)  # copies overlap the running step
     for epoch in range(cfg.train.n_epochs):
         state = trainer.fit(state, it, num_steps=steps_per_epoch, check_finite=True,
@@ -322,7 +340,7 @@ def cmd_train(args):
         from tfcgan_tpu_torch.ops.kernels import launch_counts
 
         print("\ndata-parallel run: " + json.dumps({
-            "world": mesh.world_size, "steps": state.step,
+            "world": mesh.world_size, "mesh": mesh.shape, "steps": state.step,
             "grad_allreduces": trainer.stats.grad_allreduces,
             "flat_buffer_bytes": trainer.stats.flat_bytes,
             "kernel_launches": launch_counts()}))
@@ -359,8 +377,8 @@ def cmd_test(args):
     from tfcgan_tpu_torch.infer import Inferencer
 
     device = _device(args.device)
-    mesh = _data_mesh(device)
     cfg = _cfg_from_args(args)
+    mesh = _data_mesh(device, cfg.mesh)
     if cfg.recipe == "diffusion":
         raise SystemExit("test serves the GAN recipes; use gen for a diffusion experiment")
     if cfg.loss.conditional:

@@ -25,7 +25,8 @@ no program to fuse the gather into, so ``Trainer.fit(pool=...)`` calls
 In a data-parallel run (``mesh``) every rank holds the whole set on its own
 card, as the JAX pool is replicated over its mesh, draws the same global
 index batches (one seed), and ``batch`` gathers only this rank's share of
-them: no traffic between cards.
+them, by its data coordinate (the ranks of a tensor group get the same
+samples): no traffic between cards.
 """
 
 from __future__ import annotations

@@ -15,7 +15,8 @@
 - ``is_device_batch``: ``Trainer.step`` uses such a batch as it is.
 
 In a data-parallel run each rank's ``PrefetchLoader(mesh=...)`` shuffles with
-the same seed and decodes only its share of each global batch, and
+the same seed and decodes only its share of each global batch (by its data
+coordinate: the ranks of a tensor group decode the same share), and
 ``device_prefetch`` places that share on the rank's card (``mesh.device``),
 as the JAX loader feeds each host its shard.
 """

@@ -18,13 +18,20 @@ mask as a 4th channel; both write the tfcgan stacks. For a diffusion
 experiment a call samples x_0 over the whole ancestral chain and
 ``run_test_set`` writes real_A | sample.
 
-With a data ``mesh`` (``parallel.make_mesh``) the serve path is
-data-parallel, as the JAX Inferencer is over its mesh: a batch is padded with
-copies of its first sample to a multiple of the data axis, each rank serves
-its share, ``parallel.all_gather_batch`` collects the outputs on every rank
-and the padding is trimmed; ``run_test_set`` writes on rank 0 only. Every
-rank calls with the same batches. The diffusion sampler is not data-parallel
-(its noise is drawn for the batch it is given).
+With a ``mesh`` (``parallel.make_mesh``) the serve path is data-parallel, as
+the JAX Inferencer is over its mesh: a batch is padded with copies of its
+first sample to a multiple of the data axis, each data share serves its
+samples, ``parallel.all_gather_batch`` collects the outputs over the data
+group and the padding is trimmed; ``run_test_set`` writes on rank 0 only.
+Every rank calls with the same batches. The weights are served whole and
+replicated, as the JAX Inferencer replicates them: on a (data, tensor) mesh
+the ranks of a tensor group serve the same share with the same weights, and
+a generator taken from a sharded training state is gathered first
+(``parallel.tensor.gathered_copy``, a collective over its tensor group). A
+batch-coupled op (thermalgan_bn's ``TrainBatchNorm``) reads the padded
+batch's moments, pad copies included, as the JAX reference does. The
+diffusion sampler is not data-parallel (its noise is drawn for the batch it
+is given).
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ from tfcgan_tpu_torch.config import ExperimentConfig
 from tfcgan_tpu_torch.evaluation.suite import save_image_grid
 from tfcgan_tpu_torch.ops.fftloss import fft_log_magnitude
 from tfcgan_tpu_torch.parallel.mesh import all_gather_batch, local_part, loss_mesh
+from tfcgan_tpu_torch.parallel.tensor import gathered_copy
 from tfcgan_tpu_torch.recipes.diffusion import diffusion_sample, schedule_of
 from tfcgan_tpu_torch.recipes.nemar import nemar_forward
 from tfcgan_tpu_torch.recipes.stn import stn_condition, stn_serve
@@ -67,7 +75,7 @@ class Inferencer:
             raise NotImplementedError("the diffusion sampler is not data-parallel: serve it "
                                       "without a mesh")
         self.cfg = cfg
-        self.generator = generator.eval()
+        self.generator = gathered_copy(generator).eval()
         self.device = next(generator.parameters()).device
         self.mesh = mesh
         self.writes = mesh is None or mesh.rank == 0
@@ -78,7 +86,7 @@ class Inferencer:
         if self.mesh is None:
             return self._forward(batch, seed)
         n = int(np.shape(batch["A"])[0])
-        pad = (-n) % self.mesh.world_size
+        pad = (-n) % self.mesh.data_size
         share = {}
         for k, v in batch.items():
             v = torch.as_tensor(v)

@@ -12,6 +12,10 @@ scaled by 1/(1-p)), so one set of draws can be fed to the port and, rebuilt
 from the same keys, held against the JAX package. ``SpectralConv`` keeps the
 power-iteration vectors u and v as buffers, which
 ``spectral_power_iteration`` advances.
+
+On a tensor mesh (``parallel.tensor``) a conv whose weight is sharded
+computes only its out-channels and gathers them (``column_parallel``); its
+``features`` stays the full count.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import torch.nn.functional as F
 
 from tfcgan_tpu_torch.ops.blurpool import blur_pool
 from tfcgan_tpu_torch.ops.norm import group_norm, instance_norm
+from tfcgan_tpu_torch.parallel.tensor import column_parallel, gather_dim, tensor_sum
 
 Padding = tuple[tuple[int, int], tuple[int, int]]
 
@@ -83,35 +88,51 @@ def _conv_nhwc(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
 class TorchConv(nn.Module):
     """Conv2d with explicit, possibly asymmetric zero padding, NHWC."""
 
+    tensor_dims = {"weight": 0}  # the flax kernel's out-channels
+    tensor_axis = None
+
     def __init__(self, in_channels: int, features: int, kernel_size: int = 4,
                  stride: int = 1, padding: Padding = ((1, 1), (1, 1)),
                  use_bias: bool = True, dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
-        self.stride, self.padding, self.dtype = stride, padding, dtype
+        self.stride, self.padding, self.dtype, self.features = stride, padding, dtype, features
         self.weight = nn.Parameter(torch.empty(
             features, in_channels, kernel_size, kernel_size, device=device))
         self.bias = nn.Parameter(torch.zeros(features, device=device)) if use_bias else None
 
+    def _conv(self, x: torch.Tensor, weight: torch.Tensor, bias) -> torch.Tensor:
+        return _conv_nhwc(x, weight, bias, self.stride, self.padding, self.dtype)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _conv_nhwc(x, self.weight, self.bias, self.stride, self.padding, self.dtype)
+        if self.tensor_axis is not None:
+            return column_parallel(self, x, self._conv)
+        return self._conv(x, self.weight, self.bias)
 
 
 class TorchConvTranspose(nn.Module):
     """ConvTranspose2d(k=4, s=2, p=1, no bias) on NHWC: H -> 2H."""
 
+    tensor_dims = {"weight": 1}  # (in, out, kh, kw)
+    tensor_axis = None
+
     def __init__(self, in_channels: int, features: int, kernel_size: int = 4,
                  stride: int = 2, padding: int = 1, dtype: torch.dtype = torch.float32,
                  device=None):
         super().__init__()
-        self.stride, self.padding, self.dtype = stride, padding, dtype
+        self.stride, self.padding, self.dtype, self.features = stride, padding, dtype, features
         self.weight = nn.Parameter(torch.empty(
             in_channels, features, kernel_size, kernel_size, device=device))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = self.weight.to(self.dtype).contiguous(memory_format=torch.channels_last)
+    def _conv(self, x: torch.Tensor, weight: torch.Tensor, bias=None) -> torch.Tensor:
+        w = weight.to(self.dtype).contiguous(memory_format=torch.channels_last)
         y = F.conv_transpose2d(x.to(self.dtype).permute(0, 3, 1, 2), w,
                                stride=self.stride, padding=self.padding)
         return y.permute(0, 2, 3, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tensor_axis is not None:
+            return column_parallel(self, x, self._conv)
+        return self._conv(x, self.weight)
 
 
 def _l2_normalize(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -122,12 +143,17 @@ class SpectralConv(nn.Module):
     """Spectrally normalized conv(k4, s1, p1) with bias: the conv runs with
     W / sigma, sigma = u . (W v) differentiable through W only (u and v are
     buffers, advanced by ``spectral_power_iteration``). W is flattened as
-    (out, in * kh * kw), torch's order; the bridge reorders v from flax's."""
+    (out, in * kh * kw), torch's order; the bridge reorders v from flax's.
+    With W sharded, sigma is the tensor group's sum of the partial products
+    u_r . (W_r v), whose backward sums the ranks' partial gradients of sigma."""
+
+    tensor_dims = {"weight": 0}
+    tensor_axis = None
 
     def __init__(self, in_channels: int, features: int, dtype: torch.dtype = torch.float32,
                  device=None):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.features = dtype, features
         self.weight = nn.Parameter(torch.empty(features, in_channels, 4, 4, device=device))
         self.bias = nn.Parameter(torch.zeros(features, device=device))
         self.register_buffer("u", torch.empty(features, device=device))
@@ -136,9 +162,22 @@ class SpectralConv(nn.Module):
     def w_mat(self) -> torch.Tensor:
         return self.weight.reshape(self.weight.shape[0], -1)
 
+    def full_w_mat(self) -> torch.Tensor:
+        """W as (out, in * kh * kw), gathered where it is sharded (no autograd)."""
+        if self.tensor_axis is None:
+            return self.w_mat()
+        return gather_dim(self.w_mat().detach(), 0, self.tensor_axis)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        sigma = torch.dot(self.u, torch.mv(self.w_mat(), self.v))
-        return _conv_nhwc(x, self.weight / sigma, self.bias, 1, ((1, 1), (1, 1)), self.dtype)
+        axis = self.tensor_axis
+        if axis is None:
+            sigma = torch.dot(self.u, torch.mv(self.w_mat(), self.v))
+            return _conv_nhwc(x, self.weight / sigma, self.bias, 1, ((1, 1), (1, 1)), self.dtype)
+        n = self.weight.shape[0]
+        sigma = tensor_sum(torch.dot(self.u[axis.rank * n:(axis.rank + 1) * n],
+                                     torch.mv(self.w_mat(), self.v)), axis)
+        return column_parallel(self, x, lambda x, w, b: _conv_nhwc(
+            x, w / sigma, b, 1, ((1, 1), (1, 1)), self.dtype))
 
 
 @torch.no_grad()
@@ -150,12 +189,13 @@ def spectral_power_iteration(module: nn.Module, order: str = "vu") -> None:
     what torch's parametrizations.spectral_norm runs before each forward (the
     per-forward cadence). New tensors replace the buffers rather than being
     written in place: a forward earlier in the same step may have saved the
-    old u and v for its backward."""
+    old u and v for its backward. A sharded W is gathered first, so that u
+    and v stay equal on every rank of the tensor group."""
     if order not in ("vu", "uv"):
         raise ValueError(f"order must be 'vu' or 'uv', got {order!r}")
     for m in module.modules():
         if isinstance(m, SpectralConv):
-            w = m.w_mat()
+            w = m.full_w_mat()
             if order == "uv":
                 m.u = _l2_normalize(torch.mv(w, m.v))
                 m.v = _l2_normalize(torch.mv(w.t(), m.u))
@@ -225,16 +265,23 @@ class Upsample2xConv(nn.Module):
     ZeroPad2d((1,0,1,0)) + Conv(k4, p1)); the parameter is one conv kernel
     plus bias, as in the JAX module."""
 
+    tensor_dims = {"weight": 0}
+    tensor_axis = None
+
     def __init__(self, in_channels: int, features: int, kernel_size: int = 4,
                  padding: Padding = ((2, 1), (2, 1)), use_bias: bool = True,
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
-        self.padding, self.dtype = padding, dtype
+        self.padding, self.dtype, self.features = padding, dtype, features
         self.weight = nn.Parameter(torch.empty(
             features, in_channels, kernel_size, kernel_size, device=device))
         self.bias = nn.Parameter(torch.zeros(features, device=device)) if use_bias else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _conv(self, x: torch.Tensor, weight: torch.Tensor, bias) -> torch.Tensor:
         up = F.interpolate(x.to(self.dtype).permute(0, 3, 1, 2), scale_factor=2, mode="nearest")
-        return _conv_nhwc(up.permute(0, 2, 3, 1), self.weight, self.bias, 1, self.padding,
-                          self.dtype)
+        return _conv_nhwc(up.permute(0, 2, 3, 1), weight, bias, 1, self.padding, self.dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tensor_axis is not None:
+            return column_parallel(self, x, self._conv)
+        return self._conv(x, self.weight, self.bias)

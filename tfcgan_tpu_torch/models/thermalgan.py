@@ -59,7 +59,7 @@ class TrainBatchNorm(nn.Module):
         # a data-parallel step: the global batch's moments, the mean and then
         # the centred (two-pass) variance, each summed over the ranks
         xf = x.float()
-        count = xf.shape[0] * xf.shape[1] * xf.shape[2] * mesh.world_size
+        count = xf.shape[0] * xf.shape[1] * xf.shape[2] * mesh.data_size
         mean = all_reduce_sum(xf.sum(dim=(0, 1, 2)), mesh) / count
         var = all_reduce_sum((xf - mean).square().sum(dim=(0, 1, 2)), mesh) / count
         y = (xf - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias

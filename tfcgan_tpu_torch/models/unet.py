@@ -54,10 +54,10 @@ class GeneratorUNet(nn.Module):
             sizes.append((out_len(hh - 1, 2), out_len(ww - 1, 2)))
         up2 = tuple(2 * s for s in sizes[5])  # up blocks: convT doubles, blur s1 keeps
         up3 = tuple(2 * s for s in up2)
-        return {"down3": (n, *sizes[3], self.down3.conv.weight.shape[0]),
-                "down4": (n, *sizes[4], self.down4.conv.weight.shape[0]),
-                "up2": (n, *up2, self.up2.conv.weight.shape[1]),
-                "up3": (n, *up3, self.up3.conv.weight.shape[1])}
+        return {"down3": (n, *sizes[3], self.down3.conv.features),
+                "down4": (n, *sizes[4], self.down4.conv.features),
+                "up2": (n, *up2, self.up2.conv.features),
+                "up3": (n, *up3, self.up3.conv.features)}
 
     def draw_dropout_masks(self, n: int, h: int, w: int, generator: torch.Generator
                            ) -> dict[str, torch.Tensor]:

@@ -8,6 +8,13 @@ dtype where they are used. The attention runs over 17 tokens at 256² with
 patch 64: plain einsum + softmax, as the JAX package leaves it to XLA.
 Parameter names follow the JAX module tree (``block0.attn.query.weight`` <-
 ``block0/attn/query/kernel``, see ``tfcgan_tpu_torch.bridge``).
+
+On a tensor mesh (``parallel.tensor``) each sharded ``Dense`` and the patch
+embedding compute their own out-features and gather them, and the CLS token
+and positional embedding are gathered before use. The attention's q/k/v
+flax kernels are (dim, heads, head_dim) and their biases (heads, head_dim):
+the JAX rule shards both on the head dim, so the port's q/k/v ``Dense``
+shard weight and bias where head_dim divides (``tensor_blocks`` = heads).
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from tfcgan_tpu_torch.models.layers import draws_on
+from tfcgan_tpu_torch.parallel.tensor import column_parallel, full_param
 
 _LN_EPS = 1e-6
 
@@ -41,17 +49,29 @@ def lecun_normal_(module: nn.Module, generator: torch.Generator | None = None) -
 
 
 class Dense(nn.Module):
-    """y = x W^T + b in ``dtype``; W float32 (out, in), torch's layout."""
+    """y = x W^T + b in ``dtype``; W float32 (out, in), torch's layout.
+    ``heads`` > 1: the out-features are (heads, head_dim) in flax (an
+    attention's q/k/v), whose bias is then a 2-D leaf too."""
+
+    tensor_axis = None
 
     def __init__(self, in_features: int, features: int, dtype: torch.dtype = torch.float32,
-                 device=None):
+                 device=None, heads: int = 1):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.features = dtype, features
+        self.tensor_dims = {"weight": 0, **({"bias": 0} if heads > 1 else {})}
+        self.tensor_blocks = heads
         self.weight = nn.Parameter(torch.zeros(features, in_features, device=device))
         self.bias = nn.Parameter(torch.zeros(features, device=device))
 
+    def _linear(self, x: torch.Tensor, weight: torch.Tensor, bias) -> torch.Tensor:
+        return F.linear(x.to(self.dtype), weight.to(self.dtype),
+                        None if bias is None else bias.to(self.dtype))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), self.bias.to(self.dtype))
+        if self.tensor_axis is not None:
+            return column_parallel(self, x, self._linear)
+        return self._linear(x, self.weight, self.bias)
 
 
 class LayerNorm(nn.Module):
@@ -78,8 +98,8 @@ class Attention(nn.Module):
             raise ValueError(f"dim {dim} is not a multiple of heads {heads}")
         self.heads = heads
         kw = dict(dtype=dtype, device=device)
-        self.query, self.key, self.value = Dense(dim, dim, **kw), Dense(dim, dim, **kw), \
-            Dense(dim, dim, **kw)
+        self.query, self.key, self.value = (Dense(dim, dim, heads=heads, **kw)
+                                            for _ in range(3))
         self.out = Dense(dim, dim, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -119,6 +139,7 @@ class ViT(nn.Module):
                  generator: torch.Generator | None = None):
         super().__init__()
         self.dtype, self.dim = dtype, dim
+        self.tensor_dims = {"cls_token": 2, "pos_embed": 2}
         self.tokens = (image_size // patch_size) ** 2 + 1
         self.patch_embed = nn.Conv2d(in_channels, dim, patch_size, stride=patch_size,
                                      device=device)
@@ -145,15 +166,22 @@ class ViT(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n = x.shape[0]
         xc = x.to(self.dtype).permute(0, 3, 1, 2)
-        w = self.patch_embed.weight.to(self.dtype)
-        tokens = F.conv2d(xc, w, self.patch_embed.bias.to(self.dtype),
-                          stride=self.patch_embed.stride)
-        tokens = tokens.permute(0, 2, 3, 1).reshape(n, -1, self.dim)
+
+        def embed(xc, w, b):
+            b = None if b is None else b.to(self.dtype)
+            return F.conv2d(xc, w.to(self.dtype), b,
+                            stride=self.patch_embed.stride).permute(0, 2, 3, 1)
+
+        if getattr(self.patch_embed, "tensor_axis", None) is not None:
+            tokens = column_parallel(self.patch_embed, xc, embed)
+        else:
+            tokens = embed(xc, self.patch_embed.weight, self.patch_embed.bias)
+        tokens = tokens.reshape(n, -1, self.dim)
         if tokens.shape[1] + 1 != self.tokens:
             raise ValueError(f"ViT built for {self.tokens - 1} patches got {tokens.shape[1]}: "
                              f"input {tuple(x.shape)}")
-        cls = self.cls_token.to(self.dtype).expand(n, 1, self.dim)
-        tokens = torch.cat([cls, tokens], dim=1) + self.pos_embed.to(self.dtype)
+        cls = full_param(self, "cls_token").to(self.dtype).expand(n, 1, self.dim)
+        tokens = torch.cat([cls, tokens], dim=1) + full_param(self, "pos_embed").to(self.dtype)
         for block in self.blocks:
             tokens = block(tokens)
         return self.norm(tokens)

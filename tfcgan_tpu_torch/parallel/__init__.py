@@ -1,9 +1,8 @@
-"""The data axis and the GPipe trunk over ``torch.distributed``."""
+"""The data and tensor axes and the GPipe trunk over ``torch.distributed``."""
 
 from tfcgan_tpu_torch.parallel.distributed import (
     global_mesh_devices,
     initialize,
-    local_batch_slice,
     local_device,
 )
 from tfcgan_tpu_torch.parallel.mesh import (
@@ -22,6 +21,14 @@ from tfcgan_tpu_torch.parallel.mesh import (
     replicate,
     shard_batch,
     shard_draws,
+)
+from tfcgan_tpu_torch.parallel.tensor import (
+    TensorAxis,
+    full_optimizer_state_dict,
+    full_state_dict,
+    gathered_copy,
+    param_sharding_dim,
+    shard_params,
 )
 from tfcgan_tpu_torch.parallel.pipeline import (
     make_pipe_mesh,

@@ -1,23 +1,23 @@
 """Multi-process runtime set-up, port of ``tfcgan_tpu.parallel.distributed``.
 
 One process drives one card; the processes of a job form the
-``torch.distributed`` world, the data axis of ``parallel.mesh``. Going
+``torch.distributed`` world, the (data, tensor) grid of ``parallel.mesh``. Going
 multi-process changes two things, as in the JAX package:
 
 1. call :func:`initialize` once per process before the first collective
    (``cli train`` and ``cli test`` do so under ``torchrun``);
-2. feed each process its own share of the global batch
-   (:func:`local_batch_slice`, or ``mesh.shard_batch``).
+2. feed each process its own share of the global batch (``mesh.shard_batch``,
+   or ``mesh.local_share``: by the data coordinate, so that the ranks of a
+   tensor group get the same samples).
 
-The gradient mean over the world is the trainer's (``train/trainer.py``),
-one coalesced all-reduce a phase: NCCL between cards, gloo on the host.
+The gradient mean is the trainer's (``train/trainer.py``), coalesced
+all-reduces a phase: NCCL between cards, gloo on the host.
 """
 
 from __future__ import annotations
 
 import os
 
-import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -67,21 +67,6 @@ def process_count() -> int:
 
 def process_index() -> int:
     return dist.get_rank() if dist.is_initialized() else 0
-
-
-def local_batch_slice(global_batch: dict, axis: int = 0) -> dict:
-    """A host-side global batch cut to this process's share (contiguous,
-    process-major, as ``mesh.shard_batch`` cuts it)."""
-    n, i = process_count(), process_index()
-
-    def cut(x):
-        x = np.asarray(x)
-        size = x.shape[axis]
-        assert size % n == 0, f"global batch {size} not divisible by {n} hosts"
-        sh = size // n
-        return np.take(x, np.arange(i * sh, (i + 1) * sh), axis=axis)
-
-    return {k: cut(v) for k, v in global_batch.items()}
 
 
 def global_mesh_devices() -> list[torch.device]:

@@ -1,28 +1,37 @@
-"""The data axis over ``torch.distributed``, port of ``tfcgan_tpu.parallel.mesh``.
+"""The data and tensor axes over ``torch.distributed``, port of
+``tfcgan_tpu.parallel.mesh``.
 
 The JAX package shards the batch over a device mesh and lets XLA insert the
-gradient ``psum``; here a process drives one card and the world of processes
-is the data axis. ``Mesh`` is a small record: the axis names and shape, this
-rank, the world size, the process group and this rank's device. Parameters
-are replicated (``replicate``/``place_state`` broadcast them from rank 0), a
-batch is cut into equal contiguous shares (``shard_batch``), and the trainer
-averages each phase's gradients over the group.
+gradient ``psum``; here a process drives one card. ``Mesh`` is a small
+record: the axis names and shape, this rank, the world size, the world's
+process group, this rank's device, and its coordinates on the axes. Without
+a tensor axis the world is the data axis. With ``make_mesh(tensor=t)`` the
+world of ``d * t`` ranks is a (data, tensor) grid, tensor innermost as in
+JAX (``rank = data_idx * t + tensor_idx``): the ranks of one data share form
+a tensor group (``parallel.tensor``: every parameter that the JAX rule
+shards is held as a slice on each of them, and its layer computes only its
+out-channels), the ranks of one tensor coordinate a data group. Parameters
+are broadcast from rank 0 (``replicate``/``place_state``, which then keeps
+each rank's slices on a tensor mesh), a batch is cut into equal contiguous
+shares by the data coordinate (``shard_batch``: the tensor ranks of a share
+see the same samples and draws), and the trainer averages each phase's
+gradients over the data group.
 
-Each rank computes its loss over its share. For a term that is a mean over
-samples, the mean of the ranks' losses is the global batch's, and so is the
-mean of their gradients. A term that couples samples differently (a batch
-norm, a batch-wide min or max, a softmax over the batch) reads the global
-batch through the collectives below, each a ``torch.autograd.Function``
-whose backward sums the ranks' upstream gradients: every rank computes the
-same global value, and the trainer's mean over ranks then gives the global
-gradient once. The ops find the mesh with ``active_mesh()``: the trainer
-runs each step inside ``loss_mesh(mesh)``, as the JAX trainer traces its
-step inside ``loss_mesh``.
+Each data share computes its loss over its samples. For a term that is a
+mean over samples, the mean of the shares' losses is the global batch's, and
+so is the mean of their gradients. A term that couples samples differently
+(a batch norm, a batch-wide min or max, a softmax over the batch) reads the
+global batch through the collectives below, over the data group, each a
+``torch.autograd.Function`` whose backward sums the shares' upstream
+gradients: every rank computes the same global value, and the trainer's
+mean over the data group then gives the global gradient once. The ops find
+the mesh with ``active_mesh()``: the trainer runs each step inside
+``loss_mesh(mesh)``, as the JAX trainer traces its step inside ``loss_mesh``.
 
-Only the data axis is ported: ``make_mesh`` refuses the ``spatial`` and
-``tensor`` axes (ROADMAP, Queue 1 item 7). The ``NamedSharding`` helpers
-(``batch_sharding``, ``image_sharding``, ``replicated_sharding``) have no
-meaning without XLA's partitioner and are left out.
+The ``spatial`` axis is not ported: ``make_mesh`` refuses it (ROADMAP.md,
+Queue 1 item 7b). The ``NamedSharding`` helpers (``batch_sharding``,
+``image_sharding``, ``replicated_sharding``) have no meaning without XLA's
+partitioner and are left out.
 """
 
 from __future__ import annotations
@@ -35,14 +44,20 @@ import torch
 import torch.distributed as dist
 
 from tfcgan_tpu_torch.parallel.distributed import local_device
+from tfcgan_tpu_torch.parallel.tensor import TensorAxis, _AllReduceSum, is_sharded, shard_params
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """A 1-D data mesh: ``axis_names`` ("data",), ``shape`` {"data": world
-    size}, this ``rank``, the process ``group`` (None for a world of one
-    without ``torch.distributed``, where every collective is the identity)
-    and this rank's ``device``."""
+    """A data mesh, or a (data, tensor) one: ``axis_names`` ("data",) or
+    ("data", "tensor"), ``shape`` {"data": d[, "tensor": t]}, this global
+    ``rank``, the ``world_size``, the world's process ``group`` (None for a
+    world of one without ``torch.distributed``, where every collective is
+    the identity) and this rank's ``device``; this rank's data coordinate
+    ``data_rank`` of ``data_size`` and the ``data_group`` (None where the
+    data axis has one coordinate), and the ``tensor`` axis
+    (``parallel.tensor.TensorAxis``), None on a data mesh. Without the data
+    fields the data axis is the world."""
 
     axis_names: tuple[str, ...]
     shape: dict
@@ -50,24 +65,40 @@ class Mesh:
     world_size: int
     group: object
     device: torch.device
+    data_rank: int | None = None
+    data_size: int | None = None
+    data_group: object = None
+    tensor: TensorAxis | None = None
+
+    def __post_init__(self):
+        if self.data_size is None:  # a data mesh: the data axis is the world
+            object.__setattr__(self, "data_rank", self.rank)
+            object.__setattr__(self, "data_size", self.world_size)
+            object.__setattr__(self, "data_group", self.group)
 
     @property
     def axis(self) -> str:
         return self.axis_names[0]
 
+    @property
+    def tensor_size(self) -> int:
+        return 1 if self.tensor is None else self.tensor.size
+
 
 def make_mesh(num_devices: int | None = None, axis: str = "data", spatial: int = 1,
               tensor: int = 1, device=None) -> Mesh:
-    """The data mesh over the initialised ``torch.distributed`` world (a
-    world of one without it). ``num_devices`` must be the world size: the
-    mesh never carries on with fewer ranks than it was asked for.
-    ``device`` is this rank's device (default ``distributed.local_device``:
-    ``cuda:$LOCAL_RANK`` under NCCL, the host under gloo)."""
-    for name, n in (("spatial", spatial), ("tensor", tensor)):
-        if n > 1:
-            raise NotImplementedError(
-                f"the {name!r} mesh axis is not ported yet (ROADMAP.md, Queue 1 item 7: the "
-                "spatial axis and then the tensor axis come after the data axis)")
+    """The mesh over the initialised ``torch.distributed`` world (a world of
+    one without it): a data mesh, or with ``tensor`` > 1 a (data, tensor)
+    mesh of world / ``tensor`` data shares, tensor innermost. The world must
+    divide by ``tensor`` (the JAX ``make_mesh`` asserts it), and
+    ``num_devices`` must be the world size: the mesh never carries on with
+    fewer ranks than it was asked for. ``device`` is this rank's device
+    (default ``distributed.local_device``: ``cuda:$LOCAL_RANK`` under NCCL,
+    the host under gloo). Every rank calls it: the groups are made collectively."""
+    if spatial > 1:
+        raise NotImplementedError(
+            "the 'spatial' mesh axis is not ported yet (ROADMAP.md, Queue 1 item 7b: a halo "
+            "exchange in every conv and pool); the 'data' and 'tensor' axes are")
     if dist.is_initialized():
         group, world, rank = dist.group.WORLD, dist.get_world_size(), dist.get_rank()
     else:
@@ -75,8 +106,22 @@ def make_mesh(num_devices: int | None = None, axis: str = "data", spatial: int =
     if num_devices is not None and num_devices != world:
         raise ValueError(f"make_mesh({num_devices}) in a world of {world} process(es): start "
                          f"{num_devices} processes (torchrun --nproc_per_node {num_devices})")
+    if tensor < 1 or world % tensor:
+        raise ValueError(f"a world of {world} process(es) is not divisible by the 'tensor' "
+                         f"axis of {tensor}: start a multiple of {tensor} processes")
     device = torch.device(device) if device is not None else local_device()
-    return Mesh((axis,), {axis: world}, rank, world, group, device)
+    if tensor == 1:
+        return Mesh((axis,), {axis: world}, rank, world, group, device)
+    data = world // tensor
+    data_rank, tensor_rank = divmod(rank, tensor)
+    # every rank makes every group, in the same order
+    tensor_groups = [dist.new_group(list(range(i * tensor, (i + 1) * tensor)))
+                     for i in range(data)]
+    data_groups = ([dist.new_group(list(range(j, world, tensor))) for j in range(tensor)]
+                   if data > 1 else [None] * tensor)
+    return Mesh((axis, "tensor"), {axis: data, "tensor": tensor}, rank, world, group, device,
+                data_rank, data, data_groups[tensor_rank],
+                TensorAxis(tensor_groups[data_rank], tensor_rank, tensor))
 
 
 # the mesh that the collectives of the ops below see while a step runs
@@ -107,30 +152,33 @@ def _leading(batch: dict) -> int:
 
 
 def local_share(n: int, mesh: Mesh) -> slice:
-    """This rank's contiguous share of ``n`` samples (equal shares only)."""
-    if n % mesh.world_size:
+    """This rank's contiguous share of ``n`` samples (equal shares only), by
+    its data coordinate: the tensor ranks of a share get the same samples."""
+    if n % mesh.data_size:
         raise ValueError(
             f"global batch size {n} is not divisible by the mesh's '{mesh.axis}' axis "
-            f"({mesh.world_size} devices) — raise the batch size or shrink the mesh "
+            f"({mesh.data_size} devices) — raise the batch size or shrink the mesh "
             f"(tfcgan_tpu_torch shards the batch dim over '{mesh.axis}')")
-    share = n // mesh.world_size
-    return slice(mesh.rank * share, (mesh.rank + 1) * share)
+    share = n // mesh.data_size
+    return slice(mesh.data_rank * share, (mesh.data_rank + 1) * share)
 
 
 def local_part(x: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
     """This rank's share of a global-batch tensor (``x`` itself without a mesh)."""
-    if mesh is None or mesh.world_size == 1:
+    if mesh is None or mesh.data_size == 1:
         return x
     return x[local_share(x.shape[0], mesh)]
 
 
 def shard_draws(draws, mesh: Mesh | None):
     """This rank's share of a step's draws, drawn for the global batch on
-    every rank from generators kept equal: the per-sample fields that the
+    every rank from generators kept equal and cut by the data coordinate
+    (a dropout keep-mask that differed over a tensor group would make the
+    gathered activations disagree): the per-sample fields that the
     draws' dataclass names in ``PER_SAMPLE`` (tensors, or dicts of tensors,
     with the batch first) are cut to this rank's samples; the shared fields
     (patch negatives, jitter factors, the replay buffers' coins) stay whole."""
-    if draws is None or mesh is None or mesh.world_size == 1:
+    if draws is None or mesh is None or mesh.data_size == 1:
         return draws
 
     def cut(v):
@@ -178,11 +226,18 @@ def place_state(state, mesh: Mesh):
     """Replicate a ``TrainState`` from rank 0: the modules' parameters and
     buffers (spectral u/v included), the recipe-owned ``extra``, the step
     count and the draw generator's state. The Adams start empty, or from the
-    one checkpoint every rank restores."""
+    one checkpoint every rank restores. On a tensor mesh each rank then keeps
+    its slice of every parameter of G, D, LPIPS, the regional CNNs and the
+    frozen modules that the JAX rule shards, and of its Adam moments
+    (``parallel.tensor.shard_params``); u/v, ``extra``, the step and the
+    generator stay replicated, as in the JAX ``place_state``. A state is
+    placed once: the broadcast would hand rank 0's slices to every rank."""
     if mesh.group is None:
         return state
     modules = [m for m in (state.G, state.D, state.lpips, state.cnns, state.frozen)
                if m is not None]
+    if any(is_sharded(m) for m in modules):
+        raise ValueError("place_state: the state is already sharded over a tensor axis")
     replicate(modules, mesh)
     replicate(state.extra, mesh)
     meta = [state.step, state.generator.get_state()]
@@ -191,25 +246,12 @@ def place_state(state, mesh: Mesh):
                                device=mesh.device if nccl else None)
     state.step = meta[0]
     state.generator.set_state(meta[1])
+    if mesh.tensor is not None:
+        shard_params(modules, mesh.tensor, (state.opt_g, state.opt_d))
     return state
 
 
 # --------------------------------------------------------------- collectives
-class _AllReduceSum(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        out = x.contiguous().clone()
-        dist.all_reduce(out, group=group)
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
-        return g, None
-
-
 class _AllGatherBatch(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, rank, world):
@@ -253,46 +295,49 @@ class _AllReduceExtreme(torch.autograd.Function):
 
 
 def all_reduce_sum(x: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
-    """The sum of ``x`` over the ranks; backward: the all-reduce sum of the
-    upstream gradient. The identity without a group."""
-    if mesh is None or mesh.group is None:
+    """The sum of ``x`` over the data shares; backward: the all-reduce sum
+    of the upstream gradient. The identity without a data group."""
+    if mesh is None or mesh.data_group is None:
         return x
-    return _AllReduceSum.apply(x, mesh.group)
+    return _AllReduceSum.apply(x, mesh.data_group)
 
 
 def all_gather_batch(x: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
-    """The ranks' ``x`` concatenated along dim 0 in rank order (the global
-    batch); backward: this rank's slice of the summed upstream gradient."""
-    if mesh is None or mesh.group is None:
+    """The data shares' ``x`` concatenated along dim 0 in data order (the
+    global batch, once: not once a tensor rank); backward: this share's
+    slice of the summed upstream gradient."""
+    if mesh is None or mesh.data_group is None:
         return x
-    return _AllGatherBatch.apply(x, mesh.group, mesh.rank, mesh.world_size)
+    return _AllGatherBatch.apply(x, mesh.data_group, mesh.data_rank, mesh.data_size)
 
 
 def all_reduce_max(x: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
-    """The max over every element of ``x`` on every rank (0-dim)."""
-    if mesh is None or mesh.group is None:
+    """The max over every element of ``x`` in every data share (0-dim)."""
+    if mesh is None or mesh.data_group is None:
         return x.amax()
-    return _AllReduceExtreme.apply(x, mesh.group, True)
+    return _AllReduceExtreme.apply(x, mesh.data_group, True)
 
 
 def all_reduce_min(x: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
-    """The min over every element of ``x`` on every rank (0-dim)."""
-    if mesh is None or mesh.group is None:
+    """The min over every element of ``x`` in every data share (0-dim)."""
+    if mesh is None or mesh.data_group is None:
         return x.amin()
-    return _AllReduceExtreme.apply(x, mesh.group, False)
+    return _AllReduceExtreme.apply(x, mesh.data_group, False)
 
 
-def all_reduce_mean_(tensors: list[torch.Tensor], mesh: Mesh) -> int:
-    """Average ``tensors`` (of one dtype) over the ranks in place through one
-    coalesced flat buffer, one all-reduce; returns the buffer's bytes (0
-    without a group)."""
-    if mesh.group is None or not tensors:
+def all_reduce_mean_(tensors: list[torch.Tensor], mesh: Mesh, over: str = "data") -> int:
+    """Average ``tensors`` (of one dtype) in place through one coalesced flat
+    buffer, one all-reduce, over the data group (``over="data"``) or the
+    whole world (``"world"``); returns the buffer's bytes (0 without a group)."""
+    group, size = ((mesh.data_group, mesh.data_size) if over == "data"
+                   else (mesh.group, mesh.world_size))
+    if group is None or not tensors:
         return 0
     if len({t.dtype for t in tensors}) != 1:
         raise ValueError(f"one flat buffer takes one dtype: {sorted({str(t.dtype) for t in tensors})}")
     flat = torch.cat([t.reshape(-1) for t in tensors])
-    dist.all_reduce(flat, group=mesh.group)
-    flat /= mesh.world_size
+    dist.all_reduce(flat, group=group)
+    flat /= size
     offset = 0
     for t in tensors:
         t.copy_(flat[offset:offset + t.numel()].view_as(t))

@@ -33,6 +33,7 @@ from tfcgan_tpu_torch.models.diffusion import CondUNet, DDPMSchedule, sample
 from tfcgan_tpu_torch.models.layers import init_normal_
 from tfcgan_tpu_torch.models.lpips import LPIPS
 from tfcgan_tpu_torch.models.unet import GeneratorUNet
+from tfcgan_tpu_torch.parallel.tensor import full_param
 
 VARIANTS = ("condA", "label", "hybrid")
 _GRAY = (0.2989, 0.587, 0.114)
@@ -70,6 +71,7 @@ class DiffusionGenerators(nn.Module):
                  generator: torch.Generator | None = None):
         super().__init__()
         self.variant = _variant(cfg)
+        self.tensor_dims = {"class_emb": 1}  # gathered before the lookup on a tensor mesh
         e, dtype = cfg.extra, _dtype(cfg)
         channels = 1 if self.variant == "condA" else cfg.data.channels
         cond_channels = 1
@@ -101,7 +103,7 @@ class DiffusionGenerators(nn.Module):
         a = batch["A"]
         if self.variant == "condA":
             return to_gray(a)
-        emb = self.class_emb[batch["LAB"].long()]
+        emb = full_param(self, "class_emb")[batch["LAB"].long()]
         return emb[:, None, None, :].expand(*a.shape[:3], emb.shape[-1])
 
 

@@ -23,8 +23,12 @@ into place, so a checkpoint directory is whole or absent; a repeated save of
 a step already on disk changes nothing. In a data-parallel run (``mesh``)
 the replicas are equal, so rank 0 writes, synchronously or asynchronously,
 and every rank waits at a barrier after the save; every rank restores. The
-format does not depend on the world size: a checkpoint of two ranks restores
-into one process and the other way round. A JAX (Orbax) checkpoint reaches the
+format does not depend on the world size or the mesh: on a tensor mesh the
+ranks of rank 0's tensor group gather every sharded parameter and both Adam
+moments before rank 0 writes, so the file is the one an unsharded run
+writes, and it restores into one process, a data mesh or a tensor mesh
+(``restore_checkpoint`` into an unplaced state, then
+``parallel.place_state``, which keeps each rank's slices). A JAX (Orbax) checkpoint reaches the
 port only through ``tools/export_g_params.py`` and
 ``bridge.train_state_from_flax``.
 """
@@ -39,6 +43,7 @@ import threading
 import torch
 import torch.distributed as dist
 
+from tfcgan_tpu_torch.parallel.tensor import full_optimizer_state_dict, full_state_dict
 from tfcgan_tpu_torch.train.state import TrainState
 
 STATE_FILE = "state.pt"
@@ -49,13 +54,16 @@ def checkpoint_path(ckpt_dir: str, step: int) -> str:
 
 
 def _state_dict(state: TrainState) -> dict:
-    return {"step": int(state.step), "G": state.G.state_dict(), "D": state.D.state_dict(),
-            "lpips": None if state.lpips is None else state.lpips.state_dict(),
-            "cnns": None if state.cnns is None else state.cnns.state_dict(),
-            "frozen": None if state.frozen is None else state.frozen.state_dict(),
+    """The whole state, sharded parameters and moments gathered (a collective
+    over each tensor group that holds a slice)."""
+    def sd(m):
+        return None if m is None else full_state_dict(m)
+
+    return {"step": int(state.step), "G": sd(state.G), "D": sd(state.D),
+            "lpips": sd(state.lpips), "cnns": sd(state.cnns), "frozen": sd(state.frozen),
             "extra": state.extra,
-            "opt_g": state.opt_g.state_dict(),
-            "opt_d": None if state.opt_d is None else state.opt_d.state_dict(),
+            "opt_g": full_optimizer_state_dict(state.opt_g),
+            "opt_d": None if state.opt_d is None else full_optimizer_state_dict(state.opt_d),
             "generator": state.generator.get_state()}
 
 
@@ -93,11 +101,39 @@ def _writes(mesh) -> bool:
     return mesh is None or mesh.rank == 0
 
 
+def _gathers(mesh) -> bool:
+    """Whether this rank takes part in the state's gathers: rank 0's tensor group."""
+    return _writes(mesh) or (mesh.tensor is not None and mesh.data_rank == 0)
+
+
+def _snapshot(path: str, state: TrainState, mesh) -> dict | None:
+    """The host copy of ``state`` that rank 0 writes to ``path``; None on
+    the other ranks, and where the step is on disk already (a save is
+    idempotent). On a tensor mesh the ranks of rank 0's tensor group take
+    rank 0's decision and gather with it."""
+    if not _gathers(mesh):
+        return None
+    skip = _writes(mesh) and os.path.isdir(path)
+    if mesh is not None and mesh.tensor is not None:
+        group = mesh.tensor.group
+        flag = [skip]
+        nccl = dist.get_backend(group) == "nccl"
+        dist.broadcast_object_list(flag, dist.get_global_rank(group, 0), group=group,
+                                   device=mesh.device if nccl else None)
+        skip = flag[0]
+    if skip:
+        return None
+    snapshot = _to_host(_state_dict(state))
+    return snapshot if _writes(mesh) else None
+
+
 def save_checkpoint(ckpt_dir: str, state: TrainState, mesh=None) -> str:
-    """``state`` into ``ckpt_dir``/step_%08d (by rank 0 under ``mesh``)."""
+    """``state`` into ``ckpt_dir``/step_%08d (by rank 0 under ``mesh``;
+    every rank calls it)."""
     path = checkpoint_path(ckpt_dir, int(state.step))
-    if _writes(mesh) and not os.path.isdir(path):  # idempotent: a step on disk stays
-        _write(path, _to_host(_state_dict(state)))
+    snapshot = _snapshot(path, state, mesh)
+    if snapshot is not None:
+        _write(path, snapshot)
     _barrier(mesh)
     return path
 
@@ -160,7 +196,8 @@ class AsyncCheckpointManager:
     thread writes it. One save is in flight at a time: ``save`` first waits
     for the previous one, then skips a step already on disk. ``wait`` (and
     ``close``) returns once the write is done and re-raises its error. Under
-    ``mesh`` rank 0 writes and the ranks meet at a barrier in ``wait``."""
+    ``mesh`` every rank calls ``save``, rank 0 writes and the ranks meet at a
+    barrier in ``wait``."""
 
     def __init__(self, ckpt_dir: str, mesh=None):
         self.ckpt_dir = os.path.abspath(ckpt_dir)
@@ -171,9 +208,9 @@ class AsyncCheckpointManager:
     def save(self, state: TrainState) -> str:
         path = checkpoint_path(self.ckpt_dir, int(state.step))
         self.wait()  # before isdir: the in-flight save commits first
-        if not _writes(self.mesh) or os.path.isdir(path):  # a step on disk stays
+        snapshot = _snapshot(path, state, self.mesh)
+        if snapshot is None:
             return path
-        snapshot = _to_host(_state_dict(state))
         self._thread = threading.Thread(target=self._write, args=(path, snapshot),
                                         name="checkpoint-write")
         self._thread.start()

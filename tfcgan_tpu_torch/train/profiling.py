@@ -17,6 +17,8 @@ import time
 
 import torch
 
+from tfcgan_tpu_torch.parallel.tensor import tensor_dim
+
 
 @contextlib.contextmanager
 def trace(log_dir: str):
@@ -52,8 +54,10 @@ class StepTimer:
 
 
 def count_params(module: torch.nn.Module) -> int:
-    """Total parameter count (the reference's ``print_network``)."""
-    return sum(p.numel() for p in module.parameters())
+    """Total parameter count (the reference's ``print_network``): a
+    parameter sharded over a tensor axis counts whole."""
+    return sum(p.numel() * (p.tensor_axis.size if tensor_dim(p) is not None else 1)
+               for p in module.parameters())
 
 
 def device_memory_summary(device=None) -> dict:

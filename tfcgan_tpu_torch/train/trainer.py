@@ -40,6 +40,17 @@ logged numbers are the global batch's. The step runs inside
 ``parallel.loss_mesh``: the ops that couple the samples of a batch read the
 global batch there. D runs several times a phase and is frozen through the G
 phase, so the gradients are reduced by hand and not by the DDP wrapper.
+
+On a (data, tensor) mesh (``make_mesh(tensor=t)``, or ``cfg.mesh.tensor``)
+the ranks of one data share hold slices of the sharded parameters and of
+their Adam moments (``parallel.place_state``) and run the same samples and
+draws: a sharded parameter's gradient is averaged over the data group (the
+ranks that hold the same slice), a replicated one's over the whole world
+(equal over a tensor group up to the order of float32 sums, so the mean
+keeps the replicas bit for bit equal), the metrics over the data group.
+Without a ``mesh`` argument the trainer builds one from ``cfg.mesh`` when it
+asks for more than one process (``num_devices`` > 1, ``tensor`` > 1, or
+``spatial`` > 1, which is refused), as the JAX trainer does.
 """
 
 from __future__ import annotations
@@ -55,8 +66,9 @@ import torch.nn as nn
 from tfcgan_tpu_torch.config import ExperimentConfig
 from tfcgan_tpu_torch.data.prefetch import is_device_batch
 from tfcgan_tpu_torch.models.layers import spectral_power_iteration
-from tfcgan_tpu_torch.parallel.mesh import (Mesh, all_reduce_mean_, loss_mesh, place_state,
-                                            shard_batch, shard_draws)
+from tfcgan_tpu_torch.parallel.mesh import (Mesh, all_reduce_mean_, loss_mesh, make_mesh,
+                                            place_state, shard_batch, shard_draws)
+from tfcgan_tpu_torch.parallel.tensor import full_tensors, tensor_dim
 from tfcgan_tpu_torch.train.state import (TrainState, create_state, learning_rate,
                                           set_learning_rate)
 
@@ -72,8 +84,8 @@ def _frozen(module: nn.Module):
 
 
 class CollectiveStats:
-    """What the data axis moved: gradient all-reduces and the bytes of each
-    phase's flat buffer."""
+    """What the data axis moved: gradient all-reduces (one a phase) and the
+    bytes of each phase's flat buffers."""
 
     def __init__(self):
         self.grad_allreduces = 0
@@ -106,9 +118,11 @@ def make_train_step(cfg: ExperimentConfig, recipe, mesh: Mesh | None = None,
     def average_grads(opt: torch.optim.Adam, phase: str) -> None:
         if mesh is None:
             return
-        grads = [p.grad for group in opt.param_groups for p in group["params"]
-                 if p.grad is not None]
-        nbytes = all_reduce_mean_(grads, mesh)
+        params = [p for group in opt.param_groups for p in group["params"]
+                  if p.grad is not None]
+        nbytes = all_reduce_mean_([p.grad for p in params if tensor_dim(p) is not None], mesh)
+        nbytes += all_reduce_mean_([p.grad for p in params if tensor_dim(p) is None], mesh,
+                                   over="world")
         if stats is not None and nbytes:
             stats.grad_allreduces += 1
             stats.flat_bytes[phase] = nbytes
@@ -146,7 +160,7 @@ def make_train_step(cfg: ExperimentConfig, recipe, mesh: Mesh | None = None,
             d_metrics = d_phase(state, batch, before_d(state, aux, draws))
         state.step += 1
         metrics = {k: v.detach() for k, v in {**g_metrics, **d_metrics}.items()}
-        if mesh is not None and mesh.group is not None:  # the global batch's means
+        if mesh is not None and mesh.data_group is not None:  # the global batch's means
             names = sorted(metrics)
             values = [metrics[k].float().reshape(1) for k in names]
             all_reduce_mean_(values, mesh)
@@ -161,13 +175,18 @@ def make_train_step(cfg: ExperimentConfig, recipe, mesh: Mesh | None = None,
 
 
 def _log_histograms(hist_logger, state: TrainState) -> None:
+    """G's and D's weights and gradients, sharded ones gathered (a collective
+    over their tensor group); written by ``hist_logger``, when given."""
     from tfcgan_tpu_torch.train.histograms import tree_histograms
 
-    weights = {"G": dict(state.G.named_parameters()), "D": dict(state.D.named_parameters())}
-    grads = {m: {k: torch.zeros_like(p) if p.grad is None else p.grad for k, p in params.items()}
-             for m, params in weights.items()}
-    hist_logger.write(state.step, "weights", tree_histograms(weights))
-    hist_logger.write(state.step, "grads", tree_histograms(grads))
+    modules = {"G": state.G, "D": state.D}
+    weights = {m: full_tensors(mod, dict(mod.named_parameters())) for m, mod in modules.items()}
+    grads = {m: full_tensors(mod, {k: torch.zeros_like(p) if p.grad is None else p.grad
+                                   for k, p in mod.named_parameters()})
+             for m, mod in modules.items()}
+    if hist_logger is not None:
+        hist_logger.write(state.step, "weights", tree_histograms(weights))
+        hist_logger.write(state.step, "grads", tree_histograms(grads))
 
 
 def assert_finite(metrics: dict, step: int) -> None:
@@ -181,13 +200,18 @@ def assert_finite(metrics: dict, step: int) -> None:
 class Trainer:
     """Runs the step on the recipe's device. ``draw_fn(state, batch)`` gives
     each step's draws (default: ``recipe.draw(state.generator, batch)``);
-    ``logger`` is anything with ``write(dict)``; ``mesh`` a data mesh
-    (``parallel.make_mesh``), None for one process. Under a mesh,
-    ``draw_fn`` sees the global batch's shapes (its tensors are on the meta
-    device) and its draws are cut to this rank's samples."""
+    ``logger`` is anything with ``write(dict)``; ``mesh`` a data or (data,
+    tensor) mesh (``parallel.make_mesh``); None builds it from ``cfg.mesh``
+    where that asks for more than one process, else runs one process.
+    Under a mesh, ``draw_fn`` sees the global batch's shapes (its tensors
+    are on the meta device) and its draws are cut to this rank's samples."""
 
     def __init__(self, cfg: ExperimentConfig, recipe, draw_fn: Callable | None = None,
                  logger=None, mesh: Mesh | None = None):
+        m = cfg.mesh
+        if mesh is None and ((m.num_devices or 1) > 1 or m.tensor > 1 or m.spatial > 1):
+            mesh = make_mesh(m.num_devices, spatial=m.spatial, tensor=m.tensor,
+                             device=recipe.device)
         self.cfg, self.recipe, self.logger, self.mesh = cfg, recipe, logger, mesh
         self.draw_fn = draw_fn or (lambda state, batch: recipe.draw(state.generator, batch))
         self.stats = CollectiveStats()
@@ -196,7 +220,9 @@ class Trainer:
 
     def init_state(self, seed: int, draw: bool = True) -> TrainState:
         """A fresh state; under a mesh its drawn weights and draw generator are
-        broadcast from rank 0 (``parallel.place_state``)."""
+        broadcast from rank 0 and, on a tensor mesh, sharded
+        (``parallel.place_state``). With ``draw=False`` the state is left
+        unplaced: restore a checkpoint into it, then ``place_state``."""
         state = create_state(self.cfg, self.recipe, seed, draw)
         if draw and self.mesh is not None:
             place_state(state, self.mesh)
@@ -221,8 +247,8 @@ class Trainer:
         if self.mesh is None:
             draws = self.draw_fn(state, batch)
         else:
-            world = self.mesh.world_size
-            shapes = {k: torch.empty((v.shape[0] * world, *v.shape[1:]), dtype=v.dtype,
+            shares = self.mesh.data_size
+            shapes = {k: torch.empty((v.shape[0] * shares, *v.shape[1:]), dtype=v.dtype,
                                      device="meta") for k, v in batch.items()}
             draws = shard_draws(self.draw_fn(state, shapes), self.mesh)
         metrics = self._step_fn(state, batch, draws)
@@ -245,14 +271,19 @@ class Trainer:
         next step zeroes; a parameter without one counts as a zero gradient).
         With ``pool`` (a ``data.pool.DevicePool``) ``batches`` yields index
         arrays, which ``pool.batch`` assembles on the device. Under a mesh only
-        rank 0 logs, samples and records histograms."""
+        rank 0 logs, samples and records histograms; on a tensor mesh the
+        other ranks of its tensor group run the sample hook too (the hook
+        gathers G's slices, and writes on rank 0 only) and join the
+        histograms' gathers."""
         log_every = log_every or self.cfg.train.log_interval
         sample_every = sample_every or self.cfg.train.sample_interval
-        if self.mesh is not None and self.mesh.rank != 0:
-            hist_logger = sample_hook = None
-            logger = None
-        else:
-            logger = self.logger
+        mesh, logger = self.mesh, self.logger
+        if mesh is not None and mesh.rank != 0:
+            logger = hist_logger = None
+            if mesh.tensor is None or mesh.data_rank != 0:
+                sample_hook, hist_every = None, None
+        elif hist_logger is None and (mesh is None or mesh.tensor is None):
+            hist_every = None
         t0 = time.time()
         for i, batch in enumerate(batches):
             if num_steps is not None and i >= num_steps:
@@ -260,7 +291,7 @@ class Trainer:
             if pool is not None:
                 batch = pool.batch(batch)
             metrics = self.step(state, batch)
-            if hist_logger is not None and hist_every and i % hist_every == 0:
+            if hist_every and i % hist_every == 0:
                 _log_histograms(hist_logger, state)
             if check_finite:
                 assert_finite(metrics, state.step)
