@@ -7,8 +7,8 @@ chain, on one CUDA card.
 
     python3 chip_smoke.py [--params g_params.npz] [--init-seed 0]
 
-Phases, one line or more each; any failure raises and exits non-zero (20
-and 21 run after 19, and 18 last):
+Phases, one line or more each; any failure raises and exits non-zero (20,
+21 and 22 run after 19, and 18 last):
 
 1. environment: torch/CUDA versions, the card, its power limit; TF32 off.
 2. build: g++ builds ``tfcgan_tpu_torch/csrc/fastpair.cpp`` (the pair
@@ -228,7 +228,7 @@ and 21 run after 19, and 18 last):
    the order), 2 epochs, and ``--resume`` from the first epoch's checkpoint:
    weights, replay buffers and Adam states of the two final checkpoints equal
    bit for bit, under ``cudnn.deterministic``.
-18. the result, printed after 21: the card's ``nvidia-smi`` line, one JSON
+18. the result, printed after 22: the card's ``nvidia-smi`` line, one JSON
    line for the kernels, and last ``{"ok": true, "device": {...}}``.
 19. the data and evaluation chain at 256², bf16, on 64 synthetic A|B PNG
    pairs, 32 of 320x640 (resized) and 32 of 256x512: (a) the native decoder:
@@ -285,6 +285,23 @@ and 21 run after 19, and 18 last):
    launches a step on each rank, all on the tensor cores (path
    ``tensor_tfc_diff``), finite metrics, step 1 within ``TENSOR_DIFF_TOL``
    of one process's.
+22. the spatial axis (``parallel/spatial.py``): (a) K1's row-edge form
+   (``tfcgan_blurpool_fwd`` / ``_bwd`` on a row window) on every shard of the 11
+   path shapes (batch 8) split over 2 and 3 ranks, float32 and bfloat16,
+   both strides: the forward bit for bit the whole-map launch's rows and
+   within ``_check`` of ``blur_pool_padded``'s row form, the backward of
+   autograd of it; rank 0 of 2's row-edge calls over one fft_glo step at
+   batch 128 (27 forward, 23 backward, bf16) and the copies that build its
+   windows, beside phase 3's whole-map step calls; (b) fft_glo float32 at
+   global B=4, 256², on two gloo ranks of the card as (1 data x 2 spatial)
+   against one process (a process of its own): the first step's metrics and
+   reduced G and D gradients within 3 x the floor of cuDNN's algorithms, as
+   phases 20-21, or of A moved by one float32 step where that is larger (the
+   benchmark can pick the deterministic algorithms); metrics equal on both ranks; no layer run on the whole map;
+   27 + 23 blur-pool launches a step on each rank over 2 steps (path
+   ``spatial_fft_glo``); step 2's peak memory above what each process held
+   before it, a rank against one process; (c) one bf16 step on the pair,
+   finite and within ``TENSOR_DIFF_TOL`` of one process's.
 
 In the kernels' JSON, ``launches`` is the count of the kernel's main path, the
 last train path driven that runs it (``main_path``: phase 10's three steps for
@@ -311,7 +328,10 @@ products take on the float32 units, which the float32 kernels use.
 Blur-pool's ``graph_ms`` is ``ms`` timed by replaying CUDA graphs (the device
 alone: eager calls of the small shapes time the wrapper's host work), and
 ``step_ms`` and ``step_bound_ms`` are the sums over one fft_glo step's
-``step_calls`` bf16 calls at batch 128. Each resampling kernel's
+``step_calls`` bf16 calls at batch 128; ``row_edge_step_ms`` the same calls
+in the row-edge form on rank 0 of a spatial pair's windows,
+``row_edge_halo_copy_ms`` (forward) the copies that build those windows, and
+``row_edge_max_abs_err`` phase 22's largest error against the plain row form. Each resampling kernel's
 ``graph_ms`` is its warp's ``ms`` on the device alone, and for the forward
 and the position gradient ``bf16_ms``, ``bf16_graph_ms`` and
 ``bf16_bound_ms`` the same with a bfloat16 image.
@@ -382,6 +402,7 @@ from tfcgan_tpu_torch.train.checkpoint import (STATE_FILE, AsyncCheckpointManage
                                                save_checkpoint)
 from tfcgan_tpu_torch.train.profiling import count_params
 from tfcgan_tpu_torch.train.trainer import Trainer
+from tfcgan_tpu_torch.parallel import spatial
 
 STRIDE2_SHAPES = [(8, 255, 255, 64), (8, 127, 127, 128), (8, 63, 63, 256), (8, 31, 31, 512),
                   (8, 15, 15, 512), (8, 7, 7, 512)]
@@ -3794,6 +3815,317 @@ def phase_tensor(device, card: str) -> dict[str, dict[str, int]]:
     return by_path
 
 
+# ----------------------------------------------------------------- 22. spatial
+SPATIAL_SPLITS = (2, 3)  # ranks a map's rows are split over in the row-edge K1 check
+SPATIAL_BATCH = 4        # global batch of the float32 (1 data x 2 spatial) comparison
+SPATIAL_SEED = 80        # the phase's batches
+
+
+def _row_windows(h: int, stride: int, ranks: int) -> list[tuple[int, int, int, int]]:
+    """(a, b, o_lo, ho) of each of ``ranks`` row shards of an h-row map: the
+    output rows [o_lo, o_lo + ho) by the axis's balanced split and the input
+    rows [a, b) they read (``window_rows``); shards without output skipped."""
+    out = []
+    for s in range(ranks):
+        o_lo, o_hi = spatial.row_bounds(kernel.out_len(h, stride), s, ranks)
+        if o_hi > o_lo:
+            out.append((*kernel.window_rows(h, o_lo, o_hi - o_lo, stride), o_lo, o_hi - o_lo))
+    return out
+
+
+def _row_edge_check(x: torch.Tensor, stride: int, gen) -> tuple[float, float]:
+    """The row-edge K1 on every shard of ``x``'s rows over 2 and 3 ranks: the
+    forward bit for bit the whole-map launch's rows and within ``_check`` of
+    the plain row form; the backward within ``_check`` of autograd of the
+    plain row form. Returns the largest (forward, backward) errors."""
+    n, h, w, c = x.shape
+    full = kernel.blur_pool_fwd(x, stride)
+    errs = [0.0, 0.0]
+    for ranks in SPATIAL_SPLITS:
+        for a, b, o_lo, ho in _row_windows(h, stride, ranks):
+            what = f"row-edge blurpool {x.dtype} s{stride} {tuple(x.shape)} rows [{a}, {b})"
+            xw = x[:, a:b].contiguous()
+            y = kernel.blur_pool_fwd(xw, stride, (h, a, o_lo), ho)
+            if not torch.equal(y, full[:, o_lo:o_lo + ho]):
+                raise AssertionError(f"{what}: not the whole-map launch's rows bit for bit")
+            errs[0] = max(errs[0], _check(y, blur_pool_padded(xw.float(), stride, (h, a, o_lo),
+                                                              ho), what + " fwd"))
+            dy = torch.randn((n, ho, kernel.out_len(w, stride), c), device=x.device,
+                             generator=gen).to(x.dtype)
+            xp = torch.zeros((n, b - a, w, c), device=x.device, requires_grad=True)
+            want = torch.autograd.grad(blur_pool_padded(xp, stride, (h, a, o_lo), ho), xp,
+                                       dy.float())[0]
+            errs[1] = max(errs[1], _check(kernel.blur_pool_bwd(dy, b - a, w, stride,
+                                                               (h, a, o_lo)), want, what + " bwd"))
+    return errs[0], errs[1]
+
+
+def _row_edge_step_ms(device, gen) -> dict[str, float]:
+    """Rank 0's share of one fft_glo step's bf16 blur-pool calls at batch
+    ``STEP_BATCH`` on a spatial mesh of 2: the row-edge kernels on its windows
+    (its rows and the halo rows below them), and the copy that builds each
+    window from the shard and the halo (``parallel.spatial.fetch_rows``)."""
+    out = {"blurpool_fwd": 0.0, "blurpool_bwd": 0.0, "halo_copy": 0.0}
+    for name, calls in zip(("blurpool_fwd", "blurpool_bwd"), fft_glo_step_calls(STEP_BATCH)):
+        for shape, stride, count in calls:
+            n, h, w, c = shape
+            a, b, o_lo, ho = _row_windows(h, stride, 2)[0]
+            lo, hi = spatial.row_bounds(h, 0, 2)
+            if name == "blurpool_fwd":
+                own = torch.randn((n, hi - lo, w, c), device=device, generator=gen).to(
+                    torch.bfloat16)
+                halo = torch.randn((n, b - hi, w, c), device=device, generator=gen).to(
+                    torch.bfloat16)
+                xw = torch.cat([own, halo], dim=1)
+                out[name] += count * cuda_ms(
+                    lambda: kernel.blur_pool_fwd(xw, stride, (h, a, o_lo), ho), 10)
+                out["halo_copy"] += count * cuda_ms(lambda: torch.cat([own, halo], dim=1), 10)
+                del own, halo, xw
+            else:
+                dy = torch.randn((n, ho, kernel.out_len(w, stride), c), device=device,
+                                 generator=gen).to(torch.bfloat16)
+                out[name] += count * cuda_ms(
+                    lambda: kernel.blur_pool_bwd(dy, b - a, w, stride, (h, a, o_lo)), 10)
+                del dy
+            torch.cuda.empty_cache()
+    return out
+
+
+def phase_spatial_kernels(device, card: str, results: dict) -> None:
+    """(a) The row-edge K1 against its plain version at the path's 11 blur
+    shapes (batch 8), float32 and bfloat16, both strides, split over 2 and 3
+    ranks; its time for rank 0 of 2 over one fft_glo step's calls at batch
+    128, beside the default form's (phase 3) and the halo copy's. Adds the
+    ``row_edge_*`` keys to the blur-pool results."""
+    gen = torch.Generator(device=device).manual_seed(SPATIAL_SEED)
+    fwd = bwd = 0.0
+    path = [(s, 2) for s in STRIDE2_SHAPES] + [(s, 1) for s in STRIDE1_SHAPES]
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape, _ in path:
+            x = torch.randn(shape, device=device, generator=gen).to(dtype)
+            for stride in (1, 2):
+                f, b = _row_edge_check(x, stride, gen)
+                fwd, bwd = max(fwd, f), max(bwd, b)
+            del x
+    torch.cuda.empty_cache()
+    step = _row_edge_step_ms(device, gen)
+    for k in ("blurpool_fwd", "blurpool_bwd"):
+        results[k].update({"row_edge_max_abs_err": fwd if k == "blurpool_fwd" else bwd,
+                           "row_edge_step_ms": step[k]})
+    results["blurpool_fwd"]["row_edge_halo_copy_ms"] = step["halo_copy"]
+    print(f"spatial K1 row-edge form: {len(path)} path shapes x both strides x float32 and "
+          f"bfloat16, every shard of 2 and 3 ranks (odd first rows included): forward bit for "
+          f"bit the whole-map launch's rows, max_abs_err against the plain row form fwd "
+          f"{fwd:.3g}, bwd {bwd:.3g}; rank 0 of 2 over one fft_glo step's bf16 calls at "
+          f"B={STEP_BATCH}: fwd {step['blurpool_fwd']:.4f} ms (27 calls), bwd "
+          f"{step['blurpool_bwd']:.4f} ms (23 calls), the windows' halo copies "
+          f"{step['halo_copy']:.4f} ms; the whole-map (default) form's step calls in phase 3: "
+          f"fwd {results['blurpool_fwd']['step_ms']:.4f} ms, bwd "
+          f"{results['blurpool_bwd']['step_ms']:.4f} ms [{card}]")
+
+
+def _spatial_cfg(dtype: str):
+    cfg = _cfg("fft_glo", dtype)
+    return cfg.replace(data=dataclasses.replace(cfg.data, batch_size=SPATIAL_BATCH,
+                                                image_size=SIZE))
+
+
+def _spatial_batches() -> list[dict]:
+    return [synthetic_batch(SPATIAL_BATCH, SIZE, seed=SPATIAL_SEED + i) for i in range(2)]
+
+
+def _grads_of(module) -> dict[str, torch.Tensor]:
+    return {k: p.grad.detach().float().cpu().clone() for k, p in module.named_parameters()
+            if p.grad is not None}
+
+
+def _spatial_rank(rank: int, world: int, port: int, tmp: str, results) -> None:
+    """One process on card 0: with ``world`` 2 a gloo rank of a (1 data x 2
+    spatial) mesh, with ``world`` 1 the one process it is held to. Two
+    float32 fft_glo steps from seed 0 (step 1's metrics and reduced G and D
+    gradients, saved to ``tmp``; step 2's peak memory above what was
+    allocated before it; the K1 launches of both steps), then one bfloat16
+    step's metrics."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from tfcgan_tpu_torch.parallel import make_mesh
+
+    try:
+        torch.cuda.set_device(0)
+        device = torch.device("cuda", 0)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        mesh = None
+        if world > 1:
+            dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                                    world_size=world, timeout=datetime.timedelta(seconds=300))
+            mesh = make_mesh(world, spatial=world, device=device)
+        cfg = _spatial_cfg("float32")
+        trainer = Trainer(cfg, build_recipe(cfg, device), mesh=mesh)
+        state = trainer.init_state(0)
+        replicated = spatial.REPLICATED_LAYERS
+        reset_counts()
+        out = {"metrics": [], "ms": []}
+        for i, batch in enumerate(_spatial_batches()):
+            torch.cuda.synchronize()
+            if i == 1:
+                before = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            m = trainer.step(state, batch)
+            out["metrics"].append({k: float(v) for k, v in m.items()})  # reads sync
+            out["ms"].append((time.perf_counter() - t0) * 1e3)
+            if i == 0 and rank == 0:
+                torch.save({"G": _grads_of(state.G), "D": _grads_of(state.D)},
+                           os.path.join(tmp, f"spatial_grads_{world}.pt"))
+        torch.cuda.synchronize()
+        out.update(counts=counts(), replicated=spatial.REPLICATED_LAYERS - replicated,
+                   held=before, peak=torch.cuda.max_memory_allocated() - before)
+        del trainer, state
+        torch.cuda.empty_cache()
+        cfg = _spatial_cfg("bfloat16")
+        trainer = Trainer(cfg, build_recipe(cfg, device), mesh=mesh)
+        state = trainer.init_state(0)
+        out["bf16"] = {k: float(v) for k, v in trainer.step(state, _spatial_batches()[0]).items()}
+        results.put((rank, out))
+        if mesh is not None:
+            dist.destroy_process_group()
+    except BaseException as e:
+        import traceback
+
+        results.put((rank, RuntimeError(traceback.format_exc())))
+        raise SystemExit(1) from e
+
+
+def _run_spatial_ranks(world: int, tmp: str) -> tuple[dict, float]:
+    """``world`` processes of ``_spatial_rank`` on the card; their results
+    and the seconds they took."""
+    import multiprocessing as mp
+
+    t0 = time.perf_counter()
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=_spatial_rank, args=(r, world, port, tmp, results))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        while len(got) < world:
+            rank, out = results.get(timeout=600)
+            if isinstance(out, BaseException):
+                raise AssertionError(f"spatial phase, world {world} rank {rank}: {out}")
+            got[rank] = out
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return got, time.perf_counter() - t0
+
+
+def phase_spatial(device, card: str, results: dict) -> dict[str, dict[str, int]]:
+    """The spatial axis (``parallel/spatial.py``): (a) the row-edge K1
+    (``phase_spatial_kernels``); (b) fft_glo float32 at 256², global B=4, on
+    two gloo ranks of the card as (1 data x 2 spatial) against one process
+    (a process of its own, for its memory), within 3 x the float32 floor
+    (one process, benchmarked cuDNN algorithms against deterministic ones, or
+    A moved by one float32 step, whichever moves it more), no layer on
+    the whole map, each rank's K1 launches, each rank's peak step memory
+    against one process's; (c) one bfloat16 step on the pair, finite."""
+    t0 = time.perf_counter()
+    phase_spatial_kernels(device, card, results)
+    with tempfile.TemporaryDirectory() as tmp:
+        pair, seconds = _run_spatial_ranks(2, tmp)
+        one = _run_spatial_ranks(1, tmp)[0][0]
+        g2 = torch.load(os.path.join(tmp, "spatial_grads_2.pt"))
+        g1 = torch.load(os.path.join(tmp, "spatial_grads_1.pt"))
+    cfg = _spatial_cfg("float32")
+    deterministic = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    floor_runs = []
+    try:  # the floor: one process with cuDNN's benchmarked algorithms, and one
+        # with the deterministic ones whose A moved up by one float32 step (the
+        # benchmark may pick the deterministic algorithms and show no floor)
+        for benchmark in (True, False):
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+                not benchmark, benchmark)
+            trainer = Trainer(cfg, build_recipe(cfg, device))
+            state = trainer.init_state(0)
+            batch = _spatial_batches()[0]
+            if not benchmark:
+                batch["A"] = np.nextafter(batch["A"], np.float32(np.inf)).astype(np.float32)
+            floor_runs.append(({k: float(v) for k, v in trainer.step(state, batch).items()},
+                               {"G": _grads_of(state.G), "D": _grads_of(state.D)}))
+            del trainer, state
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = deterministic
+
+    def metric_err(a, b):
+        return max(abs(a[k] - b[k]) / max(abs(b[k]), DP_METRIC_TOL[1] / DP_METRIC_TOL[0])
+                   for k in b)
+
+    def grad_errs(a, b):
+        return {f"{m}.{k}": float((a[m][k] - b[m][k]).abs().max() / (b[m][k].abs().max() + 1e-12))
+                for m in b for k in b[m]}
+
+    want_m = one["metrics"][0]
+    floors = [(metric_err(fm, want_m), max(grad_errs(fg, g1).values())) for fm, fg in floor_runs]
+    floor = (max(f[0] for f in floors), max(f[1] for f in floors))
+    errs = grad_errs(g2, g1)
+    err = (metric_err(pair[0]["metrics"][0], want_m), max(errs.values()))
+    bound = (max(DP_METRIC_TOL[0], 3 * floor[0]), max(DP_GRAD_TOL, 3 * floor[1]))
+    worst = sorted(errs, key=errs.get)[-3:]
+    detail = (f"metrics {err[0]:.3g} relative (bound {bound[0]:.3g}, floor {floor[0]:.3g}), "
+              f"G and D gradients {err[1]:.3g} x max|g| (bound {bound[1]:.3g}, floor "
+              f"{floor[1]:.3g}: cuDNN's algorithms {floors[0][1]:.3g}, one step of A "
+              f"{floors[1][1]:.3g}; worst { {k: round(errs[k], 6) for k in worst} })")
+    if sorted(pair[0]["metrics"][0]) != sorted(want_m) or sorted(errs) != sorted(
+            grad_errs(g1, g1)):
+        raise AssertionError(f"fft_glo spatial mesh: metrics {sorted(pair[0]['metrics'][0])}, "
+                             f"{len(errs)} gradients")
+    if err[0] > bound[0] or err[1] > bound[1]:
+        raise AssertionError(f"fft_glo (1 data x 2 spatial) vs one process, float32 "
+                             f"B={SPATIAL_BATCH} {SIZE}²: {detail}")
+    if any(pair[r]["metrics"] != pair[0]["metrics"] for r in pair):
+        raise AssertionError(f"fft_glo spatial mesh: the ranks' metrics differ: "
+                             f"{[pair[r]['metrics'] for r in pair]}")
+    want = scaled(FFT_GLO_STEP, 2)
+    for r in pair:
+        if pair[r]["counts"] != want or pair[r]["replicated"] != 0:
+            raise AssertionError(f"fft_glo spatial rank {r}: launches {pair[r]['counts']}, want "
+                                 f"{want}; {pair[r]['replicated']} layers on the whole map")
+    bf16, bf16_one = pair[0]["bf16"], one["bf16"]
+    bf16_err = {k: abs(bf16[k] - bf16_one[k]) / max(abs(bf16_one[k]), 1e-6) for k in bf16_one}
+    if (not all(np.isfinite(v) for v in bf16.values()) or sorted(bf16) != sorted(want_m)
+            or max(bf16_err.values()) > TENSOR_DIFF_TOL):
+        raise AssertionError(f"fft_glo spatial mesh, bfloat16 step: {bf16} against one "
+                             f"process's {bf16_one} (bound {TENSOR_DIFF_TOL} relative)")
+    share = {r: pair[r]["peak"] / one["peak"] for r in pair}
+    mib = 2.0 ** 20
+    print(f"spatial fft_glo (1 data x 2 spatial) on two gloo ranks of one card, float32 global "
+          f"B={SPATIAL_BATCH} {SIZE}² (rows 0-127 and 128-255 of every image), against one "
+          f"process: {detail}; metrics equal on both ranks; 0 layers on the whole map; "
+          f"launches a rank {want['blurpool_fwd']} / {want['blurpool_bwd']} K1 over 2 steps "
+          f"({FFT_GLO_STEP['blurpool_fwd']} / {FFT_GLO_STEP['blurpool_bwd']} a step, one "
+          f"process's); step 2's peak memory above what was held before it, a rank / one "
+          f"process: {pair[0]['peak'] / mib:.1f} / {one['peak'] / mib:.1f} MiB, share "
+          f"{share[0]:.4f} (rank 1 {share[1]:.4f}; held before the step {pair[0]['held'] / mib:.1f}"
+          f" / {one['held'] / mib:.1f} MiB); step ms a rank "
+          f"{ {r: [round(t, 3) for t in pair[r]['ms']] for r in pair} } (step 1 with set-up; "
+          f"the halos and gathers through gloo on the host), one process "
+          f"{[round(t, 3) for t in one['ms']]}; bf16 step on the pair {bf16}, one process's "
+          f"{bf16_one} (relative {max(bf16_err.values()):.3g}, bound {TENSOR_DIFF_TOL}); the "
+          f"ranks took "
+          f"{seconds:.1f} s with their start; phase {time.perf_counter() - t0:.1f} s [{card}]")
+    return {"spatial_fft_glo": pair[0]["counts"]}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--params", default=None, help="g_params.npz (tools/export_g_params.py)")
@@ -3987,6 +4319,9 @@ def main(argv=None) -> int:
 
     # 21. the tensor axis: column-parallel layers over gloo ranks of the card
     by_path.update(phase_tensor(device, card))
+
+    # 22. the spatial axis: the row-edge K1, and row shards over gloo ranks of the card
+    by_path.update(phase_spatial(device, card, results))
 
     # 18. result
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")

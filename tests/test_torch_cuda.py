@@ -929,3 +929,33 @@ def test_diffusion_unet_forward_and_backward_through_the_kernels(cuda):
     for n, p in unet.named_parameters():
         bound = 1e-3 * float(p.grad.abs().max()) + 1e-7
         assert float((got[n] - p.grad).abs().max()) <= bound, n
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("c", [5, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_blurpool_row_edge_form_on_every_window(cuda, c, stride, dtype):
+    """The row-edge form (the spatial axis's) on every window of output rows
+    [o_lo, o_lo + ho) of maps of H in {1, ..., 9, 16, 17} rows, fed only the
+    input rows those outputs read (``window_rows``, odd first rows
+    included): the forward bit for bit the whole-map launch's rows, the
+    backward within the plain row form's autograd (each window row collects
+    only the window's outputs)."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    for h in (*range(1, 10), 16, 17):
+        x = torch.randn((2, h, 7, c), device=cuda, generator=g).to(dtype)
+        full = kernel.blur_pool_fwd(x, stride)
+        ho_all = kernel.out_len(h, stride)
+        for o_lo in range(ho_all):
+            for ho in range(1, ho_all - o_lo + 1):
+                a, b = kernel.window_rows(h, o_lo, ho, stride)
+                window = (h, a, o_lo)
+                xw = x[:, a:b].contiguous()
+                got = kernel.blur_pool_fwd(xw, stride, window, ho)
+                assert torch.equal(got, full[:, o_lo:o_lo + ho]), (h, o_lo, ho)
+                dy = _blur_dy((2, h, 7, c), stride, dtype, g)[:, :ho].contiguous()
+                xp = torch.zeros((2, b - a, 7, c), device=cuda, requires_grad=True)
+                (want,) = torch.autograd.grad(
+                    blurpool.blur_pool_padded(xp, stride, window, ho), xp, dy.float())
+                _assert_blur_grad(kernel.blur_pool_bwd(dy, b - a, 7, stride, window), want,
+                                  dtype, lambda m, h=h, o_lo=o_lo, ho=ho: f"{h} {o_lo} {ho}: {m}")

@@ -2,7 +2,8 @@
 
 float32 is held at atol 1e-5 (the same two-pass arithmetic); the bf16 form
 at atol 3e-2 (both round the same E[x²]−μ² result to bf16, a few ulps at the
-|y| ~ 3 of standardized data).
+|y| ~ 3 of standardized data). float64 keeps its statistics in float64,
+so it equals numpy's float64 two-pass result to 1e-12.
 """
 
 import jax.numpy as jnp
@@ -36,3 +37,12 @@ def test_one_by_one_map_gives_zeros(dtype):
     got = instance_norm(torch.from_numpy(x).to(dtype)).float().numpy()
     np.testing.assert_array_equal(got, np.zeros_like(x))
     np.testing.assert_array_equal(np.asarray(jax_instance_norm(jnp.asarray(x))), got)
+
+
+def test_fp64_keeps_fp64_statistics():
+    x = np.random.RandomState(3).randn(2, 9, 7, 5) * 3 + 1
+    got = instance_norm(torch.from_numpy(x))
+    assert got.dtype == torch.float64
+    mu = x.mean(axis=(1, 2), keepdims=True)
+    want = (x - mu) / np.sqrt(((x - mu) ** 2).mean(axis=(1, 2), keepdims=True) + 1e-5)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-12)

@@ -22,8 +22,8 @@ holds the replicas, CycleGAN's buffers and a world-2 checkpoint).
   (outputs and input gradients, 1e-5), while the local moments miss that
   bound by orders of magnitude; the saliency mask at world 2 equals world 1
   (values, and input gradients to 1e-5 of their max).
-- ``shard_batch`` refuses an indivisible batch; ``make_mesh`` refuses the
-  spatial axis, a tensor axis that does not divide the world, and a world it
+- ``shard_batch`` refuses an indivisible batch; ``make_mesh`` refuses a
+  spatial or tensor axis that does not divide the world, and a world it
   was not given.
 """
 
@@ -173,9 +173,8 @@ def test_refusals():
     with pytest.raises(ValueError, match="not divisible"):
         shard_batch(synthetic_batch(5, 16), two)
     assert shard_batch(synthetic_batch(4, 16), two)["A"].shape[0] == 2
-    for axis in ("spatial", "tensor"):  # spatial is not ported; a world of 1 has no tensor pair
-        with pytest.raises(NotImplementedError if axis == "spatial" else ValueError,
-                           match="ROADMAP" if axis == "spatial" else "not divisible"):
+    for axis in ("spatial", "tensor"):  # a world of 1 has no pair on either axis
+        with pytest.raises(ValueError, match=f"not divisible by the '{axis}' axis"):
             make_mesh(**{axis: 2})
     with pytest.raises(ValueError, match="world of 1"):
         make_mesh(2)  # no torch.distributed group: never a quiet world of one

@@ -1,0 +1,71 @@
+"""The recipes that do not run on row shards refuse the port's spatial
+axis: every registered entry but the ``tfcgan`` ones that build
+``GeneratorUNet`` + ``PatchDiscriminator`` (the debiased entries, the
+saliency mask, and every stn, nemar, tfc_diff, thermalgan and cyclegan
+entry) raises ``NotImplementedError`` in ``Trainer`` on a (1 data x 2
+spatial) mesh, naming ROADMAP.md 7c, and the 18 that run there are the
+recipe docstring's list. A device batch whose rows are not this rank's
+share of ``cfg.data.image_size``-row images is refused too, and
+``--spatial`` and ``--tensor`` set the experiment's ``cfg.mesh`` alike. The
+mesh record is made by hand (no process group: the refusal comes before any
+collective) and the recipes are built on the meta device.
+"""
+
+import re
+from unittest import mock
+
+import pytest
+import torch
+
+from tfcgan_tpu_torch import cli
+from tfcgan_tpu_torch.config import EXPERIMENTS
+from tfcgan_tpu_torch.parallel.mesh import Mesh
+from tfcgan_tpu_torch.parallel.spatial import SpatialAxis
+from tfcgan_tpu_torch.recipes import build_recipe
+from tfcgan_tpu_torch.recipes import tfcgan
+from tfcgan_tpu_torch.train.trainer import Trainer
+
+# every registered entry but the tfcgan ones that build GeneratorUNet + PatchDiscriminator
+REFUSED = sorted(n for n, c in EXPERIMENTS.items()
+                 if c.recipe != "tfcgan" or c.loss.conditional or c.loss.use_mask)
+
+
+def _spatial_pair() -> Mesh:
+    return Mesh(("data", "spatial"), {"data": 1, "spatial": 2}, 0, 2, None,
+                torch.device("cpu"), 0, 1, None, None, SpatialAxis(None, 0, 2), None)
+
+
+@pytest.mark.parametrize("name", REFUSED)
+def test_recipes_without_row_shards_refuse_a_spatial_mesh(name):
+    cfg = EXPERIMENTS[name]
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 7c"):
+        Trainer(cfg, build_recipe(cfg, "meta"), mesh=_spatial_pair())
+
+
+def test_the_row_shard_entries_are_the_recipe_docstrings_list():
+    running = sorted(set(EXPERIMENTS) - set(REFUSED))
+    assert len(running) == 18
+    for name in running:
+        assert re.search(rf"\b{name}\b", tfcgan.__doc__), name
+        assert build_recipe(EXPERIMENTS[name], "meta").supports_spatial, name
+
+
+def test_a_device_batch_of_another_height_is_refused():
+    cfg = EXPERIMENTS["fft_glo"]
+    trainer = Trainer(cfg, build_recipe(cfg, "meta"), mesh=_spatial_pair())
+    own = cfg.data.image_size // 2  # rank 0's rows of the run's images
+    for rows in (own - 1, cfg.data.image_size):
+        batch = {k: torch.empty((2, rows, cfg.data.image_size, 3), device="meta")
+                 for k in ("A", "B")}
+        with pytest.raises(ValueError, match=f"{own} rows"):
+            trainer.step(None, batch)
+
+
+@pytest.mark.parametrize("flags, want", [([], (1, 1)), (["--spatial", "2"], (2, 1)),
+                                         (["--tensor", "2"], (1, 2)),
+                                         (["--spatial", "2", "--tensor", "3"], (2, 3))])
+def test_cli_mesh_flags_set_the_experiment_mesh(flags, want):
+    seen = []
+    with mock.patch.object(cli, "cmd_train", lambda args: seen.append(cli._cfg_from_args(args))):
+        cli.main(["train", "--experiment", "fft_glo", *flags])
+    assert (seen[0].mesh.spatial, seen[0].mesh.tensor) == want

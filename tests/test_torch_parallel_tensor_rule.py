@@ -7,9 +7,9 @@
   leaf's last. The JAX leaves are filled with markers (leaf index x 8192 +
   the position along the leaf's last dim), so that the bridged tensor names
   its leaf and shows which of its dims was the flax last one.
-- F7, ``cfg.mesh``: a ``tensor=2`` config in a world of one fails on the
-  divisibility of the world (the JAX ``make_mesh`` asserts it);
-  ``spatial=2`` is refused, naming ROADMAP 7b; two gloo ranks given only
+- F7, ``cfg.mesh``: a ``tensor=2`` or a ``spatial=2`` config in a world of
+  one fails on the divisibility of the world (the JAX ``make_mesh`` asserts
+  it); two gloo ranks given only
   ``cfg.mesh.tensor=2`` build the (data 1 x tensor 2) mesh in ``Trainer``.
 - The batch-coupled ops (``TrainBatchNorm``, the saliency mask's min and
   max, ``all_gather_batch``, ``all_reduce_sum``) on a (2 data x 2 tensor)
@@ -118,9 +118,9 @@ def test_f7_mesh_refusals_in_a_world_of_one():
     stub = types.SimpleNamespace(device=torch.device("cpu"))
     with pytest.raises(ValueError, match="not divisible by the 'tensor' axis"):
         Trainer(cfg.replace(mesh=dataclasses.replace(cfg.mesh, tensor=2)), stub)
-    with pytest.raises(NotImplementedError, match="7b"):
+    with pytest.raises(ValueError, match="not divisible by the 'spatial' axis"):
         Trainer(cfg.replace(mesh=dataclasses.replace(cfg.mesh, spatial=2)), stub)
-    with pytest.raises(NotImplementedError, match="7b"):
+    with pytest.raises(ValueError, match="not divisible by the 'spatial' axis"):
         make_mesh(spatial=2)
     assert Trainer(cfg, stub).mesh is None  # the plain one-process run
 

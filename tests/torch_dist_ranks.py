@@ -15,12 +15,14 @@ This module imports no JAX: the ranks run the port only.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import multiprocessing as mp
 import queue
 import time
 import traceback
+from unittest import mock
 
 import numpy as np
 import torch
@@ -88,10 +90,10 @@ def checksum(modules) -> float:
     return total
 
 
-def _mesh(tensor=1):
+def _mesh(tensor=1, spatial=1):
     from tfcgan_tpu_torch.parallel import make_mesh
 
-    return make_mesh(tensor=tensor, device="cpu")
+    return make_mesh(spatial=spatial, tensor=tensor, device="cpu")
 
 
 def _full_checksum(modules) -> float:
@@ -100,6 +102,21 @@ def _full_checksum(modules) -> float:
     from tfcgan_tpu_torch.parallel.tensor import full_state_dict
 
     return checksum([full_state_dict(m) for m in modules])
+
+
+@contextlib.contextmanager
+def _float64():
+    """float64 as torch's default dtype and the tfcgan recipes' compute
+    dtype inside the block."""
+    from tfcgan_tpu_torch.recipes import tfcgan
+
+    before = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        with mock.patch.object(tfcgan, "_dtype", lambda cfg: torch.float64):
+            yield
+    finally:
+        torch.set_default_dtype(before)
 
 
 def _load_modules(recipe, path) -> None:
@@ -121,29 +138,39 @@ def _batches(batch_size, size, seeds):
 
 # ------------------------------------------------------------------ workers
 def fftglo_steps(rank, world, cfg, modules=None, draws=None, steps=1, seed=1, save_at=None,
-                 tmp=None, batch_seeds=None, tensor=1, resume=None):
+                 tmp=None, batch_seeds=None, tensor=1, resume=None, spatial=1, float64=False):
     """fft_glo steps on one global batch a step. ``modules`` (a torch.save of
     G, D and LPIPS state dicts) and ``draws`` (the step draws as numpy) start
     from the caller's weights and draws; otherwise the port's init from
     ``seed`` and its own draws, or the checkpoint ``resume``. ``tensor`` > 1
-    runs on a (data, tensor) mesh. Rank 0 saves the first step's averaged G
-    gradients (gathered) to ``tmp``/g_grads_{world}.pt; with ``save_at`` (a
+    and ``spatial`` > 1 run on a (data[, spatial][, tensor]) mesh;
+    ``float64`` builds the modules and runs the steps in float64 (the
+    recipe's compute dtype and torch's default; the images stay float32
+    values), and tags the saved gradients ``_f64``. Rank 0
+    saves the first step's reduced G and D gradients (gathered) to
+    ``tmp``/g_grads_{world}.pt and d_grads_{world}.pt; with ``save_at`` (a
     step count or a tuple of them) the ranks save a checkpoint to
     ``tmp``/ckpt_{world} once the state is at that step, a restored one
     before its first step too (rank 0 writes). Returns the
     metrics a step, a checksum of the (gathered) replica after each step, and
     the shapes of G's ``down1.conv`` weight and its Adam moments on this rank
-    before and after the steps."""
-    from tfcgan_tpu_torch.parallel import place_state
+    before and after the steps, and the count of layers that ran on the
+    whole map on a spatial mesh."""
+    from tfcgan_tpu_torch.parallel import place_state, spatial as spatial_axis
     from tfcgan_tpu_torch.parallel.tensor import full_tensors
     from tfcgan_tpu_torch.recipes import build_recipe
     from tfcgan_tpu_torch.recipes.tfcgan import StepDraws
     from tfcgan_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
     from tfcgan_tpu_torch.train.trainer import Trainer
 
-    mesh = _mesh(tensor) if world > 1 else None
+    if float64:
+        with _float64():
+            return fftglo_steps(rank, world, cfg, modules, draws, steps, seed, save_at, tmp,
+                                batch_seeds, tensor, resume, spatial)
+    mesh = _mesh(tensor, spatial) if world > 1 else None
     recipe = build_recipe(cfg, "cpu")
     draw_fn = None
+    replicated = spatial_axis.REPLICATED_LAYERS
     if draws is not None:
         def draw_fn(state, batch):
             assert batch["A"].shape[0] == cfg.data.batch_size  # the global batch's shape
@@ -177,12 +204,16 @@ def fftglo_steps(rank, world, cfg, modules=None, draws=None, steps=1, seed=1, sa
         sums.append(_full_checksum([state.G, state.D]))
         if i == 0 and tmp is not None:
             grads = full_tensors(state.G, _grads(state.G))
+            d_grads = full_tensors(state.D, _grads(state.D))
             if rank == 0:
-                torch.save(grads, f"{tmp}/g_grads_{world}.pt")
+                tag = f"{world}{'_f64' if torch.get_default_dtype() == torch.float64 else ''}"
+                torch.save(grads, f"{tmp}/g_grads_{tag}.pt")
+                torch.save(d_grads, f"{tmp}/d_grads_{tag}.pt")
         if state.step in saves:
             save_checkpoint(f"{tmp}/ckpt_{world}", state, mesh)
     return {"metrics": metrics, "sums": sums, "shapes": (before, shapes()),
-            "allreduces": trainer.stats.grad_allreduces, "bytes": trainer.stats.flat_bytes}
+            "allreduces": trainer.stats.grad_allreduces, "bytes": trainer.stats.flat_bytes,
+            "replicated": spatial_axis.REPLICATED_LAYERS - replicated}
 
 
 def batchnorm_and_saliency(rank, world, x, w, b, img, tensor=1):
@@ -420,3 +451,144 @@ def fit_with_hooks(rank, world, cfg, tmp, tensor=1, seed=3):
     if hist is not None:
         hist.close()
     return seen or None
+
+
+# ------------------------------------------------------------ spatial axis
+SPATIAL_OPS = ("conv", "head", "convT", "upsample", "spectral", "blur1", "blur2", "norm32",
+               "norm16", "pool", "conv3", "gather")
+
+
+def spatial_op(name: str, seed: int = 0):
+    """One spatially aware op of the spatial axis, weights drawn from
+    ``seed``: (fn(x, rows) -> y, its module or None, the input's channels,
+    its dtype). ``rows`` None runs it unsharded."""
+    from tfcgan_tpu_torch.models.layers import (SpectralConv, TorchConv, TorchConvTranspose,
+                                                Upsample2xConv, without_draws)
+    from tfcgan_tpu_torch.ops.blurpool import blur_pool
+    from tfcgan_tpu_torch.ops.norm import instance_norm
+    from tfcgan_tpu_torch.ops.pooling import pool22
+    from tfcgan_tpu_torch.parallel.spatial import gather_spatial, split_rows
+
+    gen = torch.Generator().manual_seed(seed)
+    with without_draws():
+        module = {"conv": lambda: TorchConv(3, 4),
+                  "head": lambda: TorchConv(3, 4, padding=((2, 1), (2, 1)), use_bias=False),
+                  "convT": lambda: TorchConvTranspose(3, 4),
+                  "upsample": lambda: Upsample2xConv(3, 4),
+                  "spectral": lambda: SpectralConv(3, 4),
+                  "conv3": lambda: TorchConv(3, 4, kernel_size=3)}.get(name, lambda: None)()
+    if module is not None:
+        with torch.no_grad():
+            for p in module.parameters():
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.3)
+            if name == "spectral":
+                module.u = torch.nn.functional.normalize(torch.randn(4, generator=gen), dim=0)
+                module.v = torch.nn.functional.normalize(torch.randn(48, generator=gen), dim=0)
+        return (lambda x, rows: module(x, rows)), module, 3, torch.float32
+    fns = {"blur1": lambda x, rows: blur_pool(x, 1, rows),
+           "blur2": lambda x, rows: blur_pool(x, 2, rows),
+           "norm32": lambda x, rows: instance_norm(x, rows=rows),
+           "norm16": lambda x, rows: instance_norm(x, rows=rows),
+           "pool": lambda x, rows: pool22(x, rows),
+           "gather": lambda x, rows: split_rows(gather_spatial(x, rows).flip(1) * 2.0, rows)}
+    return fns[name], None, 3, torch.bfloat16 if name == "norm16" else torch.float32
+
+
+def spatial_op_inputs(name: str, h: int, seed: int = 1):
+    """The global input (2, h, 5, C) and output cotangent of ``spatial_op(name)``
+    (None where the op has no output at that height)."""
+    fn, _, c, dtype = spatial_op(name)
+    rng = np.random.RandomState(seed + h)
+    x = torch.from_numpy(rng.uniform(-1, 1, (2, h, 5, c)).astype(np.float32)).to(dtype)
+    try:
+        with torch.no_grad():
+            y = fn(x, None)
+    except RuntimeError:  # a k4 conv of one row
+        return x, None
+    cot = torch.from_numpy(rng.uniform(-1, 1, tuple(y.shape)).astype(np.float32)).to(dtype)
+    return x, cot
+
+
+def spatial_op_run(name: str, x, cot, rows):
+    """The op on ``x`` (this rank's rows, or the whole map without ``rows``):
+    its output, the gradients of sum(y * cot) to x and to the weights."""
+    fn, module, _, _ = spatial_op(name)
+    x = x.clone().requires_grad_(True)
+    y = fn(x, rows)
+    (y.float() * cot.float()).sum().backward()
+    grads = {} if module is None else {k: p.grad.clone() for k, p in module.named_parameters()}
+    return y.detach(), x.grad, grads
+
+
+def spatial_ops(rank, world, cases):
+    """Each (op, h) of ``cases`` on this rank's rows over a spatial mesh of
+    the whole world: output, input gradient and weight gradients, and the
+    number of layers that ran on the whole map."""
+    from tfcgan_tpu_torch.parallel import make_mesh
+    from tfcgan_tpu_torch.parallel import spatial
+
+    mesh = make_mesh(spatial=world, device="cpu")
+    assert mesh.axis_names == ("data", "spatial") and mesh.spatial.rank == rank
+    out = {}
+    for name, h in cases:
+        x, cot = spatial_op_inputs(name, h)
+        rows = mesh.image_rows(h)
+        fn = spatial_op(name)[0]
+        with torch.no_grad():
+            h_out = fn(x, None).shape[1]
+        before = spatial.REPLICATED_LAYERS
+        y, gx, gw = spatial_op_run(name, rows.cut(x), rows.of(h_out).cut(cot), rows)
+        out[name, h] = {"y": y.float().numpy(), "gx": gx.float().numpy(),
+                        "gw": {k: v.numpy() for k, v in gw.items()},
+                        "replicated": spatial.REPLICATED_LAYERS - before}
+    return out
+
+
+
+def spatial_serve_and_checkpoint(rank, world, cfg, weights, batch, tmp, train_cfg):
+    """On a (1 data x ``world`` spatial) mesh: ``Inferencer(mesh=)`` of the
+    fft_glo G with the state dict in the file ``weights`` on ``batch`` (the
+    whole batch's fake_B); and ``train_cfg`` one step from the port's init,
+    a checkpoint of it (rank 0 writes ``tmp``/ckpt), restored into an
+    unplaced state and placed: the checksums of both states' G, D and Adam
+    moments, and their steps."""
+    from tfcgan_tpu_torch.infer import Inferencer
+    from tfcgan_tpu_torch.models.layers import without_draws
+    from tfcgan_tpu_torch.parallel import place_state
+    from tfcgan_tpu_torch.recipes import build_recipe
+    from tfcgan_tpu_torch.recipes.tfcgan import build_generator
+    from tfcgan_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
+    from tfcgan_tpu_torch.train.trainer import Trainer
+
+    mesh = _mesh(spatial=world)
+    with without_draws():
+        g = build_generator(cfg, "cpu")
+    g.load_state_dict(torch.load(weights, weights_only=True))
+    inf = Inferencer(cfg, g, mesh=mesh)
+    out = {"fake_B": inf(batch).numpy(), "writes": inf.writes}
+
+    def sums(state):
+        moments = [t for opt in (state.opt_g, state.opt_d) for st in opt.state.values()
+                   for k, t in st.items() if k in ("exp_avg", "exp_avg_sq")]
+        return state.step, checksum([state.G, state.D]), checksum([dict(enumerate(moments))])
+
+    trainer = Trainer(train_cfg, build_recipe(train_cfg, "cpu"), mesh=mesh)
+    state = trainer.init_state(5)
+    trainer.step(state, _batches(train_cfg.data.batch_size, train_cfg.data.image_size, [7])[0])
+    path = save_checkpoint(f"{tmp}/ckpt", state, mesh)
+    restored = restore_checkpoint(path, Trainer(train_cfg, build_recipe(train_cfg, "cpu"),
+                                                mesh=mesh).init_state(0, draw=False))
+    place_state(restored, mesh)
+    out["saved"], out["restored"] = sums(state), sums(restored)
+    return out
+
+
+def mesh_error(rank, world, spatial, tensor):
+    """``make_mesh(spatial=, tensor=)`` in this world: its error's type and message."""
+    from tfcgan_tpu_torch.parallel import make_mesh
+
+    try:
+        make_mesh(spatial=spatial, tensor=tensor, device="cpu")
+    except Exception as e:  # the refusal under test
+        return type(e).__name__, str(e)
+    return None

@@ -99,8 +99,9 @@ def _device(name: str) -> torch.device:
 def _data_mesh(device: torch.device, mesh_cfg=None):
     """Under ``torchrun`` (``WORLD_SIZE`` set): the process group (NCCL for a
     card, gloo for the host) and the mesh over it, even for a world of one:
-    the data mesh, or the (data, tensor) mesh that ``mesh_cfg`` (the
-    experiment's ``cfg.mesh``) asks for; None otherwise."""
+    the data mesh, or the (data[, spatial][, tensor]) mesh that ``mesh_cfg``
+    (the experiment's ``cfg.mesh``, with ``--spatial`` and ``--tensor``) asks for; None
+    otherwise."""
     if "WORLD_SIZE" not in os.environ:
         return None
     from tfcgan_tpu_torch.parallel import initialize, make_mesh
@@ -142,7 +143,10 @@ def _cfg_from_args(args):
         checkpoint_dir=args.out_dir or cfg.train.checkpoint_dir,
         log_dir=os.path.join(args.out_dir or ".", "logs"),
     )
-    return cfg.replace(data=data, train=train)
+    mesh = dataclasses.replace(cfg.mesh,
+                               spatial=getattr(args, "spatial", None) or cfg.mesh.spatial,
+                               tensor=getattr(args, "tensor", None) or cfg.mesh.tensor)
+    return cfg.replace(data=data, train=train, mesh=mesh)
 
 
 def _serve_constructor(cfg):
@@ -281,7 +285,8 @@ def cmd_train(args):
     state = trainer.init_state(cfg.train.seed, draw=not args.resume)
     if lead:
         world = "" if mesh is None else (f" | world {mesh.world_size}: data {mesh.data_size} "
-                                         f"x tensor {mesh.tensor_size}")
+                                         f"x spatial {mesh.spatial_size} x tensor "
+                                         f"{mesh.tensor_size}")
         print(f"G params: {count_params(state.G):,} | D params: {count_params(state.D):,} | "
               f"device: {device}{world}")
     if args.resume:
@@ -297,7 +302,7 @@ def cmd_train(args):
         state = trainer.fit(state, [first], pool=pool)  # step 0
 
     # on a tensor mesh the ranks of rank 0's tensor group gather G with it
-    hook_ranks = lead or (mesh.tensor is not None and mesh.data_rank == 0)
+    hook_ranks = lead or (mesh.tensor is not None and mesh.leads_tensor_group)
     sample_hook = _make_sample_hook(cfg, args, device, writes=lead) if hook_ranks else None
     hist_logger = None
     if args.hist_every and lead:
@@ -310,10 +315,10 @@ def cmd_train(args):
     plateau = ReduceLROnPlateau(cfg.optim.lr) if cfg.optim.schedule == "plateau" else None
     if not staged:
         if mesh is not None:  # host batches are global: each rank places its data share
-            from tfcgan_tpu_torch.parallel import local_share
+            from tfcgan_tpu_torch.parallel import local_rows, local_share
 
-            it = ({k: np.asarray(v)[local_share(len(v), mesh)] for k, v in b.items()}
-                  for b in it)
+            it = (local_rows({k: np.asarray(v)[local_share(len(v), mesh)]
+                              for k, v in b.items()}, mesh) for b in it)
         it = device_prefetch(it, device)  # copies overlap the running step
     for epoch in range(cfg.train.n_epochs):
         state = trainer.fit(state, it, num_steps=steps_per_epoch, check_finite=True,
@@ -530,6 +535,14 @@ def main(argv=None):
                              "there and ignored elsewhere; a header row, then columns file, "
                              "gender, ethnicity, age")
     common.add_argument("--device", default="cuda")
+    common.add_argument("--spatial", type=int, default=None,
+                        help="under torchrun: ranks on the mesh's spatial axis (each holds "
+                             "its rows of every image; train and test), default the "
+                             "experiment's cfg.mesh.spatial")
+    common.add_argument("--tensor", type=int, default=None,
+                        help="under torchrun: ranks on the mesh's tensor axis (each holds "
+                             "its slice of every sharded weight; train and test), default "
+                             "the experiment's cfg.mesh.tensor")
 
     sp = sub.add_parser("train", parents=[common], help="train an experiment")
     sp.add_argument("--experiment", "--config", dest="experiment", default="fft_glo")

@@ -89,6 +89,20 @@
 // of 256 an SM); the 16-byte stride-1 form spills 224 bytes in bfloat16,
 // which a cap of 80 registers (3 blocks) did not make faster.
 
+// Row-edge form (the spatial mesh axis: an image's rows split over ranks).
+// The x a kernel reads may be a window of a taller map: rows [row0, row0 +
+// h) of a map of h_glob rows, and the y it writes the output rows [o_base,
+// o_base + ho) of that map's h_glob-row output. Each output row reads the
+// global rows its window names; where one leaves the map (the global top or
+// bottom edge) it reflects as before, anywhere else it reads the halo rows
+// that the caller put into the window, with no pad. The backward is the
+// exact adjoint of the same form: dx covers the window's rows and collects
+// only the window's outputs. Its grid walks global row pairs, so a window
+// whose first row is odd keeps the stride-2 phase of the interior blocks.
+// The whole map is the trivial window, row0 = 0, o_base = 0 and h_glob = h:
+// every index, test and sum is then that of the form without windows, and
+// the results are bit for bit its.
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -119,14 +133,16 @@ template <int S> constexpr int kWindow = S == 1 ? 6 : 3;
 constexpr int kNoRead = -(1 << 20);  // a read position that no window reaches
 
 // Adjoint weights of one axis for input index r: wt[i] is the summed weight
-// with which output o_lo + i reads r. Output o reads j = S*o + a - 1 with tap
-// a, so the read of r itself has a = r + 1 - S*o; the reads outside [0, n)
-// that reflect onto r (j = -1, n, n + 1) add theirs. Returns o_lo, which is
-// inside [0, no).
+// with which output o_lo + i reads r, over the outputs [o_first, o_last]
+// that exist (the whole axis, or a row window's). Output o reads j = S*o +
+// a - 1 with tap a, so the read of r itself has a = r + 1 - S*o; the reads
+// outside [0, n) that reflect onto r (j = -1, n, n + 1) add theirs. Returns
+// o_lo, which is inside [o_first, o_last] where any output reads r.
 template <int S>
-__device__ __forceinline__ int adjoint_weights(int r, int n, int no, float (&wt)[kWindow<S>]) {
-  const int o_lo = r < 2 ? 0 : (r - 2 + S - 1) / S;
-  const int o_hi = min(no - 1, (r + 3) / S);
+__device__ __forceinline__ int adjoint_weights(int r, int n, int o_first, int o_last,
+                                               float (&wt)[kWindow<S>]) {
+  const int o_lo = max(o_first, r < 2 ? 0 : (r - 2 + S - 1) / S);
+  const int o_hi = min(o_last, (r + 3) / S);
   // reflect_index(-1, n), (n, n) and (n + 1, n) in closed form
   const int fold_lo = (n == 1 ? 0 : 1) == r ? -1 : kNoRead;
   const int fold_n = (n == 1 ? 0 : n - 2) == r ? n : kNoRead;
@@ -199,26 +215,31 @@ constexpr int64_t kMaxImages = 65535;
 // block (tx channel vectors, ty columns); grid (strips of R output rows,
 // chunks of columns, images). A thread: V channels of output rows o0 .. o0 +
 // R - 1 (those inside the map) of column q, for channel vectors threadIdx.x,
-// threadIdx.x + tx, ... .
+// threadIdx.x + tx, ... . x holds rows [row0, row0 + h) of an h_glob-row map
+// and y its output rows [o_base, o_base + ho) (the row-edge form above).
 template <typename T, int S, int V>
 __global__ void __launch_bounds__(kThreads, kFwdMinBlocks)
 blurpool_fwd_kernel(const T* __restrict__ x, T* __restrict__ y, int h, int w, int c, int ho,
-                    int wo) {
+                    int wo, int h_glob, int row0, int o_base) {
   constexpr int R = kFwdRows;
   constexpr int kRows = S * (R - 1) + 4;  // the input rows of the strip's windows
   const float k[4] = {0.125f, 0.375f, 0.375f, 0.125f};
   const int o0 = blockIdx.x * R;
   const int q = blockIdx.y * blockDim.y + threadIdx.y;
   if (q >= wo) return;
-  // the windows' input rows and columns (times c), reflected where they leave the image
-  const int j0 = S * o0 - 1, b0 = S * q - 1;
+  // the windows' input rows (of x) and columns (times c), reflected where
+  // they leave the map; the rows of a strip's outputs past ho, which are not
+  // stored, are clamped into x
+  const int j0 = S * (o_base + o0) - 1, b0 = S * q - 1;
   int rows[kRows], cols[4];
-  if (j0 >= 0 && j0 + kRows <= h) {
+  if (j0 >= row0 && j0 + kRows <= row0 + h) {
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) rows[i] = j0 + i;
+    for (int i = 0; i < kRows; ++i) rows[i] = j0 - row0 + i;
   } else {
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) rows[i] = reflect_index(j0 + i, h);
+    for (int i = 0; i < kRows; ++i) {
+      rows[i] = min(max(reflect_index(j0 + i, h_glob) - row0, 0), h - 1);
+    }
   }
   if (b0 >= 0 && b0 + 4 <= w) {
 #pragma unroll
@@ -255,7 +276,7 @@ blurpool_fwd_kernel(const T* __restrict__ x, T* __restrict__ y, int h, int w, in
 
 template <typename T, int S, int V>
 cudaError_t launch_fwd_as(const void* x, void* y, int64_t n, int h, int w, int c, int ho,
-                          int wo, cudaStream_t stream) {
+                          int wo, int h_glob, int row0, int o_base, cudaStream_t stream) {
   const int vectors = c / V;
   const int tx = vectors < kThreads ? vectors : kThreads;
   const int ty = kThreads / tx;
@@ -269,7 +290,7 @@ cudaError_t launch_fwd_as(const void* x, void* y, int64_t n, int h, int w, int c
                     static_cast<unsigned>(n - n0 < kMaxImages ? n - n0 : kMaxImages));
     blurpool_fwd_kernel<T, S, V><<<grid, dim3(tx, ty), 0, stream>>>(
         static_cast<const T*>(x) + n0 * x_image, static_cast<T*>(y) + n0 * y_image, h, w, c, ho,
-        wo);
+        wo, h_glob, row0, o_base);
   }
   return cudaSuccess;
 }
@@ -280,20 +301,21 @@ cudaError_t launch_fwd_as(const void* x, void* y, int64_t n, int h, int w, int c
 // was slower here; every shape of the path takes 16 bytes.)
 template <typename T, int S>
 cudaError_t launch_fwd_stride(const void* x, void* y, int64_t n, int h, int w, int c, int ho,
-                              int wo, cudaStream_t stream) {
+                              int wo, int h_glob, int row0, int o_base, cudaStream_t stream) {
   constexpr int V = 16 / sizeof(T);
   const uintptr_t at = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y);
   if (c % V == 0 && at % 16 == 0) {
-    return launch_fwd_as<T, S, V>(x, y, n, h, w, c, ho, wo, stream);
+    return launch_fwd_as<T, S, V>(x, y, n, h, w, c, ho, wo, h_glob, row0, o_base, stream);
   }
-  return launch_fwd_as<T, S, 1>(x, y, n, h, w, c, ho, wo, stream);
+  return launch_fwd_as<T, S, 1>(x, y, n, h, w, c, ho, wo, h_glob, row0, o_base, stream);
 }
 
 template <typename T>
 cudaError_t launch_fwd(const void* x, void* y, int64_t n, int h, int w, int c, int ho, int wo,
-                       int stride, cudaStream_t stream) {
-  return stride == 1 ? launch_fwd_stride<T, 1>(x, y, n, h, w, c, ho, wo, stream)
-                     : launch_fwd_stride<T, 2>(x, y, n, h, w, c, ho, wo, stream);
+                       int stride, int h_glob, int row0, int o_base, cudaStream_t stream) {
+  return stride == 1
+             ? launch_fwd_stride<T, 1>(x, y, n, h, w, c, ho, wo, h_glob, row0, o_base, stream)
+             : launch_fwd_stride<T, 2>(x, y, n, h, w, c, ho, wo, h_glob, row0, o_base, stream);
 }
 
 // Interior 2 x 2 block at stride 2: dx rows 2m, 2m + 1 read dy rows m - 1, m
@@ -362,9 +384,9 @@ __device__ __forceinline__ void interior_s1(const T* src, T* dst, int64_t dy_row
   store_vec<T, V>(dst + dx_row + c, a11);
 }
 
-// One dx pixel from its general windows (rows o_lo + i with weight wr[i],
-// columns p_lo + j with wc[j]), V channels: dyn points at dy (n, 0, 0) and dst
-// at the dx pixel, both at the thread's channels. Every window position is
+// One dx pixel from its general windows (rows o_lo + i of dy with weight
+// wr[i], columns p_lo + j with wc[j]), V channels: dyn points at dy (n, 0, 0)
+// and dst at the dx pixel, both at the thread's channels. Every window position is
 // loaded, clamped into dy, whatever its weight, so that no load waits for a
 // test of a weight; a position of weight 0 adds nothing (the sums are those
 // of the positions with weights, in window order).
@@ -397,41 +419,49 @@ __device__ __forceinline__ void border_pixel(const T* dyn, T* dst, int o_lo,
 // block (tx channel vectors, ty column pairs); grid (row pairs, chunks of
 // column pairs, images). A thread: V channels of dx rows 2m, 2m + 1 and
 // columns 2p, 2p + 1 (those inside the image), for channel vectors threadIdx.x,
-// threadIdx.x + tx, ... .
+// threadIdx.x + tx, ... . dx holds rows [row0, row0 + h) of an h_glob-row map
+// and dy its output rows [o_base, o_base + ho); the row pairs are the map's
+// (global row 2m, 2m + 1), those that meet the window.
 template <typename T, int S, int V>
 __global__ void __launch_bounds__(kThreads, 4)
 blurpool_bwd_kernel(const T* __restrict__ dy, T* __restrict__ dx, int h, int w, int c,
-                    int ho, int wo) {
-  const int m = blockIdx.x;
+                    int ho, int wo, int h_glob, int row0, int o_base) {
+  const int m = (row0 >> 1) + blockIdx.x;
   const int p = blockIdx.y * blockDim.y + threadIdx.y;
   const int r0 = 2 * m, c0 = 2 * p;
   if (c0 >= w) return;
   const int64_t dy_row = static_cast<int64_t>(wo) * c, dx_row = static_cast<int64_t>(w) * c;
   const T* dyn = dy + static_cast<int64_t>(blockIdx.z) * ho * dy_row;
-  T* dxb = dx + (static_cast<int64_t>(blockIdx.z) * h + r0) * dx_row +
+  T* dxb = dx + (static_cast<int64_t>(blockIdx.z) * h + (r0 - row0)) * dx_row +
            static_cast<int64_t>(c0) * c;
-  // no reflected read lands on rows 2 .. h - 4 or columns 2 .. w - 4
-  if (r0 >= 2 && r0 + 1 <= h - 4 && c0 >= 2 && c0 + 1 <= w - 4) {
+  // no reflected read lands on rows 2 .. h_glob - 4 or columns 2 .. w - 4; the
+  // block's rows lie in the window and every output that reads them in dy
+  const bool inside = r0 >= row0 && r0 + 1 < row0 + h &&
+                      (S == 2 ? m - 1 >= o_base && m + 1 < o_base + ho
+                              : r0 - 2 >= o_base && r0 + 2 < o_base + ho);
+  if (inside && r0 >= 2 && r0 + 1 <= h_glob - 4 && c0 >= 2 && c0 + 1 <= w - 4) {
     for (int ch = threadIdx.x * V; ch < c; ch += blockDim.x * V) {
       if constexpr (S == 2) {
-        interior_s2<T, V>(dyn + (m - 1) * dy_row + static_cast<int64_t>(p - 1) * c + ch,
+        interior_s2<T, V>(dyn + (m - 1 - o_base) * dy_row + static_cast<int64_t>(p - 1) * c + ch,
                           dxb + ch, dy_row, dx_row, c);
       } else {
-        interior_s1<T, V>(dyn + (r0 - 2) * dy_row + static_cast<int64_t>(c0 - 2) * c + ch,
+        interior_s1<T, V>(dyn + (r0 - 2 - o_base) * dy_row +
+                              static_cast<int64_t>(c0 - 2) * c + ch,
                           dxb + ch, dy_row, dx_row, c);
       }
     }
     return;
   }
-  for (int i = 0; i < 2 && r0 + i < h; ++i) {
+  for (int i = 0; i < 2; ++i) {
+    if (r0 + i < row0 || r0 + i >= row0 + h) continue;
     float wr[kWindow<S>];
-    const int o_lo = adjoint_weights<S>(r0 + i, h, ho, wr);
+    const int o_lo = adjoint_weights<S>(r0 + i, h_glob, o_base, o_base + ho - 1, wr);
     for (int j = 0; j < 2 && c0 + j < w; ++j) {
       float wc[kWindow<S>];
-      const int p_lo = adjoint_weights<S>(c0 + j, w, wo, wc);
+      const int p_lo = adjoint_weights<S>(c0 + j, w, 0, wo - 1, wc);
       for (int ch = threadIdx.x * V; ch < c; ch += blockDim.x * V) {
-        border_pixel<T, S, V>(dyn + ch, dxb + i * dx_row + j * c + ch, o_lo, wr, p_lo, wc, ho,
-                              wo, c);
+        border_pixel<T, S, V>(dyn + ch, dxb + i * dx_row + j * c + ch, o_lo - o_base, wr, p_lo,
+                              wc, ho, wo, c);
       }
     }
   }
@@ -439,7 +469,7 @@ blurpool_bwd_kernel(const T* __restrict__ dy, T* __restrict__ dx, int h, int w, 
 
 template <typename T, int S, int V>
 cudaError_t launch_bwd_as(const void* dy, void* dx, int64_t n, int h, int w, int c, int ho,
-                          int wo, cudaStream_t stream) {
+                          int wo, int h_glob, int row0, int o_base, cudaStream_t stream) {
   const int vectors = c / V;
   const int tx = vectors < kThreads ? vectors : kThreads;
   const int ty = kThreads / tx;
@@ -449,11 +479,13 @@ cudaError_t launch_bwd_as(const void* dy, void* dx, int64_t n, int h, int w, int
   const int64_t dy_image = static_cast<int64_t>(ho) * wo * c;
   const int64_t dx_image = static_cast<int64_t>(h) * w * c;
   for (int64_t n0 = 0; n0 < n; n0 += kMaxImages) {
-    const dim3 grid(static_cast<unsigned>((h + 1) / 2), static_cast<unsigned>(chunks),
+    // the global row pairs that meet rows [row0, row0 + h): (h + 1) / 2 for row0 = 0
+    const unsigned pairs_h = static_cast<unsigned>(((row0 + h - 1) >> 1) - (row0 >> 1) + 1);
+    const dim3 grid(pairs_h, static_cast<unsigned>(chunks),
                     static_cast<unsigned>(n - n0 < kMaxImages ? n - n0 : kMaxImages));
     blurpool_bwd_kernel<T, S, V><<<grid, dim3(tx, ty), 0, stream>>>(
         static_cast<const T*>(dy) + n0 * dy_image, static_cast<T*>(dx) + n0 * dx_image, h, w, c,
-        ho, wo);
+        ho, wo, h_glob, row0, o_base);
   }
   return cudaSuccess;
 }
@@ -465,37 +497,47 @@ cudaError_t launch_bwd_as(const void* dy, void* dx, int64_t n, int h, int w, int
 // are aligned to it; else one scalar.
 template <typename T, int S>
 cudaError_t launch_bwd_stride(const void* dy, void* dx, int64_t n, int h, int w, int c, int ho,
-                              int wo, cudaStream_t stream) {
+                              int wo, int h_glob, int row0, int o_base, cudaStream_t stream) {
   const uintptr_t at = reinterpret_cast<uintptr_t>(dy) | reinterpret_cast<uintptr_t>(dx);
   const auto fits = [&](int bytes) { return c % (bytes / sizeof(T)) == 0 && at % bytes == 0; };
   if ((S == 2 || c * sizeof(T) > 256) && fits(16)) {
-    return launch_bwd_as<T, S, 16 / sizeof(T)>(dy, dx, n, h, w, c, ho, wo, stream);
+    return launch_bwd_as<T, S, 16 / sizeof(T)>(dy, dx, n, h, w, c, ho, wo, h_glob, row0, o_base,
+                                               stream);
   }
-  if (fits(8)) return launch_bwd_as<T, S, 8 / sizeof(T)>(dy, dx, n, h, w, c, ho, wo, stream);
-  return launch_bwd_as<T, S, 1>(dy, dx, n, h, w, c, ho, wo, stream);
+  if (fits(8)) {
+    return launch_bwd_as<T, S, 8 / sizeof(T)>(dy, dx, n, h, w, c, ho, wo, h_glob, row0, o_base,
+                                              stream);
+  }
+  return launch_bwd_as<T, S, 1>(dy, dx, n, h, w, c, ho, wo, h_glob, row0, o_base, stream);
 }
 
 template <typename T>
 cudaError_t launch_bwd(const void* dy, void* dx, int64_t n, int h, int w, int c, int ho, int wo,
-                       int stride, cudaStream_t stream) {
-  return stride == 1 ? launch_bwd_stride<T, 1>(dy, dx, n, h, w, c, ho, wo, stream)
-                     : launch_bwd_stride<T, 2>(dy, dx, n, h, w, c, ho, wo, stream);
+                       int stride, int h_glob, int row0, int o_base, cudaStream_t stream) {
+  return stride == 1
+             ? launch_bwd_stride<T, 1>(dy, dx, n, h, w, c, ho, wo, h_glob, row0, o_base, stream)
+             : launch_bwd_stride<T, 2>(dy, dx, n, h, w, c, ho, wo, h_glob, row0, o_base, stream);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. x is (n, h, w, c) and y (n, ho, wo, c),
-// both contiguous on the current device; the caller checks shapes and that
-// w * c < 2^31. Returns cudaGetLastError(), or cudaErrorInvalidConfiguration
-// for a grid out of its limits (more than 65535 chunks of column groups).
+// x is rows [row0, row0 + h) of a map of h_glob rows, (n, h, w, c), and y
+// its output rows [o_base, o_base + ho), (n, ho, wo, c), both contiguous on
+// the current device (the whole map: h_glob = h, row0 = o_base = 0); wo is
+// the output width of w at this stride, and the caller checks that every row
+// the outputs read (reflected at the map's edges) lies in the window and that
+// w * c < 2^31. dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError(),
+// or cudaErrorInvalidConfiguration for a grid out of its limits (more than
+// 65535 chunks of column groups).
 extern "C" int tfcgan_blurpool_fwd(const void* x, void* y, int64_t n, int h, int w, int c,
-                                   int ho, int wo, int stride, int dtype, void* stream) {
+                                   int ho, int wo, int stride, int dtype, void* stream,
+                                   int h_glob, int row0, int o_base) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) {
-    err = launch_fwd<float>(x, y, n, h, w, c, ho, wo, stride, s);
+    err = launch_fwd<float>(x, y, n, h, w, c, ho, wo, stride, h_glob, row0, o_base, s);
   } else if (dtype == 1) {
-    err = launch_fwd<__nv_bfloat16>(x, y, n, h, w, c, ho, wo, stride, s);
+    err = launch_fwd<__nv_bfloat16>(x, y, n, h, w, c, ho, wo, stride, h_glob, row0, o_base, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -503,22 +545,24 @@ extern "C" int tfcgan_blurpool_fwd(const void* x, void* y, int64_t n, int h, int
   return static_cast<int>(cudaGetLastError());
 }
 
-// The adjoint of tfcgan_blurpool_fwd: dy is (n, ho, wo, c) and dx (n, h, w, c),
-// both contiguous on the current device, ho/wo the forward's output lengths
-// for h/w at this stride; the caller checks shapes and that w * c < 2^31.
-// Returns cudaGetLastError(), or cudaErrorInvalidConfiguration for a grid out
-// of its limits (more than 65535 chunks of column pairs).
+// The adjoint of tfcgan_blurpool_fwd: dy is the output rows [o_base,
+// o_base + ho), (n, ho, wo, c), and dx the window's rows [row0, row0 + h), (n,
+// h, w, c), each row of dx collecting what the outputs in dy read from it.
+// Returns as the forward.
 extern "C" int tfcgan_blurpool_bwd(const void* dy, void* dx, int64_t n, int h, int w, int c,
-                                   int ho, int wo, int stride, int dtype, void* stream) {
+                                   int ho, int wo, int stride, int dtype, void* stream,
+                                   int h_glob, int row0, int o_base) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) {
-    err = launch_bwd<float>(dy, dx, n, h, w, c, ho, wo, stride, s);
+    err = launch_bwd<float>(dy, dx, n, h, w, c, ho, wo, stride, h_glob, row0, o_base, s);
   } else if (dtype == 1) {
-    err = launch_bwd<__nv_bfloat16>(dy, dx, n, h, w, c, ho, wo, stride, s);
+    err = launch_bwd<__nv_bfloat16>(dy, dx, n, h, w, c, ho, wo, stride, h_glob, row0, o_base,
+                                    s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
+

@@ -26,7 +26,8 @@ In a data-parallel run (``mesh``) every rank holds the whole set on its own
 card, as the JAX pool is replicated over its mesh, draws the same global
 index batches (one seed), and ``batch`` gathers only this rank's share of
 them, by its data coordinate (the ranks of a tensor group get the same
-samples): no traffic between cards.
+samples): no traffic between cards. On a spatial mesh ``batch`` then keeps
+this rank's rows of each image (``parallel.local_rows``), T_B with them.
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ import numpy as np
 import torch
 
 from tfcgan_tpu_torch.ops.temperature import TEMP_MAX_C, TEMP_MIN_C
-from tfcgan_tpu_torch.parallel.mesh import local_share
+from tfcgan_tpu_torch.parallel.mesh import local_rows, local_share
 
 
 def finish_uint8(a_u8: torch.Tensor, b_u8: torch.Tensor) -> dict[str, torch.Tensor]:
@@ -82,8 +83,9 @@ class DevicePool:
         idx = torch.as_tensor(idx, dtype=torch.int64).to(self.device)
         labels = {k: v.index_select(0, idx) for k, v in self.arrays.items()
                   if k in ("LAB", "LAB3")}
-        return {**finish_uint8(self.arrays["A_u8"].index_select(0, idx),
-                               self.arrays["B_u8"].index_select(0, idx)), **labels}
+        images = local_rows({k: self.arrays[k].index_select(0, idx) for k in ("A_u8", "B_u8")},
+                            self.mesh)
+        return {**finish_uint8(images["A_u8"], images["B_u8"]), **labels}
 
     def index_batches(self, batch_size: int, seed: int = 42, epochs: int | None = None
                       ) -> Iterator[np.ndarray]:

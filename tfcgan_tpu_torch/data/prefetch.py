@@ -18,7 +18,9 @@ In a data-parallel run each rank's ``PrefetchLoader(mesh=...)`` shuffles with
 the same seed and decodes only its share of each global batch (by its data
 coordinate: the ranks of a tensor group decode the same share), and
 ``device_prefetch`` places that share on the rank's card (``mesh.device``),
-as the JAX loader feeds each host its shard.
+as the JAX loader feeds each host its shard; on a spatial mesh the share
+keeps only this rank's rows of each image (``parallel.local_rows``), so T_B,
+made from B's rows on the device, is cut with them.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ import numpy as np
 import torch
 
 from tfcgan_tpu_torch.data.pool import finish_uint8
-from tfcgan_tpu_torch.parallel.mesh import local_share
+from tfcgan_tpu_torch.parallel.mesh import local_rows, local_share
 
 
 class PrefetchLoader:
@@ -66,7 +68,8 @@ class PrefetchLoader:
             idxs = idxs[local_share(len(idxs), self.mesh)]
         get = self.dataset.raw_item if self.raw else self.dataset.__getitem__
         items = [get(int(j)) for j in idxs]
-        return {k: np.stack([it[k] for it in items]) for k in items[0]}
+        batch = {k: np.stack([it[k] for it in items]) for k in items[0]}
+        return {k: np.ascontiguousarray(v) for k, v in local_rows(batch, self.mesh).items()}
 
     def __iter__(self) -> Iterator[dict[str, np.ndarray]]:
         rng = np.random.RandomState(self.seed)

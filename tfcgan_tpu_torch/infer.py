@@ -27,7 +27,10 @@ Every rank calls with the same batches. The weights are served whole and
 replicated, as the JAX Inferencer replicates them: on a (data, tensor) mesh
 the ranks of a tensor group serve the same share with the same weights, and
 a generator taken from a sharded training state is gathered first
-(``parallel.tensor.gathered_copy``, a collective over its tensor group). A
+(``parallel.tensor.gathered_copy``, a collective over its tensor group). On
+a mesh with a spatial axis the serve path is the JAX Inferencer's there too:
+sharded over the data axis only, the spatial ranks of a data share serving
+the same whole images, replicated (no row shards: serving needs no halo). A
 batch-coupled op (thermalgan_bn's ``TrainBatchNorm``) reads the padded
 batch's moments, pad copies included, as the JAX reference does. The
 diffusion sampler is not data-parallel (its noise is drawn for the batch it

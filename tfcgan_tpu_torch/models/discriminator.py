@@ -15,7 +15,9 @@ over the channel concat of (img_a, img_b), then ZeroPad2d((1, 0, 1, 0)) +
 conv(k4, p1, no bias) as one conv with padding ((2, 1), (2, 1)): 16 x 16
 logits for a 256² input. Parameter and buffer names follow the JAX module
 tree (``block0_conv.weight`` <- ``block0_conv/kernel``, ``block0_conv.u`` <-
-``spectral/block0_conv/u``; see ``tfcgan_tpu_torch.bridge``).
+``spectral/block0_conv/u``; see ``tfcgan_tpu_torch.bridge``). With ``rows``
+(the spatial mesh axis) it runs on this rank's rows of the images and
+returns its rows of the logits, whose record ``out_rows`` gives.
 """
 
 from __future__ import annotations
@@ -29,6 +31,8 @@ from tfcgan_tpu_torch.models.vit import Dense, lecun_normal_
 from tfcgan_tpu_torch.ops.blurpool import blur_pool
 from tfcgan_tpu_torch.ops.norm import instance_norm
 from tfcgan_tpu_torch.ops.resize import avg_pool_2x
+from tfcgan_tpu_torch.ops.kernels.blurpool import out_len
+from tfcgan_tpu_torch.parallel.spatial import Rows
 
 WIDTHS = (64, 128, 256, 512)
 
@@ -64,11 +68,24 @@ class PatchDiscriminator(nn.Module):
             block.u = (u / u.norm()).to(block.u.device)
             block.v = torch.full_like(block.v, block.v.numel() ** -0.5)
 
-    def forward(self, img_a: torch.Tensor, img_b: torch.Tensor) -> torch.Tensor:
+    def out_rows(self, rows: Rows | None) -> Rows | None:
+        """The record of the logits for images of record ``rows``."""
+        if rows is None:
+            return None
+        h = rows.h
+        for _ in self.blocks():
+            h = out_len(h - 1, 2)
+        return rows.of(self.final_conv.out_height(h))
+
+    def forward(self, img_a: torch.Tensor, img_b: torch.Tensor,
+                rows: Rows | None = None) -> torch.Tensor:
         x = torch.cat([img_a, img_b], dim=-1).to(self.dtype)
         for block in self.blocks():
-            x = blur_pool(F.leaky_relu(block(x), 0.2), stride=2)
-        return self.final_conv(x)
+            x = F.leaky_relu(block(x, rows), 0.2)
+            rows = rows and rows.of(block.out_height(rows.h))
+            x = blur_pool(x, 2, rows)
+            rows = rows and rows.of(out_len(rows.h, 2))
+        return self.final_conv(x, rows)
 
 
 class AuxClassifierDiscriminator(nn.Module):

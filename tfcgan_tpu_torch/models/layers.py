@@ -16,18 +16,29 @@ power-iteration vectors u and v as buffers, which
 On a tensor mesh (``parallel.tensor``) a conv whose weight is sharded
 computes only its out-channels and gathers them (``column_parallel``); its
 ``features`` stays the full count.
+
+On a spatial mesh (``parallel.spatial``) the convs, the U-Net blocks and the
+blur-pool take ``rows``, the ``Rows`` record of their input: the input is
+this rank's row shard of a map of ``rows.h`` rows, and so is the output, of
+the height ``out_height`` gives. Each conv fetches its halo rows first
+(``row_op``) and then runs as above, column-parallel on a tensor mesh too;
+the instance norms sum their statistics over the spatial group, and the
+dropout keep-masks come cut to the block's rows (``parallel.shard_draws``).
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from tfcgan_tpu_torch.ops.blurpool import blur_pool
+from tfcgan_tpu_torch.ops.kernels.blurpool import out_len
 from tfcgan_tpu_torch.ops.norm import group_norm, instance_norm
+from tfcgan_tpu_torch.parallel.spatial import Rows, row_op
 from tfcgan_tpu_torch.parallel.tensor import column_parallel, gather_dim, tensor_sum
 
 Padding = tuple[tuple[int, int], tuple[int, int]]
@@ -85,6 +96,22 @@ def _conv_nhwc(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
     return F.conv2d(xc, w, b, stride=stride, padding=pad).permute(0, 2, 3, 1)
 
 
+def sharded(rows: Rows | None) -> bool:
+    """Whether ``rows`` names a row shard over more than one rank."""
+    return rows is not None and rows.axis.size > 1
+
+
+def _conv_rows(x: torch.Tensor, rows: Rows, k: int, stride: int, padding: Padding, run
+               ) -> torch.Tensor:
+    """A conv (kernel ``k``, ``stride``, ``padding``) on row shards:
+    ``run(xw, cols)`` convolves the fetched, edge-padded rows ``xw`` with no
+    row padding and the column padding ``cols``."""
+    (pt, pb), cols = padding
+    h_out = (rows.h + pt + pb - k) // stride + 1
+    return row_op(x, rows, h_out, lambda lo, hi: (stride * lo - pt, stride * (hi - 1) - pt + k),
+                  lambda xw, a, b, lo, hi: run(xw, ((0, 0), cols)))
+
+
 class TorchConv(nn.Module):
     """Conv2d with explicit, possibly asymmetric zero padding, NHWC."""
 
@@ -100,13 +127,22 @@ class TorchConv(nn.Module):
             features, in_channels, kernel_size, kernel_size, device=device))
         self.bias = nn.Parameter(torch.zeros(features, device=device)) if use_bias else None
 
-    def _conv(self, x: torch.Tensor, weight: torch.Tensor, bias) -> torch.Tensor:
-        return _conv_nhwc(x, weight, bias, self.stride, self.padding, self.dtype)
+    def _run(self, x: torch.Tensor, padding: Padding) -> torch.Tensor:
+        def conv(x, weight, bias):
+            return _conv_nhwc(x, weight, bias, self.stride, padding, self.dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.tensor_axis is not None:
-            return column_parallel(self, x, self._conv)
-        return self._conv(x, self.weight, self.bias)
+            return column_parallel(self, x, conv)
+        return conv(x, self.weight, self.bias)
+
+    def out_height(self, h: int) -> int:
+        (pt, pb), _ = self.padding
+        return (h + pt + pb - self.weight.shape[2]) // self.stride + 1
+
+    def forward(self, x: torch.Tensor, rows: Rows | None = None) -> torch.Tensor:
+        if not sharded(rows):
+            return self._run(x, self.padding)
+        return _conv_rows(x, rows, self.weight.shape[2], self.stride, self.padding, self._run)
 
 
 class TorchConvTranspose(nn.Module):
@@ -123,16 +159,35 @@ class TorchConvTranspose(nn.Module):
         self.weight = nn.Parameter(torch.empty(
             in_channels, features, kernel_size, kernel_size, device=device))
 
-    def _conv(self, x: torch.Tensor, weight: torch.Tensor, bias=None) -> torch.Tensor:
+    def _conv(self, x: torch.Tensor, weight: torch.Tensor, bias=None,
+              row_padding: int | None = None) -> torch.Tensor:
         w = weight.to(self.dtype).contiguous(memory_format=torch.channels_last)
-        y = F.conv_transpose2d(x.to(self.dtype).permute(0, 3, 1, 2), w,
-                               stride=self.stride, padding=self.padding)
+        rp = self.padding if row_padding is None else row_padding
+        y = F.conv_transpose2d(x.to(self.dtype).permute(0, 3, 1, 2), w, stride=self.stride,
+                               padding=(rp, self.padding))
         return y.permute(0, 2, 3, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _run(self, x: torch.Tensor, row_padding: int | None = None) -> torch.Tensor:
+        conv = functools.partial(self._conv, row_padding=row_padding)
         if self.tensor_axis is not None:
-            return column_parallel(self, x, self._conv)
-        return self._conv(x, self.weight)
+            return column_parallel(self, x, conv)
+        return conv(x, self.weight)
+
+    def out_height(self, h: int) -> int:
+        return (h - 1) * self.stride - 2 * self.padding + self.weight.shape[2]
+
+    def forward(self, x: torch.Tensor, rows: Rows | None = None) -> torch.Tensor:
+        if not sharded(rows):
+            return self._run(x)
+        k, s, p = self.weight.shape[2], self.stride, self.padding
+
+        def need(lo, hi):  # input i feeds outputs [s i - p, s i - p + k)
+            return -((k - 1 - lo - p) // s), (hi - 1 + p) // s + 1
+
+        def compute(xw, a, b, lo, hi):  # unpadded, window row o' is global o' - p + s a
+            return self._run(xw, 0)[:, lo + p - s * a:hi + p - s * a]
+
+        return row_op(x, rows, self.out_height(rows.h), need, compute, zero_pad=False)
 
 
 def _l2_normalize(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -168,16 +223,31 @@ class SpectralConv(nn.Module):
             return self.w_mat()
         return gather_dim(self.w_mat().detach(), 0, self.tensor_axis)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def out_height(self, h: int) -> int:
+        return h - 1
+
+    def forward(self, x: torch.Tensor, rows: Rows | None = None) -> torch.Tensor:
+        """On row shards sigma comes from the replicated W, u and v: nothing
+        of it is sharded."""
         axis = self.tensor_axis
         if axis is None:
             sigma = torch.dot(self.u, torch.mv(self.w_mat(), self.v))
-            return _conv_nhwc(x, self.weight / sigma, self.bias, 1, ((1, 1), (1, 1)), self.dtype)
-        n = self.weight.shape[0]
-        sigma = tensor_sum(torch.dot(self.u[axis.rank * n:(axis.rank + 1) * n],
-                                     torch.mv(self.w_mat(), self.v)), axis)
-        return column_parallel(self, x, lambda x, w, b: _conv_nhwc(
-            x, w / sigma, b, 1, ((1, 1), (1, 1)), self.dtype))
+        else:
+            n = self.weight.shape[0]
+            sigma = tensor_sum(torch.dot(self.u[axis.rank * n:(axis.rank + 1) * n],
+                                         torch.mv(self.w_mat(), self.v)), axis)
+
+        def run(x, padding):
+            def conv(x, w, b):
+                return _conv_nhwc(x, w / sigma, b, 1, padding, self.dtype)
+
+            if axis is None:
+                return conv(x, self.weight, self.bias)
+            return column_parallel(self, x, conv)
+
+        if not sharded(rows):
+            return run(x, ((1, 1), (1, 1)))
+        return _conv_rows(x, rows, 4, 1, ((1, 1), (1, 1)), run)
 
 
 @torch.no_grad()
@@ -234,17 +304,24 @@ class UNetDown(nn.Module):
         self.normalize, self.dropout = normalize, dropout
         self.conv = TorchConv(in_channels, features, use_bias=False, dtype=dtype, device=device)
 
-    def forward(self, x: torch.Tensor, keep: torch.Tensor | None = None) -> torch.Tensor:
-        x = self.conv(x)
+    @staticmethod
+    def out_height(h: int) -> int:
+        return out_len(h - 1, 2)
+
+    def forward(self, x: torch.Tensor, keep: torch.Tensor | None = None,
+                rows: Rows | None = None) -> torch.Tensor:
+        x = self.conv(x, rows)
+        rows = rows and rows.of(self.conv.out_height(rows.h))
         if self.normalize:
-            x = instance_norm(x)
+            x = instance_norm(x, rows=rows)
         x = F.leaky_relu(x, 0.2)
-        return _dropout(blur_pool(x, stride=2), keep)
+        return _dropout(blur_pool(x, 2, rows), keep)
 
 
 class UNetUp(nn.Module):
     """convT(k4, s2, p1, no bias) -> blur_pool(stride 1) -> instance norm ->
-    relu -> [dropout: times ``keep``, when given] -> concat(skip) on channels."""
+    relu -> [dropout: times ``keep``, when given] -> concat(skip) on channels.
+    On row shards the skip has the upsampled map's height and partition."""
 
     def __init__(self, in_channels: int, features: int, dropout: float = 0.0,
                  dtype: torch.dtype = torch.float32, device=None):
@@ -252,10 +329,16 @@ class UNetUp(nn.Module):
         self.dropout = dropout
         self.conv = TorchConvTranspose(in_channels, features, dtype=dtype, device=device)
 
+    @staticmethod
+    def out_height(h: int) -> int:
+        return 2 * h
+
     def forward(self, x: torch.Tensor, skip: torch.Tensor,
-                keep: torch.Tensor | None = None) -> torch.Tensor:
-        x = blur_pool(self.conv(x), stride=1)
-        x = _dropout(F.relu(instance_norm(x)), keep)
+                keep: torch.Tensor | None = None, rows: Rows | None = None) -> torch.Tensor:
+        x = self.conv(x, rows)
+        rows = rows and rows.of(self.out_height(rows.h))
+        x = blur_pool(x, 1, rows)
+        x = _dropout(F.relu(instance_norm(x, rows=rows)), keep)
         return torch.cat([x, skip.to(x.dtype)], dim=-1)
 
 
@@ -277,11 +360,48 @@ class Upsample2xConv(nn.Module):
             features, in_channels, kernel_size, kernel_size, device=device))
         self.bias = nn.Parameter(torch.zeros(features, device=device)) if use_bias else None
 
-    def _conv(self, x: torch.Tensor, weight: torch.Tensor, bias) -> torch.Tensor:
+    def _conv(self, x: torch.Tensor, weight: torch.Tensor, bias, up_rows=None) -> torch.Tensor:
+        """``up_rows`` (start, stop, top, bottom) on row shards: the
+        upsampled window's rows [start, stop), with ``top`` and ``bottom``
+        zero rows, convolved with no row padding."""
         up = F.interpolate(x.to(self.dtype).permute(0, 3, 1, 2), scale_factor=2, mode="nearest")
-        return _conv_nhwc(up.permute(0, 2, 3, 1), weight, bias, 1, self.padding, self.dtype)
+        up = up.permute(0, 2, 3, 1)
+        padding = self.padding
+        if up_rows is not None:
+            start, stop, top, bottom = up_rows
+            up = up[:, start:stop]
+            if top or bottom:
+                up = torch.cat([up.new_zeros((up.shape[0], top, *up.shape[2:])), up,
+                                up.new_zeros((up.shape[0], bottom, *up.shape[2:]))], dim=1)
+            padding = ((0, 0), padding[1])
+        return _conv_nhwc(up, weight, bias, 1, padding, self.dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _run(self, x: torch.Tensor, up_rows=None) -> torch.Tensor:
+        conv = functools.partial(self._conv, up_rows=up_rows)
         if self.tensor_axis is not None:
-            return column_parallel(self, x, self._conv)
-        return self._conv(x, self.weight, self.bias)
+            return column_parallel(self, x, conv)
+        return conv(x, self.weight, self.bias)
+
+    def out_height(self, h: int) -> int:
+        (pt, pb), _ = self.padding
+        return 2 * h + pt + pb - self.weight.shape[2] + 1
+
+    def forward(self, x: torch.Tensor, rows: Rows | None = None) -> torch.Tensor:
+        if not sharded(rows):
+            return self._run(x)
+        (pt, _), _ = self.padding
+        k, h2 = self.weight.shape[2], 2 * rows.h
+
+        def up_span(lo, hi):  # the upsampled rows that output rows [lo, hi) read
+            return lo - pt, hi - 1 - pt + k
+
+        def need(lo, hi):
+            ua, ub = up_span(lo, hi)
+            return ua // 2, (ub - 1) // 2 + 1
+
+        def compute(xw, a, b, lo, hi):  # xw: input rows [a, b), upsampled rows [2a, 2b)
+            ua, ub = up_span(lo, hi)
+            start, stop = max(ua, 0), min(ub, h2)
+            return self._run(xw, (start - 2 * a, stop - 2 * a, start - ua, ub - stop))
+
+        return row_op(x, rows, self.out_height(rows.h), need, compute, zero_pad=False)

@@ -7,6 +7,10 @@ over the 5 taps. The parameters are frozen; the real-image tower runs under
 ``torch.no_grad``. Parameter names follow the flax tree (``vgg.conv1.weight``
 <- ``vgg/conv1/kernel``, ``lin0`` <- ``lin0``).
 
+With ``rows`` (the spatial mesh axis) the towers run on this rank's rows of
+the images, and the distance is this rank's share of it: the sum over its
+rows, over the whole map's pixel count (``parallel.spatial.share_mean``).
+
 Pretrained weights are not in the repository, so fft_glo trains with random
 ones, as the JAX package does without weights: lecun-normal convs with zero
 biases and uniform(0, 0.1) lin weights. Where the JAX package loads converted
@@ -25,6 +29,7 @@ import torch.nn as nn
 
 from tfcgan_tpu_torch.models.layers import TorchConv, draws_on
 from tfcgan_tpu_torch.ops.pooling import pool22
+from tfcgan_tpu_torch.parallel.spatial import Rows, share_mean
 
 _SHIFT = (-0.030, -0.088, -0.188)
 _SCALE = (0.458, 0.448, 0.450)
@@ -51,15 +56,27 @@ class VGG16Features(nn.Module):
                                                   device=device))
             cin = item
 
-    def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
+    @staticmethod
+    def tap_rows(rows: Rows | None) -> list:
+        """The records of the 5 taps for input rows ``rows``."""
+        out = []
+        for item in _VGG_CFG:
+            if item == "M":
+                rows = rows and rows.of(rows.h // 2)
+            else:
+                out.append(rows)
+        return [out[i - 1] for i in sorted(_TAPS)]
+
+    def forward(self, x: torch.Tensor, rows: Rows | None = None) -> list[torch.Tensor]:
         feats, idx = [], 0
         h = x.to(self.dtype)
         for item in _VGG_CFG:
             if item == "M":
-                h = pool22(h)
+                h = pool22(h, rows)
+                rows = rows and rows.of(rows.h // 2)
                 continue
             idx += 1
-            h = torch.relu(getattr(self, f"conv{idx}")(h))
+            h = torch.relu(getattr(self, f"conv{idx}")(h, rows))
             if idx in _TAPS:
                 feats.append(h)
         return feats
@@ -109,15 +126,16 @@ class LPIPS(nn.Module):
     def _scaled(self, x: torch.Tensor) -> torch.Tensor:
         return ((x.float() - self.shift) / self.scale).to(self.dtype)
 
-    def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-        fx = self.vgg(self._scaled(x))
+    def forward(self, x: torch.Tensor, y: torch.Tensor, rows: Rows | None = None
+                ) -> torch.Tensor:
+        fx = self.vgg(self._scaled(x), rows)
         with torch.no_grad():
-            fy = self.vgg(self._scaled(y))
+            fy = self.vgg(self._scaled(y), rows)
         total = 0.0
-        for i, (a, b) in enumerate(zip(fx, fy)):
+        for i, (a, b, r) in enumerate(zip(fx, fy, self.vgg.tap_rows(rows))):
             d = (_unit_normalize(a.float()) - _unit_normalize(b.float())).square()
             w = getattr(self, f"lin{i}").abs()
-            total = total + (d * w).sum(dim=-1).mean(dim=(1, 2))
+            total = total + share_mean((d * w).sum(dim=-1), r, dims=(1, 2))
         return total
 
 

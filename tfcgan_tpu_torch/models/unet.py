@@ -11,6 +11,10 @@ labels to an H x W plane, the image's 4th input channel.
 Dropout (p = 0.5 in down3, down4, up2 and up3) takes explicit keep-masks:
 ``draw_dropout_masks`` makes them from a ``torch.Generator``, and in training
 mode the forward refuses to run without them. Eval mode runs no dropout.
+
+``GeneratorUNet(x, masks, rows=...)`` runs on row shards (the spatial mesh
+axis): x is this rank's rows of images of ``rows.h`` rows, the keep-masks
+are cut to the blocks' rows, and so is the output.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import torch.nn as nn
 from tfcgan_tpu_torch.models.layers import UNetDown, UNetUp, Upsample2xConv, init_normal_
 from tfcgan_tpu_torch.models.vit import Dense, lecun_normal_
 from tfcgan_tpu_torch.ops.kernels.blurpool import out_len
+from tfcgan_tpu_torch.parallel.spatial import Rows
 
 
 class GeneratorUNet(nn.Module):
@@ -70,10 +75,11 @@ class GeneratorUNet(nn.Module):
             masks[name] = ((u < keep) / keep).to(self.dtype)
         return masks
 
-    def forward(self, x: torch.Tensor,
-                dropout_masks: dict[str, torch.Tensor] | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dropout_masks: dict[str, torch.Tensor] | None = None,
+                rows: Rows | None = None) -> torch.Tensor:
         """In training mode ``dropout_masks`` (from ``draw_dropout_masks``) is
-        required; in eval mode it must be None."""
+        required; in eval mode it must be None. With ``rows`` x is a row
+        shard (see the module docstring)."""
         if self.training and dropout_masks is None:
             raise ValueError("GeneratorUNet in training mode needs dropout_masks "
                              "(draw_dropout_masks); use .eval() for no dropout")
@@ -81,18 +87,21 @@ class GeneratorUNet(nn.Module):
             raise ValueError("dropout_masks given to a GeneratorUNet in eval mode")
         keep = dropout_masks or {}
         x = x.to(self.dtype)
-        d1 = self.down1(x)
-        d2 = self.down2(d1)
-        d3 = self.down3(d2, keep.get("down3"))
-        d4 = self.down4(d3, keep.get("down4"))
-        d5 = self.down5(d4)
-        d6 = self.down6(d5)
-        u1 = self.up1(d6, d5)
-        u2 = self.up2(u1, d4, keep.get("up2"))
-        u3 = self.up3(u2, d3, keep.get("up3"))
-        u4 = self.up4(u3, d2)
-        u5 = self.up5(u4, d1)
-        return torch.tanh(self.final_conv(u5))
+        r = [rows]  # the records of x, d1, ..., d6
+        for _ in range(6):
+            r.append(r[-1] and r[-1].of(UNetDown.out_height(r[-1].h)))
+        d1 = self.down1(x, rows=r[0])
+        d2 = self.down2(d1, rows=r[1])
+        d3 = self.down3(d2, keep.get("down3"), r[2])
+        d4 = self.down4(d3, keep.get("down4"), r[3])
+        d5 = self.down5(d4, rows=r[4])
+        d6 = self.down6(d5, rows=r[5])
+        u1 = self.up1(d6, d5, rows=r[6])
+        u2 = self.up2(u1, d4, keep.get("up2"), r[5])
+        u3 = self.up3(u2, d3, keep.get("up3"), r[4])
+        u4 = self.up4(u3, d2, rows=r[3])
+        u5 = self.up5(u4, d1, rows=r[2])
+        return torch.tanh(self.final_conv(u5, r[1]))
 
 
 class ConditionalGeneratorUNet(nn.Module):

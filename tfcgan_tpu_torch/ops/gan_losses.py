@@ -2,31 +2,41 @@
 BCE-with-logits pair of the TFC-GAN family (label smoothing 0.9), the
 least-squares loss of NeMAR, ThermalGAN and CycleGAN, and NeMAR's other GAN
 modes (vanilla, WGAN and its gradient penalty), which no registered recipe
-calls."""
+calls.
+
+With ``rows`` (the record of row-sharded logits on a spatial mesh) the
+relativistic losses return this rank's share of their mean over the whole
+map (``parallel.spatial.share_mean``): the spatial group's shares sum to it.
+"""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from tfcgan_tpu_torch.parallel.spatial import Rows, share_mean
 
-def bce_with_logits(logits: torch.Tensor, target: float) -> torch.Tensor:
-    """Mean BCE-with-logits against a constant target, in float32."""
+
+def bce_with_logits(logits: torch.Tensor, target: float, rows: Rows | None = None
+                    ) -> torch.Tensor:
+    """Mean BCE-with-logits against a constant target, in float32 (this
+    rank's share of it on row shards)."""
     x = logits.float()
-    return (F.relu(x) - x * target + torch.log1p(torch.exp(-x.abs()))).mean()
+    return share_mean(F.relu(x) - x * target + torch.log1p(torch.exp(-x.abs())), rows)
 
 
 def relativistic_g_loss(pred_fake: torch.Tensor, pred_real: torch.Tensor,
-                        smooth: float = 0.9) -> torch.Tensor:
+                        smooth: float = 0.9, rows: Rows | None = None) -> torch.Tensor:
     """BCE(pred_fake - pred_real.detach(), smooth)."""
-    return bce_with_logits(pred_fake - pred_real.detach(), smooth)
+    return bce_with_logits(pred_fake - pred_real.detach(), smooth, rows)
 
 
 def relativistic_d_loss(pred_real: torch.Tensor, pred_fake: torch.Tensor,
-                        smooth: float = 0.9, weight: float = 0.5) -> torch.Tensor:
+                        smooth: float = 0.9, weight: float = 0.5, rows: Rows | None = None
+                        ) -> torch.Tensor:
     """weight * (BCE(real - fake, smooth) + BCE(fake - real, 0))."""
-    return weight * (bce_with_logits(pred_real - pred_fake, smooth)
-                     + bce_with_logits(pred_fake - pred_real, 0.0))
+    return weight * (bce_with_logits(pred_real - pred_fake, smooth, rows)
+                     + bce_with_logits(pred_fake - pred_real, 0.0, rows))
 
 
 def lsgan_loss(pred: torch.Tensor, target: float) -> torch.Tensor:

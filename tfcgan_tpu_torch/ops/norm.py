@@ -5,25 +5,41 @@ the diffusion U-Net.
 The package's own function rather than ``F.instance_norm``: the generator
 normalizes a 1×1 map at ``down6`` for a 64² input, which must give zeros as
 it does in the JAX package, and which torch's InstanceNorm rejects.
+
+On row shards (``rows``, ``parallel.spatial``) the statistics are the
+spatial group's sums over the whole (H, W) plane, in both forms.
 """
 
 from __future__ import annotations
 
 import torch
 
+from tfcgan_tpu_torch.parallel.spatial import Rows, spatial_sum
 
-def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """x: (N, H, W, C). Normalizes each (n, c) plane over (H, W).
 
-    float32 uses the centred two-pass form. Lower precisions take fp32
-    statistics in the E[x²]−μ² form and scale in their own dtype, as the JAX
-    function does."""
-    if x.dtype == torch.float32:
-        mean = x.mean(dim=(1, 2), keepdim=True)
-        var = (x - mean).square().mean(dim=(1, 2), keepdim=True)
-        return (x - mean) * torch.rsqrt(var + eps)
-    m = x.mean(dim=(1, 2), keepdim=True, dtype=torch.float32)
-    m2 = x.float().square().mean(dim=(1, 2), keepdim=True)
+def instance_norm(x: torch.Tensor, eps: float = 1e-5, rows: Rows | None = None) -> torch.Tensor:
+    """x: (N, H, W, C). Normalizes each (n, c) plane over (H, W); with
+    ``rows``, x is this rank's row shard of planes of ``rows.h`` rows.
+
+    float32 (and float64, in its own precision) uses the centred two-pass
+    form. Lower precisions take fp32 statistics in the E[x²]−μ² form and
+    scale in their own dtype, as the JAX function does."""
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
+    if rows is not None and rows.axis.size > 1:
+        count = rows.h * x.shape[2]
+
+        def mean(t):
+            return spatial_sum(t.sum(dim=(1, 2), keepdim=True, dtype=acc), rows) / count
+    else:
+        def mean(t):
+            return t.mean(dim=(1, 2), keepdim=True, dtype=acc)
+
+    if x.dtype in (torch.float32, torch.float64):
+        mu = mean(x)
+        var = mean((x - mu).square())
+        return (x - mu) * torch.rsqrt(var + eps)
+    m = mean(x)
+    m2 = mean(x.float().square())
     var = (m2 - m.square()).clamp_min(0.0)
     scale = torch.rsqrt(var + eps).to(x.dtype)
     return (x - m.to(x.dtype)) * scale

@@ -1,4 +1,4 @@
-"""The data and tensor axes and the GPipe trunk over ``torch.distributed``."""
+"""The data, spatial and tensor axes and the GPipe trunk over ``torch.distributed``."""
 
 from tfcgan_tpu_torch.parallel.distributed import (
     global_mesh_devices,
@@ -14,6 +14,7 @@ from tfcgan_tpu_torch.parallel.mesh import (
     all_reduce_min,
     all_reduce_sum,
     local_part,
+    local_rows,
     local_share,
     loss_mesh,
     make_mesh,
@@ -21,6 +22,14 @@ from tfcgan_tpu_torch.parallel.mesh import (
     replicate,
     shard_batch,
     shard_draws,
+)
+from tfcgan_tpu_torch.parallel.spatial import (
+    Rows,
+    SpatialAxis,
+    active_rows,
+    gather_spatial,
+    image_rows,
+    split_rows,
 )
 from tfcgan_tpu_torch.parallel.tensor import (
     TensorAxis,

@@ -1,14 +1,16 @@
 """Multi-process runtime set-up, port of ``tfcgan_tpu.parallel.distributed``.
 
 One process drives one card; the processes of a job form the
-``torch.distributed`` world, the (data, tensor) grid of ``parallel.mesh``. Going
-multi-process changes two things, as in the JAX package:
+``torch.distributed`` world, the (data, spatial, tensor) grid of
+``parallel.mesh``. Going multi-process changes two things, as in the JAX
+package:
 
 1. call :func:`initialize` once per process before the first collective
    (``cli train`` and ``cli test`` do so under ``torchrun``);
 2. feed each process its own share of the global batch (``mesh.shard_batch``,
-   or ``mesh.local_share``: by the data coordinate, so that the ranks of a
-   tensor group get the same samples).
+   or ``mesh.local_share``: by the data coordinate, so that the spatial and
+   tensor ranks of a share get the same samples; on a spatial mesh each
+   image's rows cut by the spatial coordinate, ``mesh.local_rows``).
 
 The gradient mean is the trainer's (``train/trainer.py``), coalesced
 all-reduces a phase: NCCL between cards, gloo on the host.

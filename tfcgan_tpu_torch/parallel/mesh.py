@@ -1,21 +1,26 @@
-"""The data and tensor axes over ``torch.distributed``, port of
+"""The data, spatial and tensor axes over ``torch.distributed``, port of
 ``tfcgan_tpu.parallel.mesh``.
 
 The JAX package shards the batch over a device mesh and lets XLA insert the
 gradient ``psum``; here a process drives one card. ``Mesh`` is a small
 record: the axis names and shape, this rank, the world size, the world's
 process group, this rank's device, and its coordinates on the axes. Without
-a tensor axis the world is the data axis. With ``make_mesh(tensor=t)`` the
-world of ``d * t`` ranks is a (data, tensor) grid, tensor innermost as in
-JAX (``rank = data_idx * t + tensor_idx``): the ranks of one data share form
-a tensor group (``parallel.tensor``: every parameter that the JAX rule
-shards is held as a slice on each of them, and its layer computes only its
-out-channels), the ranks of one tensor coordinate a data group. Parameters
-are broadcast from rank 0 (``replicate``/``place_state``, which then keeps
-each rank's slices on a tensor mesh), a batch is cut into equal contiguous
-shares by the data coordinate (``shard_batch``: the tensor ranks of a share
-see the same samples and draws), and the trainer averages each phase's
-gradients over the data group.
+a spatial or tensor axis the world is the data axis. With
+``make_mesh(spatial=s, tensor=t)`` the world of ``d * s * t`` ranks is a
+(data, spatial, tensor) grid, ordered as JAX reshapes its devices, tensor
+innermost: ``rank = (data_idx * s + spatial_idx) * t + tensor_idx``. The
+ranks that share (data, spatial) form a tensor group (``parallel.tensor``:
+every parameter that the JAX rule shards is held as a slice on each of them,
+and its layer computes only its out-channels); those that share (data,
+tensor) a spatial group (``parallel.spatial``: each holds a shard of every
+image's rows, and the spatially aware layers exchange halo rows); those that
+share (spatial, tensor) a data group. Parameters are broadcast from rank 0
+(``replicate``/``place_state``, which then keeps each rank's slices on a
+tensor mesh), a batch is cut into equal contiguous shares by the data
+coordinate (``shard_batch``: the spatial and tensor ranks of a share see the
+same samples and draws) and, on a spatial mesh, each image's rows by the
+spatial coordinate, and the trainer reduces each phase's gradients over the
+ranks that hold the same parameters (``all_reduce_mean_``).
 
 Each data share computes its loss over its samples. For a term that is a
 mean over samples, the mean of the shares' losses is the global batch's, and
@@ -28,10 +33,10 @@ mean over the data group then gives the global gradient once. The ops find
 the mesh with ``active_mesh()``: the trainer runs each step inside
 ``loss_mesh(mesh)``, as the JAX trainer traces its step inside ``loss_mesh``.
 
-The ``spatial`` axis is not ported: ``make_mesh`` refuses it (ROADMAP.md,
-Queue 1 item 7b). The ``NamedSharding`` helpers (``batch_sharding``,
-``image_sharding``, ``replicated_sharding``) have no meaning without XLA's
-partitioner and are left out.
+``image_sharding`` returns as ``shard_batch``'s row cut (``SPATIAL_KEYS``).
+The other ``NamedSharding`` helpers (``batch_sharding``,
+``replicated_sharding``) have no meaning without XLA's partitioner and are
+left out.
 """
 
 from __future__ import annotations
@@ -44,20 +49,31 @@ import torch
 import torch.distributed as dist
 
 from tfcgan_tpu_torch.parallel.distributed import local_device
+from tfcgan_tpu_torch.parallel.spatial import Rows, SpatialAxis
 from tfcgan_tpu_torch.parallel.tensor import TensorAxis, _AllReduceSum, is_sharded, shard_params
+
+# the batch arrays whose rows a spatial mesh cuts: the images, their uint8
+# forms and the temperature map T_B (cut to match; the recipe gathers it
+# with the images for the terms that read whole images)
+SPATIAL_KEYS = ("A", "B", "T_B", "A_u8", "B_u8")
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """A data mesh, or a (data, tensor) one: ``axis_names`` ("data",) or
-    ("data", "tensor"), ``shape`` {"data": d[, "tensor": t]}, this global
-    ``rank``, the ``world_size``, the world's process ``group`` (None for a
-    world of one without ``torch.distributed``, where every collective is
-    the identity) and this rank's ``device``; this rank's data coordinate
+    """A data mesh, or a (data[, spatial][, tensor]) one: ``axis_names``
+    ("data",), ("data", "spatial"), ("data", "tensor") or ("data", "spatial",
+    "tensor"), ``shape`` {"data": d[, "spatial": s][, "tensor": t]}, this
+    global ``rank``, the ``world_size``, the world's process ``group`` (None
+    for a world of one without ``torch.distributed``, where every collective
+    is the identity) and this rank's ``device``; this rank's data coordinate
     ``data_rank`` of ``data_size`` and the ``data_group`` (None where the
-    data axis has one coordinate), and the ``tensor`` axis
-    (``parallel.tensor.TensorAxis``), None on a data mesh. Without the data
-    fields the data axis is the world."""
+    data axis has one coordinate), the ``tensor`` axis
+    (``parallel.tensor.TensorAxis``) and the ``spatial`` axis
+    (``parallel.spatial.SpatialAxis``), None where the mesh has none, and
+    the ``replica_group``: the ranks that hold the same parameter slices
+    (one tensor coordinate; the data group without a spatial axis, the world
+    without a tensor axis). Without the data fields the data axis is the
+    world."""
 
     axis_names: tuple[str, ...]
     shape: dict
@@ -69,12 +85,16 @@ class Mesh:
     data_size: int | None = None
     data_group: object = None
     tensor: TensorAxis | None = None
+    spatial: SpatialAxis | None = None
+    replica_group: object = None
 
     def __post_init__(self):
         if self.data_size is None:  # a data mesh: the data axis is the world
             object.__setattr__(self, "data_rank", self.rank)
             object.__setattr__(self, "data_size", self.world_size)
             object.__setattr__(self, "data_group", self.group)
+        if self.spatial is None and self.replica_group is None:
+            object.__setattr__(self, "replica_group", self.data_group)
 
     @property
     def axis(self) -> str:
@@ -84,21 +104,34 @@ class Mesh:
     def tensor_size(self) -> int:
         return 1 if self.tensor is None else self.tensor.size
 
+    @property
+    def spatial_size(self) -> int:
+        return 1 if self.spatial is None else self.spatial.size
+
+    @property
+    def leads_tensor_group(self) -> bool:
+        """Whether this rank is in rank 0's tensor group (data and spatial
+        coordinates 0): the ranks that gather a sharded state with rank 0."""
+        return self.rank < self.tensor_size
+
+    def image_rows(self, h: int) -> Rows | None:
+        """The row record of images of global height ``h`` (None without a
+        spatial axis)."""
+        return None if self.spatial is None else Rows(self.spatial, h)
+
 
 def make_mesh(num_devices: int | None = None, axis: str = "data", spatial: int = 1,
               tensor: int = 1, device=None) -> Mesh:
     """The mesh over the initialised ``torch.distributed`` world (a world of
-    one without it): a data mesh, or with ``tensor`` > 1 a (data, tensor)
-    mesh of world / ``tensor`` data shares, tensor innermost. The world must
-    divide by ``tensor`` (the JAX ``make_mesh`` asserts it), and
-    ``num_devices`` must be the world size: the mesh never carries on with
-    fewer ranks than it was asked for. ``device`` is this rank's device
-    (default ``distributed.local_device``: ``cuda:$LOCAL_RANK`` under NCCL,
-    the host under gloo). Every rank calls it: the groups are made collectively."""
-    if spatial > 1:
-        raise NotImplementedError(
-            "the 'spatial' mesh axis is not ported yet (ROADMAP.md, Queue 1 item 7b: a halo "
-            "exchange in every conv and pool); the 'data' and 'tensor' axes are")
+    one without it): a data mesh, or with ``spatial`` > 1 and/or ``tensor``
+    > 1 a (data[, spatial][, tensor]) mesh of world / (``spatial`` x
+    ``tensor``) data shares, tensor innermost, as the JAX ``make_mesh``
+    orders its devices. The world must divide by ``spatial`` x ``tensor``
+    (the JAX function asserts it), and ``num_devices`` must be the world
+    size: the mesh never carries on with fewer ranks than it was asked for.
+    ``device`` is this rank's device (default ``distributed.local_device``:
+    ``cuda:$LOCAL_RANK`` under NCCL, the host under gloo). Every rank calls
+    it: the groups are made collectively."""
     if dist.is_initialized():
         group, world, rank = dist.group.WORLD, dist.get_world_size(), dist.get_rank()
     else:
@@ -106,22 +139,51 @@ def make_mesh(num_devices: int | None = None, axis: str = "data", spatial: int =
     if num_devices is not None and num_devices != world:
         raise ValueError(f"make_mesh({num_devices}) in a world of {world} process(es): start "
                          f"{num_devices} processes (torchrun --nproc_per_node {num_devices})")
-    if tensor < 1 or world % tensor:
-        raise ValueError(f"a world of {world} process(es) is not divisible by the 'tensor' "
-                         f"axis of {tensor}: start a multiple of {tensor} processes")
+    for name, n in (("spatial", spatial), ("tensor", tensor)):
+        if n < 1 or world % n:
+            raise ValueError(f"a world of {world} process(es) is not divisible by the "
+                             f"'{name}' axis of {n}: start a multiple of {n} processes")
+    if world % (spatial * tensor):
+        raise ValueError(f"a world of {world} process(es) is not divisible by the 'spatial' x "
+                         f"'tensor' axes of {spatial} x {tensor}")
     device = torch.device(device) if device is not None else local_device()
-    if tensor == 1:
+    if spatial == 1 and tensor == 1:
         return Mesh((axis,), {axis: world}, rank, world, group, device)
-    data = world // tensor
-    data_rank, tensor_rank = divmod(rank, tensor)
+    data = world // (spatial * tensor)
+    data_rank, rest = divmod(rank, spatial * tensor)
+    spatial_rank, tensor_rank = divmod(rest, tensor)
+
+    def ranks(d=None, s=None, t=None):
+        return [(dd * spatial + ss) * tensor + tt for dd in ([d] if d is not None else range(data))
+                for ss in ([s] if s is not None else range(spatial))
+                for tt in ([t] if t is not None else range(tensor))]
+
     # every rank makes every group, in the same order
-    tensor_groups = [dist.new_group(list(range(i * tensor, (i + 1) * tensor)))
-                     for i in range(data)]
-    data_groups = ([dist.new_group(list(range(j, world, tensor))) for j in range(tensor)]
-                   if data > 1 else [None] * tensor)
-    return Mesh((axis, "tensor"), {axis: data, "tensor": tensor}, rank, world, group, device,
-                data_rank, data, data_groups[tensor_rank],
-                TensorAxis(tensor_groups[data_rank], tensor_rank, tensor))
+    def groups(n, members):
+        return [dist.new_group(m) for m in members] if n > 1 else [None] * len(members)
+
+    coords = [(d, s) for d in range(data) for s in range(spatial)]
+    tensor_groups = groups(tensor, [ranks(d, s) for d, s in coords])
+    spatial_groups = groups(spatial, [ranks(d, t=t) for d in range(data)
+                                      for t in range(tensor)])
+    data_groups = groups(data, [ranks(s=s, t=t) for s in range(spatial) for t in range(tensor)])
+    if spatial == 1:
+        replica = None  # the data group (Mesh.__post_init__)
+    elif tensor == 1:
+        replica = group
+    else:
+        replica = groups(data * spatial, [ranks(t=t) for t in range(tensor)])[tensor_rank]
+    names = (axis, *(("spatial",) if spatial > 1 else ()), *(("tensor",) if tensor > 1 else ()))
+    shape = {axis: data, "spatial": spatial, "tensor": tensor}
+    return Mesh(names, {k: shape[k] for k in names}, rank, world, group, device, data_rank, data,
+                data_groups[spatial_rank * tensor + tensor_rank],
+                None if tensor == 1 else TensorAxis(tensor_groups[data_rank * spatial
+                                                                  + spatial_rank],
+                                                    tensor_rank, tensor),
+                None if spatial == 1 else SpatialAxis(spatial_groups[data_rank * tensor
+                                                                     + tensor_rank],
+                                                      spatial_rank, spatial),
+                replica)
 
 
 # the mesh that the collectives of the ops below see while a step runs
@@ -153,7 +215,8 @@ def _leading(batch: dict) -> int:
 
 def local_share(n: int, mesh: Mesh) -> slice:
     """This rank's contiguous share of ``n`` samples (equal shares only), by
-    its data coordinate: the tensor ranks of a share get the same samples."""
+    its data coordinate: the spatial and tensor ranks of a share get the same
+    samples."""
     if n % mesh.data_size:
         raise ValueError(
             f"global batch size {n} is not divisible by the mesh's '{mesh.axis}' axis "
@@ -177,25 +240,43 @@ def shard_draws(draws, mesh: Mesh | None):
     gathered activations disagree): the per-sample fields that the
     draws' dataclass names in ``PER_SAMPLE`` (tensors, or dicts of tensors,
     with the batch first) are cut to this rank's samples; the shared fields
-    (patch negatives, jitter factors, the replay buffers' coins) stay whole."""
-    if draws is None or mesh is None or mesh.data_size == 1:
+    (patch negatives, jitter factors, the replay buffers' coins) stay whole.
+    On a spatial mesh the per-pixel fields named in ``PER_ROW`` (the dropout
+    keep-masks, (N, H, W, C) at their maps' global heights) are also cut to
+    this rank's rows of their maps."""
+    if draws is None or mesh is None or (mesh.data_size == 1 and mesh.spatial is None):
         return draws
 
-    def cut(v):
+    def cut(v, rows):
         if isinstance(v, dict):
-            return {k: cut(x) for k, x in v.items()}
-        return None if v is None else local_part(v, mesh)
+            return {k: cut(x, rows) for k, x in v.items()}
+        if v is None:
+            return None
+        v = local_part(v, mesh)
+        return mesh.image_rows(v.shape[1]).cut(v).contiguous() if rows else v
 
-    return dataclasses.replace(draws, **{f: cut(getattr(draws, f))
+    per_row = getattr(type(draws), "PER_ROW", ()) if mesh.spatial is not None else ()
+    return dataclasses.replace(draws, **{f: cut(getattr(draws, f), f in per_row)
                                          for f in type(draws).PER_SAMPLE})
+
+
+def local_rows(batch: dict, mesh: Mesh | None) -> dict:
+    """``batch`` with each image of ``SPATIAL_KEYS`` cut to this rank's rows
+    on a spatial mesh (``batch`` itself off one): the JAX ``image_sharding``'s
+    H split."""
+    if mesh is None or mesh.spatial is None:
+        return batch
+    return {k: mesh.image_rows(v.shape[1]).cut(v) if k in SPATIAL_KEYS else v
+            for k, v in batch.items()}
 
 
 def shard_batch(batch: dict, mesh: Mesh) -> dict:
     """This rank's contiguous share of a global batch (numpy or tensors), on
-    its device. The shares are equal: a mean of the ranks' means is then the
-    global mean."""
+    its device, each image cut to this rank's rows on a spatial mesh. The
+    shares are equal: a mean of the ranks' means is then the global mean."""
     part = local_share(_leading(batch), mesh)
-    return {k: torch.as_tensor(v[part]).to(mesh.device) for k, v in batch.items()}
+    batch = local_rows({k: torch.as_tensor(v[part]) for k, v in batch.items()}, mesh)
+    return {k: v.contiguous().to(mesh.device) for k, v in batch.items()}
 
 
 def _tensors(obj) -> list[torch.Tensor]:
@@ -326,11 +407,15 @@ def all_reduce_min(x: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
 
 
 def all_reduce_mean_(tensors: list[torch.Tensor], mesh: Mesh, over: str = "data") -> int:
-    """Average ``tensors`` (of one dtype) in place through one coalesced flat
-    buffer, one all-reduce, over the data group (``over="data"``) or the
-    whole world (``"world"``); returns the buffer's bytes (0 without a group)."""
-    group, size = ((mesh.data_group, mesh.data_size) if over == "data"
-                   else (mesh.group, mesh.world_size))
+    """Reduce ``tensors`` (of one dtype) in place through one coalesced flat
+    buffer, one all-reduce: summed over the spatial group (each spatial rank
+    holds its share: ``parallel.spatial``'s rule) and averaged over the data
+    group, over the replica group (``over="data"``: a sharded parameter's
+    slice, a metric) or the whole world (``"world"``: a replicated
+    parameter, equal over a tensor group, which is averaged too); returns
+    the buffer's bytes (0 without a group)."""
+    group, size = ((mesh.replica_group, mesh.data_size) if over == "data"
+                   else (mesh.group, mesh.data_size * mesh.tensor_size))
     if group is None or not tensors:
         return 0
     if len({t.dtype for t in tensors}) != 1:

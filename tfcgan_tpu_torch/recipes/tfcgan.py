@@ -21,6 +21,24 @@ mask as a 4th channel. The debiased entries (``conditional``, V1-V7, see
 two regional ResNet-18s (``cnns``) on the fake's hair and eye bands: frozen
 backbones, with the classifier heads trained by G's Adam in V4-V6 and frozen
 in V7. Every random draw of a step is a field of ``StepDraws``.
+
+On a spatial mesh (``parallel.spatial``; the step's image rows in
+``active_rows()``) the 18 entries that build ``GeneratorUNet`` +
+``PatchDiscriminator`` run on row shards: fft_glo, fft_glo_16p, fft_patch_4,
+fft_patch_16, fft_patch_region, fft_patch_region_kl, original_16p,
+triptemp_base, triptemp_16p, favtgan_l1, favtgan_tempmap, triptemp_ed,
+triptemp_ea, triptemp_ed_16p, triptemp_ea_16p, ablation_nopatch,
+ablation_noperc and ablation_notemp. G, D and LPIPS run on this rank's rows,
+and the adversarial and LPIPS terms are this rank's shares; the 3-channel
+fake and real images (and T_B) are gathered over the spatial group once, and
+the terms that read whole images (the patch triplet, whose negatives are
+other patches' rows; the temperature terms, whose ColorJitter contrast uses
+each image's mean; the FFT, region and msrecon terms) are computed whole on
+every rank and counted once (each rank's share 1 / S: the axis's gradient
+rule). The debiased entries (``ConditionalGeneratorUNet``, the aux
+classifier's Dense over flattened features, the regional ResNet-18s) and
+``fft_patch_mask`` (the saliency mask) refuse a spatial mesh
+(``supports_spatial``; ROADMAP.md Queue 1 item 7c).
 """
 
 from __future__ import annotations
@@ -51,6 +69,7 @@ from tfcgan_tpu_torch.ops.saliency import saliency_mask
 from tfcgan_tpu_torch.ops.temperature import temperature_lut
 from tfcgan_tpu_torch.ops.triplet import triplet_margin_loss
 from tfcgan_tpu_torch.parallel.mesh import active_mesh, all_gather_batch
+from tfcgan_tpu_torch.parallel.spatial import active_rows, gather_spatial, replicated_share
 
 
 def _dtype(cfg: ExperimentConfig) -> torch.dtype:
@@ -91,6 +110,7 @@ class StepDraws:
     """Every random draw of one train step."""
 
     PER_SAMPLE: ClassVar[tuple[str, ...]] = ('dropout_masks', 'g_labels', 'd_fake_labels')
+    PER_ROW: ClassVar[tuple[str, ...]] = ('dropout_masks',)  # cut to the blocks' rows too
 
     patch_neg: torch.Tensor  # (grid²,) int64: the real patch each patch term uses as negative
     jitter_factors: torch.Tensor  # (4,) float32: brightness, contrast, saturation, hue
@@ -294,6 +314,12 @@ class TFCGANRecipe:
         if self.perceptual == "lpips":
             self.lpips = LPIPS(dtype=dtype, device=device)
 
+    @property
+    def supports_spatial(self) -> bool:
+        """Whether the entry runs on a spatial mesh: not the debiased
+        (conditional) entries nor the saliency mask (ROADMAP.md, 7c)."""
+        return not (self.cfg.loss.conditional or self.cfg.loss.use_mask)
+
     def init(self, generator: torch.Generator) -> None:
         """Draw G, D (with spectral u/v), LPIPS and the regional CNNs from
         ``generator``; where converted weights resolve, LPIPS and the CNNs'
@@ -349,21 +375,34 @@ class TFCGANRecipe:
 
     def _disc_pair(self, first: torch.Tensor, second: torch.Tensor, cond: torch.Tensor):
         if self._single_pass_d():
-            both = self.D(torch.cat([first, second.to(first.dtype)]), torch.cat([cond, cond]))
+            both = self._d(torch.cat([first, second.to(first.dtype)]), torch.cat([cond, cond]))
             return both[:first.shape[0]], both[first.shape[0]:]
         return self._disc(first, cond), self._disc(second, cond)
+
+    def _d(self, img: torch.Tensor, cond: torch.Tensor):
+        rows = active_rows()
+        return self.D(img, cond) if rows is None else self.D(img, cond, rows)
 
     def _disc(self, img: torch.Tensor, cond: torch.Tensor):
         if self.per_forward_spectral:
             spectral_power_iteration(self.D, order="uv")
-        return self.D(img, cond)
+        return self._d(img, cond)
+
+    def _logit_rows(self):
+        """The record of D's row-sharded logits (None off a spatial mesh)."""
+        rows = active_rows()
+        return None if rows is None else self.D.out_rows(rows)
 
     def generate(self, batch: dict, draws: StepDraws, labels: torch.Tensor | None = None
                  ) -> torch.Tensor:
-        """G's output on the batch (``labels``: the conditional G's (N, 3) labels)."""
+        """G's output on the batch (``labels``: the conditional G's (N, 3)
+        labels); on a spatial mesh, this rank's rows of it."""
         if self.cfg.loss.conditional:
             return self.G(batch["A"], labels.float(), draws.dropout_masks)
-        return self.G(g_input(self.cfg, batch["A"]), draws.dropout_masks)
+        rows = active_rows()
+        if rows is None:
+            return self.G(g_input(self.cfg, batch["A"]), draws.dropout_masks)
+        return self.G(g_input(self.cfg, batch["A"]), draws.dropout_masks, rows)
 
     def _label_ce(self, probs_f, g3: torch.Tensor, fake: torch.Tensor) -> torch.Tensor:
         """G's label loss against the labels G was conditioned on."""
@@ -396,37 +435,48 @@ class TFCGANRecipe:
         else:
             fake = self.generate(batch, draws)
             pred_fake, pred_real = self._disc_pair(fake, b, a)
-        adv = relativistic_g_loss(pred_fake, pred_real, lc.label_smooth)
+        rows = active_rows()
+        adv = relativistic_g_loss(pred_fake, pred_real, lc.label_smooth, self._logit_rows())
         metrics = {"g_adv": adv}
         total = lc.adv_weight * adv
+        # the terms that read whole images: on a spatial mesh the images
+        # gathered once, each term counted once over the group (1 / S a rank)
+        whole_fake, whole_b = gather_spatial(fake, rows), gather_spatial(b, rows)
+        t_b = gather_spatial(batch["T_B"], rows) if lc.use_temp else None
+
+        def whole(term):
+            return replicated_share(term, rows)
+
         if lc.patch_grid > 0:
-            metrics["g_triplet"] = patch_triplet_loss(fake, b, draws.patch_neg, lc.patch_grid)
+            metrics["g_triplet"] = whole(patch_triplet_loss(whole_fake, whole_b, draws.patch_neg,
+                                                            lc.patch_grid))
             total = total + lc.triplet_weight * metrics["g_triplet"]
         if lc.use_temp:
             if lc.temp_mode == "l1":
-                temp = temperature_l1_loss(fake, batch["T_B"], lc.temp_lambda, lc.temp_quantize)
+                temp = temperature_l1_loss(whole_fake, t_b, lc.temp_lambda, lc.temp_quantize)
             elif lc.temp_mode == "tempmap":
-                temp = temperature_map_loss(fake, b, batch["T_B"], lc.temp_quantize)
+                temp = temperature_map_loss(whole_fake, whole_b, t_b, lc.temp_quantize)
             else:
-                temp = temperature_triplet_loss(fake, b, batch["T_B"], draws.jitter_factors,
-                                                draws.jitter_order, lc.temp_lambda,
-                                                lc.temp_quantize)
-            metrics["g_temp"] = temp
-            total = total + lc.temp_weight * temp
+                temp = temperature_triplet_loss(whole_fake, whole_b, t_b,
+                                                draws.jitter_factors, draws.jitter_order,
+                                                lc.temp_lambda, lc.temp_quantize)
+            metrics["g_temp"] = whole(temp)
+            total = total + lc.temp_weight * metrics["g_temp"]
         if self.lpips is not None:
-            metrics["g_lpips"] = self.lpips(fake, b).mean()
+            lp = self.lpips(fake, b) if rows is None else self.lpips(fake, b, rows)
+            metrics["g_lpips"] = lp.mean()
             total = total + lc.lpips_weight * metrics["g_lpips"]
         elif self.perceptual == "msrecon":
-            metrics["g_lpips"] = multiscale_recon(fake, b)
+            metrics["g_lpips"] = whole(multiscale_recon(whole_fake, whole_b))
             total = total + lc.lpips_weight * metrics["g_lpips"]
         if lc.fft_mode != "off":
             if lc.conditional and self.axes["fft_triplet"]:
                 metrics["g_fft"] = fft_triplet_loss(fake, b, draws.fft_neg, lc)
             else:
-                metrics["g_fft"] = fft_loss(fake, b, lc)
+                metrics["g_fft"] = whole(fft_loss(whole_fake, whole_b, lc))
             total = total + lc.fft_weight * metrics["g_fft"]
         if lc.region_fft != "off":
-            metrics["g_region_fft"] = regional_fft_loss(fake, b, lc)
+            metrics["g_region_fft"] = whole(regional_fft_loss(whole_fake, whole_b, lc))
             total = total + lc.region_fft_weight * metrics["g_region_fft"]
         if lc.use_mask:
             metrics["g_mask"] = (saliency_mask(fake) - saliency_mask(b)).abs().mean()
@@ -443,7 +493,8 @@ class TFCGANRecipe:
         a, b = batch["A"], batch["B"]
         if not lc.conditional:
             pred_real, pred_fake = self._disc_pair(b, aux["fake_b"], a)
-            loss = relativistic_d_loss(pred_real, pred_fake, lc.label_smooth, lc.d_loss_weight)
+            loss = relativistic_d_loss(pred_real, pred_fake, lc.label_smooth, lc.d_loss_weight,
+                                       self._logit_rows())
             return loss, {"loss_D": loss}
         pred_real, probs_r = self._disc(b, a)
         pred_fake, probs_f = self._disc(aux["fake_b"], a)

@@ -103,7 +103,7 @@ def _writes(mesh) -> bool:
 
 def _gathers(mesh) -> bool:
     """Whether this rank takes part in the state's gathers: rank 0's tensor group."""
-    return _writes(mesh) or (mesh.tensor is not None and mesh.data_rank == 0)
+    return _writes(mesh) or (mesh.tensor is not None and mesh.leads_tensor_group)
 
 
 def _snapshot(path: str, state: TrainState, mesh) -> dict | None:

@@ -48,9 +48,21 @@ draws: a sharded parameter's gradient is averaged over the data group (the
 ranks that hold the same slice), a replicated one's over the whole world
 (equal over a tensor group up to the order of float32 sums, so the mean
 keeps the replicas bit for bit equal), the metrics over the data group.
-Without a ``mesh`` argument the trainer builds one from ``cfg.mesh`` when it
-asks for more than one process (``num_devices`` > 1, ``tensor`` > 1, or
-``spatial`` > 1, which is refused), as the JAX trainer does.
+
+On a mesh with a spatial axis (``make_mesh(spatial=s)``, or
+``cfg.mesh.spatial``) each rank of a data share holds its rows of the
+share's images (``shard_batch``, or a device batch cut so by the pool or
+the prefetcher), the dropout keep-masks are cut to its rows, and the step
+runs inside ``parallel.spatial.image_rows``, which tells the recipe the
+images' global height (read from the host batch; a device batch holds
+rows of ``cfg.data.image_size``-row images). Each rank's loss is its share
+(the axis's rule, ``parallel.spatial``), so each gradient is summed over
+the spatial group and averaged over the data group (``all_reduce_mean_``),
+and so are the metrics. A recipe runs there only if it says so (``supports_spatial``); the
+others are refused (ROADMAP.md, Queue 1 item 7c). Without a ``mesh``
+argument the trainer builds one from ``cfg.mesh`` when it asks for more than
+one process (``num_devices`` > 1, ``tensor`` > 1 or ``spatial`` > 1), as
+the JAX trainer does.
 """
 
 from __future__ import annotations
@@ -66,8 +78,9 @@ import torch.nn as nn
 from tfcgan_tpu_torch.config import ExperimentConfig
 from tfcgan_tpu_torch.data.prefetch import is_device_batch
 from tfcgan_tpu_torch.models.layers import spectral_power_iteration
-from tfcgan_tpu_torch.parallel.mesh import (Mesh, all_reduce_mean_, loss_mesh, make_mesh,
-                                            place_state, shard_batch, shard_draws)
+from tfcgan_tpu_torch.parallel.mesh import (SPATIAL_KEYS, Mesh, all_reduce_mean_, loss_mesh,
+                                            make_mesh, place_state, shard_batch, shard_draws)
+from tfcgan_tpu_torch.parallel.spatial import image_rows
 from tfcgan_tpu_torch.parallel.tensor import full_tensors, tensor_dim
 from tfcgan_tpu_torch.train.state import (TrainState, create_state, learning_rate,
                                           set_learning_rate)
@@ -160,7 +173,7 @@ def make_train_step(cfg: ExperimentConfig, recipe, mesh: Mesh | None = None,
             d_metrics = d_phase(state, batch, before_d(state, aux, draws))
         state.step += 1
         metrics = {k: v.detach() for k, v in {**g_metrics, **d_metrics}.items()}
-        if mesh is not None and mesh.data_group is not None:  # the global batch's means
+        if mesh is not None and mesh.replica_group is not None:  # the global batch's means
             names = sorted(metrics)
             values = [metrics[k].float().reshape(1) for k in names]
             all_reduce_mean_(values, mesh)
@@ -200,11 +213,12 @@ def assert_finite(metrics: dict, step: int) -> None:
 class Trainer:
     """Runs the step on the recipe's device. ``draw_fn(state, batch)`` gives
     each step's draws (default: ``recipe.draw(state.generator, batch)``);
-    ``logger`` is anything with ``write(dict)``; ``mesh`` a data or (data,
-    tensor) mesh (``parallel.make_mesh``); None builds it from ``cfg.mesh``
-    where that asks for more than one process, else runs one process.
-    Under a mesh, ``draw_fn`` sees the global batch's shapes (its tensors
-    are on the meta device) and its draws are cut to this rank's samples."""
+    ``logger`` is anything with ``write(dict)``; ``mesh`` a data or (data[,
+    spatial][, tensor]) mesh (``parallel.make_mesh``); None builds it from
+    ``cfg.mesh`` where that asks for more than one process, else runs one
+    process. Under a mesh, ``draw_fn`` sees the global batch's shapes (its
+    tensors are on the meta device) and its draws are cut to this rank's
+    samples (and rows)."""
 
     def __init__(self, cfg: ExperimentConfig, recipe, draw_fn: Callable | None = None,
                  logger=None, mesh: Mesh | None = None):
@@ -212,6 +226,11 @@ class Trainer:
         if mesh is None and ((m.num_devices or 1) > 1 or m.tensor > 1 or m.spatial > 1):
             mesh = make_mesh(m.num_devices, spatial=m.spatial, tensor=m.tensor,
                              device=recipe.device)
+        if mesh is not None and mesh.spatial is not None and not getattr(
+                recipe, "supports_spatial", False):
+            raise NotImplementedError(
+                f"experiment {cfg.name!r} (recipe {getattr(recipe, 'name', recipe)!r}) does not "
+                "run on a spatial mesh yet: ROADMAP.md, Queue 1 item 7c")
         self.cfg, self.recipe, self.logger, self.mesh = cfg, recipe, logger, mesh
         self.draw_fn = draw_fn or (lambda state, batch: recipe.draw(state.generator, batch))
         self.stats = CollectiveStats()
@@ -235,23 +254,39 @@ class Trainer:
         recipe's device (``data.prefetch.is_device_batch``) is used as it is;
         under a mesh such a batch is this rank's share, any other the global
         batch, which ``parallel.shard_batch`` cuts."""
-        dev = self.recipe.device
+        dev, mesh = self.recipe.device, self.mesh
+        rows = None
         if not is_device_batch(batch, dev):
-            if self.mesh is not None:
-                batch = shard_batch(batch, self.mesh)
+            if mesh is not None:
+                if mesh.spatial is not None:
+                    rows = mesh.image_rows(int(batch["A"].shape[1]))
+                batch = shard_batch(batch, mesh)
             images = {k: torch.as_tensor(v).to(dev, torch.float32) for k, v in batch.items()
                       if k in ("A", "B", "T_B")}
             labels = {k: torch.as_tensor(v).to(dev, torch.int64) for k, v in batch.items()
                       if k in ("LAB", "LAB3")}
             batch = {**images, **labels}
-        if self.mesh is None:
+        elif mesh is not None and mesh.spatial is not None:
+            # a device batch (the pool's, the prefetcher's) holds this rank's
+            # rows of images of the run's size: no collective to learn it
+            rows = mesh.image_rows(self.cfg.data.image_size)
+            if batch["A"].shape[1] != rows.n:
+                raise ValueError(
+                    f"a device batch on a spatial mesh holds this rank's rows of "
+                    f"{self.cfg.data.image_size}-row images ({rows.n} rows), got "
+                    f"{batch['A'].shape[1]}; pass other sizes as a host batch")
+        if mesh is None:
             draws = self.draw_fn(state, batch)
         else:
-            shares = self.mesh.data_size
-            shapes = {k: torch.empty((v.shape[0] * shares, *v.shape[1:]), dtype=v.dtype,
-                                     device="meta") for k, v in batch.items()}
-            draws = shard_draws(self.draw_fn(state, shapes), self.mesh)
-        metrics = self._step_fn(state, batch, draws)
+            shapes = {}
+            for k, v in batch.items():
+                shape = [v.shape[0] * mesh.data_size, *v.shape[1:]]
+                if rows is not None and k in SPATIAL_KEYS:
+                    shape[1] = rows.h
+                shapes[k] = torch.empty(shape, dtype=v.dtype, device="meta")
+            draws = shard_draws(self.draw_fn(state, shapes), mesh)
+        with image_rows(rows):
+            metrics = self._step_fn(state, batch, draws)
         self.last_metrics = metrics  # on the device; a read syncs
         return metrics
 
@@ -280,7 +315,7 @@ class Trainer:
         mesh, logger = self.mesh, self.logger
         if mesh is not None and mesh.rank != 0:
             logger = hist_logger = None
-            if mesh.tensor is None or mesh.data_rank != 0:
+            if mesh.tensor is None or not mesh.leads_tensor_group:
                 sample_hook, hist_every = None, None
         elif hist_logger is None and (mesh is None or mesh.tensor is None):
             hist_every = None
