@@ -7,8 +7,8 @@ chain, on one CUDA card.
 
     python3 chip_smoke.py [--params g_params.npz] [--init-seed 0]
 
-Phases, one line or more each; any failure raises and exits non-zero (20,
-21 and 22 run after 19, and 18 last):
+Phases, one line or more each; any failure raises and exits non-zero (20
+to 23 run after 19, and 18 last):
 
 1. environment: torch/CUDA versions, the card, its power limit; TF32 off.
 2. build: g++ builds ``tfcgan_tpu_torch/csrc/fastpair.cpp`` (the pair
@@ -228,7 +228,7 @@ Phases, one line or more each; any failure raises and exits non-zero (20,
    the order), 2 epochs, and ``--resume`` from the first epoch's checkpoint:
    weights, replay buffers and Adam states of the two final checkpoints equal
    bit for bit, under ``cudnn.deterministic``.
-18. the result, printed after 22: the card's ``nvidia-smi`` line, one JSON
+18. the result, printed after 23: the card's ``nvidia-smi`` line, one JSON
    line for the kernels, and last ``{"ok": true, "device": {...}}``.
 19. the data and evaluation chain at 256², bf16, on 64 synthetic A|B PNG
    pairs, 32 of 320x640 (resized) and 32 of 256x512: (a) the native decoder:
@@ -302,6 +302,29 @@ Phases, one line or more each; any failure raises and exits non-zero (20,
    ``spatial_fft_glo``); step 2's peak memory above what each process held
    before it, a rank against one process; (c) one bf16 step on the pair,
    finite and within ``TENSOR_DIFF_TOL`` of one process's.
+23. the spatial axis for the STN family and TFC-Diff: (a) K4 with local
+   queries (``sq`` < ``sk``), float32 and bfloat16, forward, dq and dk/dv
+   through ``flash_attention`` and autograd against the plain version, on
+   every query share of 2 and 3 ranks of the (32 x 8 heads, D 8, 4096)
+   attention (sq 2048, and 1408 / 1344 / 1344): within phase 13's
+   tolerances, each share's output, lse and dq bit for bit the
+   whole-sequence launch's rows; the three kernels' times for rank 0 of 2
+   (sq 2048) against the whole sequence (sq 4096) at sk 4096 in bfloat16;
+   (b) K2's output windows (``o_base``): the stn warp's y-pass at (32, 256,
+   256, 3) float32 cubic cut into the rows of 2 and 3 ranks, each window's
+   forward bit for bit the whole launch's rows and all three kernels within
+   phase 4's bounds of the plain window, the windows' adjoints and position
+   gradients summed within them of the whole launch's; (c) stn_newmodel3
+   float32 at 256², global B=4 (the ViT-Base localizer on the gathered
+   pair, the warp's intermediate gathered), and tfc_diff float32 at 128²,
+   global B=8 (the attention's normed map gathered), each on two gloo ranks
+   of the card as (1 data x 2 spatial) against one process, as phase 22
+   (3 x the float32 floor, which here also takes A moved one step down;
+   gradients zero in exact arithmetic compared at a floor scale, see
+   ``SPATIAL_GRAD_FLOOR``); (d) one bf16 step each on the pair, finite;
+   (e) each rank's K1 + K2 and K4 launches a step (paths ``spatial_stn``
+   and ``spatial_tfc_diff``); (f) each rank's step peak memory against one
+   process's.
 
 In the kernels' JSON, ``launches`` is the count of the kernel's main path, the
 last train path driven that runs it (``main_path``: phase 10's three steps for
@@ -331,8 +354,13 @@ alone: eager calls of the small shapes time the wrapper's host work), and
 ``step_calls`` bf16 calls at batch 128; ``row_edge_step_ms`` the same calls
 in the row-edge form on rank 0 of a spatial pair's windows,
 ``row_edge_halo_copy_ms`` (forward) the copies that build those windows, and
-``row_edge_max_abs_err`` phase 22's largest error against the plain row form. Each resampling kernel's
-``graph_ms`` is its warp's ``ms`` on the device alone, and for the forward
+``row_edge_max_abs_err`` phase 22's largest error against the plain row form.
+Each flash attention kernel's ``local_query_*`` keys are phase 23's: the
+largest error of the local-query cases, the time for rank 0 of 2's 2048
+queries against 4096 keys, the whole sequence's time at the same keys and
+the former's bound; each resampling kernel's ``window_max_abs_err`` phase
+23's largest error of an output window against the plain one. Each
+resampling kernel's ``graph_ms`` is its warp's ``ms`` on the device alone, and for the forward
 and the position gradient ``bf16_ms``, ``bf16_graph_ms`` and
 ``bf16_bound_ms`` the same with a bfloat16 image.
 ``max_abs_err`` is the largest error of phase 3, 4, 5 or 13. ``library_ms`` is ``F.grid_sample`` on the same inputs (for the backward
@@ -402,7 +430,7 @@ from tfcgan_tpu_torch.train.checkpoint import (STATE_FILE, AsyncCheckpointManage
                                                save_checkpoint)
 from tfcgan_tpu_torch.train.profiling import count_params
 from tfcgan_tpu_torch.train.trainer import Trainer
-from tfcgan_tpu_torch.parallel import spatial
+from tfcgan_tpu_torch.parallel import place_state, spatial
 
 STRIDE2_SHAPES = [(8, 255, 255, 64), (8, 127, 127, 128), (8, 63, 63, 256), (8, 31, 31, 512),
                   (8, 15, 15, 512), (8, 7, 7, 512)]
@@ -730,23 +758,25 @@ def _within(got: torch.Tensor, want: torch.Tensor, tol: float, what: str,
     return err
 
 
-def check_resample(x, p, q, g, mode: str, border: bool, channels: int, what: str
-                   ) -> tuple[float, float, float]:
+def check_resample(x, p, q, g, mode: str, border: bool, channels: int, what: str,
+                   o_base: int = 0) -> tuple[float, float, float]:
     """The three kernels on one case against the plain version and its
-    autograd gradients; x (outer, l_in, inner), g (outer, l_out, inner). The
-    adjoint and the position gradient run twice and must repeat bit for bit."""
+    autograd gradients; x (outer, l_in, inner), g (outer, l_out, inner), the
+    outputs o_base .. o_base + l_out - 1 of each line. The adjoint and the
+    position gradient run twice and must repeat bit for bit."""
     l_in, l_out = x.shape[1], g.shape[1]
-    out = rkernel.resample_fwd(x, p, q, l_out, mode, border, channels)
-    gx = rkernel.resample_adjoint(g, p, q, l_in, mode, border, channels)
-    gp, gq = rkernel.resample_gradpos(x, g, p, q, mode, border, channels)
-    again = (rkernel.resample_adjoint(g, p, q, l_in, mode, border, channels),
-             *rkernel.resample_gradpos(x, g, p, q, mode, border, channels))
+    args = (mode, border, channels, o_base)
+    out = rkernel.resample_fwd(x, p, q, l_out, *args)
+    gx = rkernel.resample_adjoint(g, p, q, l_in, *args)
+    gp, gq = rkernel.resample_gradpos(x, g, p, q, *args)
+    again = (rkernel.resample_adjoint(g, p, q, l_in, *args),
+             *rkernel.resample_gradpos(x, g, p, q, *args))
     if not all(torch.equal(a, b) for a, b in zip((gx, gp, gq), again)):
         raise AssertionError(f"{what}: the adjoint or the position gradient does not repeat "
                              f"bit for bit")
     xp = x.float().requires_grad_()
     pp, qp = p.clone().requires_grad_(), q.clone().requires_grad_()
-    want = resample.resample_axis_plain(xp, pp, qp, l_out, mode, border, channels)
+    want = resample.resample_axis_plain(xp, pp, qp, l_out, *args)
     wx, wp, wq = torch.autograd.grad(want, (xp, pp, qp), g)
     return (_within(out, want.detach(), 2e-5, f"{what} forward"),
             _within(gx, wx, 2e-5, f"{what} adjoint"),
@@ -797,13 +827,15 @@ EDGE_CHANNELS = (1, 3, 5, 10)  # 3 takes the unrolled channel loop, the rest the
 
 def record_passes(src: torch.Tensor, theta: torch.Tensor, mode: str = "bicubic") -> list:
     """The arguments ``warp_affine_separable`` hands to ``resample_axis`` in its
-    two passes: (x, p, q, l_out, mode, border, channels) each."""
+    two passes: (x, p, q, l_out, mode, border, channels) each (the whole warp:
+    its outputs start at o_base 0)."""
     calls = []
 
-    def rec(x, p, q, *rest):
+    def rec(x, p, q, l_out, mode, border, channels, o_base=0):
+        assert o_base == 0
         calls.append((x.detach(), p.detach().float().contiguous(),
-                      q.detach().float().contiguous(), *rest))
-        return resample.resample_axis_plain(x, p, q, *rest)
+                      q.detach().float().contiguous(), l_out, mode, border, channels))
+        return resample.resample_axis_plain(x, p, q, l_out, mode, border, channels)
 
     with mock.patch.object(resample, "resample_axis", rec), torch.no_grad():
         resample.warp_affine_separable(src, theta, mode)
@@ -2122,15 +2154,19 @@ def check_flashattn(q, k, v, g, scale: float, what: str) -> tuple[tuple, tuple]:
     return ((errs[0], errs[1], max(errs[2:])), (shares[0], shares[1], max(shares[2:])))
 
 
-def _flash_work(names, bh: int, s: int, d: int, element_size: int) -> dict[str, tuple]:
+def _flash_work(names, bh: int, s: int, d: int, element_size: int, sk: int | None = None
+                ) -> dict[str, tuple]:
     """(bytes, exponentials, tensor-core flops, float32-unit flops) of each
-    kernel on (BH, S, D): q, k, v (and do) read once, results written once, lse
-    and di in float32; one exponential a query-key pair; each product 2 D
-    flops a pair, D padded to the tensor cores' depth of 16."""
-    pairs = bh * s * s
-    tensor, stat = bh * s * d * element_size, bh * s * 4
-    n_bytes = {"flashattn_fwd": 4 * tensor + stat, "flashattn_bwd_dq": 5 * tensor + 2 * stat,
-               "flashattn_bwd_dkv": 6 * tensor + 2 * stat}
+    kernel on (BH, S, D) queries and (BH, ``sk``, D) keys (``sk`` default S):
+    q, k, v (and do) read once, results written once, lse and di in float32;
+    one exponential a query-key pair; each product 2 D flops a pair, D padded
+    to the tensor cores' depth of 16."""
+    sk = s if sk is None else sk
+    pairs = bh * s * sk
+    tq, tk, stat = bh * s * d * element_size, bh * sk * d * element_size, bh * s * 4
+    n_bytes = {"flashattn_fwd": 2 * tq + 2 * tk + stat,
+               "flashattn_bwd_dq": 3 * tq + 2 * tk + 2 * stat,
+               "flashattn_bwd_dkv": 2 * tq + 4 * tk + 2 * stat}
     return {k: (n_bytes[k], pairs, pairs * FLASH_PRODUCTS[k] * 2 * max(d, 16),
                 pairs * FLASH_PRODUCTS[k] * 2 * d) for k in names}
 
@@ -3924,14 +3960,60 @@ def phase_spatial_kernels(device, card: str, results: dict) -> None:
           f"{results['blurpool_bwd']['step_ms']:.4f} ms [{card}]")
 
 
-def _spatial_cfg(dtype: str):
-    cfg = _cfg("fft_glo", dtype)
-    return cfg.replace(data=dataclasses.replace(cfg.data, batch_size=SPATIAL_BATCH,
-                                                image_size=SIZE))
+# the spatial comparisons' jobs: (registry entry, image side, global batch,
+# kernel launches of one step in one process, which a rank must make too)
+SPATIAL_JOBS = {"fft_glo": ("fft_glo", SIZE, SPATIAL_BATCH, FFT_GLO_STEP),
+                "stn": ("stn_newmodel3", SIZE, 4, STN_STEP),
+                "tfc_diff": ("tfc_diff", DIFF_SIZE, 8, DIFF_STEP)}
+# a gradient below this share of its set's largest is compared at that scale:
+# tfc_diff's conv biases and time projections in front of a GroupNorm of one
+# channel a group are zero in exact arithmetic and come back as float32
+# rounding. So are the attention key biases' (the softmax drops a constant of
+# the scores): those are compared at the scale of their key kernel's gradient
+SPATIAL_GRAD_FLOOR = {"tfc_diff": 1e-3}
+KEY_BIASES = ("key.bias", "to_k.bias")
+# the floor's one-process runs with A moved by one float32 step, up (and, for
+# the families of phase 23, down too: the STN's deep instance norms behind
+# ReLU kinks make one nudge a small sample of what a rounding difference does)
+SPATIAL_NUDGES = {"fft_glo": (np.inf,), "stn": (np.inf, -np.inf), "tfc_diff": (np.inf, -np.inf)}
 
 
-def _spatial_batches() -> list[dict]:
-    return [synthetic_batch(SPATIAL_BATCH, SIZE, seed=SPATIAL_SEED + i) for i in range(2)]
+def _spatial_cfg(dtype: str, job: str = "fft_glo"):
+    name, size, batch, _ = SPATIAL_JOBS[job]
+    cfg = _cfg(name, dtype)
+    return cfg.replace(data=dataclasses.replace(cfg.data, batch_size=batch, image_size=size))
+
+
+def _spatial_batches(job: str = "fft_glo") -> list[dict]:
+    _, size, batch, _ = SPATIAL_JOBS[job]
+    return [synthetic_batch(batch, size, seed=SPATIAL_SEED + i) for i in range(2)]
+
+
+def _save_spatial_modules(job: str, path: str) -> None:
+    """The job's weights from seed 0 (the STN's dtheta head random, as in
+    phase 9), drawn once on the host and saved for every process of the job."""
+    cfg = _spatial_cfg("float32", job)
+    with layers.without_draws():
+        recipe = build_recipe(cfg, "cpu")
+    recipe.init(torch.Generator().manual_seed(0))
+    if cfg.recipe == "stn":
+        _random_dtheta_head(recipe.STN, 0)
+    torch.save({k: getattr(recipe, k).state_dict() for k in ("G", "D", "lpips")
+                if getattr(recipe, k) is not None}, path)
+
+
+def _spatial_trainer(cfg, device, mesh, modules: str):
+    """A Trainer and its state at step 0 with the saved weights (step draws
+    from seed 0), placed on ``mesh``."""
+    with layers.without_draws():
+        recipe = build_recipe(cfg, device)
+    trainer = Trainer(cfg, recipe, mesh=mesh)
+    state = trainer.init_state(0, draw=False)
+    for name, sd in torch.load(modules, map_location=device).items():
+        getattr(recipe, name).load_state_dict(sd)
+    if mesh is not None:
+        place_state(state, mesh)
+    return trainer, state
 
 
 def _grads_of(module) -> dict[str, torch.Tensor]:
@@ -3939,13 +4021,13 @@ def _grads_of(module) -> dict[str, torch.Tensor]:
             if p.grad is not None}
 
 
-def _spatial_rank(rank: int, world: int, port: int, tmp: str, results) -> None:
+def _spatial_rank(rank: int, world: int, port: int, tmp: str, results, job: str) -> None:
     """One process on card 0: with ``world`` 2 a gloo rank of a (1 data x 2
     spatial) mesh, with ``world`` 1 the one process it is held to. Two
-    float32 fft_glo steps from seed 0 (step 1's metrics and reduced G and D
-    gradients, saved to ``tmp``; step 2's peak memory above what was
-    allocated before it; the K1 launches of both steps), then one bfloat16
-    step's metrics."""
+    float32 steps of ``job`` from the saved weights (step 1's metrics and
+    reduced G and D gradients, saved to ``tmp``; step 2's peak memory above
+    what was allocated before it; the kernel launches of both steps), then
+    one bfloat16 step's metrics."""
     import datetime
 
     import torch.distributed as dist
@@ -3963,13 +4045,12 @@ def _spatial_rank(rank: int, world: int, port: int, tmp: str, results) -> None:
             dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
                                     world_size=world, timeout=datetime.timedelta(seconds=300))
             mesh = make_mesh(world, spatial=world, device=device)
-        cfg = _spatial_cfg("float32")
-        trainer = Trainer(cfg, build_recipe(cfg, device), mesh=mesh)
-        state = trainer.init_state(0)
+        modules = os.path.join(tmp, f"spatial_modules_{job}.pt")
+        trainer, state = _spatial_trainer(_spatial_cfg("float32", job), device, mesh, modules)
         replicated = spatial.REPLICATED_LAYERS
         reset_counts()
         out = {"metrics": [], "ms": []}
-        for i, batch in enumerate(_spatial_batches()):
+        for i, batch in enumerate(_spatial_batches(job)):
             torch.cuda.synchronize()
             if i == 1:
                 before = torch.cuda.memory_allocated()
@@ -3980,46 +4061,48 @@ def _spatial_rank(rank: int, world: int, port: int, tmp: str, results) -> None:
             out["ms"].append((time.perf_counter() - t0) * 1e3)
             if i == 0 and rank == 0:
                 torch.save({"G": _grads_of(state.G), "D": _grads_of(state.D)},
-                           os.path.join(tmp, f"spatial_grads_{world}.pt"))
+                           os.path.join(tmp, f"spatial_grads_{job}_{world}.pt"))
         torch.cuda.synchronize()
         out.update(counts=counts(), replicated=spatial.REPLICATED_LAYERS - replicated,
                    held=before, peak=torch.cuda.max_memory_allocated() - before)
         del trainer, state
         torch.cuda.empty_cache()
-        cfg = _spatial_cfg("bfloat16")
-        trainer = Trainer(cfg, build_recipe(cfg, device), mesh=mesh)
-        state = trainer.init_state(0)
-        out["bf16"] = {k: float(v) for k, v in trainer.step(state, _spatial_batches()[0]).items()}
-        results.put((rank, out))
+        trainer, state = _spatial_trainer(_spatial_cfg("bfloat16", job), device, mesh, modules)
+        out["bf16"] = {k: float(v)
+                       for k, v in trainer.step(state, _spatial_batches(job)[0]).items()}
+        results.put((world, rank, out))
         if mesh is not None:
             dist.destroy_process_group()
     except BaseException as e:
         import traceback
 
-        results.put((rank, RuntimeError(traceback.format_exc())))
+        results.put((world, rank, RuntimeError(traceback.format_exc())))
         raise SystemExit(1) from e
 
 
-def _run_spatial_ranks(world: int, tmp: str) -> tuple[dict, float]:
-    """``world`` processes of ``_spatial_rank`` on the card; their results
-    and the seconds they took."""
+def _run_spatial_ranks(tmp: str, job: str, worlds=(2, 1)) -> tuple[dict, float]:
+    """The processes of ``_spatial_rank`` for each world of ``worlds`` (the
+    pair and the one process it is held to), all started together on the
+    card; {world: {rank: result}} and the seconds they took."""
     import multiprocessing as mp
 
     t0 = time.perf_counter()
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
-    port = _free_port()
-    procs = [ctx.Process(target=_spatial_rank, args=(r, world, port, tmp, results))
-             for r in range(world)]
+    procs = []
+    for world in worlds:
+        port = _free_port()
+        procs += [ctx.Process(target=_spatial_rank, args=(r, world, port, tmp, results, job))
+                  for r in range(world)]
     for p in procs:
         p.start()
-    got = {}
+    got = {world: {} for world in worlds}
     try:
-        while len(got) < world:
-            rank, out = results.get(timeout=600)
+        while sum(map(len, got.values())) < sum(worlds):
+            world, rank, out = results.get(timeout=600)
             if isinstance(out, BaseException):
-                raise AssertionError(f"spatial phase, world {world} rank {rank}: {out}")
-            got[rank] = out
+                raise AssertionError(f"spatial phase {job}, world {world} rank {rank}: {out}")
+            got[world][rank] = out
     finally:
         for p in procs:
             p.join(timeout=60)
@@ -4029,49 +4112,57 @@ def _run_spatial_ranks(world: int, tmp: str) -> tuple[dict, float]:
     return got, time.perf_counter() - t0
 
 
-def phase_spatial(device, card: str, results: dict) -> dict[str, dict[str, int]]:
-    """The spatial axis (``parallel/spatial.py``): (a) the row-edge K1
-    (``phase_spatial_kernels``); (b) fft_glo float32 at 256², global B=4, on
-    two gloo ranks of the card as (1 data x 2 spatial) against one process
-    (a process of its own, for its memory), within 3 x the float32 floor
-    (one process, benchmarked cuDNN algorithms against deterministic ones, or
-    A moved by one float32 step, whichever moves it more), no layer on
-    the whole map, each rank's K1 launches, each rank's peak step memory
-    against one process's; (c) one bfloat16 step on the pair, finite."""
-    t0 = time.perf_counter()
-    phase_spatial_kernels(device, card, results)
+def _spatial_compare(device, card: str, job: str, what: str) -> dict[str, int]:
+    """``job`` float32 at its global batch on two gloo ranks of the card as
+    (1 data x 2 spatial) against one process (a process of its own, for its
+    memory, run beside the pair), within 3 x the float32 floor (one process, benchmarked cuDNN
+    algorithms against deterministic ones, or A moved by one float32 step,
+    whichever moves it more), no layer on the whole map, each rank's kernel
+    launches (one process's a step), each rank's peak step memory against one
+    process's; one bfloat16 step on the pair, finite. Returns rank 0's
+    launches over its two float32 steps."""
+    name, size, batch_size, per_step = SPATIAL_JOBS[job]
     with tempfile.TemporaryDirectory() as tmp:
-        pair, seconds = _run_spatial_ranks(2, tmp)
-        one = _run_spatial_ranks(1, tmp)[0][0]
-        g2 = torch.load(os.path.join(tmp, "spatial_grads_2.pt"))
-        g1 = torch.load(os.path.join(tmp, "spatial_grads_1.pt"))
-    cfg = _spatial_cfg("float32")
-    deterministic = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
-    floor_runs = []
-    try:  # the floor: one process with cuDNN's benchmarked algorithms, and one
-        # with the deterministic ones whose A moved up by one float32 step (the
-        # benchmark may pick the deterministic algorithms and show no floor)
-        for benchmark in (True, False):
-            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
-                not benchmark, benchmark)
-            trainer = Trainer(cfg, build_recipe(cfg, device))
-            state = trainer.init_state(0)
-            batch = _spatial_batches()[0]
-            if not benchmark:
-                batch["A"] = np.nextafter(batch["A"], np.float32(np.inf)).astype(np.float32)
-            floor_runs.append(({k: float(v) for k, v in trainer.step(state, batch).items()},
-                               {"G": _grads_of(state.G), "D": _grads_of(state.D)}))
-            del trainer, state
-            torch.cuda.empty_cache()
-    finally:
-        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = deterministic
+        _save_spatial_modules(job, os.path.join(tmp, f"spatial_modules_{job}.pt"))
+        worlds, seconds = _run_spatial_ranks(tmp, job)
+        pair, one = worlds[2], worlds[1][0]
+        g2 = torch.load(os.path.join(tmp, f"spatial_grads_{job}_2.pt"))
+        g1 = torch.load(os.path.join(tmp, f"spatial_grads_{job}_1.pt"))
+        cfg = _spatial_cfg("float32", job)
+        deterministic = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+        floor_runs = []
+        try:  # the floor: one process with cuDNN's benchmarked algorithms, and one
+            # with the deterministic ones whose A moved by one float32 step (the
+            # benchmark may pick the deterministic algorithms and show no floor)
+            for nudge in (None, *SPATIAL_NUDGES[job]):
+                benchmark = nudge is None
+                torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+                    not benchmark, benchmark)
+                trainer, state = _spatial_trainer(
+                    cfg, device, None, os.path.join(tmp, f"spatial_modules_{job}.pt"))
+                batch = _spatial_batches(job)[0]
+                if not benchmark:
+                    batch["A"] = np.nextafter(batch["A"], np.float32(nudge)).astype(np.float32)
+                floor_runs.append(({k: float(v) for k, v in trainer.step(state, batch).items()},
+                                   {"G": _grads_of(state.G), "D": _grads_of(state.D)}))
+                del trainer, state
+                torch.cuda.empty_cache()
+        finally:
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = deterministic
 
     def metric_err(a, b):
         return max(abs(a[k] - b[k]) / max(abs(b[k]), DP_METRIC_TOL[1] / DP_METRIC_TOL[0])
                    for k in b)
 
+    least = SPATIAL_GRAD_FLOOR.get(job, 0.0) * max(
+        float(t.abs().max()) for m in g1 for t in g1[m].values())
+
+    def scale(grads, k):
+        ref = grads[k[:-len("bias")] + "weight"] if k.endswith(KEY_BIASES) else grads[k]
+        return max(float(ref.abs().max()), least) + 1e-12
+
     def grad_errs(a, b):
-        return {f"{m}.{k}": float((a[m][k] - b[m][k]).abs().max() / (b[m][k].abs().max() + 1e-12))
+        return {f"{m}.{k}": float((a[m][k] - b[m][k]).abs().max()) / scale(b[m], k)
                 for m in b for k in b[m]}
 
     want_m = one["metrics"][0]
@@ -4084,46 +4175,204 @@ def phase_spatial(device, card: str, results: dict) -> dict[str, dict[str, int]]
     detail = (f"metrics {err[0]:.3g} relative (bound {bound[0]:.3g}, floor {floor[0]:.3g}), "
               f"G and D gradients {err[1]:.3g} x max|g| (bound {bound[1]:.3g}, floor "
               f"{floor[1]:.3g}: cuDNN's algorithms {floors[0][1]:.3g}, one step of A "
-              f"{floors[1][1]:.3g}; worst { {k: round(errs[k], 6) for k in worst} })")
+              f"{', '.join(f'{f[1]:.3g}' for f in floors[1:])}; worst "
+              f"{ {k: round(errs[k], 6) for k in worst} })")
     if sorted(pair[0]["metrics"][0]) != sorted(want_m) or sorted(errs) != sorted(
             grad_errs(g1, g1)):
-        raise AssertionError(f"fft_glo spatial mesh: metrics {sorted(pair[0]['metrics'][0])}, "
+        raise AssertionError(f"{name} spatial mesh: metrics {sorted(pair[0]['metrics'][0])}, "
                              f"{len(errs)} gradients")
     if err[0] > bound[0] or err[1] > bound[1]:
-        raise AssertionError(f"fft_glo (1 data x 2 spatial) vs one process, float32 "
-                             f"B={SPATIAL_BATCH} {SIZE}²: {detail}")
+        raise AssertionError(f"{name} (1 data x 2 spatial) vs one process, float32 "
+                             f"B={batch_size} {size}²: {detail}")
     if any(pair[r]["metrics"] != pair[0]["metrics"] for r in pair):
-        raise AssertionError(f"fft_glo spatial mesh: the ranks' metrics differ: "
+        raise AssertionError(f"{name} spatial mesh: the ranks' metrics differ: "
                              f"{[pair[r]['metrics'] for r in pair]}")
-    want = scaled(FFT_GLO_STEP, 2)
+    want = scaled(per_step, 2)
     for r in pair:
         if pair[r]["counts"] != want or pair[r]["replicated"] != 0:
-            raise AssertionError(f"fft_glo spatial rank {r}: launches {pair[r]['counts']}, want "
+            raise AssertionError(f"{name} spatial rank {r}: launches {pair[r]['counts']}, want "
                                  f"{want}; {pair[r]['replicated']} layers on the whole map")
     bf16, bf16_one = pair[0]["bf16"], one["bf16"]
     bf16_err = {k: abs(bf16[k] - bf16_one[k]) / max(abs(bf16_one[k]), 1e-6) for k in bf16_one}
     if (not all(np.isfinite(v) for v in bf16.values()) or sorted(bf16) != sorted(want_m)
             or max(bf16_err.values()) > TENSOR_DIFF_TOL):
-        raise AssertionError(f"fft_glo spatial mesh, bfloat16 step: {bf16} against one "
+        raise AssertionError(f"{name} spatial mesh, bfloat16 step: {bf16} against one "
                              f"process's {bf16_one} (bound {TENSOR_DIFF_TOL} relative)")
     share = {r: pair[r]["peak"] / one["peak"] for r in pair}
     mib = 2.0 ** 20
-    print(f"spatial fft_glo (1 data x 2 spatial) on two gloo ranks of one card, float32 global "
-          f"B={SPATIAL_BATCH} {SIZE}² (rows 0-127 and 128-255 of every image), against one "
-          f"process: {detail}; metrics equal on both ranks; 0 layers on the whole map; "
-          f"launches a rank {want['blurpool_fwd']} / {want['blurpool_bwd']} K1 over 2 steps "
-          f"({FFT_GLO_STEP['blurpool_fwd']} / {FFT_GLO_STEP['blurpool_bwd']} a step, one "
+    launched = {k: v for k, v in per_step.items() if v}
+    print(f"spatial {name} (1 data x 2 spatial) on two gloo ranks of one card, float32 global "
+          f"B={batch_size} {size}² (rows 0-{size // 2 - 1} and {size // 2}-{size - 1} of every "
+          f"image; {what}), against one process: {detail}; metrics equal on both ranks; 0 "
+          f"layers on the whole map; launches a rank over 2 steps {launched} a step (one "
           f"process's); step 2's peak memory above what was held before it, a rank / one "
           f"process: {pair[0]['peak'] / mib:.1f} / {one['peak'] / mib:.1f} MiB, share "
           f"{share[0]:.4f} (rank 1 {share[1]:.4f}; held before the step {pair[0]['held'] / mib:.1f}"
           f" / {one['held'] / mib:.1f} MiB); step ms a rank "
           f"{ {r: [round(t, 3) for t in pair[r]['ms']] for r in pair} } (step 1 with set-up; "
-          f"the halos and gathers through gloo on the host), one process "
+          f"the halos and gathers through gloo on the host), one process beside them "
           f"{[round(t, 3) for t in one['ms']]}; bf16 step on the pair {bf16}, one process's "
           f"{bf16_one} (relative {max(bf16_err.values()):.3g}, bound {TENSOR_DIFF_TOL}); the "
-          f"ranks took "
-          f"{seconds:.1f} s with their start; phase {time.perf_counter() - t0:.1f} s [{card}]")
-    return {"spatial_fft_glo": pair[0]["counts"]}
+          f"three processes took {seconds:.1f} s with their start [{card}]")
+    return pair[0]["counts"]
+
+
+def phase_spatial(device, card: str, results: dict) -> dict[str, dict[str, int]]:
+    """The spatial axis (``parallel/spatial.py``): (a) the row-edge K1
+    (``phase_spatial_kernels``); (b) fft_glo float32 at 256², global B=4, on
+    two gloo ranks of the card against one process (``_spatial_compare``);
+    (c) one bfloat16 step on the pair, finite."""
+    t0 = time.perf_counter()
+    phase_spatial_kernels(device, card, results)
+    run = _spatial_compare(device, card, "fft_glo", "no layer reads beyond its halo")
+    print(f"spatial phase 22: {time.perf_counter() - t0:.1f} s [{card}]")
+    return {"spatial_fft_glo": run}
+
+
+# --------------------------------------------- 23. spatial: the STN and TFC-Diff
+# K4 with local queries: (images, heads, D) of a 128² tfc_diff step's 64²
+# attention at global B=32, its 4096 keys, and the query shares of 2 and 3 ranks
+SPATIAL_FLASH = (32, 8, 8, 4096)
+SPATIAL_WARP = (32, SIZE, SIZE, 3)  # K2 windows: the stn warp at its training batch
+
+
+def _flash_shards(s: int, ranks: int, w: int = 64) -> list[tuple[int, int]]:
+    """The query spans [lo, hi) of each rank's rows of a w-wide map of s / w rows."""
+    return [(lo * w, hi * w) for lo, hi in (spatial.row_bounds(s // w, r, ranks)
+                                            for r in range(ranks))]
+
+
+def _spatial_flash(device, card: str, gen, results: dict) -> None:
+    """(a) K4 with local queries (``sq`` < ``sk``) through ``flash_attention``
+    and autograd against the plain version, float32 and bfloat16, every
+    shard of 2 and 3 ranks of the path's (32 x 8, 8, 4096) attention: within
+    phase 13's tolerances; each shard's forward (output, lse) and dq bit for
+    bit the whole-sequence launch's rows. Times of the three kernels for rank
+    0 of 2 (sq 2048) against the whole-sequence call (sq 4096) at sk 4096,
+    bfloat16, with their bounds."""
+    n, heads, d, s = SPATIAL_FLASH
+    names = KERNELS[7:10]
+    worst = dict.fromkeys(names, 0.0)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, g = _projection_views(n, heads, d, s, dtype, gen)
+        scale = d ** -0.5
+        o, lse = fkernel.flashattn_fwd(q, k, v, scale)
+        di = (o.float() * g.float()).sum(dim=2).contiguous()
+        dq = fkernel.flashattn_bwd(q, k, v, g, lse, di, scale, True, False, False)[0]
+        for ranks in (2, 3):
+            for lo, hi in _flash_shards(s, ranks):
+                what = f"local queries [{lo}, {hi}) of {s} ({n}x{heads}, {d}) {dtype}"
+                qs, gs = q[..., lo:hi], g[..., lo:hi]
+                errs, _ = check_flashattn(qs, k, v, gs, scale, what)
+                for name, e in zip(names, errs):
+                    worst[name] = max(worst[name], e)
+                os_, lses = fkernel.flashattn_fwd(qs, k, v, scale)
+                dis = (os_.float() * gs.float()).sum(dim=2).contiguous()
+                dqs = fkernel.flashattn_bwd(qs, k, v, gs, lses, dis, scale, True, False,
+                                            False)[0]
+                if not (torch.equal(os_, o[..., lo:hi]) and torch.equal(lses, lse[..., lo:hi])
+                        and torch.equal(dqs, dq[..., lo:hi])):
+                    raise AssertionError(f"{what}: forward or dq not the whole-sequence "
+                                         "launch's rows bit for bit")
+        del q, k, v, g, o, lse, di, dq
+        torch.cuda.empty_cache()
+    # times: rank 0 of 2's queries against the whole sequence's, bf16, sk = 4096
+    q, k, v, g = _projection_views(n, heads, d, s, torch.bfloat16, gen)
+    scale = d ** -0.5
+    timed = {}
+    for label, sq in (("local", s // 2), ("whole", s)):
+        qs, gs = q[..., :sq], g[..., :sq]
+        o, lse = fkernel.flashattn_fwd(qs, k, v, scale)
+        di = (o.float() * gs.float()).sum(dim=2).contiguous()
+        timed[label] = {
+            "flashattn_fwd": cuda_ms(lambda: fkernel.flashattn_fwd(qs, k, v, scale), 5),
+            "flashattn_bwd_dq": cuda_ms(lambda: fkernel.flashattn_bwd(
+                qs, k, v, gs, lse, di, scale, True, False, False), 5),
+            "flashattn_bwd_dkv": cuda_ms(lambda: fkernel.flashattn_bwd(
+                qs, k, v, gs, lse, di, scale, False, True, True), 5)}
+    del q, k, v, g
+    torch.cuda.empty_cache()
+    for name in names:
+        work = _flash_work([name], n * heads, s // 2, d, 2, sk=s)[name]
+        b, _ = bound_ms(work[0], work[2], work[1], BF16_FLOP_PER_S)
+        results[name].update(local_query_max_abs_err=worst[name],
+                             local_query_ms=timed["local"][name],
+                             local_query_whole_ms=timed["whole"][name],
+                             local_query_bound_ms=b)
+        print(f"spatial K4 {name} with local queries: every shard of 2 and 3 ranks within "
+              f"phase 13's tolerances (worst {worst[name]:.3g}), forward and dq bit for bit the "
+              f"whole sequence's rows; ({n * heads}, {d}) bf16 at sk {s}: sq {s // 2} (rank 0 "
+              f"of 2) {timed['local'][name]:.4f} ms, bound {b:.4f} ms; the whole sequence "
+              f"(sq {s}) {timed['whole'][name]:.4f} ms [{card}]")
+
+
+def _spatial_warp_windows(device, card: str, gen, results: dict) -> None:
+    """(b) K2's output windows: the y-pass of the stn warp at (32, 256, 256, 3)
+    float32 cubic with near-identity thetas, split over 2 and 3 ranks (each
+    rank's rows [lo, hi) from the whole intermediate, ``o_base`` = lo): the
+    forward bit for bit the whole launch's rows and within phase 4's bounds of
+    the plain window; the windows' adjoints and position gradients summed over
+    the ranks within phase 4's bounds of the whole launch's (float32 sums in
+    another order), each window's within them of autograd of the plain
+    window."""
+    src = torch.rand(SPATIAL_WARP, device=device, generator=gen) * 2 - 1
+    theta = _near_identity_theta(SPATIAL_WARP[0], gen)
+    x, p, q, l_out, mode, border, channels = record_passes(src, theta)[1]  # the y-pass
+    args = (mode, border, channels)
+    g = torch.randn((x.shape[0], l_out, x.shape[2]), device=device, generator=gen)
+    whole = rkernel.resample_fwd(x, p, q, l_out, *args)
+    whole_dx = rkernel.resample_adjoint(g, p, q, x.shape[1], *args)
+    whole_gp, whole_gq = rkernel.resample_gradpos(x, g, p, q, *args)
+    worst = [0.0, 0.0, 0.0]
+    for ranks in (2, 3):
+        dx = torch.zeros_like(whole_dx)
+        gp, gq = torch.zeros_like(whole_gp), torch.zeros_like(whole_gq)
+        for r in range(ranks):
+            lo, hi = spatial.row_bounds(l_out, r, ranks)
+            what = f"K2 window [{lo}, {hi}) of {l_out} over {ranks} ranks"
+            gw = g[:, lo:hi].contiguous()
+            out = rkernel.resample_fwd(x, p, q, hi - lo, *args, o_base=lo)
+            if not torch.equal(out, whole[:, lo:hi]):
+                raise AssertionError(f"{what}: not the whole launch's rows bit for bit")
+            errs = check_resample(x, p, q, gw, *args, what, o_base=lo)
+            worst = [max(a, b) for a, b in zip(worst, errs)]
+            dx += rkernel.resample_adjoint(gw, p, q, x.shape[1], *args, o_base=lo)
+            gpr, gqr = rkernel.resample_gradpos(x, gw, p, q, *args, o_base=lo)
+            gp += gpr
+            gq += gqr
+        _within(dx, whole_dx, 2e-5, f"K2 windows' adjoints over {ranks} ranks")
+        _within(gp, whole_gp, 2e-4, f"K2 windows' gp over {ranks} ranks")
+        _within(gq, whole_gq, 2e-4, f"K2 windows' gq over {ranks} ranks")
+    for name, e in zip(KERNELS[2:5], worst):
+        results[name]["window_max_abs_err"] = e
+    print(f"spatial K2 output windows: the stn y-pass {tuple(x.shape)} -> {l_out} rows, every "
+          f"window of 2 and 3 ranks: forward bit for bit the whole launch's rows, "
+          f"max_abs_err against the plain window fwd {worst[0]:.3g}, adjoint {worst[1]:.3g}, "
+          f"gp/gq {worst[2]:.3g}; the windows' adjoints and position gradients summed over "
+          f"the ranks within phase 4's bounds of the whole launch's [{card}]")
+
+
+def phase_spatial_families(device, card: str, results: dict) -> dict[str, dict[str, int]]:
+    """The spatial axis for the STN family and TFC-Diff: (a) K4's local-query
+    form (``_spatial_flash``); (b) K2's output windows
+    (``_spatial_warp_windows``); (c)-(f) stn_newmodel3 float32 at 256², global
+    B=4, and tfc_diff float32 at 128², global B=8, each on two gloo ranks of
+    the card as (1 data x 2 spatial) against one process, with one bf16 step
+    each, each rank's K1, K2 and K4 launches and its peak step memory
+    (``_spatial_compare``)."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(SPATIAL_SEED + 3)
+    _spatial_flash(device, card, gen, results)
+    _spatial_warp_windows(device, card, gen, results)
+    torch.cuda.empty_cache()
+    by_path = {"spatial_stn": _spatial_compare(
+        device, card, "stn", "the localizer on the gathered (A, fake_A1) pair; the warp's "
+        "intermediate gathered, K2's y-pass on the rank's rows")}
+    by_path["spatial_tfc_diff"] = _spatial_compare(
+        device, card, "tfc_diff", "the attention's normed map gathered, K4 with the rank's "
+        "queries against every key")
+    print(f"spatial phase 23: {time.perf_counter() - t0:.1f} s [{card}]")
+    return by_path
 
 
 def main(argv=None) -> int:
@@ -4322,6 +4571,10 @@ def main(argv=None) -> int:
 
     # 22. the spatial axis: the row-edge K1, and row shards over gloo ranks of the card
     by_path.update(phase_spatial(device, card, results))
+
+    # 23. the spatial axis for the STN family and TFC-Diff: K4's local queries,
+    # K2's output windows, both families on row shards over gloo ranks of the card
+    by_path.update(phase_spatial_families(device, card, results))
 
     # 18. result
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")

@@ -1,11 +1,14 @@
 """The recipes that do not run on row shards refuse the port's spatial
 axis: every registered entry but the ``tfcgan`` ones that build
-``GeneratorUNet`` + ``PatchDiscriminator`` (the debiased entries, the
-saliency mask, and every stn, nemar, tfc_diff, thermalgan and cyclegan
-entry) raises ``NotImplementedError`` in ``Trainer`` on a (1 data x 2
-spatial) mesh, naming ROADMAP.md 7c, and the 18 that run there are the
-recipe docstring's list. A device batch whose rows are not this rank's
-share of ``cfg.data.image_size``-row images is refused too, and
+``GeneratorUNet`` + ``PatchDiscriminator`` and the stn and tfc_diff entries
+(that is the seven debiased entries, the saliency mask, nemar, thermalgan,
+thermalgan_bn and cyclegan: 12) raises ``NotImplementedError`` in
+``Trainer`` on a (1 data x 2 spatial) mesh, naming ROADMAP.md 7c; the 24
+that run there are the 18 of the tfcgan recipe docstring's list and the
+three stn and three tfc_diff entries, each of which says
+``supports_spatial`` and is accepted by ``Trainer`` on that mesh. A device
+batch whose rows are not this rank's share of ``cfg.data.image_size``-row
+images is refused too, and
 ``--spatial`` and ``--tensor`` set the experiment's ``cfg.mesh`` alike. The
 mesh record is made by hand (no process group: the refusal comes before any
 collective) and the recipes are built on the meta device.
@@ -25,9 +28,12 @@ from tfcgan_tpu_torch.recipes import build_recipe
 from tfcgan_tpu_torch.recipes import tfcgan
 from tfcgan_tpu_torch.train.trainer import Trainer
 
-# every registered entry but the tfcgan ones that build GeneratorUNet + PatchDiscriminator
+# every registered entry but the tfcgan ones that build GeneratorUNet +
+# PatchDiscriminator, and the stn and diffusion entries
 REFUSED = sorted(n for n, c in EXPERIMENTS.items()
-                 if c.recipe != "tfcgan" or c.loss.conditional or c.loss.use_mask)
+                 if c.recipe not in ("tfcgan", "stn", "diffusion") or c.loss.conditional
+                 or c.loss.use_mask)
+ROW_SHARD_FAMILIES = sorted(n for n, c in EXPERIMENTS.items() if c.recipe in ("stn", "diffusion"))
 
 
 def _spatial_pair() -> Mesh:
@@ -42,11 +48,21 @@ def test_recipes_without_row_shards_refuse_a_spatial_mesh(name):
         Trainer(cfg, build_recipe(cfg, "meta"), mesh=_spatial_pair())
 
 
+@pytest.mark.parametrize("name", ROW_SHARD_FAMILIES)
+def test_the_stn_and_diffusion_entries_run_on_a_spatial_mesh(name):
+    cfg = EXPERIMENTS[name]
+    recipe = build_recipe(cfg, "meta")
+    assert recipe.supports_spatial, name
+    trainer = Trainer(cfg, recipe, mesh=_spatial_pair())
+    assert trainer.mesh.spatial.size == 2
+
+
 def test_the_row_shard_entries_are_the_recipe_docstrings_list():
     running = sorted(set(EXPERIMENTS) - set(REFUSED))
-    assert len(running) == 18
+    assert len(REFUSED) == 12 and len(running) == 24 and len(ROW_SHARD_FAMILIES) == 6
     for name in running:
-        assert re.search(rf"\b{name}\b", tfcgan.__doc__), name
+        if EXPERIMENTS[name].recipe == "tfcgan":
+            assert re.search(rf"\b{name}\b", tfcgan.__doc__), name
         assert build_recipe(EXPERIMENTS[name], "meta").supports_spatial, name
 
 

@@ -45,7 +45,10 @@ def _main(name, rank, world, store, results, kw):
 def spawn(name: str, world: int, tmp_path, deadline: float = 150.0, **kw) -> list:
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
-    store = tmp_path / f"store_{name}_{world}"
+    # a store file of its own for every spawn: a second spawn of one name in
+    # one test must not read the first's keys, which a rank killed at its
+    # deadline leaves behind
+    store = tmp_path / f"store_{name}_{world}_{time.monotonic_ns()}"
     procs = [ctx.Process(target=_main, args=(name, r, world, str(store), results, kw),
                          daemon=True) for r in range(world)]
     for p in procs:
@@ -106,14 +109,17 @@ def _full_checksum(modules) -> float:
 
 @contextlib.contextmanager
 def _float64():
-    """float64 as torch's default dtype and the tfcgan recipes' compute
-    dtype inside the block."""
-    from tfcgan_tpu_torch.recipes import tfcgan
+    """float64 as torch's default dtype and the tfcgan, stn and diffusion
+    recipes' compute dtype inside the block."""
+    from tfcgan_tpu_torch.recipes import diffusion, stn, tfcgan
 
     before = torch.get_default_dtype()
     torch.set_default_dtype(torch.float64)
     try:
-        with mock.patch.object(tfcgan, "_dtype", lambda cfg: torch.float64):
+        with contextlib.ExitStack() as stack:
+            for module in (tfcgan, stn, diffusion):
+                stack.enter_context(mock.patch.object(module, "_dtype",
+                                                      lambda cfg: torch.float64))
             yield
     finally:
         torch.set_default_dtype(before)
@@ -592,3 +598,132 @@ def mesh_error(rank, world, spatial, tensor):
     except Exception as e:  # the refusal under test
         return type(e).__name__, str(e)
     return None
+
+
+# ---------------------------------------------- spatial axis: the STN and TFC-Diff
+READERS = ("warp_cubic", "warp_linear_zeros", "direct", "direct_zeros", "group_norm",
+           "attention", "upsample")
+
+
+def spatial_reader(name: str, seed: int = 0):
+    """One layer of the STN or diffusion path on row shards, weights drawn
+    from ``seed``: (fn(x, theta, rows) -> y, its module or None, the input's
+    (W, C)). ``rows`` None runs it on the whole map."""
+    from tfcgan_tpu_torch.models.diffusion import AttentionBlock, upsample_nearest2x
+    from tfcgan_tpu_torch.ops.norm import group_norm
+    from tfcgan_tpu_torch.ops.resample import warp_affine_separable
+    from tfcgan_tpu_torch.ops.warp import warp_affine
+
+    gen = torch.Generator().manual_seed(seed)
+    if name == "attention":
+        module = AttentionBlock(16, groups=4)
+        with torch.no_grad():
+            for p in module.parameters():
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.3 + (1.0 if p.dim() == 1 else 0))
+        return (lambda x, theta, rows: module(x, rows)), module, (4, 16)
+    if name == "group_norm":
+        module = torch.nn.Module()
+        module.weight = torch.nn.Parameter(1 + 0.3 * torch.randn(8, generator=gen))
+        module.bias = torch.nn.Parameter(0.3 * torch.randn(8, generator=gen))
+        return (lambda x, theta, rows: group_norm(x, 4, module.weight, module.bias, 1e-5, rows)
+                ), module, (5, 8)
+    if name == "upsample":
+        return (lambda x, theta, rows: upsample_nearest2x(x, rows)), None, (3, 2)
+    mode, padding = ("bilinear", "zeros") if name.endswith("zeros") else ("bicubic", "border")
+    if name.startswith("warp"):
+        return (lambda x, theta, rows: warp_affine_separable(x, theta, mode, padding, rows)
+                ), None, (9, 3)
+    return (lambda x, theta, rows: warp_affine(x, theta, mode, padding, True, rows)), None, (9, 3)
+
+
+def spatial_reader_inputs(name: str, h: int, seed: int = 1):
+    """The whole input (2, h, W, C), theta (2, 2, 3) and the output cotangent
+    of ``spatial_reader(name)``. The two thetas rotate by 0.3 rad and shift,
+    and flip the rows: every output row reads rows of other shards."""
+    fn, _, (w, c) = spatial_reader(name)
+    rng = np.random.RandomState(seed + h)
+    x = torch.from_numpy(rng.uniform(-1, 1, (2, h, w, c)).astype(np.float32))
+    ang = 0.3
+    theta = torch.tensor([[[np.cos(ang) * 0.9, -np.sin(ang), 0.15],
+                           [np.sin(ang), np.cos(ang) * 1.1, -0.2]],
+                          [[1.05, 0.1, -0.1], [0.05, -0.95, 0.1]]], dtype=torch.float32)
+    with torch.no_grad():
+        y = fn(x, theta, None)
+    cot = torch.from_numpy(rng.uniform(-1, 1, tuple(y.shape)).astype(np.float32))
+    return x, theta, cot
+
+
+def spatial_reader_run(name: str, x, theta, cot, rows):
+    """The layer on ``x`` (this rank's rows, or the whole map without
+    ``rows``): its output, and the gradients of sum(y * cot) to x, theta and
+    the weights."""
+    fn, module, _ = spatial_reader(name)
+    x = x.clone().requires_grad_(True)
+    theta = theta.clone().requires_grad_(True)
+    y = fn(x, theta, rows)
+    (y * cot).sum().backward()
+    grads = {} if module is None else {k: p.grad.clone() for k, p in module.named_parameters()}
+    gt = theta.grad if theta.grad is not None else torch.zeros_like(theta)
+    return y.detach(), x.grad, gt, grads
+
+
+def spatial_readers(rank, world, cases):
+    """Each (layer, h) of ``cases`` on this rank's rows over a spatial mesh of
+    the whole world: output, input and theta gradients, weight gradients."""
+    from tfcgan_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(spatial=world, device="cpu")
+    out = {}
+    for name, h in cases:
+        x, theta, cot = spatial_reader_inputs(name, h)
+        rows = mesh.image_rows(h)
+        y, gx, gt, gw = spatial_reader_run(name, rows.cut(x), theta,
+                                           rows.of(cot.shape[1]).cut(cot), rows)
+        out[name, h] = {"y": y.numpy(), "gx": gx.numpy(), "gt": gt.numpy(),
+                        "gw": {k: v.numpy() for k, v in gw.items()}}
+    return out
+
+
+def family_spatial_steps(rank, world, cfg, modules, draws=None, spatial=1, tmp=None,
+                         float64=False, seed=0):
+    """One step of an stn or diffusion ``cfg`` from the modules in the file
+    ``modules`` (a torch.save of the recipe's G, D[, lpips] state dicts) on
+    ``synthetic_batch(seed=seed, with_labels=True)``: with ``world`` > 1 on a
+    (data x ``spatial``) mesh. ``draws`` (a numpy dict of the diffusion
+    step's global noise and timesteps) replaces the recipe's draws. Rank 0
+    saves the reduced G gradients to ``tmp``/g_grads_{world}[_f64].pt;
+    ``float64`` as in ``fftglo_steps``. Returns the metrics and the count of
+    layers that ran on the whole map."""
+    from tfcgan_tpu_torch.data.synth import synthetic_batch
+    from tfcgan_tpu_torch.parallel import place_state, spatial as spatial_axis
+    from tfcgan_tpu_torch.recipes import build_recipe
+    from tfcgan_tpu_torch.recipes.diffusion import DiffusionStepDraws
+    from tfcgan_tpu_torch.train.trainer import Trainer
+
+    if float64:
+        with _float64():
+            return family_spatial_steps(rank, world, cfg, modules, draws, spatial, tmp,
+                                        seed=seed)
+    mesh = _mesh(spatial=spatial) if world > 1 else None
+    recipe = build_recipe(cfg, "cpu")
+    draw_fn = None
+    if draws is not None:
+        def draw_fn(state, batch):
+            assert batch["A"].shape[0] == cfg.data.batch_size  # the global batch's shape
+            return DiffusionStepDraws(torch.from_numpy(draws["noise"]),
+                                      torch.from_numpy(draws["t"]).long(), None)
+    trainer = Trainer(cfg, recipe, draw_fn=draw_fn, mesh=mesh)
+    state = trainer.init_state(0, draw=False)
+    _load_modules(recipe, modules)
+    if mesh is not None:
+        place_state(state, mesh)
+    replicated = spatial_axis.REPLICATED_LAYERS
+    batch = synthetic_batch(cfg.data.batch_size, cfg.data.image_size, seed=seed,
+                            with_labels=True)
+    metrics = {k: float(v) for k, v in trainer.step(state, batch).items()}
+    if tmp is not None and rank == 0:
+        tag = f"{world}{'_f64' if torch.get_default_dtype() == torch.float64 else ''}"
+        torch.save(_grads(state.G), f"{tmp}/g_grads_{tag}.pt")
+        if any(True for _ in state.D.parameters()):
+            torch.save(_grads(state.D), f"{tmp}/d_grads_{tag}.pt")
+    return {"metrics": metrics, "replicated": spatial_axis.REPLICATED_LAYERS - replicated}

@@ -537,8 +537,9 @@ def main(argv=None):
     common.add_argument("--device", default="cuda")
     common.add_argument("--spatial", type=int, default=None,
                         help="under torchrun: ranks on the mesh's spatial axis (each holds "
-                             "its rows of every image; train and test), default the "
-                             "experiment's cfg.mesh.spatial")
+                             "its rows of every image; train: the fft_glo family, the stn "
+                             "family and tfc_diff; test), default the experiment's "
+                             "cfg.mesh.spatial")
     common.add_argument("--tensor", type=int, default=None,
                         help="under torchrun: ranks on the mesh's tensor axis (each holds "
                              "its slice of every sharded weight; train and test), default "

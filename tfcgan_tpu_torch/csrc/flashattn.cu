@@ -14,6 +14,15 @@
 // or bfloat16; every sum is float32 (the tensor cores multiply bfloat16 operands
 // exactly and accumulate in float32).
 //
+// Queries and keys have lengths of their own: q, o, do, dq, lse and di hold
+// q_len rows, k, v, dk and dv k_len. On the spatial mesh axis a rank computes
+// the queries of its rows of the map against the keys of the whole map,
+// gathered once (q_len < k_len; the attention has no mask, so no position
+// offset is needed); q_len == k_len is one sequence's self-attention, the same
+// launch as before the two lengths were split. Each kernel masks the tail of
+// the side it walks at that side's length: the forward and dq walk keys, dk/dv
+// walks queries, and each block owns rows of the other side.
+//
 // Replaces the TPU kernels of tfcgan_tpu/ops/pallas_kernels/flashattn.py:
 // _fwd_kernel (one pass over the full key extent with an ordinary softmax, which
 // exists because that machine's fast memory holds a (256, S) score slab) and
@@ -205,7 +214,7 @@ __global__ void __launch_bounds__(kThreads)
 flashattn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
                      float* __restrict__ lse, Strides sq, Strides sk, Strides sv, Strides so,
-                     int heads, int s_len, int tiles, float scale_log2) {
+                     int heads, int q_len, int k_len, int tiles, float scale_log2) {
   __shared__ __align__(16) float ks[kTile * D];
   __shared__ __align__(16) float vs[kTile * D];
   const int bh = blockIdx.x / tiles;
@@ -219,7 +228,7 @@ flashattn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int r = 0; r < R; ++r) {
     // a row past the end keeps the block's loads and barriers company on row 0
     const int qi = q0 + r * kThreads;
-    const float* qp = qb + (qi < s_len ? qi : 0) * sq.s;
+    const float* qp = qb + (qi < q_len ? qi : 0) * sq.s;
 #pragma unroll
     for (int d = 0; d < D; ++d) {
       qr[r][d] = qp[d * sq.d] * scale_log2;
@@ -228,12 +237,12 @@ flashattn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     m[r] = -INFINITY;  // in the base-2 domain: scores are s * log2 e
     l[r] = 0.f;
   }
-  for (int t0 = 0; t0 < s_len; t0 += kTile) {
+  for (int t0 = 0; t0 < k_len; t0 += kTile) {
     __syncthreads();  // the previous tile is consumed
-    stage_tile<D>(ks, kb, sk.d, sk.s, t0, s_len);
-    stage_tile<D>(vs, vb, sv.d, sv.s, t0, s_len);
+    stage_tile<D>(ks, kb, sk.d, sk.s, t0, k_len);
+    stage_tile<D>(vs, vb, sv.d, sv.s, t0, k_len);
     __syncthreads();
-    const int valid = min(kTile, s_len - t0);
+    const int valid = min(kTile, k_len - t0);
 #pragma unroll 1
     for (int c0 = 0; c0 < valid; c0 += kChunk) {
       float sc[R][kChunk], cmax[R];
@@ -275,12 +284,12 @@ flashattn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int qi = q0 + r * kThreads;
-    if (qi < s_len) {
+    if (qi < q_len) {
       const float inv = 1.f / l[r];
       float* op = o + n * so.n + h * so.h + qi * so.s;
 #pragma unroll
       for (int d = 0; d < D; ++d) op[d * so.d] = acc[r][d] * inv;
-      lse[static_cast<int64_t>(bh) * s_len + qi] = (m[r] + log2f(l[r])) * kLn2;
+      lse[static_cast<int64_t>(bh) * q_len + qi] = (m[r] + log2f(l[r])) * kLn2;
     }
   }
 }
@@ -291,7 +300,8 @@ flashattn_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ di,
                     float* __restrict__ dq, Strides sq, Strides sk, Strides sv, Strides sdo,
-                    Strides sdq, int heads, int s_len, int tiles, float scale, float scale_log2) {
+                    Strides sdq, int heads, int q_len, int k_len, int tiles, float scale,
+                    float scale_log2) {
   __shared__ __align__(16) float ks[kTile * D];
   __shared__ __align__(16) float vs[kTile * D];
   const int bh = blockIdx.x / tiles;
@@ -303,7 +313,7 @@ flashattn_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int qi = q0 + r * kThreads;
-    const int row = qi < s_len ? qi : 0;
+    const int row = qi < q_len ? qi : 0;
     const float* qp = q + n * sq.n + h * sq.h + row * sq.s;
     const float* dop = dout + n * sdo.n + h * sdo.h + row * sdo.s;
 #pragma unroll
@@ -312,16 +322,16 @@ flashattn_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
       dor[r][d] = dop[d * sdo.d];
       acc[r][d] = 0.f;
     }
-    const int64_t stat = static_cast<int64_t>(bh) * s_len + row;
+    const int64_t stat = static_cast<int64_t>(bh) * q_len + row;
     lse2[r] = lse[stat] * kLog2e;
     delta[r] = di[stat];
   }
-  for (int t0 = 0; t0 < s_len; t0 += kTile) {
+  for (int t0 = 0; t0 < k_len; t0 += kTile) {
     __syncthreads();
-    stage_tile<D>(ks, kb, sk.d, sk.s, t0, s_len);
-    stage_tile<D>(vs, vb, sv.d, sv.s, t0, s_len);
+    stage_tile<D>(ks, kb, sk.d, sk.s, t0, k_len);
+    stage_tile<D>(vs, vb, sv.d, sv.s, t0, k_len);
     __syncthreads();
-    const int valid = min(kTile, s_len - t0);
+    const int valid = min(kTile, k_len - t0);
 #pragma unroll 4
     for (int j = 0; j < valid; ++j) {
       float kk[D], vv[D];
@@ -337,7 +347,7 @@ flashattn_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int qi = q0 + r * kThreads;
-    if (qi < s_len) {
+    if (qi < q_len) {
       float* dqp = dq + n * sdq.n + h * sdq.h + qi * sdq.s;
 #pragma unroll
       for (int d = 0; d < D; ++d) dqp[d * sdq.d] = acc[r][d] * scale;
@@ -352,7 +362,7 @@ flashattn_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ lse, const float* __restrict__ di,
                      float* __restrict__ dk, float* __restrict__ dv,
                      Strides sq, Strides sk, Strides sv, Strides sdo, Strides sdk, Strides sdv,
-                     int heads, int s_len, int tiles, float scale, float scale_log2) {
+                     int heads, int q_len, int k_len, int tiles, float scale, float scale_log2) {
   __shared__ __align__(16) float qs[kTile * D];
   __shared__ __align__(16) float dos[kTile * D];
   __shared__ __align__(8) float2 stats[kTile];  // (lse * log2 e, di) of the staged queries
@@ -361,14 +371,14 @@ flashattn_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int k0 = (blockIdx.x % tiles) * R * kThreads + threadIdx.x;
   const float* qb = q + n * sq.n + h * sq.h;
   const float* dob = dout + n * sdo.n + h * sdo.h;
-  const float* lse_b = lse + static_cast<int64_t>(bh) * s_len;
-  const float* di_b = di + static_cast<int64_t>(bh) * s_len;
+  const float* lse_b = lse + static_cast<int64_t>(bh) * q_len;
+  const float* di_b = di + static_cast<int64_t>(bh) * q_len;
   const bool want_dk = dk != nullptr, want_dv = dv != nullptr;
   float kr[R][D], vr[R][D], acc_k[R][D], acc_v[R][D];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int kj = k0 + r * kThreads;
-    const int row = kj < s_len ? kj : 0;
+    const int row = kj < k_len ? kj : 0;
     const float* kp = k + n * sk.n + h * sk.h + row * sk.s;
     const float* vp = v + n * sv.n + h * sv.h + row * sv.s;
 #pragma unroll
@@ -379,17 +389,17 @@ flashattn_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       acc_v[r][d] = 0.f;
     }
   }
-  for (int t0 = 0; t0 < s_len; t0 += kTile) {
+  for (int t0 = 0; t0 < q_len; t0 += kTile) {
     __syncthreads();
-    stage_tile<D>(qs, qb, sq.d, sq.s, t0, s_len);
-    stage_tile<D>(dos, dob, sdo.d, sdo.s, t0, s_len);
+    stage_tile<D>(qs, qb, sq.d, sq.s, t0, q_len);
+    stage_tile<D>(dos, dob, sdo.d, sdo.s, t0, q_len);
     if (threadIdx.x < kTile) {
       const int i = t0 + threadIdx.x;
-      stats[threadIdx.x] = i < s_len ? make_float2(lse_b[i] * kLog2e, di_b[i])
+      stats[threadIdx.x] = i < q_len ? make_float2(lse_b[i] * kLog2e, di_b[i])
                                      : make_float2(0.f, 0.f);
     }
     __syncthreads();
-    const int valid = min(kTile, s_len - t0);
+    const int valid = min(kTile, q_len - t0);
 #pragma unroll 4
     for (int i = 0; i < valid; ++i) {
       float qq[D], dd[D];
@@ -407,7 +417,7 @@ flashattn_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int kj = k0 + r * kThreads;
-    if (kj < s_len) {
+    if (kj < k_len) {
       if (want_dk) {
         float* dkp = dk + n * sdk.n + h * sdk.h + kj * sdk.s;
 #pragma unroll
@@ -640,7 +650,7 @@ flashattn_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
                        const float* __restrict__ lse, const float* __restrict__ di,
                        bf16* __restrict__ dq, Strides sq, Strides sk, Strides sv, Strides sdo,
-                       Strides sdq, int heads, int s_len, int tiles, float scale,
+                       Strides sdq, int heads, int q_len, int k_len, int tiles, float scale,
                        float scale_log2, bool k_dense, bool v_dense) {
   constexpr int P = tc_pitch<D>();
   __shared__ __align__(16) bf16 ks[2][kTcTile * P];
@@ -651,35 +661,35 @@ flashattn_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // this thread's query rows r0 and r0 + 8
   const int r0 = (blockIdx.x % tiles) * kTcRows + (threadIdx.x / 32) * 16 + lane / 4;
   uint32_t qa[D / 4], da[D / 4];
-  load_a<D>(qa, q + n * sq.n + h * sq.h, sq.d, sq.s, r0, s_len, t);
-  load_a<D>(da, dout + n * sdo.n + h * sdo.h, sdo.d, sdo.s, r0, s_len, t);
+  load_a<D>(qa, q + n * sq.n + h * sq.h, sq.d, sq.s, r0, q_len, t);
+  load_a<D>(da, dout + n * sdo.n + h * sdo.h, sdo.d, sdo.s, r0, q_len, t);
   float nlse2[2], ndi[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = r0 + 8 * i;
-    const int64_t stat = static_cast<int64_t>(bh) * s_len + row;
-    nlse2[i] = row < s_len ? -lse[stat] * kLog2e : 0.f;
-    ndi[i] = row < s_len ? -di[stat] : 0.f;
+    const int64_t stat = static_cast<int64_t>(bh) * q_len + row;
+    nlse2[i] = row < q_len ? -lse[stat] * kLog2e : 0.f;
+    ndi[i] = row < q_len ? -di[stat] : 0.f;
   }
   float acc[D / 8][4];
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
   const bf16* kb = k + n * sk.n + h * sk.h;
   const bf16* vb = v + n * sv.n + h * sv.h;
-  const int steps = (s_len + kTcTile - 1) / kTcTile;
-  stage_tc<D>(ks[0], kb, sk.d, sk.s, 0, s_len, k_dense);
-  stage_tc<D>(vs[0], vb, sv.d, sv.s, 0, s_len, v_dense);
+  const int steps = (k_len + kTcTile - 1) / kTcTile;
+  stage_tc<D>(ks[0], kb, sk.d, sk.s, 0, k_len, k_dense);
+  stage_tc<D>(vs[0], vb, sv.d, sv.s, 0, k_len, v_dense);
   cp_async_commit();
   for (int it = 0; it < steps; ++it) {
     const int buf = it & 1;
     if (it + 1 < steps) {  // the next tile into the other buffer, freed by the last barrier
-      stage_tc<D>(ks[buf ^ 1], kb, sk.d, sk.s, (it + 1) * kTcTile, s_len, k_dense);
-      stage_tc<D>(vs[buf ^ 1], vb, sv.d, sv.s, (it + 1) * kTcTile, s_len, v_dense);
+      stage_tc<D>(ks[buf ^ 1], kb, sk.d, sk.s, (it + 1) * kTcTile, k_len, k_dense);
+      stage_tc<D>(vs[buf ^ 1], vb, sv.d, sv.s, (it + 1) * kTcTile, k_len, v_dense);
     }
     cp_async_commit();
     cp_async_wait_prior();
     __syncthreads();
-    const int valid = min(kTcTile, s_len - it * kTcTile);
+    const int valid = min(kTcTile, k_len - it * kTcTile);
     if (valid == kTcTile)
       dq_tile<D, false>(acc, qa, da, nlse2, ndi, ks[buf], vs[buf], valid, scale_log2);
     else
@@ -690,7 +700,7 @@ flashattn_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = r0 + 8 * i;
-    if (row >= s_len) continue;
+    if (row >= q_len) continue;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       bf16* p = dqb + row * sdq.s + (8 * j + 2 * t) * sdq.d;
@@ -750,8 +760,9 @@ flashattn_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, const bf16* __restrict__ dout,
                         const float* __restrict__ lse, const float* __restrict__ di,
                         bf16* __restrict__ dk, bf16* __restrict__ dv, Strides sq, Strides sk,
-                        Strides sv, Strides sdo, Strides sdk, Strides sdv, int heads, int s_len,
-                        int tiles, float scale, float scale_log2, bool q_dense, bool do_dense) {
+                        Strides sv, Strides sdo, Strides sdk, Strides sdv, int heads, int q_len,
+                        int k_len, int tiles, float scale, float scale_log2, bool q_dense,
+                        bool do_dense) {
   constexpr int P = tc_pitch<D>();
   __shared__ __align__(16) bf16 qs[2][kTcTile * P];
   __shared__ __align__(16) bf16 dos[2][kTcTile * P];
@@ -762,8 +773,8 @@ flashattn_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // this thread's key rows r0 and r0 + 8
   const int r0 = (blockIdx.x % tiles) * kTcRows + (threadIdx.x / 32) * 16 + lane / 4;
   uint32_t ka[D / 4], va[D / 4];
-  load_a<D>(ka, k + n * sk.n + h * sk.h, sk.d, sk.s, r0, s_len, t);
-  load_a<D>(va, v + n * sv.n + h * sv.h, sv.d, sv.s, r0, s_len, t);
+  load_a<D>(ka, k + n * sk.n + h * sk.h, sk.d, sk.s, r0, k_len, t);
+  load_a<D>(va, v + n * sv.n + h * sv.h, sv.d, sv.s, r0, k_len, t);
   float acc_k[D / 8][4], acc_v[D / 8][4];
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
@@ -772,14 +783,14 @@ flashattn_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   const bf16* qb = q + n * sq.n + h * sq.h;
   const bf16* dob = dout + n * sdo.n + h * sdo.h;
-  const float* lse_b = lse + static_cast<int64_t>(bh) * s_len;
-  const float* di_b = di + static_cast<int64_t>(bh) * s_len;
+  const float* lse_b = lse + static_cast<int64_t>(bh) * q_len;
+  const float* di_b = di + static_cast<int64_t>(bh) * q_len;
   auto stat = [&](int i) {
-    return i < s_len ? make_float2(-lse_b[i] * kLog2e, -di_b[i]) : make_float2(-INFINITY, 0.f);
+    return i < q_len ? make_float2(-lse_b[i] * kLog2e, -di_b[i]) : make_float2(-INFINITY, 0.f);
   };
-  const int steps = (s_len + kTcTile - 1) / kTcTile;
-  stage_tc<D>(qs[0], qb, sq.d, sq.s, 0, s_len, q_dense);
-  stage_tc<D>(dos[0], dob, sdo.d, sdo.s, 0, s_len, do_dense);
+  const int steps = (q_len + kTcTile - 1) / kTcTile;
+  stage_tc<D>(qs[0], qb, sq.d, sq.s, 0, q_len, q_dense);
+  stage_tc<D>(dos[0], dob, sdo.d, sdo.s, 0, q_len, do_dense);
   cp_async_commit();
   if (threadIdx.x < kTcTile) stats[0][threadIdx.x] = stat(threadIdx.x);
   for (int it = 0; it < steps; ++it) {
@@ -787,14 +798,14 @@ flashattn_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bool more = it + 1 < steps;
     float2 next = make_float2(0.f, 0.f);
     if (more) {  // the next tile into the other buffer, freed by the last barrier
-      stage_tc<D>(qs[buf ^ 1], qb, sq.d, sq.s, (it + 1) * kTcTile, s_len, q_dense);
-      stage_tc<D>(dos[buf ^ 1], dob, sdo.d, sdo.s, (it + 1) * kTcTile, s_len, do_dense);
+      stage_tc<D>(qs[buf ^ 1], qb, sq.d, sq.s, (it + 1) * kTcTile, q_len, q_dense);
+      stage_tc<D>(dos[buf ^ 1], dob, sdo.d, sdo.s, (it + 1) * kTcTile, q_len, do_dense);
       if (threadIdx.x < kTcTile) next = stat((it + 1) * kTcTile + threadIdx.x);
     }
     cp_async_commit();
     cp_async_wait_prior();
     __syncthreads();
-    const int valid = min(kTcTile, s_len - it * kTcTile);
+    const int valid = min(kTcTile, q_len - it * kTcTile);
     if (valid == kTcTile)
       dkv_tile<D, kDk, kDv, false>(acc_k, acc_v, ka, va, qs[buf], dos[buf], stats[buf], valid,
                                    scale_log2);
@@ -807,7 +818,7 @@ flashattn_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = r0 + 8 * i;
-    if (row >= s_len) continue;
+    if (row >= k_len) continue;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       if (kDk) {
@@ -902,8 +913,8 @@ template <int D>
 __global__ void __launch_bounds__(kTcThreads, D == 8 ? 8 : 1)
 flashattn_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
-                        Strides sq, Strides sk, Strides sv, Strides so, int heads, int s_len,
-                        int tiles, float scale_log2, bool k_dense, bool v_dense) {
+                        Strides sq, Strides sk, Strides sv, Strides so, int heads, int q_len,
+                        int k_len, int tiles, float scale_log2, bool k_dense, bool v_dense) {
   constexpr int P = tc_pitch<D>();
   __shared__ __align__(16) bf16 ks[2][kTcTile * P];
   __shared__ __align__(16) bf16 vs[2][kTcTile * P];
@@ -913,7 +924,7 @@ flashattn_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // this thread's query rows r0 and r0 + 8
   const int r0 = (blockIdx.x % tiles) * kTcRows + (threadIdx.x / 32) * 16 + lane / 4;
   uint32_t qa[D / 4];
-  load_a<D>(qa, q + n * sq.n + h * sq.h, sq.d, sq.s, r0, s_len, t);
+  load_a<D>(qa, q + n * sq.n + h * sq.h, sq.d, sq.s, r0, q_len, t);
   if (scale_log2 < 0.f) {
     // q negated (exact in bfloat16), so that the maximum of the raw scores is
     // the maximum of the scaled ones
@@ -926,20 +937,20 @@ flashattn_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
   const bf16* kb = k + n * sk.n + h * sk.h;
   const bf16* vb = v + n * sv.n + h * sv.h;
-  const int steps = (s_len + kTcTile - 1) / kTcTile;
-  stage_tc<D>(ks[0], kb, sk.d, sk.s, 0, s_len, k_dense);
-  stage_tc<D>(vs[0], vb, sv.d, sv.s, 0, s_len, v_dense);
+  const int steps = (k_len + kTcTile - 1) / kTcTile;
+  stage_tc<D>(ks[0], kb, sk.d, sk.s, 0, k_len, k_dense);
+  stage_tc<D>(vs[0], vb, sv.d, sv.s, 0, k_len, v_dense);
   cp_async_commit();
   for (int it = 0; it < steps; ++it) {
     const int buf = it & 1;
     if (it + 1 < steps) {  // the next tile into the other buffer, freed by the last barrier
-      stage_tc<D>(ks[buf ^ 1], kb, sk.d, sk.s, (it + 1) * kTcTile, s_len, k_dense);
-      stage_tc<D>(vs[buf ^ 1], vb, sv.d, sv.s, (it + 1) * kTcTile, s_len, v_dense);
+      stage_tc<D>(ks[buf ^ 1], kb, sk.d, sk.s, (it + 1) * kTcTile, k_len, k_dense);
+      stage_tc<D>(vs[buf ^ 1], vb, sv.d, sv.s, (it + 1) * kTcTile, k_len, v_dense);
     }
     cp_async_commit();
     cp_async_wait_prior();
     __syncthreads();
-    const int valid = min(kTcTile, s_len - it * kTcTile);
+    const int valid = min(kTcTile, k_len - it * kTcTile);
     if (valid == kTcTile)
       fwd_tile<D, false>(acc, m, l, qa, ks[buf], vs[buf], valid, scale_log2);
     else
@@ -953,7 +964,7 @@ flashattn_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     const int row = r0 + 8 * i;
-    if (row >= s_len) continue;
+    if (row >= q_len) continue;
     const float inv = 1.f / l[i];
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
@@ -961,7 +972,7 @@ flashattn_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       p[0] = __float2bfloat16_rn(acc[j][2 * i] * inv);
       p[so.d] = __float2bfloat16_rn(acc[j][2 * i + 1] * inv);
     }
-    if (t == 0) lse[static_cast<int64_t>(bh) * s_len + row] = (m[i] + log2f(l[i])) * kLn2;
+    if (t == 0) lse[static_cast<int64_t>(bh) * q_len + row] = (m[i] + log2f(l[i])) * kLn2;
   }
 }
 
@@ -985,57 +996,59 @@ Strides strides_at(const int64_t* p, int i) {
 
 template <typename T, int D>
 void launch_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
-                const int64_t* st, int n, int heads, int s_len, float scale, cudaStream_t s) {
+                const int64_t* st, int n, int heads, int q_len, int k_len, float scale,
+                cudaStream_t s) {
   if constexpr (std::is_same<T, bf16>::value) {  // the tensor cores
-    const int tiles = (s_len + kTcRows - 1) / kTcRows;
+    const int tiles = (q_len + kTcRows - 1) / kTcRows;
     const unsigned int blocks = static_cast<unsigned int>(n) * heads * tiles;
     const Strides sk = strides_at(st, 1), sv = strides_at(st, 2);
     flashattn_fwd_tc_kernel<D><<<blocks, kTcThreads, 0, s>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<bf16*>(o), lse, strides_at(st, 0), sk, sv, strides_at(st, 3), heads, s_len,
-        tiles, scale * kLog2e, rows_dense(k, sk), rows_dense(v, sv));
+        static_cast<bf16*>(o), lse, strides_at(st, 0), sk, sv, strides_at(st, 3), heads, q_len,
+        k_len, tiles, scale * kLog2e, rows_dense(k, sk), rows_dense(v, sv));
   } else {  // float32: the float32 units
     constexpr int R = rows_per_thread<D>();
-    const int tiles = tiles_for(s_len, R);
+    const int tiles = tiles_for(q_len, R);
     const unsigned int blocks = static_cast<unsigned int>(n) * heads * tiles;
     flashattn_fwd_kernel<D, R><<<blocks, kThreads, 0, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
         static_cast<float*>(o), lse, strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
-        strides_at(st, 3), heads, s_len, tiles, scale * kLog2e);
+        strides_at(st, 3), heads, q_len, k_len, tiles, scale * kLog2e);
   }
 }
 
 template <typename T, int D>
 void launch_dq(const void* q, const void* k, const void* v, const void* dout, const float* lse,
-               const float* di, void* dq, const int64_t* st, int n, int heads, int s_len,
-               float scale, cudaStream_t s) {
+               const float* di, void* dq, const int64_t* st, int n, int heads, int q_len,
+               int k_len, float scale, cudaStream_t s) {
   if constexpr (std::is_same<T, bf16>::value) {  // the tensor cores
-    const int tiles = (s_len + kTcRows - 1) / kTcRows;
+    const int tiles = (q_len + kTcRows - 1) / kTcRows;
     const unsigned int blocks = static_cast<unsigned int>(n) * heads * tiles;
     const Strides sk = strides_at(st, 1), sv = strides_at(st, 2);
     flashattn_dq_tc_kernel<D><<<blocks, kTcThreads, 0, s>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
         static_cast<const bf16*>(dout), lse, di, static_cast<bf16*>(dq), strides_at(st, 0), sk,
-        sv, strides_at(st, 3), strides_at(st, 4), heads, s_len, tiles, scale, scale * kLog2e,
-        rows_dense(k, sk), rows_dense(v, sv));
+        sv, strides_at(st, 3), strides_at(st, 4), heads, q_len, k_len, tiles, scale,
+        scale * kLog2e, rows_dense(k, sk), rows_dense(v, sv));
   } else {  // float32: the float32 units
     constexpr int R = rows_per_thread<D>();
-    const int tiles = tiles_for(s_len, R);
+    const int tiles = tiles_for(q_len, R);
     const unsigned int blocks = static_cast<unsigned int>(n) * heads * tiles;
     flashattn_dq_kernel<D, R><<<blocks, kThreads, 0, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
         static_cast<const float*>(dout), lse, di, static_cast<float*>(dq), strides_at(st, 0),
-        strides_at(st, 1), strides_at(st, 2), strides_at(st, 3), strides_at(st, 4), heads, s_len,
-        tiles, scale, scale * kLog2e);
+        strides_at(st, 1), strides_at(st, 2), strides_at(st, 3), strides_at(st, 4), heads, q_len,
+        k_len, tiles, scale, scale * kLog2e);
   }
 }
 
+// the blocks own keys here: the grid follows k_len
 template <typename T, int D>
 void launch_dkv(const void* q, const void* k, const void* v, const void* dout, const float* lse,
                 const float* di, void* dk, void* dv, const int64_t* st, int n, int heads,
-                int s_len, float scale, cudaStream_t s) {
+                int q_len, int k_len, float scale, cudaStream_t s) {
   if constexpr (std::is_same<T, bf16>::value) {  // the tensor cores
-    const int tiles = (s_len + kTcRows - 1) / kTcRows;
+    const int tiles = (k_len + kTcRows - 1) / kTcRows;
     const unsigned int blocks = static_cast<unsigned int>(n) * heads * tiles;
     const Strides sq = strides_at(st, 0), sdo = strides_at(st, 3);
     // the gradients asked for choose the instantiation: no branch on them inside
@@ -1046,16 +1059,17 @@ void launch_dkv(const void* q, const void* k, const void* v, const void* dout, c
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
         static_cast<const bf16*>(dout), lse, di, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
         sq, strides_at(st, 1), strides_at(st, 2), sdo, strides_at(st, 4), strides_at(st, 5),
-        heads, s_len, tiles, scale, scale * kLog2e, rows_dense(q, sq), rows_dense(dout, sdo));
+        heads, q_len, k_len, tiles, scale, scale * kLog2e, rows_dense(q, sq),
+        rows_dense(dout, sdo));
   } else {  // float32: the float32 units
     constexpr int R = rows_per_thread<D>();
-    const int tiles = tiles_for(s_len, R);
+    const int tiles = tiles_for(k_len, R);
     const unsigned int blocks = static_cast<unsigned int>(n) * heads * tiles;
     flashattn_dkv_kernel<D, R><<<blocks, kThreads, 0, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
         static_cast<const float*>(dout), lse, di, static_cast<float*>(dk), static_cast<float*>(dv),
         strides_at(st, 0), strides_at(st, 1), strides_at(st, 2), strides_at(st, 3),
-        strides_at(st, 4), strides_at(st, 5), heads, s_len, tiles, scale, scale * kLog2e);
+        strides_at(st, 4), strides_at(st, 5), heads, q_len, k_len, tiles, scale, scale * kLog2e);
   }
 }
 
@@ -1081,17 +1095,22 @@ void launch_dkv(const void* q, const void* k, const void* v, const void* dout, c
 // All three take (N, H, D, S) views on the current device, each given by four
 // element strides (n, h, d, s) in `strides` (a host array, one group of four per
 // tensor in the order of the pointer arguments that are views), and return
-// cudaGetLastError(). The caller checks: n, heads, s_len >= 1, d in {8, 16, 32,
-// 64}, n * heads * ceil(s_len / 64) below 2^31, no output overlapping itself.
-// dtype: 0 = float32, 1 = bfloat16 (of every view); lse and di are (N, H, S)
+// cudaGetLastError(). The queries (q, o, dout, dq) hold q_len rows, the keys (k,
+// v, dk, dv) k_len: q_len < k_len is a rank's share of the queries against every
+// key (the spatial mesh axis), q_len == k_len the self-attention of one sequence.
+// The caller checks: n, heads, q_len, k_len >= 1, d in {8, 16, 32, 64}, n *
+// heads * ceil(max(q_len, k_len) / 64) below 2^31, no output overlapping itself.
+// dtype: 0 = float32, 1 = bfloat16 (of every view); lse and di are (N, H, q_len)
 // float32, contiguous. Every entry takes the float32-unit kernels for float32
 // and the tensor-core kernels for bfloat16.
 
 extern "C" int tfcgan_flashattn_fwd(const void* q, const void* k, const void* v, void* o,
                                     float* lse, const int64_t* strides, int n, int heads,
-                                    int s_len, int d, float scale, int dtype, void* stream) {
+                                    int q_len, int k_len, int d, float scale, int dtype,
+                                    void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!TFCGAN_FLASHATTN_DISPATCH(launch_fwd, q, k, v, o, lse, strides, n, heads, s_len, scale, s))
+  if (!TFCGAN_FLASHATTN_DISPATCH(launch_fwd, q, k, v, o, lse, strides, n, heads, q_len, k_len,
+                                 scale, s))
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1100,10 +1119,11 @@ extern "C" int tfcgan_flashattn_fwd(const void* q, const void* k, const void* v,
 extern "C" int tfcgan_flashattn_bwd_dq(const void* q, const void* k, const void* v,
                                        const void* dout, const float* lse, const float* di,
                                        void* dq, const int64_t* strides, int n, int heads,
-                                       int s_len, int d, float scale, int dtype, void* stream) {
+                                       int q_len, int k_len, int d, float scale, int dtype,
+                                       void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!TFCGAN_FLASHATTN_DISPATCH(launch_dq, q, k, v, dout, lse, di, dq, strides, n, heads, s_len,
-                                 scale, s))
+  if (!TFCGAN_FLASHATTN_DISPATCH(launch_dq, q, k, v, dout, lse, di, dq, strides, n, heads, q_len,
+                                 k_len, scale, s))
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1113,12 +1133,12 @@ extern "C" int tfcgan_flashattn_bwd_dq(const void* q, const void* k, const void*
 extern "C" int tfcgan_flashattn_bwd_dkv(const void* q, const void* k, const void* v,
                                         const void* dout, const float* lse, const float* di,
                                         void* dk, void* dv, const int64_t* strides, int n,
-                                        int heads, int s_len, int d, float scale, int dtype,
-                                        void* stream) {
+                                        int heads, int q_len, int k_len, int d, float scale,
+                                        int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dk == nullptr && dv == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   if (!TFCGAN_FLASHATTN_DISPATCH(launch_dkv, q, k, v, dout, lse, di, dk, dv, strides, n, heads,
-                                 s_len, scale, s))
+                                 q_len, k_len, scale, s))
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,9 +6,17 @@
 //   lines  (o, j / channels): one (p, q) pair each, p and q of shape
 //          (outer, inner / channels), float32
 //   out[o, i, j] = sum_k K(t - k) * x[o, clamp(i0 + k, 0, l_in - 1), j]
-//          pos = p * i + q,  i0 = floor(pos),  t = pos - i0,
+//          pos = p * (o_base + i) + q,  i0 = floor(pos),  t = pos - i0,
 //          k = 0, 1 (linear, K = triangle) or -1 .. 2 (cubic, K = Keys, A = -0.75);
 //          with border == 0 a tap outside [0, l_in) reads 0 instead of the edge.
+//   o_base: the first output index of the window computed, so that the l_out
+//          outputs are outputs o_base .. o_base + l_out - 1 of a longer line.
+//          On the spatial mesh axis a rank's y-pass computes its rows of the
+//          warp (o_base its first row) from the whole intermediate, gathered
+//          once: each output's position is the whole map's to the bit, so the
+//          shard's forward equals those rows of the whole warp bit for bit.
+//          Shifting q by p * o_base instead would round otherwise. o_base = 0
+//          is the whole line, the launch of every caller without row shards.
 //
 // Replaces the TPU kernels of tfcgan_tpu/ops/pallas_kernels/resample.py
 // (_fwd_kernel, _adjoint_kernel, _grad_pos_kernel, all reached through
@@ -228,14 +236,15 @@ template <typename T, bool Cubic>
 __global__ void __launch_bounds__(kThreads)
 resample_fwd_kernel(const T* __restrict__ x, const float* __restrict__ p,
                     const float* __restrict__ q, float* __restrict__ out, int l_in, int l_out,
-                    int inner, int channels, int lines, int border) {
+                    int inner, int channels, int lines, int border, int o_base) {
   const int e = blockIdx.y * kThreads + threadIdx.x;  // i * lines + line
   if (e >= l_out * lines) return;
   const int64_t o = blockIdx.x;
   const int i = e / lines;
   const int line = e - i * lines;
   const int64_t ln = o * lines + line;
-  const Taps<Cubic> taps = window_taps<Cubic>(position(p[ln], q[ln], i), l_in, inner, border);
+  const Taps<Cubic> taps =
+      window_taps<Cubic>(position(p[ln], q[ln], o_base + i), l_in, inner, border);
   const T* xl = x + o * l_in * inner + line * channels;
   float* dst = out + (o * l_out + i) * inner + line * channels;
   if (channels == 3) {
@@ -245,19 +254,22 @@ resample_fwd_kernel(const T* __restrict__ x, const float* __restrict__ p,
   }
 }
 
-// The positions i of a line (p != 0) with p * i + q below bound (Below) or at
-// or above it: one end of [0, l_out), as [first, last] with one element of
-// slack, as the adjoint's window is solved.
+// The positions i of a line (p != 0) with p * (o_base + i) + q below bound
+// (Below) or at or above it: one end of [0, l_out), as [first, last] with one
+// element of slack, as the adjoint's window is solved (in whole-line indices,
+// shifted by o_base once they are integers, so the shift is exact).
 template <bool Below>
-__device__ __forceinline__ void solve_side(float pl, float ql, float bound, int l_out, int& first,
-                                           int& last) {
+__device__ __forceinline__ void solve_side(float pl, float ql, float bound, int l_out,
+                                           int o_base, int& first, int& last) {
   const float c = (bound - ql) / pl;
+  const float ob = static_cast<float>(o_base);
   first = 0;
   last = l_out - 1;
   if ((pl > 0.f) == Below) {
-    last = static_cast<int>(fmaxf(fminf(ceilf(c) + 1.f, static_cast<float>(l_out - 1)), -1.f));
+    last = static_cast<int>(
+        fmaxf(fminf(ceilf(c) + 1.f - ob, static_cast<float>(l_out - 1)), -1.f));
   } else {
-    first = static_cast<int>(fminf(fmaxf(floorf(c) - 1.f, 0.f), static_cast<float>(l_out)));
+    first = static_cast<int>(fminf(fmaxf(floorf(c) - 1.f - ob, 0.f), static_cast<float>(l_out)));
   }
 }
 
@@ -270,7 +282,7 @@ __device__ __forceinline__ void solve_side(float pl, float ql, float bound, int 
 template <bool Cubic, int CB, bool Low>
 __device__ __forceinline__ void add_edge_mass(const float* __restrict__ gl, float* acc, int nc,
                                               float pl, float ql, int l_in, int l_out,
-                                              int inner) {
+                                              int inner, int o_base) {
   constexpr int hs = Cubic ? 2 : 1;
   const float last = static_cast<float>(l_in - 1);
   // Low: i0 - (hs - 1) < 0, that is pos < hs - 1; else i0 + hs > l_in - 1,
@@ -278,13 +290,13 @@ __device__ __forceinline__ void add_edge_mass(const float* __restrict__ gl, floa
   const float bound = Low ? static_cast<float>(hs - 1) : static_cast<float>(l_in - hs);
   int first = 0, end = l_out - 1;
   if (pl != 0.f) {
-    solve_side<Low>(pl, ql, bound, l_out, first, end);
+    solve_side<Low>(pl, ql, bound, l_out, o_base, first, end);
   }
   float m[CB];
 #pragma unroll
   for (int c = 0; c < CB; ++c) m[c] = 0.f;
   for (int i = first; i <= end; ++i) {
-    const float pos = position(pl, ql, i);
+    const float pos = position(pl, ql, o_base + i);
     const float i0 = floorf(pos);
     if (Low ? !(i0 - static_cast<float>(hs - 1) < 0.f) : !(i0 + static_cast<float>(hs) > last)) {
       continue;
@@ -318,7 +330,7 @@ template <bool Cubic, int CB, int V>
 __device__ __forceinline__ void adjoint_strip(const float* __restrict__ gl,
                                               float* __restrict__ dst, int nc, int nv, float pl,
                                               float ql, int first, int last, int v0, int l_in,
-                                              int l_out, int inner, int border) {
+                                              int l_out, int inner, int border, int o_base) {
   constexpr int hs = Cubic ? 2 : 1;
   float acc[V][CB];
 #pragma unroll
@@ -328,7 +340,7 @@ __device__ __forceinline__ void adjoint_strip(const float* __restrict__ gl,
   }
 #pragma unroll kAdjUnroll
   for (int i = first; i <= last; ++i) {
-    const float pos = position(pl, ql, i);
+    const float pos = position(pl, ql, o_base + i);
     const float i0 = floorf(pos);
     const float* gi = gl + static_cast<int64_t>(i) * inner;
     float gv[CB];
@@ -345,12 +357,14 @@ __device__ __forceinline__ void adjoint_strip(const float* __restrict__ gl,
     }
   }
   if (border) {
-    if (v0 == 0) add_edge_mass<Cubic, CB, true>(gl, acc[0], nc, pl, ql, l_in, l_out, inner);
+    if (v0 == 0) {
+      add_edge_mass<Cubic, CB, true>(gl, acc[0], nc, pl, ql, l_in, l_out, inner, o_base);
+    }
     if (v0 + nv == l_in) {
 #pragma unroll
       for (int d = 0; d < V; ++d) {
         if (d == nv - 1) {
-          add_edge_mass<Cubic, CB, false>(gl, acc[d], nc, pl, ql, l_in, l_out, inner);
+          add_edge_mass<Cubic, CB, false>(gl, acc[d], nc, pl, ql, l_in, l_out, inner, o_base);
         }
       }
     }
@@ -372,7 +386,7 @@ template <bool Cubic>
 __global__ void __launch_bounds__(kThreads, kAdjMinBlocks)
 resample_adjoint_kernel(const float* __restrict__ g, const float* __restrict__ p,
                         const float* __restrict__ q, float* __restrict__ dx, int l_in, int l_out,
-                        int inner, int channels, int lines, int border) {
+                        int inner, int channels, int lines, int border, int o_base) {
   constexpr int hs = Cubic ? 2 : 1;
   const int strips = (l_in + kAdjStrip - 1) / kAdjStrip;
   const int e = blockIdx.y * kThreads + threadIdx.x;  // strip * lines + line
@@ -385,26 +399,28 @@ resample_adjoint_kernel(const float* __restrict__ g, const float* __restrict__ p
   const int64_t ln = o * lines + line;
   const float pl = p[ln], ql = q[ln];
 
-  // every i with p*i + q in [v0 - hs, v0 + nv - 1 + hs), one element of slack
-  // each side (the windows of the strip's elements, solved at its two ends)
+  // every i with p*(o_base + i) + q in [v0 - hs, v0 + nv - 1 + hs), one
+  // element of slack each side (the windows of the strip's elements, solved
+  // at its two ends in whole-line indices, then shifted by o_base)
   int first = 0, last = l_out - 1;
   if (pl != 0.f) {
     const float a = (static_cast<float>(v0 - hs) - ql) / pl;
     const float b = (static_cast<float>(v0 + nv - 1 + hs) - ql) / pl;
-    first = static_cast<int>(fminf(fmaxf(floorf(fminf(a, b)) - 1.f, 0.f),
+    const float ob = static_cast<float>(o_base);
+    first = static_cast<int>(fminf(fmaxf(floorf(fminf(a, b)) - 1.f - ob, 0.f),
                                    static_cast<float>(l_out)));
-    last = static_cast<int>(fmaxf(fminf(ceilf(fmaxf(a, b)) + 1.f,
+    last = static_cast<int>(fmaxf(fminf(ceilf(fmaxf(a, b)) + 1.f - ob,
                                         static_cast<float>(l_out - 1)), -1.f));
   }
   const float* gl = g + o * l_out * inner + line * channels;
   float* dst = dx + (o * l_in + v0) * inner + line * channels;
   if (channels == 3) {
     adjoint_strip<Cubic, 3, kAdjStrip>(gl, dst, 3, nv, pl, ql, first, last, v0, l_in, l_out,
-                                       inner, border);
+                                       inner, border, o_base);
   } else {
     for (int c0 = 0; c0 < channels; c0 += 4) {
       adjoint_strip<Cubic, 4, kAdjStrip>(gl + c0, dst + c0, min(4, channels - c0), nv, pl, ql,
-                                         first, last, v0, l_in, l_out, inner, border);
+                                         first, last, v0, l_in, l_out, inner, border, o_base);
     }
   }
 }
@@ -441,7 +457,8 @@ __global__ void __launch_bounds__(kGradThreads)
 resample_gradpos_kernel(const T* __restrict__ x, const float* __restrict__ g,
                         const float* __restrict__ p, const float* __restrict__ q,
                         float* __restrict__ gp, float* __restrict__ gq, int l_in, int l_out,
-                        int inner, int channels, int lines, int border, int tl_log2) {
+                        int inner, int channels, int lines, int border, int o_base,
+                        int tl_log2) {
   __shared__ float s_p[kGradThreads / 32][32], s_q[kGradThreads / 32][32];
   const int tl = 1 << tl_log2;
   const int slice = threadIdx.x >> tl_log2, slices = blockDim.x >> tl_log2;
@@ -456,11 +473,11 @@ resample_gradpos_kernel(const T* __restrict__ x, const float* __restrict__ g,
 #pragma unroll kGradPer
     for (int i = slice; i < l_out; i += slices) {
       const Taps<Cubic> taps =
-          window_taps<Cubic, true>(position(pl, ql, i), l_in, inner, border);
+          window_taps<Cubic, true>(position(pl, ql, o_base + i), l_in, inner, border);
       const float* gi = gl + static_cast<int64_t>(i) * inner;
       const float gpos = channels == 3 ? channel_grad_sum<T, Cubic, 3>(xl, gi, taps, 3)
                                        : channel_grad_sum<T, Cubic, 0>(xl, gi, taps, channels);
-      sum_p = fmaf(gpos, static_cast<float>(i), sum_p);
+      sum_p = fmaf(gpos, static_cast<float>(o_base + i), sum_p);
       sum_q += gpos;
     }
   }
@@ -495,24 +512,24 @@ dim3 plane_grid(int64_t outer, int length, int inner) {
 
 template <typename T>
 void launch_fwd(const void* x, const float* p, const float* q, float* out, int64_t outer,
-                int l_in, int l_out, int inner, int channels, int cubic, int border,
+                int l_in, int l_out, int inner, int channels, int cubic, int border, int o_base,
                 cudaStream_t s) {
   const int lines = inner / channels;
   const dim3 grid = plane_grid(outer, l_out, lines);
   const T* xs = static_cast<const T*>(x);
   if (cubic) {
     resample_fwd_kernel<T, true><<<grid, kThreads, 0, s>>>(xs, p, q, out, l_in, l_out, inner,
-                                                           channels, lines, border);
+                                                           channels, lines, border, o_base);
   } else {
     resample_fwd_kernel<T, false><<<grid, kThreads, 0, s>>>(xs, p, q, out, l_in, l_out, inner,
-                                                            channels, lines, border);
+                                                            channels, lines, border, o_base);
   }
 }
 
 template <typename T>
 void launch_gradpos(const void* x, const float* g, const float* p, const float* q, float* gp,
                     float* gq, int64_t outer, int l_in, int l_out, int inner, int channels,
-                    int cubic, int border, cudaStream_t s) {
+                    int cubic, int border, int o_base, cudaStream_t s) {
   const int lines = inner / channels;
   // a tile of the fewest powers of two lines that holds them all, 32 at most;
   // slices until every position has one or the block is full, a warp at least
@@ -530,11 +547,11 @@ void launch_gradpos(const void* x, const float* g, const float* p, const float* 
   if (cubic) {
     resample_gradpos_kernel<T, true><<<grid, threads, 0, s>>>(xs, g, p, q, gp, gq, l_in, l_out,
                                                               inner, channels, lines, border,
-                                                              tl_log2);
+                                                              o_base, tl_log2);
   } else {
     resample_gradpos_kernel<T, false><<<grid, threads, 0, s>>>(xs, g, p, q, gp, gq, l_in, l_out,
                                                                inner, channels, lines, border,
-                                                               tl_log2);
+                                                               o_base, tl_log2);
   }
 }
 
@@ -546,15 +563,19 @@ void launch_gradpos(const void* x, const float* g, const float* p, const float* 
 // (any count: a thread loops over a line's channels), lengths >= 1, outer <
 // 2^31, length * inner <= 65535 * 256 (grid.y of the forward and the adjoint).
 // dtype: 0 = float32, 1 = bfloat16 (of x); g, out, dx, gp, gq are float32.
+// o_base >= 0: the outputs are positions o_base .. o_base + l_out - 1 of the
+// line (0: the whole line, positions 0 .. l_out - 1).
 
 extern "C" int tfcgan_resample_fwd(const void* x, const float* p, const float* q, float* out,
                                    int64_t outer, int l_in, int l_out, int inner, int channels,
-                                   int cubic, int border, int dtype, void* stream) {
+                                   int cubic, int border, int o_base, int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    launch_fwd<float>(x, p, q, out, outer, l_in, l_out, inner, channels, cubic, border, s);
+    launch_fwd<float>(x, p, q, out, outer, l_in, l_out, inner, channels, cubic, border, o_base,
+                      s);
   } else if (dtype == 1) {
-    launch_fwd<__nv_bfloat16>(x, p, q, out, outer, l_in, l_out, inner, channels, cubic, border, s);
+    launch_fwd<__nv_bfloat16>(x, p, q, out, outer, l_in, l_out, inner, channels, cubic, border,
+                              o_base, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -565,16 +586,17 @@ extern "C" int tfcgan_resample_fwd(const void* x, const float* p, const float* q
 // masses included: one launch, no scratch.
 extern "C" int tfcgan_resample_adjoint(const float* g, const float* p, const float* q, float* dx,
                                        int64_t outer, int l_in, int l_out, int inner,
-                                       int channels, int cubic, int border, void* stream) {
+                                       int channels, int cubic, int border, int o_base,
+                                       void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int lines = inner / channels;
   const dim3 grid = plane_grid(outer, (l_in + kAdjStrip - 1) / kAdjStrip, lines);
   if (cubic) {
     resample_adjoint_kernel<true><<<grid, kThreads, 0, s>>>(g, p, q, dx, l_in, l_out, inner,
-                                                            channels, lines, border);
+                                                            channels, lines, border, o_base);
   } else {
     resample_adjoint_kernel<false><<<grid, kThreads, 0, s>>>(g, p, q, dx, l_in, l_out, inner,
-                                                             channels, lines, border);
+                                                             channels, lines, border, o_base);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -582,14 +604,14 @@ extern "C" int tfcgan_resample_adjoint(const float* g, const float* p, const flo
 extern "C" int tfcgan_resample_gradpos(const void* x, const float* g, const float* p,
                                        const float* q, float* gp, float* gq, int64_t outer,
                                        int l_in, int l_out, int inner, int channels, int cubic,
-                                       int border, int dtype, void* stream) {
+                                       int border, int o_base, int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     launch_gradpos<float>(x, g, p, q, gp, gq, outer, l_in, l_out, inner, channels, cubic, border,
-                          s);
+                          o_base, s);
   } else if (dtype == 1) {
     launch_gradpos<__nv_bfloat16>(x, g, p, q, gp, gq, outer, l_in, l_out, inner, channels, cubic,
-                                  border, s);
+                                  border, o_base, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -19,6 +19,18 @@ in the same memory order, so no pack or transpose copy is made.
 ``sample`` is the whole ancestral chain on the device under
 ``torch.no_grad()``: a Python loop over Python-int timesteps with no host
 synchronisation inside.
+
+``CondUNet(x, t, cond, rows=...)`` runs on row shards (the spatial mesh axis,
+``parallel.spatial``): x and cond are this rank's rows of maps of ``rows.h``
+rows, and so is eps. The convs fetch their halo rows (``TorchConv(rows=)``),
+the group norms sum their statistics over the spatial group, the nearest 2x
+upsample takes its rows through ``row_op`` (the balanced split of 2h is not
+twice the split of h for every h), and the time embedding is per sample. The
+attention reads every pixel: each rank projects q from its own rows, gathers
+the group-normed map once and projects k and v from the whole of it, and the
+kernels attend this rank's queries to every key (``sq = rows x W``, ``sk = H x
+W``); k and v's gradients are then whole on every rank, and the gather's
+backward sums them onto each owner's rows.
 """
 
 from __future__ import annotations
@@ -31,9 +43,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from tfcgan_tpu_torch.models.layers import GroupNorm, TorchConv
+from tfcgan_tpu_torch.models.layers import GroupNorm, TorchConv, sharded
 from tfcgan_tpu_torch.models.vit import Dense
 from tfcgan_tpu_torch.ops.flashattn import flash_attention
+from tfcgan_tpu_torch.parallel.spatial import Rows, gather_spatial, row_op
 
 
 # ------------------------------------------------------------------ schedule
@@ -127,12 +140,13 @@ class ResnetBlock2D(nn.Module):
             self.conv_shortcut = TorchConv(in_channels, feats, kernel_size=1,
                                            padding=((0, 0), (0, 0)), **kw)
 
-    def forward(self, x: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
-        h = self.conv1(F.silu(self.norm1(x)))
+    def forward(self, x: torch.Tensor, temb: torch.Tensor, rows: Rows | None = None
+                ) -> torch.Tensor:
+        h = self.conv1(F.silu(self.norm1(x, rows)), rows)
         h = h + self.time_emb_proj(F.silu(temb))[:, None, None, :]
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = self.conv2(F.silu(self.norm2(h, rows)), rows)
         if self.conv_shortcut is not None:
-            x = self.conv_shortcut(x)
+            x = self.conv_shortcut(x, rows)
         return x + h
 
 
@@ -152,16 +166,19 @@ class AttentionBlock(nn.Module):
         self.to_q, self.to_k, self.to_v = (Dense(channels, channels, **kw) for _ in range(3))
         self.to_out = Dense(channels, channels, **kw)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rows: Rows | None = None) -> torch.Tensor:
+        """With ``rows``: this rank's queries against the whole map's keys."""
         n, hh, ww, c = x.shape
         heads = c // self.head_dim
-        h = self.group_norm(x).reshape(n, hh * ww, c)
+        normed = self.group_norm(x, rows)
+        h = normed.reshape(n, hh * ww, c)
+        kv = h if not sharded(rows) else gather_spatial(normed, rows).reshape(n, -1, c)
 
         def split(z: torch.Tensor) -> torch.Tensor:
-            # (N, HW, C) -> the (N, heads, D, HW) view of the same memory
-            return z.view(n, hh * ww, heads, self.head_dim).permute(0, 2, 3, 1)
+            # (N, S, C) -> the (N, heads, D, S) view of the same memory
+            return z.view(n, z.shape[1], heads, self.head_dim).permute(0, 2, 3, 1)
 
-        out = flash_attention(split(self.to_q(h)), split(self.to_k(h)), split(self.to_v(h)),
+        out = flash_attention(split(self.to_q(h)), split(self.to_k(kv)), split(self.to_v(kv)),
                               self.head_dim ** -0.5)
         # back to (N, HW, C): a view when the result has the projections' memory
         # order (the kernels'), a copy after the plain version
@@ -233,34 +250,55 @@ class CondUNet(nn.Module):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
 
-    def forward(self, x: torch.Tensor, t: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, t: torch.Tensor, cond: torch.Tensor,
+                rows: Rows | None = None) -> torch.Tensor:
         """x (N, H, W, out_channels) noisy, t (N,) integer timesteps, cond
-        (N, H, W, Cc) -> eps (N, H, W, out_channels) in the compute dtype."""
+        (N, H, W, Cc) -> eps (N, H, W, out_channels) in the compute dtype. With
+        ``rows`` x, cond and eps are this rank's rows (see the module docstring)."""
         temb = self.time_mlp1(timestep_embedding(t, self.channels[0]))
         temb = self.time_mlp2(F.silu(temb))
-        h = self.conv_in(torch.cat([x, cond.to(x.dtype)], dim=-1))
+        r = rows  # the record of h's rows; a skip shares its map's
+        h = self.conv_in(torch.cat([x, cond.to(x.dtype)], dim=-1), r)
         skips = [h]
         for i in range(len(self.channels)):
             for j in range(self.layers_per_block):
-                h = getattr(self, f"down{i}_res{j}")(h, temb)
+                h = getattr(self, f"down{i}_res{j}")(h, temb, r)
                 if self.attn[i]:
-                    h = getattr(self, f"down{i}_attn{j}")(h)
+                    h = getattr(self, f"down{i}_attn{j}")(h, r)
                 skips.append(h)
             if i + 1 < len(self.channels):
-                h = getattr(self, f"down{i}_downsample")(h)
+                down = getattr(self, f"down{i}_downsample")
+                h = down(h, r)
+                r = r and r.of(down.out_height(r.h))
                 skips.append(h)
-        h = self.mid_res1(self.mid_attn(self.mid_res0(h, temb)), temb)
+        h = self.mid_res1(self.mid_attn(self.mid_res0(h, temb, r), r), temb, r)
         rev_attn = tuple(reversed(self.attn))
         for i in range(len(self.channels)):
             for j in range(self.layers_per_block + 1):
-                h = getattr(self, f"up{i}_res{j}")(torch.cat([h, skips.pop()], dim=-1), temb)
+                h = getattr(self, f"up{i}_res{j}")(torch.cat([h, skips.pop()], dim=-1), temb, r)
                 if rev_attn[i]:
-                    h = getattr(self, f"up{i}_attn{j}")(h)
+                    h = getattr(self, f"up{i}_attn{j}")(h, r)
             if i + 1 < len(self.channels):
                 # Upsample2D: nearest 2x by repeat, then conv3x3
-                h = h.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
-                h = getattr(self, f"up{i}_upsample")(h)
-        return self.conv_out(F.silu(self.conv_norm_out(h)))
+                h = upsample_nearest2x(h, r)
+                r = r and r.of(2 * r.h)
+                h = getattr(self, f"up{i}_upsample")(h, r)
+        return self.conv_out(F.silu(self.conv_norm_out(h, r)), r)
+
+
+def upsample_nearest2x(h: torch.Tensor, rows: Rows | None = None) -> torch.Tensor:
+    """Nearest 2x upsample of NHWC ``h`` by repeat; with ``rows``, this
+    rank's rows of the upsampled map of 2 ``rows.h`` rows from its shard of
+    ``h`` (and a neighbour's edge row where the two splits part)."""
+    if not sharded(rows):
+        return h.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+
+    def compute(xw, a, b, lo, hi):  # xw: rows [a, b), upsampled rows [2a, 2b)
+        return xw.repeat_interleave(2, dim=1)[:, lo - 2 * a:hi - 2 * a].repeat_interleave(
+            2, dim=2)
+
+    return row_op(h, rows, 2 * rows.h, lambda lo, hi: (lo // 2, (hi - 1) // 2 + 1), compute,
+                  zero_pad=False)
 
 
 def sample(unet: CondUNet, schedule: DDPMSchedule, cond: torch.Tensor,

@@ -23,7 +23,8 @@ this rank's row shard of a map of ``rows.h`` rows, and so is the output, of
 the height ``out_height`` gives. Each conv fetches its halo rows first
 (``row_op``) and then runs as above, column-parallel on a tensor mesh too;
 the instance norms sum their statistics over the spatial group, and the
-dropout keep-masks come cut to the block's rows (``parallel.shard_draws``).
+dropout keep-masks come cut to the block's rows (``parallel.shard_draws``);
+``GroupNorm`` sums its group statistics over the spatial group as well.
 """
 
 from __future__ import annotations
@@ -276,7 +277,8 @@ def spectral_power_iteration(module: nn.Module, order: str = "vu") -> None:
 
 class GroupNorm(nn.Module):
     """Flax ``GroupNorm(num_groups, epsilon, dtype)`` on NHWC: float32
-    statistics, the result in ``dtype``."""
+    statistics, the result in ``dtype``; with ``rows`` on row shards, the
+    statistics summed over the spatial group."""
 
     def __init__(self, channels: int, groups: int = 32, eps: float = 1e-5,
                  dtype: torch.dtype = torch.float32, device=None):
@@ -285,8 +287,8 @@ class GroupNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(channels, device=device))
         self.bias = nn.Parameter(torch.zeros(channels, device=device))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return group_norm(x, self.groups, self.weight, self.bias, self.eps).to(self.dtype)
+    def forward(self, x: torch.Tensor, rows: Rows | None = None) -> torch.Tensor:
+        return group_norm(x, self.groups, self.weight, self.bias, self.eps, rows).to(self.dtype)
 
 
 def _dropout(x: torch.Tensor, keep: torch.Tensor | None) -> torch.Tensor:

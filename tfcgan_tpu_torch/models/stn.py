@@ -11,6 +11,14 @@ two-pass separable warp, whose passes are the hand-written resampling kernels
 on a card (``ops/resample.py``); ``False`` takes the direct 2-D gather warp in
 plain tensor code (``ops/warp.py``).
 
+On row shards (``rows``, the spatial mesh axis) ``AffineSTN.theta`` gathers
+the (img_a, img_b) pair over the spatial group once and runs the localizer on
+the whole images on every spatial rank (its patch-64 and patch-16 token grids
+are 16 and 256 tokens at 256², so its activations are small): theta is the
+same on every rank, and each rank's backward through it carries only its own
+share of the loss. ``warp_src(..., rows=)`` warps this rank's rows of the
+source into its rows of the output, reading the whole source (both warps).
+
 ``CNNAffineSTN`` (NeMAR's AffineNetwork): 5 x (conv3 -> instance norm -> relu
 -> 2x2 max-pool) -> Dense -> relu -> Dense(6, near-zero init) = dtheta; each
 target is warped by theta = identity + dtheta with bilinear/zeros sampling
@@ -40,6 +48,7 @@ from tfcgan_tpu_torch.ops.norm import instance_norm
 from tfcgan_tpu_torch.ops.pooling import pool22
 from tfcgan_tpu_torch.ops.resample import warp_affine_separable
 from tfcgan_tpu_torch.ops.warp import affine_grid, grid_sample, warp_affine
+from tfcgan_tpu_torch.parallel.spatial import Rows, gather_spatial
 
 IDENTITY_THETA = (1.0, 0.0, 0.0, 0.0, 1.0, 0.0)
 
@@ -54,14 +63,16 @@ class LocalizerViT(ViT):
 
 
 def warp_src(src: torch.Tensor, theta: torch.Tensor, *, mode: str, padding_mode: str,
-             fast: bool) -> torch.Tensor:
+             fast: bool, rows: Rows | None = None) -> torch.Tensor:
     """The STN's warp of ``src`` (N, H, W, C) by ``theta`` (N, 2, 3): the
     separable warp when ``fast``, else the direct align_corners=True gather
-    warp; the result has ``src``'s dtype."""
+    warp; the result has ``src``'s dtype. With ``rows`` src and the result are
+    this rank's rows of images of ``rows.h`` rows."""
     if fast:
-        return warp_affine_separable(src, theta, mode=mode, padding_mode=padding_mode)
+        return warp_affine_separable(src, theta, mode=mode, padding_mode=padding_mode,
+                                     rows=rows)
     return warp_affine(src, theta, mode=mode, padding_mode=padding_mode,
-                       align_corners=True).to(src.dtype)
+                       align_corners=True, rows=rows).to(src.dtype)
 
 
 class AffineSTN(nn.Module):
@@ -106,9 +117,12 @@ class AffineSTN(nn.Module):
             self.fc4.weight.zero_()
             self.fc4.bias.zero_()
 
-    def theta(self, img_a: torch.Tensor, img_b: torch.Tensor) -> torch.Tensor:
-        """(N, 2, 3) float32."""
-        tokens = self.vit(torch.cat([img_a.to(self.dtype), img_b.to(self.dtype)], dim=-1))
+    def theta(self, img_a: torch.Tensor, img_b: torch.Tensor, rows: Rows | None = None
+              ) -> torch.Tensor:
+        """(N, 2, 3) float32; with ``rows`` from this rank's rows of both
+        images, the pair gathered once (the same theta on every spatial rank)."""
+        pair = torch.cat([img_a.to(self.dtype), img_b.to(self.dtype)], dim=-1)
+        tokens = self.vit(gather_spatial(pair, rows))
         h = torch.relu(self.fc1(tokens.flatten(1)))
         h = torch.relu(self.fc2(h))
         h = torch.sigmoid(self.fc3(h))

@@ -75,7 +75,8 @@ class Dense(nn.Module):
 
 
 class LayerNorm(nn.Module):
-    """Flax ``LayerNorm(dtype)``: statistics in float32, eps 1e-6, the result
+    """Flax ``LayerNorm(dtype)``: statistics in float32 (the parameters'
+    type: float64 parameters take float64 statistics), eps 1e-6, the result
     in ``dtype``."""
 
     def __init__(self, dim: int, dtype: torch.dtype = torch.float32, device=None):
@@ -85,7 +86,7 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.layer_norm(x.float(), x.shape[-1:], self.weight, self.bias, _LN_EPS)
+        y = F.layer_norm(x.to(self.weight.dtype), x.shape[-1:], self.weight, self.bias, _LN_EPS)
         return y.to(self.dtype)
 
 

@@ -3,7 +3,9 @@
 
 ``flash_attention(q, k, v, scale)`` keeps the JAX entry point's signature and
 axis order: q, k, v are ``(BH, D, S)``, head_dim before sequence, and so is the
-result; it also takes ``(N, heads, D, S)``. Per (batch, head),
+result; it also takes ``(N, heads, D, S)``. The keys may be longer than the
+queries (k and v ``(..., D, Sk)``, q ``(..., D, Sq)``): on the spatial mesh axis
+a rank's queries of its rows attend to the whole map's keys. Per (batch, head),
 
     o = softmax(q^T k * scale, over keys) v
 
@@ -48,8 +50,8 @@ def _qblock(qc: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) ->
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
                           q_chunk: int = PLAIN_Q_CHUNK) -> torch.Tensor:
-    """The plain version: q, k, v (..., D, S) -> (..., D, S) in q's dtype.
-    Differentiable in all three."""
+    """The plain version: q (..., D, Sq), k and v (..., D, Sk) -> (..., D, Sq)
+    in q's dtype. Differentiable in all three."""
     s = q.shape[-1]
     track = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
     outs = []
@@ -87,12 +89,13 @@ class FlashAttention(torch.autograd.Function):
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float
                     ) -> torch.Tensor:
-    """q, k, v: (BH, D, S) or (N, heads, D, S), float32 or bfloat16 -> the same
-    shape in q's dtype. The kernels on CUDA, the plain version on the CPU."""
-    if q.dim() not in (3, 4) or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError("flash_attention takes q, k, v of one shape, (BH, D, S) or "
-                         f"(N, heads, D, S); got {tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
+    """q: (BH, D, Sq) or (N, heads, D, Sq), k and v the same with Sk keys,
+    float32 or bfloat16 -> q's shape in q's dtype. The kernels on CUDA, the
+    plain version on the CPU."""
+    if q.dim() not in (3, 4) or k.shape != v.shape or k.shape[:-1] != q.shape[:-1]:
+        raise ValueError("flash_attention takes k and v of one shape, and q of that shape "
+                         "but for the sequence length: (BH, D, S) or (N, heads, D, S); got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale)
     if q.dim() == 3:

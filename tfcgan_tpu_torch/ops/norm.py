@@ -46,16 +46,27 @@ def instance_norm(x: torch.Tensor, eps: float = 1e-5, rows: Rows | None = None) 
 
 
 def group_norm(x: torch.Tensor, groups: int, weight: torch.Tensor, bias: torch.Tensor,
-               eps: float = 1e-5) -> torch.Tensor:
+               eps: float = 1e-5, rows: Rows | None = None) -> torch.Tensor:
     """x: (N, H, W, C) -> float32 (N, H, W, C), each sample's groups of
-    C / groups channels normalized over (H, W, group) and scaled per channel.
+    C / groups channels normalized over (H, W, group) and scaled per channel;
+    with ``rows``, x is this rank's row shard of maps of ``rows.h`` rows.
 
     Flax's arithmetic in every dtype: float32 statistics in the fast-variance
     form max(0, E[x²] − E[x]²), then (x − μ) · (rsqrt(var + eps) · weight) +
-    bias. The caller casts the result to its compute dtype."""
+    bias (float64 throughout for a float64 x). On row shards the two sums
+    travel in one all-reduce. The caller casts the result to its compute
+    dtype."""
     n, h, w, c = x.shape
-    xf = x.float().reshape(n, h * w, groups, c // groups)
-    mean = xf.mean(dim=(1, 3), keepdim=True)
-    var = ((xf * xf).mean(dim=(1, 3), keepdim=True) - mean * mean).clamp_min(0.0)
-    mul = torch.rsqrt(var + eps) * weight.float().view(1, 1, groups, -1)
-    return ((xf - mean) * mul + bias.float().view(1, 1, groups, -1)).reshape(n, h, w, c)
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
+    xf = x.to(acc).reshape(n, h * w, groups, c // groups)
+    if rows is not None and rows.axis.size > 1:
+        count = rows.h * w * (c // groups)
+        sums = spatial_sum(torch.stack([xf.sum(dim=(1, 3), keepdim=True),
+                                        (xf * xf).sum(dim=(1, 3), keepdim=True)]), rows)
+        mean, mean2 = sums[0] / count, sums[1] / count
+    else:
+        mean = xf.mean(dim=(1, 3), keepdim=True)
+        mean2 = (xf * xf).mean(dim=(1, 3), keepdim=True)
+    var = (mean2 - mean * mean).clamp_min(0.0)
+    mul = torch.rsqrt(var + eps) * weight.to(acc).view(1, 1, groups, -1)
+    return ((xf - mean) * mul + bias.to(acc).view(1, 1, groups, -1)).reshape(n, h, w, c)

@@ -1,10 +1,11 @@
 """1-D affine resampling with exact gradients and the two-pass separable
 affine warp, port of ``tfcgan_tpu.ops.pallas_kernels.resample``.
 
-``resample_axis(x, p, q, l_out, mode, border, channels)`` resamples the middle
-axis of a contiguous ``(outer, length, inner)`` view: element ``(o, i, j)`` of
-the output is ``x[o, :, j]`` interpolated at ``p*i + q`` of the line
-``(o, j // channels)``, with the linear (2 taps) or Keys cubic A=-0.75 (4
+``resample_axis(x, p, q, l_out, mode, border, channels, o_base)`` resamples
+the middle axis of a contiguous ``(outer, length, inner)`` view: element
+``(o, i, j)`` of the output is ``x[o, :, j]`` interpolated at ``p*(o_base +
+i) + q`` of the line ``(o, j // channels)`` (``o_base`` 0 but for a window of
+a longer line's outputs), with the linear (2 taps) or Keys cubic A=-0.75 (4
 taps) kernel; taps beyond the ends read the edge element (``border``) or 0.
 float32 accumulation and output. A CUDA tensor goes through ``ResampleAffine``,
 the autograd function around the three hand-written kernels
@@ -20,6 +21,15 @@ the JAX package's default warp. It equals the direct 2-D warp
 (``ops/warp.warp_affine``) for axis-aligned scales and translations; under
 shear or rotation the second pass interpolates values the first pass already
 interpolated, which differs a little (the tests bound it).
+
+On row shards (``rows``, the spatial mesh axis) the warp reads the source
+anywhere: theta can put an output row's samples on any source row. The
+x-pass runs on this rank's source rows (their global indices in q), the
+float32 intermediate is gathered once over the spatial group
+(``parallel.spatial.gather_spatial``), and the y-pass computes this rank's
+output rows from it (``o_base`` their first row): the shard's output equals
+those rows of the whole warp bit for bit. The intermediate's gradient is then
+whole on every rank, and the gather's backward sums it onto each owner's rows.
 """
 
 from __future__ import annotations
@@ -27,6 +37,7 @@ from __future__ import annotations
 import torch
 
 from tfcgan_tpu_torch.ops.kernels import resample as _kernel
+from tfcgan_tpu_torch.parallel.spatial import Rows, gather_spatial
 
 _A = -0.75
 _HALF_SUPPORT = {"linear": 1, "cubic": 2}
@@ -46,17 +57,19 @@ def _k_cubic(x: torch.Tensor) -> torch.Tensor:
 
 
 def resample_axis_plain(x: torch.Tensor, p: torch.Tensor, q: torch.Tensor, l_out: int,
-                        mode: str = "linear", border: bool = True, channels: int = 1
-                        ) -> torch.Tensor:
+                        mode: str = "linear", border: bool = True, channels: int = 1,
+                        o_base: int = 0) -> torch.Tensor:
     """The plain version: x (outer, l_in, inner), p and q (outer, inner //
-    channels) -> float32 (outer, l_out, inner). Differentiable in x, p and q."""
+    channels) -> float32 (outer, l_out, inner), the outputs o_base .. o_base +
+    l_out - 1 of each line. Differentiable in x, p and q."""
     if mode not in _HALF_SUPPORT:
         raise ValueError(f"mode must be one of {tuple(_HALF_SUPPORT)}, got {mode!r}")
     hs = _HALF_SUPPORT[mode]
     kfn = _k_linear if mode == "linear" else _k_cubic
     outer, l_in, inner = x.shape
     x = x.float()
-    steps = torch.arange(l_out, dtype=torch.float32, device=x.device)[None, :, None]
+    steps = torch.arange(o_base, o_base + l_out, dtype=torch.float32,
+                         device=x.device)[None, :, None]
     pos = p.float()[:, None, :] * steps + q.float()[:, None, :]  # (outer, l_out, lines)
     pos = pos.repeat_interleave(channels, dim=2)
     i0 = torch.floor(pos)
@@ -77,10 +90,11 @@ class ResampleAffine(torch.autograd.Function):
     (for p and q), each launched only where autograd asks for its result."""
 
     @staticmethod
-    def forward(ctx, x, p, q, l_out: int, mode: str, border: bool, channels: int):
+    def forward(ctx, x, p, q, l_out: int, mode: str, border: bool, channels: int,
+                o_base: int = 0):
         ctx.save_for_backward(x, p, q)
-        ctx.args = (mode, border, channels)
-        return _kernel.resample_fwd(x, p, q, l_out, mode, border, channels)
+        ctx.args = (mode, border, channels, o_base)
+        return _kernel.resample_fwd(x, p, q, l_out, mode, border, channels, o_base)
 
     @staticmethod
     def backward(ctx, g):
@@ -91,17 +105,18 @@ class ResampleAffine(torch.autograd.Function):
             gx = _kernel.resample_adjoint(g, p, q, x.shape[1], *ctx.args).to(x.dtype)
         if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
             gp, gq = _kernel.resample_gradpos(x, g, p, q, *ctx.args)
-        return gx, gp, gq, None, None, None, None
+        return gx, gp, gq, None, None, None, None, None
 
 
 def resample_axis(x: torch.Tensor, p: torch.Tensor, q: torch.Tensor, l_out: int,
-                  mode: str = "linear", border: bool = True, channels: int = 1) -> torch.Tensor:
+                  mode: str = "linear", border: bool = True, channels: int = 1,
+                  o_base: int = 0) -> torch.Tensor:
     """The kernels on CUDA (forward and, where autograd needs them, backward),
     the plain version on the CPU."""
     if x.device.type == "cpu":
-        return resample_axis_plain(x, p, q, l_out, mode, border, channels)
+        return resample_axis_plain(x, p, q, l_out, mode, border, channels, o_base)
     return ResampleAffine.apply(x, p.float().contiguous(), q.float().contiguous(), l_out, mode,
-                                border, channels)
+                                border, channels, o_base)
 
 
 def resample_affine_lanes(x: torch.Tensor, p: torch.Tensor, q: torch.Tensor, w_out: int,
@@ -135,31 +150,37 @@ def _pixel_affine(theta: torch.Tensor, h: int, w: int):
 
 
 def warp_affine_separable(src: torch.Tensor, theta: torch.Tensor, mode: str = "bicubic",
-                          padding_mode: str = "border") -> torch.Tensor:
+                          padding_mode: str = "border", rows: Rows | None = None
+                          ) -> torch.Tensor:
     """Two-pass separable affine warp, differentiable in src and theta.
 
     src: (N, H, W, C) contiguous; theta: (N, 2, 3), normalized,
     align_corners=True; needs theta[:, 1, 1] != 0. ``padding_mode="zeros"``
     masks the border-clamped result where the direct warp would sample outside
-    the image."""
-    n, h, w, c = src.shape
+    the image. With ``rows`` src is this rank's rows of images of ``rows.h``
+    rows, and so is the result (see the module docstring)."""
+    n, nl, w, c = src.shape
+    h, lo = (nl, 0) if rows is None else (rows.h, rows.lo)
     kmode = "linear" if mode == "bilinear" else "cubic"
     P, Q, R, P2, Q2, R2 = _pixel_affine(theta.float(), h, w)
     xs = torch.arange(w, dtype=torch.float32, device=src.device)
-    ys = torch.arange(h, dtype=torch.float32, device=src.device)
+    ys = torch.arange(lo, lo + nl, dtype=torch.float32, device=src.device)  # global rows
 
     # x-pass: the image as (N*H, W, C), one line per source row
     p_eff = P - Q * P2 / Q2
     q_eff = Q / Q2
     r_eff = R - Q * R2 / Q2
-    p1 = p_eff[:, None].expand(n, h).reshape(n * h, 1)
-    q1 = (q_eff[:, None] * ys[None, :] + r_eff[:, None]).reshape(n * h, 1)
-    tmp = resample_axis(src.view(n * h, w, c), p1, q1, w, kmode, True, c)
+    p1 = p_eff[:, None].expand(n, nl).reshape(n * nl, 1)
+    q1 = (q_eff[:, None] * ys[None, :] + r_eff[:, None]).reshape(n * nl, 1)
+    tmp = resample_axis(src.view(n * nl, w, c), p1, q1, w, kmode, True, c)
 
-    # y-pass: the float32 intermediate as (N, H, W*C), one line per column
+    # y-pass: the float32 intermediate as (N, H, W*C), one line per column;
+    # on row shards the whole intermediate, and this rank's output rows
+    tmp = gather_spatial(tmp.view(n, nl, w, c), rows)
     p2 = Q2[:, None].expand(n, w)
     q2 = P2[:, None] * xs[None, :] + R2[:, None]
-    out = resample_axis(tmp.view(n, h, w * c), p2, q2, h, kmode, True, c).view(n, h, w, c)
+    out = resample_axis(tmp.reshape(n, h, w * c), p2, q2, nl, kmode, True, c,
+                        lo).view(n, nl, w, c)
 
     if padding_mode == "zeros":
         gx, gy = xs[None, None, :], ys[None, :, None]

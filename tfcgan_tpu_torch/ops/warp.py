@@ -13,16 +13,24 @@ Gradients reach the image (the scatter-add of the gathers) and the grid
 (through the fractional part; ``floor`` contributes zero) by autograd. This is
 the ``fast_warp=False`` path of the STN and the oracle the separable warp
 (``ops/resample.py``) is held against; ``F.grid_sample`` itself is not called.
+
+On row shards (``warp_affine(..., rows=)``, the spatial mesh axis) the source
+is gathered once over the spatial group and sampled at this rank's rows of
+the grid: theta can put a sample on any source row.
 """
 
 from __future__ import annotations
 
 import torch
 
+from tfcgan_tpu_torch.parallel.spatial import Rows, gather_spatial
+
 
 def affine_grid(theta: torch.Tensor, size: tuple[int, int, int],
-                align_corners: bool = True) -> torch.Tensor:
-    """theta: (N, 2, 3) -> grid (N, H, W, 2) of normalized (x, y) coordinates."""
+                align_corners: bool = True, row_span: tuple[int, int] | None = None
+                ) -> torch.Tensor:
+    """theta: (N, 2, 3) -> grid (N, H, W, 2) of normalized (x, y) coordinates;
+    with ``row_span`` (lo, hi) only the grid's rows [lo, hi)."""
     _, h, w = size
     dev = theta.device
     if align_corners:
@@ -31,6 +39,8 @@ def affine_grid(theta: torch.Tensor, size: tuple[int, int, int],
     else:
         xs = (2.0 * torch.arange(w, dtype=torch.float32, device=dev) + 1.0) / w - 1.0
         ys = (2.0 * torch.arange(h, dtype=torch.float32, device=dev) + 1.0) / h - 1.0
+    if row_span is not None:
+        ys = ys[row_span[0]:row_span[1]]
     gx, gy = xs[None, None, :], ys[None, :, None]
     th = theta.float()
 
@@ -139,10 +149,15 @@ def grid_sample(inp: torch.Tensor, grid: torch.Tensor, mode: str = "bilinear",
 
 
 def warp_affine(src: torch.Tensor, theta: torch.Tensor, mode: str = "bicubic",
-                padding_mode: str = "border", align_corners: bool = True) -> torch.Tensor:
+                padding_mode: str = "border", align_corners: bool = True,
+                rows: Rows | None = None) -> torch.Tensor:
     """The direct STN warp: per-sample ``affine_grid`` + ``grid_sample``.
-    src: (N, H, W, C), theta: (N, 2, 3)."""
-    n, h, w, _ = src.shape
-    grid = affine_grid(theta, (n, h, w), align_corners=align_corners)
+    src: (N, H, W, C), theta: (N, 2, 3); with ``rows`` src is this rank's rows
+    of images of ``rows.h`` rows, and so is the result."""
+    n, _, w, _ = src.shape
+    src = gather_spatial(src, rows)
+    h = src.shape[1]
+    span = None if rows is None else (rows.lo, rows.hi)
+    grid = affine_grid(theta, (n, h, w), align_corners=align_corners, row_span=span)
     return grid_sample(src, grid, mode=mode, padding_mode=padding_mode,
                        align_corners=align_corners)

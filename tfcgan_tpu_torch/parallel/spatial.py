@@ -33,6 +33,20 @@ the layer runs on the whole map on every spatial rank instead: ``gather_spatial`
 in, the layer, ``split_rows`` out. ``REPLICATED_LAYERS`` counts those runs;
 at 256² and S = 2 the main path has none.
 
+**Layers that read anywhere.** Two layers read rows that no halo bounds,
+inside a kernel: the STN's affine warp (theta can put an output row's samples
+on any source row; K2's y-pass) and the diffusion U-Net's attention (every
+query reads every pixel's key; K4). For them the operand read anywhere is
+gathered once over the spatial group (``gather_spatial``: the warp's float32
+intermediate after the x-pass, the attention's group-normed map before the k
+and v projections) and the kernel computes only this rank's output rows: K2
+from its first output row ``o_base``, K4 with this rank's queries against
+every key (``sq`` < ``sk``). The kernel's gradient of that operand is then
+whole on every rank, and the gather's backward (a reduce-scatter) sums it
+back onto each owner's rows. The STN's localizer, a ViT over the whole
+(A, condition) pair, runs whole on every rank on the pair gathered once
+(``models/stn.AffineSTN.theta``), and so gives every rank the same theta.
+
 **The gradient rule (option A).** Each spatial rank back-propagates its own
 share of the loss, and every parameter gradient is summed over the spatial
 group. So:

@@ -18,6 +18,18 @@ them the class embedding and the generator). A step's draws (the noise, the
 timesteps in [0, T - 2], and for ``hybrid`` G's dropout keep-masks) come in as
 one ``DiffusionStepDraws``. ``sample`` runs the whole ancestral chain on the
 device (``models.diffusion.sample``).
+
+On a spatial mesh (``parallel.spatial``; the step's image rows in
+``active_rows()``) all three variants run on row shards
+(``supports_spatial``): the noise draw is cut to this rank's rows with the
+images (``PER_ROW``), the U-Net runs on them (``CondUNet(rows=)``), the
+condition planes (gray(A), or the class embedding broadcast over A's pixels)
+are this rank's rows by construction, and the noise MSE is this rank's share
+of the whole mean (``share_mean``). The hybrid's G and LPIPS run on rows as
+in the ``tfcgan`` recipes, its keep-masks cut to the blocks' rows; a layer
+whose maps have fewer rows than the group can serve from adjacent shards
+(G's 1-row maps at 64²) runs on the whole map
+(``parallel.spatial.REPLICATED_LAYERS``).
 """
 
 from __future__ import annotations
@@ -33,6 +45,7 @@ from tfcgan_tpu_torch.models.diffusion import CondUNet, DDPMSchedule, sample
 from tfcgan_tpu_torch.models.layers import init_normal_
 from tfcgan_tpu_torch.models.lpips import LPIPS
 from tfcgan_tpu_torch.models.unet import GeneratorUNet
+from tfcgan_tpu_torch.parallel.spatial import active_rows, share_mean
 from tfcgan_tpu_torch.parallel.tensor import full_param
 
 VARIANTS = ("condA", "label", "hybrid")
@@ -129,6 +142,7 @@ class DiffusionStepDraws:
     """Every random draw of one TFC-Diff train step."""
 
     PER_SAMPLE: ClassVar[tuple[str, ...]] = ('noise', 't', 'dropout_masks')
+    PER_ROW: ClassVar[tuple[str, ...]] = ('noise', 'dropout_masks')  # cut to rows too
 
     noise: torch.Tensor  # the target image's shape, float32 standard normal
     t: torch.Tensor  # (N,) int64 timesteps in [0, T - 2]
@@ -150,6 +164,7 @@ class DiffusionRecipe:
             self.lpips = LPIPS(dtype=_dtype(cfg), device=device, generator=generator)
 
     unet = property(lambda self: self.G.unet)
+    supports_spatial = True  # every variant runs on row shards
 
     def init(self, generator: torch.Generator) -> None:
         """Draw every module's weights from ``generator``."""
@@ -178,17 +193,18 @@ class DiffusionRecipe:
     # ---------------------------------------------------------------- losses
     def g_loss(self, batch: dict, draws: DiffusionStepDraws) -> tuple[torch.Tensor, dict, dict]:
         metrics = {}
+        rows = active_rows()  # on a spatial mesh the images are this rank's rows
         if self.variant == "condA":
             target = to_gray(batch["B"])
         elif self.variant == "label":
             target = batch["B"]
         else:
-            target = self.G.G(batch["A"], draws.dropout_masks)  # not detached
-            metrics["g_recon"] = self.lpips(target, batch["B"]).mean()
+            target = self.G.G(batch["A"], draws.dropout_masks, rows)  # not detached
+            metrics["g_recon"] = self.lpips(target, batch["B"], rows).mean()
         noise = draws.noise.float()
         x_t = self.schedule.add_noise(target.float(), noise, draws.t)
-        eps = self.unet(x_t, draws.t, self.G.cond(batch))
-        loss = (eps.float() - noise).square().mean()
+        eps = self.unet(x_t, draws.t, self.G.cond(batch), rows)
+        loss = share_mean((eps.float() - noise).square(), rows)
         metrics["g_noise_mse"] = loss
         if self.variant == "hybrid":
             loss = loss + metrics["g_recon"]

@@ -22,6 +22,18 @@ FFT(fake_A1, A) (the pair direction is swapped at load,
 G1, G2 and the STN share one Adam and D1, D2 the other: the recipe exposes
 them as the containers ``G`` and ``D``. The perceptual term is the fixed
 msrecon anchor unless converted LPIPS weights exist (``perceptual="auto"``).
+
+On a spatial mesh (``parallel.spatial``; the step's image rows in
+``active_rows()``) all three variants run on row shards
+(``supports_spatial``): G1, G2, D1, D2 and LPIPS on this rank's rows, their
+keep-masks cut to the blocks' rows (``PER_ROW``); the localizer on the
+(A, condition) pair gathered once (``AffineSTN.theta(rows=)``), so theta is
+the same on every rank; the warp reads the whole source and writes this
+rank's rows (``warp_src(rows=)``). The adversarial, L1 and LPIPS terms are
+this rank's shares of their whole means; the terms that read whole images
+(the morph triplet, the msrecon pyramid, the FFT terms) take the images
+gathered once, are computed whole on every rank and counted once (each
+rank's share 1 / S, ``replicated_share``), and so is ``theta_t``.
 """
 
 from __future__ import annotations
@@ -44,6 +56,8 @@ from tfcgan_tpu_torch.ops.gan_losses import relativistic_d_loss, relativistic_g_
 from tfcgan_tpu_torch.ops.morphology import morphological_gradient
 from tfcgan_tpu_torch.ops.perceptual import multiscale_recon
 from tfcgan_tpu_torch.ops.triplet import triplet_margin_loss
+from tfcgan_tpu_torch.parallel.spatial import (active_rows, gather_spatial, replicated_share,
+                                               share_mean)
 
 VARIANTS = ("newmodel3", "dark_visible", "b2a")
 
@@ -122,6 +136,7 @@ class STNStepDraws:
     also for dark_visible, which has no G2(B) pass)."""
 
     PER_SAMPLE: ClassVar[tuple[str, ...]] = ('g1_a', 'g2_b', 'g2_warped')
+    PER_ROW: ClassVar[tuple[str, ...]] = ('g1_a', 'g2_b', 'g2_warped')  # cut to rows too
 
     g1_a: dict[str, torch.Tensor] | None
     g2_b: dict[str, torch.Tensor] | None
@@ -162,6 +177,7 @@ class STNRecipe:
     G1 = property(lambda self: self.G["G1"])
     G2 = property(lambda self: self.G["G2"])
     STN = property(lambda self: self.G["STN"])
+    supports_spatial = True  # every variant runs on row shards
 
     def init(self, generator: torch.Generator) -> None:
         """Draw every module's weights (and the spectral u/v) from ``generator``."""
@@ -196,67 +212,87 @@ class STNRecipe:
 
     def _d_pair(self, name: str, first: torch.Tensor, second: torch.Tensor, cond: torch.Tensor
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-        """(D(first | cond), D(second | cond)) for head ``name``."""
-        d = self.D[name]
+        """(D(first | cond), D(second | cond)) for head ``name`` (this rank's
+        rows of the logits on a spatial mesh)."""
+        d, rows = self.D[name], active_rows()
         if self._single_pass_d():
-            both = d(torch.cat([first, second.to(first.dtype)]), torch.cat([cond, cond]))
+            both = d(torch.cat([first, second.to(first.dtype)]), torch.cat([cond, cond]), rows)
             return both[:first.shape[0]], both[first.shape[0]:]
-        return d(first, cond), d(second, cond)
+        return d(first, cond, rows), d(second, cond, rows)
+
+    def _logit_rows(self):
+        """The record of D1's and D2's row-sharded logits (None off a spatial
+        mesh): the two heads share one geometry."""
+        return self.D["D1"].out_rows(active_rows())
 
     def _forward(self, batch: dict, draws: STNStepDraws):
         a, b = batch["A"], batch["B"]
-        fake_b = self.G1(a, draws.g1_a)
+        rows = active_rows()
+        fake_b = self.G1(a, draws.g1_a, rows)
         if self.variant == "dark_visible":
             # a single G2 pass: there is no fake_A1 = G2(B) leg
             fake_a1, cond = None, fake_b
         else:
-            fake_a1 = cond = self.G2(b, draws.g2_b)
+            fake_a1 = cond = self.G2(b, draws.g2_b, rows)
         # theta stays visible for the step's metrics: a warp pushed out of
         # frame does not show in the loss curves
         stn = self.STN
-        theta = stn.theta(a, cond)
+        theta = stn.theta(a, cond, rows)
         warped_b = warp_src(b, theta, mode=stn.mode, padding_mode=stn.padding_mode,
-                            fast=stn.fast_warp)
-        fake_a2 = self.G2(warped_b, draws.g2_warped)
+                            fast=stn.fast_warp, rows=rows)
+        fake_a2 = self.G2(warped_b, draws.g2_warped, rows)
         return fake_b, fake_a1, warped_b, fake_a2, theta
 
-    def _perceptual(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    def _perceptual(self, x: torch.Tensor, y: torch.Tensor, whole) -> torch.Tensor:
+        """LPIPS on this rank's rows (its share), or msrecon on the whole
+        images ``whole(x)``, ``whole(y)`` (counted once over the group)."""
+        rows = active_rows()
         if self.lpips is not None:
-            return self.lpips(x, y).mean()
-        return multiscale_recon(x, y)
+            return self.lpips(x, y, rows).mean()
+        return replicated_share(multiscale_recon(whole(x), whole(y)), rows)
 
     # --------------------------------------------------------------- losses
     def g_loss(self, batch: dict, draws: STNStepDraws) -> tuple[torch.Tensor, dict, dict]:
         lc = self.cfg.loss
         a, b = batch["A"], batch["B"]
         fake_b, fake_a1, warped_b, fake_a2, theta = self._forward(batch, draws)
+        rows, logit_rows = active_rows(), self._logit_rows()
+        gathered = {}
+
+        def whole(x: torch.Tensor) -> torch.Tensor:
+            # the whole images, each gathered once over the spatial group
+            if id(x) not in gathered:
+                gathered[id(x)] = gather_spatial(x, rows)
+            return gathered[id(x)]
 
         p1f, p1r = self._d_pair("D1", fake_b, b, a)
         p2f, p2r = self._d_pair("D2", fake_a2, a, b)
-        adv = (relativistic_g_loss(p1f, p1r, lc.label_smooth)
-               + relativistic_g_loss(p2f, p2r, lc.label_smooth))
+        adv = (relativistic_g_loss(p1f, p1r, lc.label_smooth, logit_rows)
+               + relativistic_g_loss(p2f, p2r, lc.label_smooth, logit_rows))
         if self.variant == "dark_visible":
             # the recon term anchors the warp to G1's output, not fake_A to A
-            recon = (warped_b.float() - fake_b.float()).abs().mean()
+            recon = share_mean((warped_b.float() - fake_b.float()).abs(), rows)
         else:
-            recon = (fake_a2.float() - a).abs().mean()
-        perc = self._perceptual(fake_a2, a) + self._perceptual(fake_b, b)
+            recon = share_mean((fake_a2.float() - a).abs(), rows)
+        perc = self._perceptual(fake_a2, a, whole) + self._perceptual(fake_b, b, whole)
         total = adv + self.recon_weight * recon + perc
         metrics = {"g_adv": adv, "g_recon": recon, "g_lpips": perc}
         if self.use_morph:
-            metrics["g_morph"] = morph_triplet(a, b, warped_b)
+            metrics["g_morph"] = replicated_share(
+                morph_triplet(whole(a), whole(b), whole(warped_b)), rows)
             total = total + metrics["g_morph"]
         if self.use_fft:
             # dark_visible: FFT(fake_A, A); b2a: FFT(fake_A1, A). Both add the
             # unhalved amp + phase sum: fft_weight 2.0 on fft_l1_loss's
             # 0.5 * (amp + phase), set in the stn_* configs
             src = fake_a2 if self.variant == "dark_visible" else fake_a1
-            metrics["g_fft"] = fft_l1_loss(src, a, mode=lc.fft_quantize)[0]
+            metrics["g_fft"] = replicated_share(
+                fft_l1_loss(whole(src), whole(a), mode=lc.fft_quantize)[0], rows)
             total = total + lc.fft_weight * metrics["g_fft"]
         metrics["loss_G"] = total
         # warp health: mean |translation| in [-1, 1] grid units (> 1: content
         # pushed out of frame, and under border padding no gradient comes back)
-        metrics["theta_t"] = theta.detach()[:, :, 2].abs().mean()
+        metrics["theta_t"] = replicated_share(theta.detach()[:, :, 2].abs().mean(), rows)
         aux = {"fake_b": fake_b.detach(), "fake_a2": fake_a2.detach(),
                "warped_b": warped_b.detach()}
         return total, aux, metrics
@@ -264,9 +300,10 @@ class STNRecipe:
     def d_loss(self, batch: dict, aux: dict) -> tuple[torch.Tensor, dict]:
         lc = self.cfg.loss
         a, b = batch["A"], batch["B"]
+        logit_rows = self._logit_rows()
         p1r, p1f = self._d_pair("D1", b, aux["fake_b"], a)
-        d1 = relativistic_d_loss(p1r, p1f, lc.label_smooth, self.d_head_weight)
+        d1 = relativistic_d_loss(p1r, p1f, lc.label_smooth, self.d_head_weight, logit_rows)
         p2r, p2f = self._d_pair("D2", a, aux["fake_a2"], b)
-        d2 = relativistic_d_loss(p2r, p2f, lc.label_smooth, self.d_head_weight)
+        d2 = relativistic_d_loss(p2r, p2f, lc.label_smooth, self.d_head_weight, logit_rows)
         loss = 0.5 * (d1 + d2)
         return loss, {"loss_D": loss, "d1": d1, "d2": d2}

@@ -10,7 +10,9 @@ unpacked with ``git archive``, or a copy with a variant of a kernel). Its
 for this tree's libraries through the wrappers' ``_fn``; every other line of
 code is this tree's. An other tree whose adjoint still takes the edge pre-pass's
 scratch (before the pre-pass was folded into the adjoint's launch) gets it
-allocated on every call, as its wrapper did. Each measurement runs in the
+allocated on every call, as its wrapper did; one whose resampling entries
+take no output window (``o_base``, before the spatial axis reached the warp)
+gets its argument dropped (it must be 0 there). Each measurement runs in the
 order other, this, this, other, and prints every reading:
 
 - K1-bwd and K1-fwd: the 11 bfloat16 calls of one batch-8 G pass
@@ -89,6 +91,28 @@ def adjoint_takes_scratch(root: Path) -> bool:
     return entry is not None and "edge" in entry.group(1)
 
 
+def takes_o_base(root: Path) -> bool:
+    """Whether the other tree's resampling entries take the output window's
+    first index ``o_base``."""
+    src = (root / "tfcgan_tpu_torch" / "csrc" / "resample.cu").read_text()
+    entry = re.search(r'extern "C" int tfcgan_resample_fwd\(([^)]*)\)', src)
+    return entry is not None and "o_base" in entry.group(1)
+
+
+# the index of o_base among each resampling entry's arguments in this tree
+O_BASE_ARG = {"tfcgan_resample_fwd": 11, "tfcgan_resample_adjoint": 11,
+              "tfcgan_resample_gradpos": 13}
+
+
+def without_o_base(fn, index: int):
+    """An entry of a tree without ``o_base`` behind this tree's arguments."""
+    def call(*args):
+        if args[index] != 0:
+            raise ValueError("the other tree's resampling kernels take no output window")
+        return fn(*args[:index], *args[index + 1:])
+    return call
+
+
 def with_edge_scratch(fn):
     """The C adjoint of such a tree behind this tree's arguments: an (outer, 2,
     inner) float32 scratch (one float without border clamping) allocated on
@@ -101,22 +125,30 @@ def with_edge_scratch(fn):
     return call
 
 
-def swapper(libs: dict[str, ctypes.CDLL], scratch_adjoint: bool = False):
+def swapper(libs: dict[str, ctypes.CDLL], scratch_adjoint: bool = False,
+            o_base: bool = True):
     """A context manager factory: inside, the wrappers launch the other tree's
     kernels (same C entry points and arguments, but for the adjoint's scratch
-    where ``scratch_adjoint``)."""
+    where ``scratch_adjoint`` and the resampling entries' ``o_base`` where not
+    ``o_base``)."""
     def fn_of(name: str, module):
         ours_fn = module._fn  # before any patch: this tree's loader
 
         def fn(symbol: str):
             ours = ours_fn(symbol)
             theirs = getattr(libs[name], symbol)
+            argtypes = list(ours.argtypes)
+            drop = None if o_base else O_BASE_ARG.get(symbol)
+            if drop is not None:
+                del argtypes[drop]
+            theirs.restype = ours.restype
             if symbol == "tfcgan_resample_adjoint" and scratch_adjoint:
-                theirs.argtypes = [ctypes.c_void_p] + ours.argtypes  # one pointer more
-                theirs.restype = ours.restype
-                return with_edge_scratch(theirs)
-            theirs.argtypes, theirs.restype = ours.argtypes, ours.restype
-            return theirs
+                theirs.argtypes = [ctypes.c_void_p] + argtypes  # one pointer more
+                call = with_edge_scratch(theirs)
+            else:
+                theirs.argtypes = argtypes
+                call = theirs
+            return call if drop is None else without_o_base(call, drop)
         return fn
 
     fns = {name: fn_of(name, module) for name, module in LIBRARIES.items()}
@@ -340,7 +372,7 @@ def main(argv=None) -> int:
     print(card)
     _build.build_libraries(list(LIBRARIES))
     root = args.other.resolve()
-    other = swapper(build_other(root), adjoint_takes_scratch(root))
+    other = swapper(build_other(root), adjoint_takes_scratch(root), takes_o_base(root))
     gen = torch.Generator(device=device).manual_seed(0)
     result = {"card": card, "order": ORDER}
 
