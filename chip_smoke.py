@@ -8,7 +8,7 @@ chain, on one CUDA card.
     python3 chip_smoke.py [--params g_params.npz] [--init-seed 0]
 
 Phases, one line or more each; any failure raises and exits non-zero (20
-to 23 run after 19, and 18 last):
+to 24 run after 19, and 18 last):
 
 1. environment: torch/CUDA versions, the card, its power limit; TF32 off.
 2. build: g++ builds ``tfcgan_tpu_torch/csrc/fastpair.cpp`` (the pair
@@ -228,8 +228,9 @@ to 23 run after 19, and 18 last):
    the order), 2 epochs, and ``--resume`` from the first epoch's checkpoint:
    weights, replay buffers and Adam states of the two final checkpoints equal
    bit for bit, under ``cudnn.deterministic``.
-18. the result, printed after 23: the card's ``nvidia-smi`` line, one JSON
-   line for the kernels, and last ``{"ok": true, "device": {...}}``.
+18. the result, printed after 24: the seconds each phase took, the card's
+   ``nvidia-smi`` line, one JSON line for the kernels, and last ``{"ok":
+   true, "device": {...}}``.
 19. the data and evaluation chain at 256², bf16, on 64 synthetic A|B PNG
    pairs, 32 of 320x640 (resized) and 32 of 256x512: (a) the native decoder:
    ``process_pair_batch`` with 8 threads = ``process_pair`` bit for bit, the
@@ -300,7 +301,9 @@ to 23 run after 19, and 18 last):
    benchmark can pick the deterministic algorithms); metrics equal on both ranks; no layer run on the whole map;
    27 + 23 blur-pool launches a step on each rank over 2 steps (path
    ``spatial_fft_glo``); step 2's peak memory above what each process held
-   before it, a rank against one process; (c) one bf16 step on the pair,
+   before it, a rank against one process, as allocated and without the
+   transient blocks (the convolution workspaces, which cuDNN's heuristics
+   size by the free memory: ``_step_memory``); (c) one bf16 step on the pair,
    finite and within ``TENSOR_DIFF_TOL`` of one process's.
 23. the spatial axis for the STN family and TFC-Diff: (a) K4 with local
    queries (``sq`` < ``sk``), float32 and bfloat16, forward, dq and dk/dv
@@ -325,6 +328,28 @@ to 23 run after 19, and 18 last):
    (e) each rank's K1 + K2 and K4 launches a step (paths ``spatial_stn``
    and ``spatial_tfc_diff``); (f) each rank's step peak memory against one
    process's.
+24. the spatial axis for NeMAR, CycleGAN and ThermalGAN: (a) K3 on row
+   windows: the whole (32, 256, 256, 6) image and a dense grid (offsets up
+   to 5 pixels) cut into the rows of 2 and 3 ranks in float32, of 2 in
+   bfloat16:
+   each window's forward and grid gradient bit for bit the whole launch's
+   rows and within phase 5's tolerances of the plain version, the windows'
+   image gradients summed over the ranks within ``GRAD_TOL`` of the whole
+   launch's (float32 atomics in another order); rank 0 of 2's window and
+   the whole launch timed, the window's bound from the image rows its taps
+   reach; (b) nemar (the deformable STN: its stacked
+   targets gathered, K3 at the rank's grid rows), cyclegan (the replay
+   buffers whole on both ranks) and thermalgan_bn (the batch norms' moments
+   over the group) float32 at 256², global B=4, each on two gloo ranks of
+   the card as (1 data x 2 spatial) against one process, as phase 22 (3 x
+   the float32 floor; the ResNet and PatchGAN conv biases in front of an
+   instance norm, zero in exact arithmetic, compared at 1e-3 of the largest
+   gradient: ``SPATIAL_FLOORED``); (c) one bf16 step each on the pair,
+   finite; (d) each rank's launches a step: K3's forward and backward once
+   for nemar (path ``spatial_nemar``), none for cyclegan and thermalgan_bn
+   (paths ``spatial_cyclegan``, ``spatial_thermalgan_bn``), and
+   thermalgan_bn's one layer on the whole map a step; (e) each rank's step
+   peak memory against one process's, as phase 22.
 
 In the kernels' JSON, ``launches`` is the count of the kernel's main path, the
 last train path driven that runs it (``main_path``: phase 10's three steps for
@@ -359,7 +384,12 @@ Each flash attention kernel's ``local_query_*`` keys are phase 23's: the
 largest error of the local-query cases, the time for rank 0 of 2's 2048
 queries against 4096 keys, the whole sequence's time at the same keys and
 the former's bound; each resampling kernel's ``window_max_abs_err`` phase
-23's largest error of an output window against the plain one. Each
+23's largest error of an output window against the plain one. Each K3
+kernel's ``row_window_*`` keys are phase 24's: the largest error of a row
+window against the plain version, the float32 time of rank 0 of 2's window
+(the grid's rows 0-127 over the whole (32, 256, 256, 6) image), the whole
+launch's time and the window's bound (the image rows its taps reach, not
+the whole image). Each
 resampling kernel's ``graph_ms`` is its warp's ``ms`` on the device alone, and for the forward
 and the position gradient ``bf16_ms``, ``bf16_graph_ms`` and
 ``bf16_bound_ms`` the same with a bfloat16 image.
@@ -378,6 +408,7 @@ import csv
 import dataclasses
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -3384,8 +3415,9 @@ def _two_ranks(card: str) -> dict[str, int]:
         try:
             for name in DP_NAMES:
                 cfg = _dp_cfg(name)
-                runs = []
+                runs, run_s = [], []
                 for det in (True, False):
+                    t1 = time.perf_counter()
                     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det, not det
                     trainer = Trainer(cfg, build_recipe(cfg, device))
                     state = trainer.init_state(0)
@@ -3393,6 +3425,7 @@ def _two_ranks(card: str) -> dict[str, int]:
                     runs.append(({k: float(v) for k, v in m.items()}, _dp_grads(state)))
                     del trainer, state
                     torch.cuda.empty_cache()
+                    run_s.append(time.perf_counter() - t1)
                 two = got[0][name]
                 g2 = torch.load(os.path.join(tmp, f"{name}_grads.pt"))
 
@@ -3444,7 +3477,9 @@ def _two_ranks(card: str) -> dict[str, int]:
                       f"({sums[0][-1]:.17g}); {two['allreduces']} gradient all-reduces, flat "
                       f"buffers {{{', '.join(f'{k}: {v / 2**20:.2f} MiB' for k, v in two['bytes'].items())}}}; "
                       f"launches a rank {two['counts']['blurpool_fwd']} / "
-                      f"{two['counts']['blurpool_bwd']} K1 [{card}]")
+                      f"{two['counts']['blurpool_bwd']} K1; the one-process runs took "
+                      f"{run_s[0]:.1f} s (deterministic) and {run_s[1]:.1f} s (benchmarked) "
+                      f"with their set-up [{card}]")
         finally:
             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = deterministic
     print(f"parallel two-rank part: {two_s:.1f} s for the ranks [{card}]")
@@ -3584,12 +3619,17 @@ def phase_parallel(device, args, card: str) -> dict[str, dict[str, int]]:
     NCCL, the fft_glo Trainer with and without that mesh, the GPipe trunk at
     one stage, and two gloo ranks on the card against one process."""
     t0 = time.perf_counter()
+    parts = {}
     by_path = {"dp_cli_train": _torchrun_cli_train(card)}
+    parts["torchrun cli train"] = time.perf_counter() - t0
     _world_of_one(device, card)
     torch.cuda.empty_cache()
+    parts["world of one"] = time.perf_counter() - t0 - sum(parts.values())
     by_path["dp_two_ranks"] = _two_ranks(card)
     torch.cuda.empty_cache()
-    print(f"parallel phase: {time.perf_counter() - t0:.1f} s [{card}]")
+    parts["two ranks"] = time.perf_counter() - t0 - sum(parts.values())
+    print(f"parallel phase: {time.perf_counter() - t0:.1f} s "
+          f"({', '.join(f'{k} {v:.1f} s' for k, v in parts.items())}) [{card}]")
     return by_path
 
 
@@ -3964,18 +4004,35 @@ def phase_spatial_kernels(device, card: str, results: dict) -> None:
 # kernel launches of one step in one process, which a rank must make too)
 SPATIAL_JOBS = {"fft_glo": ("fft_glo", SIZE, SPATIAL_BATCH, FFT_GLO_STEP),
                 "stn": ("stn_newmodel3", SIZE, 4, STN_STEP),
-                "tfc_diff": ("tfc_diff", DIFF_SIZE, 8, DIFF_STEP)}
+                "tfc_diff": ("tfc_diff", DIFF_SIZE, 8, DIFF_STEP),
+                "nemar": ("nemar", SIZE, 4, NEMAR_STEP),
+                "cyclegan": ("cyclegan", SIZE, 4, {}),
+                "thermalgan_bn": ("thermalgan_bn", SIZE, 4, {})}
+# layers a step that run on the whole map on each rank (fewer rows than
+# ranks): the pix2pix G2's innermost conv, on its 1 x 1 map at 256²
+SPATIAL_REPLICATED = {"thermalgan_bn": 1}
 # a gradient below this share of its set's largest is compared at that scale:
 # tfc_diff's conv biases and time projections in front of a GroupNorm of one
 # channel a group are zero in exact arithmetic and come back as float32
-# rounding. So are the attention key biases' (the softmax drops a constant of
-# the scores): those are compared at the scale of their key kernel's gradient
-SPATIAL_GRAD_FLOOR = {"tfc_diff": 1e-3}
+# rounding, and so are the conv biases in front of an instance norm (the
+# ResNetGenerator's every conv but its head; the PatchGANs' second conv on).
+# SPATIAL_FLOORED names those biases where a job has them (tfc_diff: every
+# tensor). The attention key biases' gradients are zero too (the softmax
+# drops a constant of the scores): those are compared at the scale of their
+# key kernel's gradient
+SPATIAL_GRAD_FLOOR = {"tfc_diff": 1e-3, "nemar": 1e-3, "cyclegan": 1e-3, "thermalgan_bn": 1e-3}
+_RESNET_NORMED = r"(stem|down\d|res\d+\.conv[12]|up\d)\.bias"
+SPATIAL_FLOORED = {"nemar": re.compile(rf"T\.{_RESNET_NORMED}|D\.conv[1-9]\.bias"),
+                   "cyclegan": re.compile(rf"G_(AB|BA)\.{_RESNET_NORMED}|D_[AB]\.conv[1-9]\.bias"),
+                   "thermalgan_bn": re.compile(r"D_(pix|vae)\.conv[1-9]\.bias")}
 KEY_BIASES = ("key.bias", "to_k.bias")
-# the floor's one-process runs with A moved by one float32 step, up (and, for
-# the families of phase 23, down too: the STN's deep instance norms behind
-# ReLU kinks make one nudge a small sample of what a rounding difference does)
-SPATIAL_NUDGES = {"fft_glo": (np.inf,), "stn": (np.inf, -np.inf), "tfc_diff": (np.inf, -np.inf)}
+# the floor's one-process runs with A moved by one float32 step, up (and down
+# too where that has set the floor: the STN's deep instance norms behind ReLU
+# kinks, and CycleGAN's and ThermalGAN's, make one nudge a small sample of
+# what a rounding difference does; nemar's floor is cuDNN's algorithms')
+SPATIAL_NUDGES = {"fft_glo": (np.inf,), "stn": (np.inf, -np.inf), "tfc_diff": (np.inf, -np.inf),
+                  "nemar": (np.inf,), "cyclegan": (np.inf, -np.inf),
+                  "thermalgan_bn": (np.inf, -np.inf)}
 
 
 def _spatial_cfg(dtype: str, job: str = "fft_glo"):
@@ -3998,6 +4055,8 @@ def _save_spatial_modules(job: str, path: str) -> None:
     recipe.init(torch.Generator().manual_seed(0))
     if cfg.recipe == "stn":
         _random_dtheta_head(recipe.STN, 0)
+    if cfg.recipe == "nemar":
+        _random_offset_head(recipe.R, 0)
     torch.save({k: getattr(recipe, k).state_dict() for k in ("G", "D", "lpips")
                 if getattr(recipe, k) is not None}, path)
 
@@ -4021,13 +4080,50 @@ def _grads_of(module) -> dict[str, torch.Tensor]:
             if p.grad is not None}
 
 
+def _step_memory(trace: list[dict]) -> dict:
+    """One step's memory from its allocator history (``device_traces[0]``):
+    the peak of the bytes allocated since the step began; the same peak
+    without transient blocks, those freed before any other allocation (the
+    convolution workspaces, whose size cuDNN's heuristics take from the free
+    memory and not from the step's tensors); and the largest transient block
+    with the innermost frame of this repo that allocated it."""
+    events = [e for e in trace if e["action"] in ("alloc", "free_completed")]
+    transient, opened, allocs = set(), {}, 0
+    for i, e in enumerate(events):
+        if e["action"] == "alloc":
+            allocs += 1
+            opened[e["addr"]] = (i, allocs)
+        elif e["addr"] in opened:
+            j, at = opened.pop(e["addr"])
+            if at == allocs:  # no allocation since its own
+                transient.add(j)
+    live, total, kept, peak, kept_peak, largest = {}, 0, 0, 0, 0, (0, "")
+    for i, e in enumerate(events):
+        sign = 1 if e["action"] == "alloc" else -1
+        if sign > 0:
+            live[e["addr"]] = i
+        elif live.pop(e["addr"], None) in transient:
+            total -= e["size"]
+            continue
+        total += sign * e["size"]
+        if i not in transient:
+            kept += sign * e["size"]
+        elif e["size"] > largest[0]:
+            frames = [f"{os.path.basename(f['filename'])}:{f['line']}" for f in e["frames"]
+                      if "tfcgan_tpu_torch" in f["filename"]]
+            largest = (e["size"], frames[0] if frames else "autograd")
+        peak, kept_peak = max(peak, total), max(kept_peak, kept)
+    return {"peak": peak, "tensors": kept_peak, "transient": largest}
+
+
 def _spatial_rank(rank: int, world: int, port: int, tmp: str, results, job: str) -> None:
     """One process on card 0: with ``world`` 2 a gloo rank of a (1 data x 2
     spatial) mesh, with ``world`` 1 the one process it is held to. Two
     float32 steps of ``job`` from the saved weights (step 1's metrics and
     reduced G and D gradients, saved to ``tmp``; step 2's peak memory above
-    what was allocated before it; the kernel launches of both steps), then
-    one bfloat16 step's metrics."""
+    what was allocated before it, and ``_step_memory`` of its allocator
+    history; the kernel launches of both steps), then one bfloat16 step's
+    metrics."""
     import datetime
 
     import torch.distributed as dist
@@ -4055,6 +4151,7 @@ def _spatial_rank(rank: int, world: int, port: int, tmp: str, results, job: str)
             if i == 1:
                 before = torch.cuda.memory_allocated()
                 torch.cuda.reset_peak_memory_stats()
+                torch.cuda.memory._record_memory_history(max_entries=1_000_000, stacks="python")
             t0 = time.perf_counter()
             m = trainer.step(state, batch)
             out["metrics"].append({k: float(v) for k, v in m.items()})  # reads sync
@@ -4063,8 +4160,10 @@ def _spatial_rank(rank: int, world: int, port: int, tmp: str, results, job: str)
                 torch.save({"G": _grads_of(state.G), "D": _grads_of(state.D)},
                            os.path.join(tmp, f"spatial_grads_{job}_{world}.pt"))
         torch.cuda.synchronize()
+        traced = _step_memory(torch.cuda.memory._snapshot()["device_traces"][0])
+        torch.cuda.memory._record_memory_history(enabled=None)
         out.update(counts=counts(), replicated=spatial.REPLICATED_LAYERS - replicated,
-                   held=before, peak=torch.cuda.max_memory_allocated() - before)
+                   held=before, peak=torch.cuda.max_memory_allocated() - before, traced=traced)
         del trainer, state
         torch.cuda.empty_cache()
         trainer, state = _spatial_trainer(_spatial_cfg("bfloat16", job), device, mesh, modules)
@@ -4157,9 +4256,12 @@ def _spatial_compare(device, card: str, job: str, what: str) -> dict[str, int]:
     least = SPATIAL_GRAD_FLOOR.get(job, 0.0) * max(
         float(t.abs().max()) for m in g1 for t in g1[m].values())
 
+    floored = SPATIAL_FLOORED.get(job)
+
     def scale(grads, k):
         ref = grads[k[:-len("bias")] + "weight"] if k.endswith(KEY_BIASES) else grads[k]
-        return max(float(ref.abs().max()), least) + 1e-12
+        at_least = least if floored is None or floored.fullmatch(k) else 0.0
+        return max(float(ref.abs().max()), at_least) + 1e-12
 
     def grad_errs(a, b):
         return {f"{m}.{k}": float((a[m][k] - b[m][k]).abs().max()) / scale(b[m], k)
@@ -4188,10 +4290,12 @@ def _spatial_compare(device, card: str, job: str, what: str) -> dict[str, int]:
         raise AssertionError(f"{name} spatial mesh: the ranks' metrics differ: "
                              f"{[pair[r]['metrics'] for r in pair]}")
     want = scaled(per_step, 2)
+    whole_map = 2 * SPATIAL_REPLICATED.get(job, 0)
     for r in pair:
-        if pair[r]["counts"] != want or pair[r]["replicated"] != 0:
+        if pair[r]["counts"] != want or pair[r]["replicated"] != whole_map:
             raise AssertionError(f"{name} spatial rank {r}: launches {pair[r]['counts']}, want "
-                                 f"{want}; {pair[r]['replicated']} layers on the whole map")
+                                 f"{want}; {pair[r]['replicated']} layers on the whole map, "
+                                 f"want {whole_map}")
     bf16, bf16_one = pair[0]["bf16"], one["bf16"]
     bf16_err = {k: abs(bf16[k] - bf16_one[k]) / max(abs(bf16_one[k]), 1e-6) for k in bf16_one}
     if (not all(np.isfinite(v) for v in bf16.values()) or sorted(bf16) != sorted(want_m)
@@ -4199,16 +4303,25 @@ def _spatial_compare(device, card: str, job: str, what: str) -> dict[str, int]:
         raise AssertionError(f"{name} spatial mesh, bfloat16 step: {bf16} against one "
                              f"process's {bf16_one} (bound {TENSOR_DIFF_TOL} relative)")
     share = {r: pair[r]["peak"] / one["peak"] for r in pair}
+    tensors = {r: pair[r]["traced"]["tensors"] / one["traced"]["tensors"] for r in pair}
     mib = 2.0 ** 20
+
+    def transient(t):
+        return f"{t['transient'][0] / mib:.1f} MiB at {t['transient'][1]}"
     launched = {k: v for k, v in per_step.items() if v}
     print(f"spatial {name} (1 data x 2 spatial) on two gloo ranks of one card, float32 global "
           f"B={batch_size} {size}² (rows 0-{size // 2 - 1} and {size // 2}-{size - 1} of every "
-          f"image; {what}), against one process: {detail}; metrics equal on both ranks; 0 "
-          f"layers on the whole map; launches a rank over 2 steps {launched} a step (one "
-          f"process's); step 2's peak memory above what was held before it, a rank / one "
+          f"image; {what}), against one process: {detail}; metrics equal on both ranks; "
+          f"{whole_map} layers on the whole map over 2 steps; launches a rank over 2 steps "
+          f"{launched or 'none'} a step (one process's); step 2's peak memory above what was held before it, a rank / one "
           f"process: {pair[0]['peak'] / mib:.1f} / {one['peak'] / mib:.1f} MiB, share "
           f"{share[0]:.4f} (rank 1 {share[1]:.4f}; held before the step {pair[0]['held'] / mib:.1f}"
-          f" / {one['held'] / mib:.1f} MiB); step ms a rank "
+          f" / {one['held'] / mib:.1f} MiB); without transient blocks (the workspaces) "
+          f"{pair[0]['traced']['tensors'] / mib:.1f} / {one['traced']['tensors'] / mib:.1f} MiB, "
+          f"share {tensors[0]:.4f} (rank 1 {tensors[1]:.4f}; the largest transient block "
+          f"{transient(pair[0]['traced'])} / {transient(one['traced'])}; the traced peaks "
+          f"{pair[0]['traced']['peak'] / mib:.1f} / {one['traced']['peak'] / mib:.1f} MiB); "
+          f"step ms a rank "
           f"{ {r: [round(t, 3) for t in pair[r]['ms']] for r in pair} } (step 1 with set-up; "
           f"the halos and gathers through gloo on the host), one process beside them "
           f"{[round(t, 3) for t in one['ms']]}; bf16 step on the pair {bf16}, one process's "
@@ -4375,6 +4488,119 @@ def phase_spatial_families(device, card: str, results: dict) -> dict[str, dict[s
     return by_path
 
 
+# ------------------------------- 24. spatial: NeMAR, CycleGAN and ThermalGAN
+SPATIAL_K3 = (32, SIZE, SIZE, 6)  # K3 on row windows: NeMAR's stacked A and fake_B at B=32
+
+
+def _rows_reached(grid: torch.Tensor, h: int) -> int:
+    """The image rows that a zeros-padded, align_corners=False grid's
+    bilinear taps read, counted for each image and summed over the batch."""
+    iy = ((grid[..., 1].double() + 1) * h - 1) / 2
+    y0 = iy.floor().long().flatten(1)
+    hit = torch.zeros(grid.shape[0], h + 2, dtype=torch.bool, device=grid.device)
+    for tap in (y0, y0 + 1):  # row -1 and row h stand for the padding
+        idx = tap.clamp(-1, h) + 1
+        hit.scatter_(1, idx, torch.ones_like(idx, dtype=torch.bool))
+    return int(hit[:, 1:h + 1].sum())
+
+
+def _spatial_k3_windows(device, card: str, gen, results: dict) -> None:
+    """(a) K3 on row windows: the image (32, 256, 256, 6) whole, the dense
+    grid (the identity and offsets of up to 5 pixels) cut into the rows of
+    2 and 3 ranks in float32, of 2 in bfloat16. Each window's forward and grid
+    gradient bit for bit the whole launch's rows, and within phase 5's
+    tolerances of the plain version (``check_gridsample``: the plain sampler
+    on the same image at the window's grid rows, and autograd of it); the
+    windows' image gradients summed over the ranks within ``GRAD_TOL`` x
+    max(1, max|g|) of the whole launch's (float32 atomics, in another order).
+    Times for rank 0 of 2's window against the whole launch, float32."""
+    n, h, w, c = SPATIAL_K3
+    base = _identity_grid(n, h, w, device)
+    grid = (base + (torch.rand(base.shape, device=device, generator=gen) * 2 - 1)
+            * (5.0 * 2 / SIZE)).contiguous()
+    worst, summed_err = [0.0, 0.0, 0.0], 0.0
+    for dtype, splits in ((torch.float32, (2, 3)), (torch.bfloat16, (2,))):
+        inp = torch.randn(SPATIAL_K3, device=device, generator=gen).to(dtype)
+        g = torch.randn(SPATIAL_K3, device=device, generator=gen).to(dtype)
+        whole = gkernel.gridsample_fwd(inp, grid)
+        whole_di, whole_dg = gkernel.gridsample_bwd(g, inp, grid)
+        for ranks in splits:
+            summed = torch.zeros_like(whole_di)
+            for r in range(ranks):
+                lo, hi = spatial.row_bounds(h, r, ranks)
+                what = f"K3 rows [{lo}, {hi}) of {h} over {ranks} ranks {dtype}"
+                gr, gg = grid[:, lo:hi].contiguous(), g[:, lo:hi].contiguous()
+                out = gkernel.gridsample_fwd(inp, gr)
+                di, dg = gkernel.gridsample_bwd(gg, inp, gr)
+                if not (torch.equal(out, whole[:, lo:hi]) and torch.equal(dg, whole_dg[:, lo:hi])):
+                    raise AssertionError(f"{what}: forward or grid gradient not the whole "
+                                         "launch's rows bit for bit")
+                errs = check_gridsample(inp, gr, gg, "zeros", False, what)
+                worst = [max(a, b) for a, b in zip(worst, errs)]
+                summed += di
+            summed_err = max(summed_err, _within(
+                summed, whole_di, GRAD_TOL, f"K3 windows' image gradients over {ranks} ranks "
+                                            f"{dtype}"))
+        del inp, g, whole, whole_di, whole_dg, summed
+        torch.cuda.empty_cache()
+    inp = torch.randn(SPATIAL_K3, device=device, generator=gen)
+    g = torch.randn(SPATIAL_K3, device=device, generator=gen)
+    lo, hi = spatial.row_bounds(h, 0, 2)
+    gr, gg = grid[:, lo:hi].contiguous(), g[:, lo:hi].contiguous()
+    timed = {"gridsample_fwd": (cuda_ms(lambda: gkernel.gridsample_fwd(inp, gr)),
+                                cuda_ms(lambda: gkernel.gridsample_fwd(inp, grid))),
+             "gridsample_bwd": (cuda_ms(lambda: gkernel.gridsample_bwd(gg, inp, gr)),
+                                cuda_ms(lambda: gkernel.gridsample_bwd(g, inp, grid)))}
+    del inp, g
+    torch.cuda.empty_cache()
+    pixels, reached = n * (hi - lo) * w, _rows_reached(gr, h)
+    # the window reads the image rows its taps reach; the backward writes the
+    # whole image gradient (the wrapper zero-fills it)
+    nb = {"in": reached * w * c * 4, "whole": n * h * w * c * 4, "grid": pixels * 2 * 4,
+          "out": pixels * c * 4}
+    bounds = {"gridsample_fwd": bound_ms(nb["in"] + nb["grid"] + nb["out"], pixels * (40 + 8 * c)),
+              "gridsample_bwd": bound_ms(nb["out"] + nb["in"] + nb["whole"] + 2 * nb["grid"],
+                                         pixels * (40 + 24 * c))}
+    for i, k in enumerate(("gridsample_fwd", "gridsample_bwd")):
+        err = worst[0] if i == 0 else max(worst[1:])
+        (ms, whole_ms), (b, by) = timed[k], bounds[k]
+        results[k].update(row_window_max_abs_err=err, row_window_ms=ms,
+                          row_window_whole_ms=whole_ms, row_window_bound_ms=b)
+        print(f"spatial K3 {k} on row windows: the whole {SPATIAL_K3} image, every grid window "
+              f"of 2 and 3 ranks, float32 and bfloat16: forward and grid gradient bit for bit "
+              f"the whole launch's rows, within phase 5's tolerances of the plain version "
+              f"(worst {err:.3g}), the windows' image gradients summed {summed_err:.3g} from "
+              f"the whole launch's (bound {GRAD_TOL} x max(1, max|g|)); float32, rank 0 of 2 "
+              f"(rows {lo}-{hi - 1}; its taps reach {reached / n:.1f} image rows an image)"
+              f" {ms:.4f} ms, bound {b:.4f} ms ({by}), the whole launch {whole_ms:.4f} ms "
+              f"[{card}]")
+
+
+def phase_spatial_baselines(device, card: str, results: dict) -> dict[str, dict[str, int]]:
+    """The spatial axis for NeMAR, CycleGAN and ThermalGAN: (a) K3 on row
+    windows (``_spatial_k3_windows``); (b)-(e) nemar (the deformable STN, its
+    targets gathered and sampled by K3 at the rank's grid rows), cyclegan
+    (the buffers whole on both ranks) and thermalgan_bn (the batch norms'
+    moments over the group; G2's 1 x 1 map on the whole map) float32 at 256²,
+    global B=4, each on two gloo ranks of the card as (1 data x 2 spatial)
+    against one process, with one bf16 step each, each rank's launches (K3's
+    for nemar, none for the others) and its peak step memory
+    (``_spatial_compare``)."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(SPATIAL_SEED + 4)
+    _spatial_k3_windows(device, card, gen, results)
+    torch.cuda.empty_cache()
+    by_path = {"spatial_nemar": _spatial_compare(
+        device, card, "nemar", "the STN's targets gathered, K3 at the rank's grid rows")}
+    by_path["spatial_cyclegan"] = _spatial_compare(
+        device, card, "cyclegan", "the replay buffers whole on both ranks")
+    by_path["spatial_thermalgan_bn"] = _spatial_compare(
+        device, card, "thermalgan_bn", "the batch norms' moments over the group; the "
+        "Encoder's 2 x 2 map gathered")
+    print(f"spatial phase 24: {time.perf_counter() - t0:.1f} s [{card}]")
+    return by_path
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--params", default=None, help="g_params.npz (tools/export_g_params.py)")
@@ -4385,6 +4611,12 @@ def main(argv=None) -> int:
 
     # 1. environment
     t_start = time.perf_counter()
+    phase_s, last = {}, [t_start]
+
+    def mark(phase: str) -> None:  # the seconds since the previous mark
+        now = time.perf_counter()
+        phase_s[phase] = round(now - last[0], 1)
+        last[0] = now
     device = torch.device("cuda", 0)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4414,11 +4646,15 @@ def main(argv=None) -> int:
           f"({', '.join(sum(symbols.values(), ()))}) in {time.perf_counter() - t0:.2f} s -> "
           f"{_build.BUILD_DIR}")
 
+    mark("build")
+
     # 3. to 5. every kernel against its plain version
     results = dict(zip(KERNELS[:2], phase_kernels(device)))
     results.update(phase_resample(device, card))
     results.update(phase_gridsample(device, card))
     torch.cuda.empty_cache()
+
+    mark("3-5")
 
     # 6. the fft_glo serve path and its CLI
     by_path = {}
@@ -4430,14 +4666,20 @@ def main(argv=None) -> int:
     print(f"fft_glo serve path: {forwards} G forwards, blurpool launches "
           f"{by_path['fft_glo_serve']['blurpool_fwd']} (11 per forward), no other kernel")
 
+    mark("6")
+
     # 6b. cli train: fft_glo and tfc_diff through the user's commands
     by_path.update(phase_cli_train(device, args, card))
     torch.cuda.empty_cache()
+
+    mark("6b")
 
     # 7. float32 kernel path vs plain path, and G-forward img/s
     phase_compare(device, g, batches, card)
     del g, batches
     torch.cuda.empty_cache()
+
+    mark("7")
 
     # 8. the fft_glo train step
     by_path["fft_glo_train"] = phase_train(device, args, "fft_glo", TRAIN_TERMS, FFT_GLO_STEP)
@@ -4445,9 +4687,13 @@ def main(argv=None) -> int:
                         [("plain path", plain_path, 1e-3, None)])
     phase_train_rate(device, args, card, "fft_glo", TRAIN_RATE_BATCHES)
 
+    mark("8")
+
     # 9. the stn_newmodel3 serve path
     by_path["stn_serve"] = phase_stn_serve(device, args, card)
     torch.cuda.empty_cache()
+
+    mark("9")
 
     # 10. the stn_newmodel3 train step
     # This step's gradients do not repeat from run to run: cuDNN's float32
@@ -4469,9 +4715,13 @@ def main(argv=None) -> int:
     by_path["stn_train"] = phase_train(device, args, "stn_newmodel3", STN_TERMS, STN_STEP)
     torch.cuda.empty_cache()
 
+    mark("10")
+
     # 11. the nemar serve path
     by_path["nemar_serve"] = phase_nemar_serve(device, args, card)
     torch.cuda.empty_cache()
+
+    mark("11")
 
     # 12. the nemar train step. At random weights its gradients are
     # ill-conditioned in float32 (D's output is next to constant, so its
@@ -4491,14 +4741,20 @@ def main(argv=None) -> int:
     by_path["nemar_train"] = phase_train(device, args, "nemar", NEMAR_TERMS, NEMAR_STEP,
                                          after=check_decayed_lr)
 
+    mark("12")
+
     # 13. flash attention against its plain version
     torch.cuda.empty_cache()
     results.update(phase_flashattn(device, card))
     torch.cuda.empty_cache()
 
+    mark("13")
+
     # 14. the tfc_diff serve path: the ancestral sampler
     by_path["tfc_diff_serve"] = phase_diff_serve(device, args, card)
     torch.cuda.empty_cache()
+
+    mark("14")
 
     # 15. the tfc_diff train step. The float32 step repeats bit for bit but for
     # cuDNN's float32 convolutions (1e-6 run to run); the flash attention
@@ -4512,6 +4768,8 @@ def main(argv=None) -> int:
         by_path["tfc_diff_train"] = phase_train(device, args, name, DIFF_TERMS[name], per_step,
                                                 size=DIFF_SIZE, moving="g_noise_mse")
         torch.cuda.empty_cache()
+
+    mark("15")
 
     # 16. the rest of the TFC-GAN-FFT family: the debiased chain V1-V7, the
     # saliency mask, the regional FFT loss and favtgan's temperature forms
@@ -4537,6 +4795,8 @@ def main(argv=None) -> int:
     phase_family_cli(device, args, card)
     torch.cuda.empty_cache()
 
+    mark("16")
+
     # 17. the baselines: ThermalGAN (thermalgan, thermalgan_bn) and CycleGAN.
     # No kernel lies on their paths. Their float32 step on the card is held to
     # the same step on the CPU: on the CPU (tests/test_torch_thermalgan.py,
@@ -4555,28 +4815,47 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     print(f"baseline phase: {time.perf_counter() - t0:.1f} s [{card}]")
 
+    mark("17")
+
     # 19. the data and evaluation chain: the native decoder, cli train
     # --hist-every, the registered set, eval-reg, eval --iqa, the host
     # commands and test-time augmentation
     by_path.update(phase_data_eval(device, args, card))
     torch.cuda.empty_cache()
 
+    mark("19")
+
     # 20. parallel/: cli train under torchrun (an NCCL world of one), the
     # Trainer with and without that mesh, the GPipe trunk at one stage, and
     # two gloo ranks on the card
     by_path.update(phase_parallel(device, args, card))
 
+    mark("20")
+
     # 21. the tensor axis: column-parallel layers over gloo ranks of the card
     by_path.update(phase_tensor(device, card))
 
+    mark("21")
+
     # 22. the spatial axis: the row-edge K1, and row shards over gloo ranks of the card
     by_path.update(phase_spatial(device, card, results))
+
+    mark("22")
 
     # 23. the spatial axis for the STN family and TFC-Diff: K4's local queries,
     # K2's output windows, both families on row shards over gloo ranks of the card
     by_path.update(phase_spatial_families(device, card, results))
 
+    mark("23")
+
+    # 24. the spatial axis for NeMAR, CycleGAN and ThermalGAN: K3 on row
+    # windows, the three families on row shards over gloo ranks of the card
+    by_path.update(phase_spatial_baselines(device, card, results))
+
+    mark("24")
+
     # 18. result
+    print(f"chip_smoke: seconds by phase {phase_s}")
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(card)
     sources = {"blurpool": "tfcgan_tpu_torch/csrc/blurpool.cu",

@@ -1,11 +1,9 @@
 """The recipes that do not run on row shards refuse the port's spatial
-axis: every registered entry but the ``tfcgan`` ones that build
-``GeneratorUNet`` + ``PatchDiscriminator`` and the stn and tfc_diff entries
-(that is the seven debiased entries, the saliency mask, nemar, thermalgan,
-thermalgan_bn and cyclegan: 12) raises ``NotImplementedError`` in
-``Trainer`` on a (1 data x 2 spatial) mesh, naming ROADMAP.md 7c; the 24
-that run there are the 18 of the tfcgan recipe docstring's list and the
-three stn and three tfc_diff entries, each of which says
+axis: the seven debiased entries and the saliency mask (8) raise
+``NotImplementedError`` in ``Trainer`` on a (1 data x 2 spatial) mesh,
+naming ROADMAP.md 7c; the 28 that run there are the 18 of the tfcgan recipe
+docstring's list, the three stn and three tfc_diff entries, nemar,
+cyclegan, thermalgan and thermalgan_bn, each of which says
 ``supports_spatial`` and is accepted by ``Trainer`` on that mesh. A device
 batch whose rows are not this rank's share of ``cfg.data.image_size``-row
 images is refused too, and
@@ -28,12 +26,11 @@ from tfcgan_tpu_torch.recipes import build_recipe
 from tfcgan_tpu_torch.recipes import tfcgan
 from tfcgan_tpu_torch.train.trainer import Trainer
 
-# every registered entry but the tfcgan ones that build GeneratorUNet +
-# PatchDiscriminator, and the stn and diffusion entries
+# the tfcgan entries that build ConditionalGeneratorUNet (the debiased chain)
+# or the saliency mask
 REFUSED = sorted(n for n, c in EXPERIMENTS.items()
-                 if c.recipe not in ("tfcgan", "stn", "diffusion") or c.loss.conditional
-                 or c.loss.use_mask)
-ROW_SHARD_FAMILIES = sorted(n for n, c in EXPERIMENTS.items() if c.recipe in ("stn", "diffusion"))
+                 if c.recipe == "tfcgan" and (c.loss.conditional or c.loss.use_mask))
+ROW_SHARD_FAMILIES = sorted(n for n, c in EXPERIMENTS.items() if c.recipe != "tfcgan")
 
 
 def _spatial_pair() -> Mesh:
@@ -50,6 +47,8 @@ def test_recipes_without_row_shards_refuse_a_spatial_mesh(name):
 
 @pytest.mark.parametrize("name", ROW_SHARD_FAMILIES)
 def test_the_stn_and_diffusion_entries_run_on_a_spatial_mesh(name):
+    """Every entry of the families other than tfcgan (stn, diffusion, nemar,
+    cyclegan, thermalgan) runs on a spatial mesh."""
     cfg = EXPERIMENTS[name]
     recipe = build_recipe(cfg, "meta")
     assert recipe.supports_spatial, name
@@ -59,7 +58,7 @@ def test_the_stn_and_diffusion_entries_run_on_a_spatial_mesh(name):
 
 def test_the_row_shard_entries_are_the_recipe_docstrings_list():
     running = sorted(set(EXPERIMENTS) - set(REFUSED))
-    assert len(REFUSED) == 12 and len(running) == 24 and len(ROW_SHARD_FAMILIES) == 6
+    assert len(REFUSED) == 8 and len(running) == 28 and len(ROW_SHARD_FAMILIES) == 10
     for name in running:
         if EXPERIMENTS[name].recipe == "tfcgan":
             assert re.search(rf"\b{name}\b", tfcgan.__doc__), name

@@ -109,15 +109,15 @@ def _full_checksum(modules) -> float:
 
 @contextlib.contextmanager
 def _float64():
-    """float64 as torch's default dtype and the tfcgan, stn and diffusion
-    recipes' compute dtype inside the block."""
-    from tfcgan_tpu_torch.recipes import diffusion, stn, tfcgan
+    """float64 as torch's default dtype and every recipe's compute dtype
+    inside the block."""
+    from tfcgan_tpu_torch.recipes import cyclegan, diffusion, nemar, stn, tfcgan, thermalgan
 
     before = torch.get_default_dtype()
     torch.set_default_dtype(torch.float64)
     try:
         with contextlib.ExitStack() as stack:
-            for module in (tfcgan, stn, diffusion):
+            for module in (tfcgan, stn, diffusion, nemar, cyclegan, thermalgan):
                 stack.enter_context(mock.patch.object(module, "_dtype",
                                                       lambda cfg: torch.float64))
             yield
@@ -685,15 +685,15 @@ def spatial_readers(rank, world, cases):
 
 
 def family_spatial_steps(rank, world, cfg, modules, draws=None, spatial=1, tmp=None,
-                         float64=False, seed=0):
+                         float64=False, seed=0, prefix=""):
     """One step of an stn or diffusion ``cfg`` from the modules in the file
     ``modules`` (a torch.save of the recipe's G, D[, lpips] state dicts) on
     ``synthetic_batch(seed=seed, with_labels=True)``: with ``world`` > 1 on a
     (data x ``spatial``) mesh. ``draws`` (a numpy dict of the diffusion
     step's global noise and timesteps) replaces the recipe's draws. Rank 0
     saves the reduced G gradients to ``tmp``/g_grads_{world}[_f64].pt;
-    ``float64`` as in ``fftglo_steps``. Returns the metrics and the count of
-    layers that ran on the whole map."""
+    ``float64`` as in ``fftglo_steps``; ``prefix`` starts the files' names.
+    Returns the metrics and the count of layers that ran on the whole map."""
     from tfcgan_tpu_torch.data.synth import synthetic_batch
     from tfcgan_tpu_torch.parallel import place_state, spatial as spatial_axis
     from tfcgan_tpu_torch.recipes import build_recipe
@@ -703,7 +703,7 @@ def family_spatial_steps(rank, world, cfg, modules, draws=None, spatial=1, tmp=N
     if float64:
         with _float64():
             return family_spatial_steps(rank, world, cfg, modules, draws, spatial, tmp,
-                                        seed=seed)
+                                        seed=seed, prefix=prefix)
     mesh = _mesh(spatial=spatial) if world > 1 else None
     recipe = build_recipe(cfg, "cpu")
     draw_fn = None
@@ -723,7 +723,227 @@ def family_spatial_steps(rank, world, cfg, modules, draws=None, spatial=1, tmp=N
     metrics = {k: float(v) for k, v in trainer.step(state, batch).items()}
     if tmp is not None and rank == 0:
         tag = f"{world}{'_f64' if torch.get_default_dtype() == torch.float64 else ''}"
-        torch.save(_grads(state.G), f"{tmp}/g_grads_{tag}.pt")
+        torch.save(_grads(state.G), f"{tmp}/{prefix}g_grads_{tag}.pt")
         if any(True for _ in state.D.parameters()):
-            torch.save(_grads(state.D), f"{tmp}/d_grads_{tag}.pt")
+            torch.save(_grads(state.D), f"{tmp}/{prefix}d_grads_{tag}.pt")
     return {"metrics": metrics, "replicated": spatial_axis.REPLICATED_LAYERS - replicated}
+
+
+# ------------------------------- spatial axis: NeMAR, CycleGAN and ThermalGAN
+# the layers whose output is a share of a scalar (summed over the ranks)
+SHARE_OPS = ("multi", "smooth0", "smooth2")
+
+
+def baseline_op(name: str, seed: int = 0):
+    """One row-aware piece of the NeMAR, CycleGAN and ThermalGAN paths,
+    weights drawn from ``seed``: (fn(x, rows) -> y, its module or None, the
+    input's (W, C)). ``rows`` None runs it on the whole map."""
+    from tfcgan_tpu_torch.models.discriminator import (MultiDiscriminator, NLayerDiscriminator,
+                                                       StridedPatchDiscriminator, multiscale_loss)
+    from tfcgan_tpu_torch.models.layers import TorchConv, without_draws
+    from tfcgan_tpu_torch.models.resnet import BasicBlock
+    from tfcgan_tpu_torch.models.resnet_gen import ResNetGenerator, reflect_conv
+    from tfcgan_tpu_torch.models.stn import _upsample_to, smoothness_loss
+    from tfcgan_tpu_torch.models.thermalgan import (TrainBatchNorm, _avg_pool_8x8, _max_pool_3x3,
+                                                    normalized_temps)
+    from tfcgan_tpu_torch.ops.gridsample import grid_sample_dense_plain
+    from tfcgan_tpu_torch.ops.resize import avg_pool_2x
+    from tfcgan_tpu_torch.parallel.spatial import window_op
+
+    gen = torch.Generator().manual_seed(seed)
+    no_pad = ((0, 0), (0, 0))
+    with without_draws():
+        module = {"reflect3": lambda: TorchConv(3, 4, kernel_size=3, padding=no_pad),
+                  "reflect7": lambda: TorchConv(3, 4, kernel_size=7, padding=no_pad),
+                  "resnet_gen": lambda: ResNetGenerator(3, 3, num_blocks=1, base_feats=4),
+                  "nlayer": lambda: NLayerDiscriminator(3, ndf=4),
+                  "strided": lambda: StridedPatchDiscriminator(
+                      3, head_kernel=4, head_padding=((2, 1), (2, 1))),
+                  "multi": lambda: MultiDiscriminator(3),
+                  "basic": lambda: BasicBlock(3, 4, stride=2),
+                  "bn": lambda: TrainBatchNorm(3)}.get(name, lambda: None)()
+    if module is not None:
+        with torch.no_grad():
+            for p in module.parameters():
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.3 + (1.0 if p.dim() == 1 else 0))
+    up = {"upsample_to": 0, "upsample_odd": 1}
+
+    def upsample(x, rows, extra):
+        h = x.shape[1] if rows is None else rows.h
+        like = x.new_empty((x.shape[0], 2 * h + extra, 2 * x.shape[2], 1))
+        return _upsample_to(x, like, rows, rows and rows.of(2 * h + extra))
+
+    fns = {"reflect3": lambda x, rows: reflect_conv(module, x, 1, rows),
+           "reflect7": lambda x, rows: reflect_conv(module, x, 3, rows),
+           "multi": lambda x, rows: multiscale_loss(module(x, rows), 0.5, "mse",
+                                                    module.out_rows(rows)),
+           "avgpool2x": lambda x, rows: avg_pool_2x(x, rows),
+           "maxpool3": lambda x, rows: window_op(x, rows, 3, 2, 1, _max_pool_3x3),
+           "avg8": lambda x, rows: window_op(x, rows, 8, 8, 0, _avg_pool_8x8),
+           "temps": lambda x, rows: normalized_temps(x[..., 0] + 2.0, rows)[..., None],
+           "smooth0": lambda x, rows: smoothness_loss(x[..., :2], x[..., 2:], 0.0, rows),
+           "smooth2": lambda x, rows: smoothness_loss(x[..., :2], x[..., 2:], 2.0, rows),
+           "gridsample": lambda x, rows: grid_sample_dense_plain(
+               x[..., :3], 1.1 * x[..., 3:], rows=rows)}
+    if name in up:
+        fn = lambda x, rows: upsample(x, rows, up[name])  # noqa: E731
+    else:
+        fn = fns.get(name, lambda x, rows: module(x, rows))
+    shape = {"resnet_gen": (12, 3), "nlayer": (32, 3), "strided": (32, 3), "multi": (128, 3),
+             "avg8": (16, 3), "smooth0": (6, 5), "smooth2": (6, 5),
+             "gridsample": (6, 5)}.get(name, (5, 3))
+    return fn, module, shape
+
+
+def baseline_op_inputs(name: str, h: int, seed: int = 1):
+    """The whole input (2, h, W, C) of ``baseline_op(name)`` and the output
+    cotangent (a 0-dim one for a share)."""
+    fn, _, (w, c) = baseline_op(name)
+    rng = np.random.RandomState(seed + h)
+    x = torch.from_numpy(rng.uniform(-1, 1, (2, h, w, c)).astype(np.float32))
+    with torch.no_grad():
+        y = fn(x, None)
+    cot = torch.from_numpy(rng.uniform(-1, 1, tuple(y.shape)).astype(np.float32))
+    return x, cot
+
+
+def baseline_op_run(name: str, x, cot, rows):
+    """The piece on ``x`` (this rank's rows, or the whole map): its output,
+    the gradients of sum(y * cot) to x and to the weights."""
+    fn, module, _ = baseline_op(name)
+    x = x.clone().requires_grad_(True)
+    y = fn(x, rows)
+    (y * cot).sum().backward()
+    grads = {} if module is None else {k: p.grad.clone() for k, p in module.named_parameters()}
+    return y.detach(), x.grad, grads
+
+
+def baseline_ops(rank, world, cases):
+    """Each (piece, h) of ``cases`` on this rank's rows over a spatial mesh of
+    the whole world: output, input and weight gradients, and the number of
+    layers that ran on the whole map."""
+    from tfcgan_tpu_torch.parallel import make_mesh
+    from tfcgan_tpu_torch.parallel import spatial
+
+    mesh = make_mesh(spatial=world, device="cpu")
+    out = {}
+    for name, h in cases:
+        x, cot = baseline_op_inputs(name, h)
+        rows = mesh.image_rows(h)
+        if name not in SHARE_OPS:
+            cot = rows.of(cot.shape[1]).cut(cot)
+        before = spatial.REPLICATED_LAYERS
+        y, gx, gw = baseline_op_run(name, rows.cut(x), cot, rows)
+        out[name, h] = {"y": y.numpy(), "gx": gx.numpy(),
+                        "gw": {k: v.numpy() for k, v in gw.items()},
+                        "replicated": spatial.REPLICATED_LAYERS - before}
+    return out
+
+
+def spatial_jobs(rank, world, jobs, spatial=1, tmp=None):
+    """``family_spatial_steps`` for each job of ``jobs`` (a dict of its
+    keyword arguments, with ``name``: the prefix of its files and its key in
+    the result), in one spawn; only the float64 jobs save their gradients."""
+    return {job["name"]: family_spatial_steps(
+        rank, world, spatial=spatial, tmp=tmp if job.get("float64") else None,
+        prefix=job["name"] + "_", **{k: v for k, v in job.items() if k != "name"})
+        for job in jobs}
+
+
+def _state_sums(state):
+    """The step, and digests of the bytes of G and D, of their Adam moments
+    and of the recipe-owned buffers: equal only where every tensor is."""
+    import hashlib
+
+    def digest(tensors):
+        h = hashlib.sha256()
+        for t in tensors:
+            h.update(t.detach().contiguous().cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    moments = [t for opt in (state.opt_g, state.opt_d) for st in opt.state.values()
+               for k, t in st.items() if k in ("exp_avg", "exp_avg_sq")]
+    return (state.step, digest([*state.G.state_dict().values(), *state.D.state_dict().values()]),
+            digest(moments), digest([v["data"] for v in state.extra.values()]))
+
+
+def cyclegan_spatial(rank, world, cfg, tmp, spatial=1, other=None, seed=4, prefill=3,
+                     only_other=False, resume=True):
+    """CycleGAN on a (1 data x ``spatial``) mesh (world 1 without one): two
+    steps from the port's init from ``seed`` with all but ``prefill`` buffer
+    slots filled and colliding slots (``cyclegan_steps``), a checkpoint after
+    step 1 (``tmp``/ckpt_{world}); that checkpoint restored and step 2 run
+    again (``resume``); the checkpoint ``other`` (another world's, if given) restored and
+    step 2 run from it; and one float64 step, whose gradients rank 0 saves
+    to ``tmp``/cyc_{g,d}_grads_{world}_f64.pt (``only_other``: the restore of
+    ``other`` alone). Returns each run's metrics, buffers and state
+    checksums (``_state_sums``)."""
+    from tfcgan_tpu_torch.parallel import place_state
+    from tfcgan_tpu_torch.recipes import build_recipe
+    from tfcgan_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
+    from tfcgan_tpu_torch.train.trainer import Trainer
+
+    mesh = _mesh(spatial=spatial) if world > 1 else None
+
+    def trainer_of():
+        recipe = build_recipe(cfg, "cpu")
+
+        def draw_fn(state, batch):
+            d = recipe.draw(state.generator, batch)
+            d.slots_a[::2] = 3
+            d.slots_b[1::2] = 3
+            return d
+
+        return Trainer(cfg, recipe, draw_fn=draw_fn, mesh=mesh)
+
+    def step(trainer, state, i):
+        batch = _batches(cfg.data.batch_size, cfg.data.image_size, [i])[0]
+        m = trainer.step(state, batch)
+        return {"metrics": {k: float(v) for k, v in m.items()},
+                "buffers": {k: (v["data"].numpy().copy(), int(v["count"]))
+                            for k, v in state.extra.items()},
+                "sums": _state_sums(state)}
+
+    def restored(path):
+        trainer = trainer_of()
+        state = restore_checkpoint(path, trainer.init_state(0, draw=False))
+        if mesh is not None:
+            place_state(state, mesh)
+        return trainer, state
+
+    def fresh():
+        trainer = trainer_of()
+        state = trainer.init_state(seed)
+        rng = np.random.RandomState(seed)
+        size = cfg.data.image_size
+        for buf in state.extra.values():
+            buf["data"][:-prefill] = torch.from_numpy(
+                rng.uniform(-1, 1, (buf["data"].shape[0] - prefill, size, size, 3)).astype(
+                    np.float32))
+            buf["count"].fill_(buf["data"].shape[0] - prefill)
+        return trainer, state
+
+    out = {}
+    if other is not None:
+        trainer, state = restored(other)
+        out["other_sums"] = _state_sums(state)
+        out["other"] = step(trainer, state, 1)
+    if only_other:
+        return out
+    trainer, state = fresh()
+    out["steps"] = []
+    for i in range(2):
+        out["steps"].append(step(trainer, state, i))
+        if state.step == 1:
+            save_checkpoint(f"{tmp}/ckpt_{world}", state, mesh)
+    if resume:
+        trainer, state = restored(f"{tmp}/ckpt_{world}/step_00000001")
+        out["resumed"] = step(trainer, state, 1)
+    with _float64():
+        trainer, state = fresh()
+        out["f64"] = step(trainer, state, 0)
+        if rank == 0:
+            torch.save(_grads(state.G), f"{tmp}/cyc_g_grads_{world}_f64.pt")
+            torch.save(_grads(state.D), f"{tmp}/cyc_d_grads_{world}_f64.pt")
+    return out
+

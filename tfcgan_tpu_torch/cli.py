@@ -538,7 +538,8 @@ def main(argv=None):
     common.add_argument("--spatial", type=int, default=None,
                         help="under torchrun: ranks on the mesh's spatial axis (each holds "
                              "its rows of every image; train: the fft_glo family, the stn "
-                             "family and tfc_diff; test), default the experiment's "
+                             "family, tfc_diff, nemar, cyclegan and thermalgan; test), "
+                             "default the experiment's "
                              "cfg.mesh.spatial")
     common.add_argument("--tensor", type=int, default=None,
                         help="under torchrun: ranks on the mesh's tensor axis (each holds "

@@ -298,7 +298,7 @@ def upsample_nearest2x(h: torch.Tensor, rows: Rows | None = None) -> torch.Tenso
             2, dim=2)
 
     return row_op(h, rows, 2 * rows.h, lambda lo, hi: (lo // 2, (hi - 1) // 2 + 1), compute,
-                  zero_pad=False)
+                  edge="clip")
 
 
 def sample(unet: CondUNet, schedule: DDPMSchedule, cond: torch.Tensor,

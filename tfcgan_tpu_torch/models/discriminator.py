@@ -17,7 +17,13 @@ logits for a 256² input. Parameter and buffer names follow the JAX module
 tree (``block0_conv.weight`` <- ``block0_conv/kernel``, ``block0_conv.u`` <-
 ``spectral/block0_conv/u``; see ``tfcgan_tpu_torch.bridge``). With ``rows``
 (the spatial mesh axis) it runs on this rank's rows of the images and
-returns its rows of the logits, whose record ``out_rows`` gives.
+returns its rows of the logits, whose record ``out_rows`` gives. So do
+``NLayerDiscriminator``, ``StridedPatchDiscriminator`` (their convs fetch
+their halo rows, their instance norms sum over the spatial group) and
+``MultiDiscriminator``, whose 2x average pool between the scales runs on
+rows too (``ops.resize.avg_pool_2x``) and whose ``out_rows`` is a list, one
+record a scale; ``lsgan_loss`` and ``multiscale_loss`` then take those
+records and give this rank's share of their means.
 """
 
 from __future__ import annotations
@@ -30,9 +36,9 @@ from tfcgan_tpu_torch.models.layers import SpectralConv, TorchConv, draws_on, in
 from tfcgan_tpu_torch.models.vit import Dense, lecun_normal_
 from tfcgan_tpu_torch.ops.blurpool import blur_pool
 from tfcgan_tpu_torch.ops.norm import instance_norm
-from tfcgan_tpu_torch.ops.resize import avg_pool_2x
+from tfcgan_tpu_torch.ops.resize import avg_pool_2x, avg_pool_height
 from tfcgan_tpu_torch.ops.kernels.blurpool import out_len
-from tfcgan_tpu_torch.parallel.spatial import Rows
+from tfcgan_tpu_torch.parallel.spatial import Rows, share_mean
 
 WIDTHS = (64, 128, 256, 512)
 
@@ -153,11 +159,19 @@ class NLayerDiscriminator(nn.Module):
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
         init_normal_(self, generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.leaky_relu(self.conv0(x.to(self.dtype)), 0.2)
-        for i in range(1, self.n_layers + 1):
-            x = F.leaky_relu(instance_norm(getattr(self, f"conv{i}")(x)), 0.2)
-        return self.final(x)
+    def convs(self) -> list[TorchConv]:
+        return [getattr(self, f"conv{i}") for i in range(self.n_layers + 1)] + [self.final]
+
+    def out_rows(self, rows: Rows | None) -> Rows | None:
+        return _out_rows(self.convs(), rows)
+
+    def forward(self, x: torch.Tensor, rows: Rows | None = None) -> torch.Tensor:
+        x = x.to(self.dtype)
+        for i, conv in enumerate(self.convs()[:-1]):
+            x = conv(x, rows)
+            rows = rows and rows.of(conv.out_height(rows.h))
+            x = F.leaky_relu(x if i == 0 else instance_norm(x, rows=rows), 0.2)
+        return self.final(x, rows)
 
 
 class PixelDiscriminator(nn.Module):
@@ -212,14 +226,21 @@ class StridedPatchDiscriminator(nn.Module):
         """Kernels normal(0, 0.02), biases zero, as the JAX ``TorchConv`` init."""
         init_normal_(self, generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def convs(self) -> list[TorchConv]:
+        return [getattr(self, f"conv{i}") for i in range(len(WIDTHS))] + [self.final]
+
+    def out_rows(self, rows: Rows | None) -> Rows | None:
+        return _out_rows(self.convs(), rows)
+
+    def forward(self, x: torch.Tensor, rows: Rows | None = None) -> torch.Tensor:
         x = x.to(self.dtype)
-        for i in range(len(WIDTHS)):
-            x = getattr(self, f"conv{i}")(x)
+        for i, conv in enumerate(self.convs()[:-1]):
+            x = conv(x, rows)
+            rows = rows and rows.of(conv.out_height(rows.h))
             if i > 0:
-                x = instance_norm(x)
+                x = instance_norm(x, rows=rows)
             x = F.leaky_relu(x, 0.2)
-        return self.final(x)
+        return self.final(x, rows)
 
 
 class MultiDiscriminator(nn.Module):
@@ -242,23 +263,45 @@ class MultiDiscriminator(nn.Module):
         for i in range(self.num_scales):
             getattr(self, f"disc_{i}").reset_parameters(generator)
 
-    def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
+    def out_rows(self, rows: Rows | None) -> list[Rows | None]:
+        """The records of the scales' logits for images of record ``rows``."""
+        outs = []
+        for i in range(self.num_scales):
+            outs.append(getattr(self, f"disc_{i}").out_rows(rows))
+            rows = rows and rows.of(avg_pool_height(rows.h))
+        return outs
+
+    def forward(self, x: torch.Tensor, rows: Rows | None = None) -> list[torch.Tensor]:
         outs = []
         x = x.to(self.dtype)
         for i in range(self.num_scales):
-            outs.append(getattr(self, f"disc_{i}")(x))
+            outs.append(getattr(self, f"disc_{i}")(x, rows))
             if i + 1 < self.num_scales:
-                x = avg_pool_2x(x)
+                x = avg_pool_2x(x, rows)
+                rows = rows and rows.of(avg_pool_height(rows.h))
         return outs
 
 
-def multiscale_loss(outputs: list[torch.Tensor], target: float, loss: str = "l1"
-                    ) -> torch.Tensor:
+def _out_rows(convs: list[TorchConv], rows: Rows | None) -> Rows | None:
+    """The record of the logits of a stack of ``convs`` for images of record
+    ``rows``."""
+    if rows is None:
+        return None
+    h = rows.h
+    for conv in convs:
+        h = conv.out_height(h)
+    return rows.of(h)
+
+
+def multiscale_loss(outputs: list[torch.Tensor], target: float, loss: str = "l1",
+                    rows: list[Rows | None] | None = None) -> torch.Tensor:
     """The mean over scales of each scale's mean L1 (``loss="l1"``, the
     reference's in-forward loss) or squared error against ``target``, in
-    the outputs' dtype (no float32 cast, as in the JAX function)."""
+    the outputs' dtype (no float32 cast, as in the JAX function). With
+    ``rows`` (``MultiDiscriminator.out_rows``) this rank's share of it."""
     if loss not in ("l1", "mse"):
         raise ValueError(f"unknown multiscale loss {loss!r}")
-    terms = [((out - target).abs() if loss == "l1" else (out - target).square()).mean()
-             for out in outputs]
+    rows = rows or [None] * len(outputs)
+    terms = [share_mean((out - target).abs() if loss == "l1" else (out - target).square(), r)
+             for out, r in zip(outputs, rows)]
     return torch.stack(terms).mean()

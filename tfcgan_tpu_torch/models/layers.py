@@ -188,7 +188,7 @@ class TorchConvTranspose(nn.Module):
         def compute(xw, a, b, lo, hi):  # unpadded, window row o' is global o' - p + s a
             return self._run(xw, 0)[:, lo + p - s * a:hi + p - s * a]
 
-        return row_op(x, rows, self.out_height(rows.h), need, compute, zero_pad=False)
+        return row_op(x, rows, self.out_height(rows.h), need, compute, edge="clip")
 
 
 def _l2_normalize(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -406,4 +406,4 @@ class Upsample2xConv(nn.Module):
             start, stop = max(ua, 0), min(ub, h2)
             return self._run(xw, (start - 2 * a, stop - 2 * a, start - ua, ub - stop))
 
-        return row_op(x, rows, self.out_height(rows.h), need, compute, zero_pad=False)
+        return row_op(x, rows, self.out_height(rows.h), need, compute, edge="clip")

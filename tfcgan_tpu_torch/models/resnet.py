@@ -30,6 +30,7 @@ import torch.nn.functional as F
 
 from tfcgan_tpu_torch.models.layers import GroupNorm, TorchConv, draws_on
 from tfcgan_tpu_torch.models.vit import Dense
+from tfcgan_tpu_torch.parallel.spatial import Rows
 
 _WEIGHTS_ENV = "TFCGAN_RESNET_WEIGHTS"
 _WEIGHTS_NAME = "resnet18_flax.msgpack"
@@ -97,15 +98,23 @@ class BasicBlock(nn.Module):
             self.dn = GroupNorm(feats, feats, 1e-6, **kw) if gn else None
 
     @staticmethod
-    def _norm(norm: GroupNorm | None, x: torch.Tensor) -> torch.Tensor:
-        return x if norm is None else norm(x)
+    def _norm(norm: GroupNorm | None, x: torch.Tensor, rows: Rows | None = None
+              ) -> torch.Tensor:
+        return x if norm is None else norm(x, rows)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = F.relu(self._norm(self.n1, self.conv1(x)))
-        h = self._norm(self.n2, self.conv2(h))
+    def forward(self, x: torch.Tensor, rows: Rows | None = None) -> torch.Tensor:
+        """With ``rows``, this rank's rows of the input and of the output
+        (of the height ``out_height`` gives): the convs fetch their halo
+        rows and the norms sum over the spatial group."""
+        out = rows and rows.of(self.conv1.out_height(rows.h))
+        h = F.relu(self._norm(self.n1, self.conv1(x, rows), out))
+        h = self._norm(self.n2, self.conv2(h, out), out)
         if self.down is not None:
-            x = self._norm(self.dn, self.down(x))
+            x = self._norm(self.dn, self.down(x, rows), out)
         return F.relu(x + h)
+
+    def out_height(self, h: int) -> int:
+        return self.conv1.out_height(h)
 
 
 class ResNet18(nn.Module):

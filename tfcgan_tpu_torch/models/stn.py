@@ -33,6 +33,16 @@ that is added to the identity grid; all targets are warped by that grid in
 ``fast_warp=True`` (the default) the sampling is ``grid_sample_dense``: the
 hand-written kernels on a card (``ops/gridsample.py``), the plain version on
 the CPU; ``False`` takes ``ops/warp.grid_sample`` in plain tensor code.
+
+NeMAR's STNs take ``rows`` too (the spatial mesh axis): their convs, norms,
+max-pools and upsamples run on this rank's rows (a level with fewer rows
+than ranks on the whole map, ``parallel.spatial.REPLICATED_LAYERS``), the
+grid is this rank's rows of the global grid, and the targets are gathered
+once and sampled there (``grid_sample_dense(rows=)``; K3 on a card). The
+conv-affine localizer's last map is gathered once and its Dense layers run
+whole on every rank, so theta, and its regulariser (counted once over the
+group, ``replicated_share``), are the same everywhere; the smoothness term
+is this rank's share of the field's.
 """
 
 from __future__ import annotations
@@ -48,7 +58,8 @@ from tfcgan_tpu_torch.ops.norm import instance_norm
 from tfcgan_tpu_torch.ops.pooling import pool22
 from tfcgan_tpu_torch.ops.resample import warp_affine_separable
 from tfcgan_tpu_torch.ops.warp import affine_grid, grid_sample, warp_affine
-from tfcgan_tpu_torch.parallel.spatial import Rows, gather_spatial
+from tfcgan_tpu_torch.parallel.spatial import (Rows, gather_spatial, on_whole_map,
+                                               replicated_share, row_op, share_mean)
 
 IDENTITY_THETA = (1.0, 0.0, 0.0, 0.0, 1.0, 0.0)
 
@@ -139,20 +150,27 @@ _PAD1 = ((1, 1), (1, 1))
 _NO_PAD = ((0, 0), (0, 0))
 
 
-def _dense_warp(img: torch.Tensor, grid: torch.Tensor, fast: bool) -> torch.Tensor:
+def _dense_warp(img: torch.Tensor, grid: torch.Tensor, fast: bool, rows: Rows | None = None
+                ) -> torch.Tensor:
     """Bilinear/zeros/align_corners=False sample of ``img`` (N, H, W, C) at
     ``grid``: ``grid_sample_dense`` when ``fast``, else the plain tensor code;
-    the result has ``img``'s dtype."""
+    the result has ``img``'s dtype. With ``rows``, ``img`` and ``grid`` are
+    this rank's rows, and the image is gathered once."""
     if fast:
         return grid_sample_dense(img, grid, mode="bilinear", padding_mode="zeros",
-                                 align_corners=False)
-    return grid_sample(img, grid, mode="bilinear", padding_mode="zeros",
+                                 align_corners=False, rows=rows)
+    return grid_sample(gather_spatial(img, rows), grid, mode="bilinear", padding_mode="zeros",
                        align_corners=False).to(img.dtype)
 
 
-def _identity_grid(n: int, h: int, w: int, device) -> torch.Tensor:
+def _row_span(rows: Rows | None) -> tuple[int, int] | None:
+    return None if rows is None else (rows.lo, rows.hi)
+
+
+def _identity_grid(n: int, h: int, w: int, device, rows: Rows | None = None) -> torch.Tensor:
+    """The identity grid (N, H, W, 2); with ``rows``, this rank's rows of it."""
     theta = torch.tensor(IDENTITY_THETA, device=device).reshape(1, 2, 3).expand(n, 2, 3)
-    return affine_grid(theta, (n, h, w), align_corners=False)
+    return affine_grid(theta, (n, h, w), align_corners=False, row_span=_row_span(rows))
 
 
 class CNNAffineSTN(nn.Module):
@@ -186,20 +204,27 @@ class CNNAffineSTN(nn.Module):
         self.fc2.weight.copy_(torch.randn(self.fc2.weight.shape, generator=generator) * 5e-4)
 
     def forward(self, img_a: torch.Tensor, img_b: torch.Tensor,
-                apply_on: list[torch.Tensor] | None = None
+                apply_on: list[torch.Tensor] | None = None, rows: Rows | None = None
                 ) -> tuple[list[torch.Tensor], torch.Tensor]:
+        """With ``rows`` the images and the warped targets are this rank's
+        rows; the last map is gathered once for the Dense layers."""
         x = torch.cat([img_a.to(self.dtype), img_b.to(self.dtype)], dim=-1)
+        r = rows
         for i in range(self.nconvs):
-            x = pool22(F.relu(instance_norm(getattr(self, f"conv{i}")(x))))
+            x = F.relu(instance_norm(getattr(self, f"conv{i}")(x, r), rows=r))
+            x = pool22(x, r)
+            r = r and r.of(r.h // 2)
+        x = gather_spatial(x, r)
         h = F.relu(self.fc1(x.reshape(x.shape[0], -1)))
         dtheta = self.fc2(h).float()
         theta = (dtheta + self.identity).reshape(-1, 2, 3)
         warped = []
         for img in [img_a] if apply_on is None else apply_on:
-            n, hh, ww, _ = img.shape
-            grid = affine_grid(theta, (n, hh, ww), align_corners=False)
-            warped.append(_dense_warp(img, grid, self.fast_warp))
-        return warped, dtheta.abs().mean()
+            n, _, ww, _ = img.shape
+            hh = img.shape[1] if rows is None else rows.h
+            grid = affine_grid(theta, (n, hh, ww), align_corners=False, row_span=_row_span(rows))
+            warped.append(_dense_warp(img, grid, self.fast_warp, rows))
+        return warped, replicated_share(dtheta.abs().mean(), rows)
 
 
 class _ResBlock(nn.Module):
@@ -211,14 +236,38 @@ class _ResBlock(nn.Module):
         self.c1 = TorchConv(feats, feats, **kw)
         self.c2 = TorchConv(feats, feats, **kw)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x + self.c2(F.relu(self.c1(x)))
+    def forward(self, x: torch.Tensor, rows: Rows | None = None) -> torch.Tensor:
+        return x + self.c2(F.relu(self.c1(x, rows)), rows)
 
 
-def _upsample_to(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-    """Bilinear resize (half-pixel centres) of NHWC ``x`` to ``like``'s H and W."""
-    return F.interpolate(x.permute(0, 3, 1, 2), size=like.shape[1:3], mode="bilinear",
+def _bilinear(x: torch.Tensor, size) -> torch.Tensor:
+    return F.interpolate(x.permute(0, 3, 1, 2), size=size, mode="bilinear",
                          align_corners=False).permute(0, 2, 3, 1)
+
+
+def _upsample_to(x: torch.Tensor, like: torch.Tensor, rows: Rows | None = None,
+                 like_rows: Rows | None = None) -> torch.Tensor:
+    """Bilinear resize (half-pixel centres) of NHWC ``x`` to ``like``'s H and W.
+    With ``rows`` and ``like_rows`` (the records of ``x`` and ``like``) this
+    rank's rows of the resized map. A 2x resize reads at most one row beyond
+    each side of the shard and clamps at the map's edges: the window is
+    resized as a map of its own from the first input row that the rank's
+    output rows read, which gives those rows the whole map's weights (the
+    window's own first output row, clamped at its top, is never one of
+    them). Another ratio runs on the whole map (``REPLICATED_LAYERS``)."""
+    if rows is None or rows.axis.size == 1:
+        return _bilinear(x, like.shape[1:3])
+    h, h_out, w_out = rows.h, like_rows.h, like.shape[2]
+    if h_out != 2 * h:
+        return on_whole_map(x, rows, like_rows, lambda x: _bilinear(x, (h_out, w_out)))
+
+    def need(lo, hi):  # output row o >= 1 reads rows (o - 1) // 2 and the next
+        return (lo - 1) // 2 if lo > 0 else 0, min(h, max(hi - 2, 0) // 2 + 2)
+
+    def compute(xw, a, b, lo, hi):  # xw: rows [a, b); its output rows [2a, 2b)
+        return _bilinear(xw, (2 * (b - a), w_out))[:, lo - 2 * a:hi - 2 * a]
+
+    return row_op(x, rows, h_out, need, compute, edge="clip")
 
 
 class DeformableSTN(nn.Module):
@@ -259,51 +308,76 @@ class DeformableSTN(nn.Module):
         init_normal_(self, generator)
         self.offset.weight.zero_()
 
-    def offsets(self, img_a: torch.Tensor, img_b: torch.Tensor) -> torch.Tensor:
-        """The offset field (N, H, W, 2), float32, in normalized (x, y) units."""
+    def offsets(self, img_a: torch.Tensor, img_b: torch.Tensor, rows: Rows | None = None
+                ) -> torch.Tensor:
+        """The offset field (N, H, W, 2), float32, in normalized (x, y) units;
+        with ``rows``, this rank's rows of it from this rank's rows of the
+        images."""
         x = torch.cat([img_a.to(self.dtype), img_b.to(self.dtype)], dim=-1)
-        skips = []
+        skips, r = [], rows
         for i in range(self.n_down):
-            x = F.leaky_relu(getattr(self, f"down{i}")(x), 0.2)
-            skips.append(x)
-            x = pool22(x)
-        x = F.leaky_relu(self.c1(x), 0.2)
+            x = F.leaky_relu(getattr(self, f"down{i}")(x, r), 0.2)
+            skips.append((x, r))
+            x = pool22(x, r)
+            r = r and r.of(r.h // 2)
+        x = F.leaky_relu(self.c1(x, r), 0.2)
         for i in range(self.res_blocks):
-            x = getattr(self, f"res{i}")(x)
-        x = F.leaky_relu(self.c2(x), 0.2)
+            x = getattr(self, f"res{i}")(x, r)
+        x = F.leaky_relu(self.c2(x, r), 0.2)
         for i in range(self.n_up):
-            skip = skips[-(i + 1)]
-            x = torch.cat([_upsample_to(x, skip), skip], dim=-1)
-            x = F.leaky_relu(getattr(self, f"up{i}")(x), 0.2)
-        x = F.leaky_relu(self.refine_conv(self.refine_res(x)), 0.2)
-        return self.offset(x).float()
+            skip, skip_rows = skips[-(i + 1)]
+            x = torch.cat([_upsample_to(x, skip, r, skip_rows), skip], dim=-1)
+            r = skip_rows
+            x = F.leaky_relu(getattr(self, f"up{i}")(x, r), 0.2)
+        x = F.leaky_relu(self.refine_conv(self.refine_res(x, r), r), 0.2)
+        return self.offset(x, r).float()
 
     def forward(self, img_a: torch.Tensor, img_b: torch.Tensor,
-                apply_on: list[torch.Tensor] | None = None
+                apply_on: list[torch.Tensor] | None = None, rows: Rows | None = None
                 ) -> tuple[list[torch.Tensor], torch.Tensor]:
-        offset = self.offsets(img_a, img_b)
+        """With ``rows`` the images, the warped targets and the field are this
+        rank's rows, and the smoothness term is this rank's share."""
+        offset = self.offsets(img_a, img_b, rows)
         n, hh, ww, _ = offset.shape
-        grid = _identity_grid(n, hh, ww, offset.device) + offset
+        grid = _identity_grid(n, hh if rows is None else rows.h, ww, offset.device,
+                              rows) + offset
         targets = [img_a] if apply_on is None else apply_on
-        # one sampling call for all targets: they share the grid
+        # one sampling call for all targets: they share the grid (and, on
+        # row shards, one gather of the stacked targets)
         stacked = torch.cat([img.float() for img in targets], dim=-1)
-        wall = _dense_warp(stacked, grid, self.fast_warp)
+        wall = _dense_warp(stacked, grid, self.fast_warp, rows)
         warped, c0 = [], 0
         for img in targets:
             c1 = c0 + img.shape[-1]
             warped.append(wall[..., c0:c1].to(img.dtype))
             c0 = c1
-        return warped, smoothness_loss(offset, img_b, alpha=self.alpha)
+        return warped, smoothness_loss(offset, img_b, alpha=self.alpha, rows=rows)
 
 
-def smoothness_loss(offset: torch.Tensor, img: torch.Tensor, alpha: float = 0.0) -> torch.Tensor:
+def smoothness_loss(offset: torch.Tensor, img: torch.Tensor, alpha: float = 0.0,
+                    rows: Rows | None = None) -> torch.Tensor:
     """Mean absolute difference of neighbouring offsets along H plus along W;
     with ``alpha`` > 0 each difference is weighted by exp(-alpha * |d img|),
     the image difference averaged over channels. offset: (N, H, W, 2); img:
-    (N, H, W, C)."""
-    dy = torch.diff(offset, dim=1).abs()
+    (N, H, W, C). With ``rows`` both are this rank's rows, and the result is
+    its share: it takes the row differences whose lower row it holds (the
+    row above its first from its neighbour) and its column differences, each
+    sum over the global count, N (H - 1) W 2 and N H (W - 1) 2."""
+    # the field and (for the weights) the image: on row shards in one exchange
+    both = torch.cat([offset, img.to(offset.dtype)], dim=-1) if alpha > 0 else offset
+    if rows is None or rows.axis.size == 1:
+        d, h = torch.diff(both, dim=1), offset.shape[1]
+    else:
+        def row_diffs(xw, a, b, lo, hi):  # row o's difference from row o - 1; none at row 0
+            d = torch.diff(xw, dim=1)
+            return d if a < lo else torch.cat([torch.zeros_like(d[:, :1]), d], dim=1)
+
+        d = row_op(both, rows, rows.h, lambda lo, hi: (lo - 1, hi), row_diffs, edge="clip")
+        h = rows.h
+    dy = d[..., :2].abs()
     dx = torch.diff(offset, dim=2).abs()
     if alpha > 0:
-        dy = dy * torch.exp(-alpha * torch.diff(img, dim=1).abs().mean(dim=-1, keepdim=True))
+        dy = dy * torch.exp(-alpha * d[..., 2:].abs().mean(dim=-1, keepdim=True))
         dx = dx * torch.exp(-alpha * torch.diff(img, dim=2).abs().mean(dim=-1, keepdim=True))
-    return dy.mean() + dx.mean()
+    n, _, w, c = offset.shape
+    return dy.sum() / (n * (h - 1) * w * c) + share_mean(dx, rows)

@@ -16,6 +16,17 @@ convs (``bridge.thermalgan_generators_from_flax``). G2's nine dropout layers
 (p = 0.5: downs 4-8, ups 1-4) take explicit keep-masks
 (``GeneratorG2.draw_dropout_masks``); in training mode G2 refuses to run
 without them.
+
+Every model takes ``rows`` (the spatial mesh axis): it runs on this rank's
+rows of its images (G1's temperature plane and G2's keep-masks come cut
+to the rows), its convs fetch their halo rows, its instance and group norms
+sum their statistics over the spatial group, and ``TrainBatchNorm`` its
+moments over the data and spatial groups. A map with fewer rows than ranks
+(G2's 1 x 1 innermost map at 256²) runs on the whole map. The Encoder's
+max-pool and 8 x 8 mean run on rows (``parallel.spatial.window_op``), and
+its last (N, 2, 2, 256) map is gathered once, so ``fc_mu`` and
+``fc_logvar`` run whole on every rank. ``thermal_mask`` and
+``normalized_temps`` sum their L2 norm along H over the group.
 """
 
 from __future__ import annotations
@@ -31,6 +42,7 @@ from tfcgan_tpu_torch.models.resnet import BasicBlock, flax_init_
 from tfcgan_tpu_torch.models.vit import Dense
 from tfcgan_tpu_torch.ops.norm import instance_norm
 from tfcgan_tpu_torch.parallel.mesh import active_mesh, all_reduce_sum
+from tfcgan_tpu_torch.parallel.spatial import Rows, gather_spatial, spatial_sum, window_op
 
 _PAD1 = ((1, 1), (1, 1))
 
@@ -38,11 +50,13 @@ _PAD1 = ((1, 1), (1, 1))
 class TrainBatchNorm(nn.Module):
     """The reference's ``BatchNorm2d(out, 0.8)`` in train mode: the
     positional 0.8 lands on **eps**. Batch statistics always (the reference
-    never runs the net in eval mode), the biased variance, in float32; no
-    running statistics. ``weight`` and ``bias`` are the JAX ``scale`` and
-    ``bias`` (init 1 + 0.02 N(0, 1) and 0). In a data-parallel step the
+    never runs the net in eval mode), the biased variance, in float32 (in
+    float64 for a float64 input); no running statistics. ``weight`` and
+    ``bias`` are the JAX ``scale`` and ``bias`` (init 1 + 0.02 N(0, 1) and 0). In a data-parallel step the
     moments are the global batch's, as GSPMD computes them in the JAX step
-    (not DataParallel's per-card ones)."""
+    (not DataParallel's per-card ones); on row shards (``rows``) over every
+    row too: the sums go over the data and the spatial groups, and the
+    count is the global batch x H x W."""
 
     def __init__(self, channels: int, eps: float = 0.8, device=None):
         super().__init__()
@@ -50,18 +64,24 @@ class TrainBatchNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(channels, device=device))
         self.bias = nn.Parameter(torch.zeros(channels, device=device))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rows: Rows | None = None) -> torch.Tensor:
         mesh = active_mesh()
-        if mesh is None:
-            y = F.batch_norm(x.float().permute(0, 3, 1, 2), None, None, self.weight, self.bias,
-                             training=True, eps=self.eps)
+        acc = torch.float64 if x.dtype == torch.float64 else torch.float32
+        if mesh is None and rows is None:
+            y = F.batch_norm(x.to(acc).permute(0, 3, 1, 2), None, None, self.weight.to(acc),
+                             self.bias.to(acc), training=True, eps=self.eps)
             return y.permute(0, 2, 3, 1).to(x.dtype)
         # a data-parallel step: the global batch's moments, the mean and then
         # the centred (two-pass) variance, each summed over the ranks
-        xf = x.float()
-        count = xf.shape[0] * xf.shape[1] * xf.shape[2] * mesh.data_size
-        mean = all_reduce_sum(xf.sum(dim=(0, 1, 2)), mesh) / count
-        var = all_reduce_sum((xf - mean).square().sum(dim=(0, 1, 2)), mesh) / count
+        xf = x.to(acc)
+        count = xf.shape[0] * (xf.shape[1] if rows is None else rows.h) * xf.shape[2]
+        count *= 1 if mesh is None else mesh.data_size
+
+        def total(t):
+            return spatial_sum(all_reduce_sum(t.sum(dim=(0, 1, 2)), mesh), rows)
+
+        mean = total(xf) / count
+        var = total((xf - mean).square()) / count
         y = (xf - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
         return y.to(x.dtype)
 
@@ -76,10 +96,11 @@ class _DownBic(nn.Module):
                               use_bias=False, dtype=dtype, device=device)
         self.bn = TrainBatchNorm(feats, device=device) if normalize and norm == "batch" else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.conv(x)
+    def forward(self, x: torch.Tensor, rows: Rows | None = None) -> torch.Tensor:
+        x = self.conv(x, rows)
+        rows = rows and rows.of(self.conv.out_height(rows.h))
         if self.normalize:
-            x = self.bn(x) if self.bn is not None else instance_norm(x)
+            x = self.bn(x, rows) if self.bn is not None else instance_norm(x, rows=rows)
         return F.leaky_relu(x, 0.2)
 
 
@@ -93,9 +114,13 @@ class _UpBic(nn.Module):
                                    dtype=dtype, device=device)
         self.bn = TrainBatchNorm(feats, device=device) if norm == "batch" else None
 
-    def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
-        x = self.conv(x)
-        x = self.bn(x) if self.bn is not None else instance_norm(x)
+    def forward(self, x: torch.Tensor, skip: torch.Tensor, rows: Rows | None = None
+                ) -> torch.Tensor:
+        """With ``rows`` (``x``'s record) the skip is this rank's rows of a
+        map of the upsampled height."""
+        x = self.conv(x, rows)
+        rows = rows and rows.of(self.conv.out_height(rows.h))
+        x = self.bn(x, rows) if self.bn is not None else instance_norm(x, rows=rows)
         x = F.leaky_relu(x, 0.01)  # the reference's default LeakyReLU slope
         return torch.cat([x, skip.to(x.dtype)], dim=-1)
 
@@ -140,16 +165,21 @@ class GeneratorG1(nn.Module):
                 m.weight.copy_(1.0 + 0.02 * torch.randn(m.weight.shape, generator=generator))
                 m.bias.zero_()
 
-    def forward(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, t: torch.Tensor, rows: Rows | None = None
+                ) -> torch.Tensor:
+        """With ``rows``, ``x``, ``t`` and the result are this rank's rows."""
         h = torch.cat([x.to(self.dtype), t[..., None].to(self.dtype)], dim=-1)
         downs = []
         for i in range(len(G1_DOWNS)):
-            h = getattr(self, f"down{i + 1}")(h)
-            downs.append(h)
-        u = downs[-1]
+            down = getattr(self, f"down{i + 1}")
+            h = down(h, rows)
+            rows = rows and rows.of(down.conv.out_height(rows.h))
+            downs.append((h, rows))
+        u, rows = downs[-1]
         for i in range(len(G1_UPS)):
-            u = getattr(self, f"up{i + 1}")(u, downs[-(i + 2)])
-        return torch.tanh(self.final(u))
+            u = getattr(self, f"up{i + 1}")(u, downs[-(i + 2)][0], rows)
+            rows = downs[-(i + 2)][1]
+        return torch.tanh(self.final(u, rows))
 
 
 ENCODER_BLOCKS = ((64, 1), (64, 1), (128, 2), (128, 1), (256, 2), (256, 1))
@@ -187,14 +217,33 @@ class Encoder(nn.Module):
         """Flax's init (lecun-normal kernels, zero biases, norm scales one)."""
         flax_init_(self, generator)
 
-    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        h = F.relu(self.stem_norm(self.stem(x.to(self.dtype))))
-        h = F.max_pool2d(h.permute(0, 3, 1, 2), 3, stride=2, padding=1).permute(0, 2, 3, 1)
+    def forward(self, x: torch.Tensor, rows: Rows | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        """With ``rows``, ``x`` is this rank's rows; (mu, logvar) are whole,
+        the same on every rank."""
+        h = self.stem(x.to(self.dtype), rows)
+        rows = rows and rows.of(self.stem.out_height(rows.h))
+        h = F.relu(self.stem_norm(h, rows))
+        h = window_op(h, rows, 3, 2, 1, _max_pool_3x3)
+        rows = rows and rows.of((rows.h - 1) // 2 + 1)
         for i in range(len(ENCODER_BLOCKS)):
-            h = getattr(self, f"block{i}")(h)
-        h = F.avg_pool2d(h.permute(0, 3, 1, 2), 8, stride=8).permute(0, 2, 3, 1)
+            block = getattr(self, f"block{i}")
+            h = block(h, rows)
+            rows = rows and rows.of(block.out_height(rows.h))
+        h = window_op(h, rows, 8, 8, 0, _avg_pool_8x8)
+        h = gather_spatial(h, rows and rows.of(rows.h // 8))
         h = h.reshape(h.shape[0], -1)  # NHWC order, as the JAX module flattens
         return self.fc_mu(h), self.fc_logvar(h)
+
+
+def _max_pool_3x3(h: torch.Tensor) -> torch.Tensor:
+    """3 x 3 stride-2 max-pool over -inf padding."""
+    return F.max_pool2d(h.permute(0, 3, 1, 2), 3, stride=2, padding=1).permute(0, 2, 3, 1)
+
+
+def _avg_pool_8x8(h: torch.Tensor) -> torch.Tensor:
+    return F.avg_pool2d(h.permute(0, 3, 1, 2), 8, stride=8).permute(0, 2, 3, 1)
+
 
 
 class _DownPix(nn.Module):
@@ -206,10 +255,11 @@ class _DownPix(nn.Module):
         self.normalize, self.dropout = normalize, dropout
         self.conv = TorchConv(cin, feats, stride=2, use_bias=False, dtype=dtype, device=device)
 
-    def forward(self, x: torch.Tensor, keep: torch.Tensor | None = None) -> torch.Tensor:
-        x = self.conv(x)
+    def forward(self, x: torch.Tensor, keep: torch.Tensor | None = None,
+                rows: Rows | None = None) -> torch.Tensor:
+        x = self.conv(x, rows)
         if self.normalize:
-            x = instance_norm(x)
+            x = instance_norm(x, rows=rows and rows.of(self.conv.out_height(rows.h)))
         return _dropout(F.leaky_relu(x, 0.2), keep)
 
 
@@ -223,8 +273,9 @@ class _UpPix(nn.Module):
         self.conv = TorchConvTranspose(cin, feats, dtype=dtype, device=device)
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor,
-                keep: torch.Tensor | None = None) -> torch.Tensor:
-        x = _dropout(F.relu(instance_norm(self.conv(x))), keep)
+                keep: torch.Tensor | None = None, rows: Rows | None = None) -> torch.Tensor:
+        out = rows and rows.of(self.conv.out_height(rows.h))
+        x = _dropout(F.relu(instance_norm(self.conv(x, rows), rows=out)), keep)
         return torch.cat([x, skip.to(x.dtype)], dim=-1)
 
 
@@ -279,13 +330,15 @@ class GeneratorG2(nn.Module):
             masks[name] = ((u < keep) / keep).to(self.dtype)
         return masks
 
-    def forward(self, x: torch.Tensor,
-                dropout_masks: dict[str, torch.Tensor] | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dropout_masks: dict[str, torch.Tensor] | None = None,
+                rows: Rows | None = None) -> torch.Tensor:
         """In training mode ``dropout_masks`` is required; in eval mode it must
-        be None."""
-        if x.shape[1] < 256 or x.shape[2] < 256:
+        be None. With ``rows``, ``x``, the masks and the result are this
+        rank's rows."""
+        height = x.shape[1] if rows is None else rows.h
+        if height < 256 or x.shape[2] < 256:
             raise ValueError(f"GeneratorG2 needs >=256^2 inputs (8 downsamples), got "
-                             f"{x.shape[1]}x{x.shape[2]}")
+                             f"{height}x{x.shape[2]}")
         if self.training and dropout_masks is None:
             raise ValueError("GeneratorG2 in training mode needs dropout_masks "
                              "(draw_dropout_masks); use .eval() for no dropout")
@@ -295,12 +348,15 @@ class GeneratorG2(nn.Module):
         d = x.to(self.dtype)
         downs = []
         for i in range(len(G2_DOWNS)):
-            d = getattr(self, f"down{i + 1}")(d, keep.get(f"down{i + 1}"))
-            downs.append(d)
-        u = downs[-1]
+            down = getattr(self, f"down{i + 1}")
+            d = down(d, keep.get(f"down{i + 1}"), rows)
+            rows = rows and rows.of(down.conv.out_height(rows.h))
+            downs.append((d, rows))
+        u, rows = downs[-1]
         for i in range(len(G2_UPS)):
-            u = getattr(self, f"up{i + 1}")(u, downs[-(i + 2)], keep.get(f"up{i + 1}"))
-        return torch.tanh(self.final(u))
+            u = getattr(self, f"up{i + 1}")(u, downs[-(i + 2)][0], keep.get(f"up{i + 1}"), rows)
+            rows = downs[-(i + 2)][1]
+        return torch.tanh(self.final(u, rows))
 
 
 class VAEDiscriminator2(StridedPatchDiscriminator):
@@ -319,18 +375,20 @@ class DiscriminatorPix(StridedPatchDiscriminator):
         super().__init__(in_channels, head_kernel=4, head_padding=((2, 1), (2, 1)),
                          head_bias=False, **kw)
 
-    def forward(self, img: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
-        return super().forward(torch.cat([img.to(self.dtype), cond.to(self.dtype)], dim=-1))
+    def forward(self, img: torch.Tensor, cond: torch.Tensor, rows: Rows | None = None
+                ) -> torch.Tensor:
+        return super().forward(torch.cat([img.to(self.dtype), cond.to(self.dtype)], dim=-1),
+                               rows)
 
 
-def thermal_mask(b: torch.Tensor) -> torch.Tensor:
+def thermal_mask(b: torch.Tensor, rows: Rows | None = None) -> torch.Tensor:
     """The segmentation surrogate: the inverted grayscale (channel mean) of
-    the thermal image, L2-normalised along H (+1e-12), on 3 channels."""
-    inv = -b.mean(dim=-1)
-    n = inv / (torch.sqrt((inv * inv).sum(dim=1, keepdim=True)) + 1e-12)
-    return n[..., None].repeat(1, 1, 1, 3)
+    the thermal image, L2-normalised along H (+1e-12), on 3 channels. With
+    ``rows``, this rank's rows, the norm summed over the spatial group."""
+    return normalized_temps(-b.mean(dim=-1), rows)[..., None].repeat(1, 1, 1, 3)
 
 
-def normalized_temps(t: torch.Tensor) -> torch.Tensor:
-    """(N, H, W) temperatures L2-normalised along H (+1e-12)."""
-    return t / (torch.sqrt((t * t).sum(dim=1, keepdim=True)) + 1e-12)
+def normalized_temps(t: torch.Tensor, rows: Rows | None = None) -> torch.Tensor:
+    """(N, H, W) temperatures L2-normalised along H (+1e-12); with ``rows``,
+    this rank's rows, the column sums of squares summed over the group."""
+    return t / (torch.sqrt(spatial_sum((t * t).sum(dim=1, keepdim=True), rows)) + 1e-12)

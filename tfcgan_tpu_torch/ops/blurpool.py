@@ -95,4 +95,4 @@ def blur_pool(x: torch.Tensor, stride: int = 2, rows: Rows | None = None) -> tor
 
     return row_op(x, rows, _kernel.out_len(h, stride),
                   lambda o_lo, o_hi: _kernel.window_rows(h, o_lo, o_hi - o_lo, stride),
-                  compute, zero_pad=False)
+                  compute, edge="clip")

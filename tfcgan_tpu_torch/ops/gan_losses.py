@@ -5,7 +5,7 @@ modes (vanilla, WGAN and its gradient penalty), which no registered recipe
 calls.
 
 With ``rows`` (the record of row-sharded logits on a spatial mesh) the
-relativistic losses return this rank's share of their mean over the whole
+relativistic and least-squares losses return this rank's share of their mean over the whole
 map (``parallel.spatial.share_mean``): the spatial group's shares sum to it.
 """
 
@@ -39,9 +39,10 @@ def relativistic_d_loss(pred_real: torch.Tensor, pred_fake: torch.Tensor,
                      + bce_with_logits(pred_fake - pred_real, 0.0, rows))
 
 
-def lsgan_loss(pred: torch.Tensor, target: float) -> torch.Tensor:
-    """Mean squared error against a constant target, in float32."""
-    return (pred.float() - target).square().mean()
+def lsgan_loss(pred: torch.Tensor, target: float, rows: Rows | None = None) -> torch.Tensor:
+    """Mean squared error against a constant target, in float32 (this rank's
+    share of it on row shards)."""
+    return share_mean((pred.float() - target).square(), rows)
 
 
 def vanilla_g_loss(pred_fake: torch.Tensor) -> torch.Tensor:

@@ -15,6 +15,14 @@ backward. ``F.grid_sample`` itself is not called.
 The image gradient is summed with atomics, so two runs of the backward on a
 card differ in its last bits; the grid gradient and the forward repeat
 exactly.
+
+On row shards (``rows``, the spatial mesh axis) a sample can fall on any
+row of the image, so both forms take the image gathered once over the
+spatial group (``parallel.spatial.gather_spatial``) and this rank's rows of
+the grid, in the global normalised coordinates: the kernels take a grid of
+any height, so this needs no other launch. The image gradient then comes
+back whole on every rank, and the gather's backward sums it onto each
+owner's rows.
 """
 
 from __future__ import annotations
@@ -23,15 +31,19 @@ import torch
 
 from tfcgan_tpu_torch.ops import warp
 from tfcgan_tpu_torch.ops.kernels import gridsample as _kernel
+from tfcgan_tpu_torch.parallel.spatial import Rows, gather_spatial
 
 
 def grid_sample_dense_plain(inp: torch.Tensor, grid: torch.Tensor, mode: str = "bilinear",
-                            padding_mode: str = "zeros", align_corners: bool = False
-                            ) -> torch.Tensor:
+                            padding_mode: str = "zeros", align_corners: bool = False,
+                            rows: Rows | None = None) -> torch.Tensor:
     """The plain version on any device: ``ops/warp.grid_sample`` (bilinear) in
-    float32, the result in ``inp``'s dtype. Differentiable in inp and grid."""
+    float32, the result in ``inp``'s dtype. Differentiable in inp and grid.
+    With ``rows``, ``inp`` is this rank's rows of images of ``rows.h`` rows,
+    gathered here, and ``grid`` this rank's rows of the grid."""
     if mode != "bilinear":
         raise ValueError("grid_sample_dense implements bilinear only")
+    inp = gather_spatial(inp, rows)
     out = warp.grid_sample(inp.float(), grid.float(), mode="bilinear",
                            padding_mode=padding_mode, align_corners=align_corners)
     return out.to(inp.dtype)
@@ -59,12 +71,16 @@ class GridSampleDense(torch.autograd.Function):
 
 
 def grid_sample_dense(inp: torch.Tensor, grid: torch.Tensor, mode: str = "bilinear",
-                      padding_mode: str = "zeros", align_corners: bool = False) -> torch.Tensor:
+                      padding_mode: str = "zeros", align_corners: bool = False,
+                      rows: Rows | None = None) -> torch.Tensor:
     """inp: (N, H, W, C) contiguous, float32 or bfloat16; grid: (N, Hg, Wg, 2)
     normalized (x, y) -> (N, Hg, Wg, C) in inp's dtype. The kernels on CUDA,
-    the plain version on the CPU."""
+    the plain version on the CPU. With ``rows``, ``inp`` is this rank's rows
+    of images of ``rows.h`` rows (gathered once here) and ``grid`` and the
+    result this rank's rows of theirs."""
     if inp.device.type == "cpu":
-        return grid_sample_dense_plain(inp, grid, mode, padding_mode, align_corners)
+        return grid_sample_dense_plain(inp, grid, mode, padding_mode, align_corners, rows)
     if mode != "bilinear":
         raise ValueError("grid_sample_dense implements bilinear only")
-    return GridSampleDense.apply(inp, grid.float().contiguous(), padding_mode, align_corners)
+    return GridSampleDense.apply(gather_spatial(inp, rows), grid.float().contiguous(),
+                                 padding_mode, align_corners)

@@ -18,12 +18,25 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from tfcgan_tpu_torch.parallel.spatial import Rows, window_op
 
-def avg_pool_2x(x: torch.Tensor) -> torch.Tensor:
-    """(N, H, W, C) -> (N, floor((H - 1) / 2) + 1, ..., C): the 3x3 mean at
-    stride 2 over the window's pixels inside the image."""
+
+def _avg_pool_2x(x: torch.Tensor) -> torch.Tensor:
     y = F.avg_pool2d(x.permute(0, 3, 1, 2), 3, stride=2, padding=1, count_include_pad=False)
     return y.permute(0, 2, 3, 1)
+
+
+def avg_pool_height(h: int) -> int:
+    return (h - 1) // 2 + 1
+
+
+def avg_pool_2x(x: torch.Tensor, rows: Rows | None = None) -> torch.Tensor:
+    """(N, H, W, C) -> (N, floor((H - 1) / 2) + 1, ..., C): the 3x3 mean at
+    stride 2 over the window's pixels inside the image. With ``rows``, this
+    rank's rows of both: the windows at the edge of a shard count their
+    whole 3 rows (``parallel.spatial.window_op``), only the map's own edges
+    leave the padding out."""
+    return window_op(x, rows, 3, 2, 1, _avg_pool_2x)
 
 
 def _keys_cubic(t: torch.Tensor) -> torch.Tensor:

@@ -31,7 +31,21 @@ onto the rows of its owner. Only adjacent shards are read. Where a rank
 would get no output rows, or a row it needs lies beyond the adjacent shard,
 the layer runs on the whole map on every spatial rank instead: ``gather_spatial``
 in, the layer, ``split_rows`` out. ``REPLICATED_LAYERS`` counts those runs;
-at 256² and S = 2 the main path has none.
+at 256² and S = 2 the main path has none but the 1-row maps of the pix2pix
+G2 (its innermost conv) and of the 128² deformable STN's bottleneck.
+
+**The edges.** The window that ``row_op`` hands a layer is padded at the
+map's global top and bottom only, in the layer's own way (``edge``): zero
+rows for the zero-padded convs; the reflection (rows 1 .. p mirrored, the
+edge row left out) for the ResNet generator's reflection-padded convs
+(``models/resnet_gen``), whose mirrored rows the exchange fetches with the
+window; or none (``"clip"``): the layer pads by itself, as the transposed
+conv, the upsample head and the blur-pool do. ``window_op`` runs a pooling
+window on the clipped rows from an input row that is a multiple of its
+stride, so that the layer's own padding falls where the whole map's does:
+the Encoder's 3 x 3 max-pool over -inf rows and its 8 x 8 mean, and
+``ops/resize.avg_pool_2x``, whose mean leaves the padding out of its count.
+Each is the one exchange of ``row_op``.
 
 **Layers that read anywhere.** Two layers read rows that no halo bounds,
 inside a kernel: the STN's affine warp (theta can put an output row's samples
@@ -41,11 +55,17 @@ gathered once over the spatial group (``gather_spatial``: the warp's float32
 intermediate after the x-pass, the attention's group-normed map before the k
 and v projections) and the kernel computes only this rank's output rows: K2
 from its first output row ``o_base``, K4 with this rank's queries against
-every key (``sq`` < ``sk``). The kernel's gradient of that operand is then
+every key (``sq`` < ``sk``). NeMAR's STNs sample their targets with K3 in the
+same way: the targets are gathered once, and the grid is this rank's rows of
+the global grid (``ops/gridsample.grid_sample_dense(rows=)``). The kernel's gradient of that operand is then
 whole on every rank, and the gather's backward (a reduce-scatter) sums it
 back onto each owner's rows. The STN's localizer, a ViT over the whole
 (A, condition) pair, runs whole on every rank on the pair gathered once
 (``models/stn.AffineSTN.theta``), and so gives every rank the same theta.
+The other small heads that flatten a whole map into a Dense layer run the
+same way, on the small map gathered once: NeMAR's conv-affine localizer
+(an 8 x 8 map at 256²) and the ThermalGAN Encoder's ``fc_mu`` and
+``fc_logvar`` (2 x 2).
 
 **The gradient rule (option A).** Each spatial rank back-propagates its own
 share of the loss, and every parameter gradient is summed over the spatial
@@ -350,41 +370,100 @@ def fetch_rows(x: torch.Tensor, rows: Rows, a: int, b: int, plan: _Plan) -> torc
     return _FetchRows.apply(x, rows, plan, a, b)
 
 
-def _zero_pad(x: torch.Tensor, top: int, bottom: int) -> torch.Tensor:
+def _pad_edges(x: torch.Tensor, top: int, bottom: int, edge: str) -> torch.Tensor:
+    """``x``, the map's rows from its global top (``top`` > 0) or down to its
+    global bottom (``bottom`` > 0), padded there: zero rows (``"zero"``) or
+    the reflection that leaves the edge row out (``"reflect"``: the rows 1
+    .. top below the top, and the mirror image above the bottom)."""
     if not top and not bottom:
         return x
+    if edge == "reflect":
+        parts = [x[:, 1:top + 1].flip(1)] if top else []
+        parts.append(x)
+        if bottom:
+            parts.append(x[:, -bottom - 1:-1].flip(1))
+        return torch.cat(parts, dim=1)
     return torch.cat([x.new_zeros((x.shape[0], top, *x.shape[2:])), x,
                       x.new_zeros((x.shape[0], bottom, *x.shape[2:]))], dim=1)
 
 
-def row_op(x: torch.Tensor, rows: Rows, h_out: int, need, compute, zero_pad: bool = True
+def row_op(x: torch.Tensor, rows: Rows, h_out: int, need, compute, edge: str = "zero"
            ) -> torch.Tensor:
     """A layer on row shards: this rank's rows of its output, of global
     height ``h_out``. ``need(o_lo, o_hi)`` gives the global input rows [a, b)
     that the output rows [o_lo, o_hi) read, unclipped; ``compute(xw, a, b,
     o_lo, o_hi)`` computes those output rows from ``xw``: the input rows [a,
-    b), with zero rows where they leave the map (``zero_pad``), or the
-    clipped rows [max(a, 0), min(b, h)) (``zero_pad=False``: the layer pads
-    by itself). Where the halo exchange cannot serve every rank, the layer
-    runs on the whole map on every rank (``REPLICATED_LAYERS``)."""
-    global REPLICATED_LAYERS
+    b), padded where they leave the map with zero rows (``edge="zero"``) or
+    by reflection (``"reflect"``: the rows read there are the mirror images
+    of rows 1 .. of the map, which the window then holds), or the clipped
+    rows [max(a, 0), min(b, h)) (``"clip"``: the layer pads by itself, as a
+    max-pool pads with -inf and a mean leaves the padding out of its count;
+    ``window_op``). One exchange in every case. Where the halo exchange
+    cannot serve every rank, the layer runs on the whole map on every rank
+    (``REPLICATED_LAYERS``)."""
     out = rows.of(h_out)
     size, h = rows.axis.size, rows.h
+
+    def fetched(a, b):  # the rows the exchange must deliver for [a, b)
+        if edge == "reflect":  # with the mirror images' sources, inside the map
+            return max(0, min(a, 2 * h - 1 - b)), min(h, max(b, 1 - a))
+        return max(0, a), min(h, b)
+
     spans = [out.span(s) for s in range(size)]
     needs = [need(o_lo, o_hi) for o_lo, o_hi in spans]
     plan = None
     if all(o_hi > o_lo for o_lo, o_hi in spans):
-        plan = _plan(rows, [(max(0, a), min(h, b)) for a, b in needs])
+        plan = _plan(rows, [fetched(a, b) for a, b in needs])
+
+    def window(xw, a, b, fa):  # xw: the fetched rows from fa -> the layer's window
+        if edge == "clip":
+            return xw, fa, fa + xw.shape[1]
+        top = max(0, -a)
+        return _pad_edges(xw, top, max(0, b - h), edge)[:, a - fa + top:b - fa + top], a, b
+
     if plan is None:
-        REPLICATED_LAYERS += 1
         a, b = need(0, h_out)
-        if not zero_pad:
-            a, b = max(0, a), min(h, b)
-        full = _zero_pad(gather_spatial(x, rows)[:, max(0, a):min(h, b)], max(0, -a),
-                         max(0, b - h))
-        return split_rows(compute(full, a, b, 0, h_out), out)
+        fa, fb = fetched(a, b)
+        return on_whole_map(x, rows, out,
+                            lambda whole: compute(*window(whole[:, fa:fb], a, b, fa), 0, h_out))
     a, b = needs[rows.axis.rank]
-    if not zero_pad:
-        a, b = max(0, a), min(h, b)
-    o_lo, o_hi = spans[rows.axis.rank]
-    return compute(fetch_rows(x, rows, a, b, plan), a, b, o_lo, o_hi)
+    fa, fb = fetched(a, b)
+    xw, a, b = window(fetch_rows(x, rows, fa, fb, plan), a, b, fa)
+    return compute(xw, a, b, *spans[rows.axis.rank])
+
+
+def on_whole_map(x: torch.Tensor, rows: Rows, out: Rows, fn) -> torch.Tensor:
+    """``fn`` on the whole map on every rank, from this rank's rows of the
+    input (record ``rows``) to its rows of the output (record ``out``): a
+    layer whose reads the halo exchange cannot serve; counted in
+    ``REPLICATED_LAYERS``."""
+    global REPLICATED_LAYERS
+    REPLICATED_LAYERS += 1
+    return split_rows(fn(gather_spatial(x, rows)), out)
+
+
+def window_op(x: torch.Tensor, rows: Rows | None, k: int, stride: int, pad: int, op
+              ) -> torch.Tensor:
+    """A pooling window (``k`` rows, ``stride``, ``pad`` rows on each side)
+    on row shards (``op(x)`` itself without ``rows``), where ``op`` is the
+    layer on a whole map with its own padding: a max-pool's -inf rows, a
+    mean's rows left out of its count (``count_include_pad=False``). On row
+    shards ``op`` runs on this rank's window from an
+    input row that is a multiple of ``stride``, so that its windows fall
+    where the whole map's do; the first rows of a window that does not start
+    at the map's top read ``op``'s padding instead of real rows, and so do
+    the last of one that does not end at its bottom, and those output rows
+    are dropped: the rows kept read no padding but the map's own."""
+    if rows is None or rows.axis.size == 1:
+        return op(x)
+    h_out = (rows.h + 2 * pad - k) // stride + 1
+    back = -(-pad // stride)  # output rows whose windows the start's padding touches
+
+    def need(lo, hi):
+        return stride * max(0, lo - back), stride * (hi - 1) - pad + k
+
+    def compute(xw, a, b, lo, hi):
+        first = a // stride  # the output row of op's first window
+        return op(xw)[:, lo - first:hi - first]
+
+    return row_op(x, rows, h_out, need, compute, edge="clip")

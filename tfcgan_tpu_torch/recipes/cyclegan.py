@@ -17,6 +17,14 @@ loss is loss_D_A + loss_D_B, each 0.5 * (real + fake) (the reference's two
 Adams over disjoint parameters are one Adam over the sum), reported as
 ``loss_D`` = half of it. The step's draws, the buffers' coin flips and
 slots, are a ``CycleDraws``.
+
+On a spatial mesh (``parallel.spatial``; the step's image rows in
+``active_rows()``) the recipe runs on row shards (``supports_spatial``):
+G_AB, G_BA, D_A and D_B on this rank's rows, the L1 and GAN terms its shares
+of their means. The buffers stay whole on every rank: ``pre_d`` pushes the
+step's fakes gathered over the data and the spatial groups, and each rank
+keeps its samples' rows of the returned images. So ``initial_extra`` and a
+checkpoint's buffers have one shape on every mesh.
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ from tfcgan_tpu_torch.models.layers import init_normal_, without_draws
 from tfcgan_tpu_torch.models.resnet_gen import ResNetGenerator
 from tfcgan_tpu_torch.ops.gan_losses import lsgan_loss
 from tfcgan_tpu_torch.parallel.mesh import active_mesh, all_gather_batch, local_part
+from tfcgan_tpu_torch.parallel.spatial import active_rows, gather_spatial, share_mean
 
 BUFFER_SIZE = 50
 
@@ -111,6 +120,7 @@ def build_generators(cfg: ExperimentConfig, device,
 
 class CycleGANRecipe:
     name = "cyclegan"
+    supports_spatial = True  # G, D and the losses on row shards, the buffers whole
 
     def __init__(self, cfg: ExperimentConfig, device):
         self.cfg = cfg
@@ -156,12 +166,18 @@ class CycleGANRecipe:
                ) -> tuple[torch.Tensor, dict, dict]:
         a, b = batch["A"], batch["B"]
         g_ab, g_ba, d_a, d_b = self.G["G_AB"], self.G["G_BA"], self.D["D_A"], self.D["D_B"]
-        fake_b = g_ab(a)
-        fake_a = g_ba(b)
-        loss_id = 0.5 * ((g_ba(a).float() - a).abs().mean() + (g_ab(b).float() - b).abs().mean())
-        loss_gan = 0.5 * (lsgan_loss(d_b(fake_b), 1.0) + lsgan_loss(d_a(fake_a), 1.0))
-        loss_cyc = 0.5 * ((g_ba(fake_b).float() - a).abs().mean()
-                          + (g_ab(fake_a).float() - b).abs().mean())
+        rows = active_rows()
+        logit_rows = d_a.out_rows(rows)
+
+        def l1(x, y):
+            return share_mean((x.float() - y).abs(), rows)
+
+        fake_b = g_ab(a, rows)
+        fake_a = g_ba(b, rows)
+        loss_id = 0.5 * (l1(g_ba(a, rows), a) + l1(g_ab(b, rows), b))
+        loss_gan = 0.5 * (lsgan_loss(d_b(fake_b, rows), 1.0, logit_rows)
+                          + lsgan_loss(d_a(fake_a, rows), 1.0, logit_rows))
+        loss_cyc = 0.5 * (l1(g_ba(fake_b, rows), a) + l1(g_ab(fake_a, rows), b))
         total = loss_gan + self.lambda_cyc * loss_cyc + self.lambda_id * loss_id
         aux = {"fake_a": fake_a.detach(), "fake_b": fake_b.detach()}
         metrics = {"loss_G": total, "g_adv": loss_gan, "g_cycle": loss_cyc, "g_id": loss_id}
@@ -170,22 +186,35 @@ class CycleGANRecipe:
     def pre_d(self, extra: dict, aux: dict, draws: CycleDraws) -> tuple[dict, dict]:
         """Push the step's fakes through the replay buffers. In a
         data-parallel step every rank pushes the global batch's fakes (all
-        gathered) with the global draws, as the JAX step pushes its sharded
-        batch, so the buffers stay the same on every rank; each rank keeps its
-        share of the returned images."""
-        mesh = active_mesh()
-        buf_a, fa = replay_push_sample(extra["buf_A"], all_gather_batch(aux["fake_a"], mesh),
-                                       draws.swap_a, draws.slots_a)
-        buf_b, fb = replay_push_sample(extra["buf_B"], all_gather_batch(aux["fake_b"], mesh),
-                                       draws.swap_b, draws.slots_b)
+        gathered, and on row shards their rows gathered too) with the global
+        draws, as the JAX step pushes its sharded batch, so the buffers stay
+        the same on every rank; each rank keeps its share (and rows) of the
+        returned images."""
+        mesh, rows = active_mesh(), active_rows()
+
+        def whole(x):
+            return gather_spatial(all_gather_batch(x, mesh), rows)
+
+        def mine(x):
+            x = local_part(x, mesh)
+            return x if rows is None else rows.cut(x).contiguous()
+
+        buf_a, fa = replay_push_sample(extra["buf_A"], whole(aux["fake_a"]), draws.swap_a,
+                                       draws.slots_a)
+        buf_b, fb = replay_push_sample(extra["buf_B"], whole(aux["fake_b"]), draws.swap_b,
+                                       draws.slots_b)
         return {"buf_A": buf_a, "buf_B": buf_b}, {
-            **aux, "fake_a_buf": local_part(fa, mesh), "fake_b_buf": local_part(fb, mesh)}
+            **aux, "fake_a_buf": mine(fa), "fake_b_buf": mine(fb)}
 
     def d_loss(self, batch: dict, aux: dict) -> tuple[torch.Tensor, dict]:
         a, b = batch["A"], batch["B"]
         d_a, d_b = self.D["D_A"], self.D["D_B"]
-        loss_da = 0.5 * (lsgan_loss(d_a(a), 1.0) + lsgan_loss(d_a(aux["fake_a_buf"]), 0.0))
-        loss_db = 0.5 * (lsgan_loss(d_b(b), 1.0) + lsgan_loss(d_b(aux["fake_b_buf"]), 0.0))
+        rows = active_rows()
+        lr = d_a.out_rows(rows)
+        loss_da = 0.5 * (lsgan_loss(d_a(a, rows), 1.0, lr)
+                         + lsgan_loss(d_a(aux["fake_a_buf"], rows), 0.0, lr))
+        loss_db = 0.5 * (lsgan_loss(d_b(b, rows), 1.0, lr)
+                         + lsgan_loss(d_b(aux["fake_b_buf"], rows), 0.0, lr))
         # the sum, so that each D sees exactly its own loss's gradient
         loss = loss_da + loss_db
         return loss, {"loss_D": 0.5 * loss, "d_A": loss_da, "d_B": loss_db}

@@ -21,6 +21,16 @@ through the updated D: ``update_order = "d_first"``. The trainer runs
 after D's Adam step hands the same forward to ``g_loss``. T and R share one
 Adam (the container ``G``), the discriminators the other (``D``). The step
 has no random draw.
+
+On a spatial mesh (``parallel.spatial``; the step's image rows in
+``active_rows()``) both ``stn_type``s run on row shards
+(``supports_spatial``): T, R and the discriminators on this rank's rows; R
+samples the targets gathered once at its rows of the grid (K3 on a card).
+The L1 and GAN terms are this rank's shares of their means, ``reg`` is the
+smoothness term's share or the conv-affine STN's mean |dtheta| counted once
+over the group (``replicated_share``). The multi-resolution
+discriminators' inputs are downscaled from the images gathered once and cut
+back to the rank's rows (``split_rows``).
 """
 
 from __future__ import annotations
@@ -35,6 +45,8 @@ from tfcgan_tpu_torch.models.layers import init_normal_
 from tfcgan_tpu_torch.models.resnet_gen import ResNetGenerator
 from tfcgan_tpu_torch.models.stn import CNNAffineSTN, DeformableSTN
 from tfcgan_tpu_torch.ops.gan_losses import lsgan_loss
+from tfcgan_tpu_torch.parallel.spatial import (Rows, active_rows, gather_spatial, share_mean,
+                                               split_rows)
 
 STN_TYPES = ("deformable", "affine")
 
@@ -63,13 +75,13 @@ def build_generators(cfg: ExperimentConfig, device,
     return nn.ModuleDict({"T": t, "R": r}).eval()
 
 
-def nemar_forward(nets: nn.ModuleDict, a: torch.Tensor, b: torch.Tensor
-                  ) -> tuple[dict[str, torch.Tensor], torch.Tensor]:
+def nemar_forward(nets: nn.ModuleDict, a: torch.Tensor, b: torch.Tensor,
+                  rows: Rows | None = None) -> tuple[dict[str, torch.Tensor], torch.Tensor]:
     """The forward of the family: the four generated images and R's
-    regulariser."""
-    fake_b = nets["T"](a)
-    (reg_a, fake_rt_b), reg = nets["R"](a, b, apply_on=[a, fake_b])
-    return {"registered_A": reg_a, "fake_B": fake_b, "fake_TR_B": nets["T"](reg_a),
+    regulariser (with ``rows``: this rank's rows of each, and its share)."""
+    fake_b = nets["T"](a, rows)
+    (reg_a, fake_rt_b), reg = nets["R"](a, b, apply_on=[a, fake_b], rows=rows)
+    return {"registered_A": reg_a, "fake_B": fake_b, "fake_TR_B": nets["T"](reg_a, rows),
             "fake_RT_B": fake_rt_b}, reg
 
 
@@ -84,6 +96,7 @@ def _downscale(x: torch.Tensor, side: int) -> torch.Tensor:
 class NeMARRecipe:
     name = "nemar"
     update_order = "d_first"
+    supports_spatial = True  # both stn_types run on row shards
 
     def __init__(self, cfg: ExperimentConfig, device, generator: torch.Generator | None = None):
         self.cfg = cfg
@@ -119,7 +132,7 @@ class NeMARRecipe:
     def forward(self, batch: dict, draws=None) -> dict:
         """T and R once, with their graph: ``nemar_forward``'s images and
         ``reg``."""
-        images, reg = nemar_forward(self.G, batch["A"], batch["B"])
+        images, reg = nemar_forward(self.G, batch["A"], batch["B"], active_rows())
         return {**images, "reg": reg}
 
     @staticmethod
@@ -129,12 +142,21 @@ class NeMARRecipe:
     def _gan_all_scales(self, a: torch.Tensor, img: torch.Tensor, target: float
                         ) -> torch.Tensor:
         """The GAN loss of (A, img) summed over the main D and the
-        multi-resolution ones on their downscaled inputs."""
-        total = lsgan_loss(self.D["D"](torch.cat([a, img.to(a.dtype)], dim=-1)), target)
+        multi-resolution ones on their downscaled inputs (on row shards this
+        rank's share; the downscales read the images gathered once)."""
+        rows = active_rows()
+        d = self.D["D"]
+        total = lsgan_loss(d(torch.cat([a, img.to(a.dtype)], dim=-1), rows), target,
+                           d.out_rows(rows))
+        if self.multi_resolution > 1:
+            whole_a, whole_img = gather_spatial(a, rows), gather_spatial(img.to(a.dtype), rows)
         for i in range(self.multi_resolution - 1):
-            side = a.shape[1] // 2 ** (i + 1)
-            pair = torch.cat([_downscale(a, side), _downscale(img, side)], dim=-1)
-            total = total + lsgan_loss(self.D[f"D_mr{i}"](pair), target)
+            side = whole_a.shape[1] // 2 ** (i + 1)
+            small = rows and rows.of(side)
+            d = self.D[f"D_mr{i}"]
+            pair = torch.cat([_downscale(whole_a, side), _downscale(whole_img, side)], dim=-1)
+            total = total + lsgan_loss(d(split_rows(pair, small), small), target,
+                                       d.out_rows(small))
         return total
 
     # ---------------------------------------------------------------- losses
@@ -143,8 +165,9 @@ class NeMARRecipe:
         a, b = batch["A"], batch["B"]
         fwd = self.forward(batch, draws) if forward is None else forward
         fake_tr_b, fake_rt_b = fwd["fake_TR_B"], fwd["fake_RT_B"]
-        l1_tr = self.lambda_recon * (fake_tr_b.float() - b).abs().mean()
-        l1_rt = self.lambda_recon * (fake_rt_b.float() - b).abs().mean()
+        rows = active_rows()
+        l1_tr = self.lambda_recon * share_mean((fake_tr_b.float() - b).abs(), rows)
+        l1_rt = self.lambda_recon * share_mean((fake_rt_b.float() - b).abs(), rows)
         gan_tr = self.lambda_gan * self._gan_all_scales(a, fake_tr_b, 1.0)
         gan_rt = self.lambda_gan * self._gan_all_scales(a, fake_rt_b, 1.0)
         smooth = self.lambda_smooth * fwd["reg"]

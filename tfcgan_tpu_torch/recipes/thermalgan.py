@@ -30,6 +30,15 @@ joins D's loss. ``G`` holds G1, E and G2, stepped by one Adam: loss_GE
 reaches only G1 and E, loss_G2 only G2, so one Adam over the three is the
 reference's separate updates. G2's dropout keep-masks are the step's draws
 (``ThermalDraws``); ``extra["deterministic_g"]`` runs G2 in eval mode.
+
+On a spatial mesh (``parallel.spatial``; the step's image rows in
+``active_rows()``) both entries run on row shards in every ``d_vae_mode``
+(``supports_spatial``): G1, E, G2 and the discriminators on this rank's
+rows (the temperature plane comes cut with the images, G2's keep-masks cut
+to its blocks' rows, ``PER_ROW``), the batch norms' moments over the data
+and spatial groups. The L1, latent and GAN terms are this rank's shares of
+their means; the KL term, from the Encoder's (mu, logvar), which every rank
+computes whole, is counted once over the group (``replicated_share``).
 """
 
 from __future__ import annotations
@@ -48,6 +57,7 @@ from tfcgan_tpu_torch.models.thermalgan import (DiscriminatorPix, Encoder, Gener
                                                 normalized_temps, thermal_mask)
 from tfcgan_tpu_torch.ops.gan_losses import lsgan_loss
 from tfcgan_tpu_torch.ops.temperature import temperature_lut
+from tfcgan_tpu_torch.parallel.spatial import active_rows, replicated_share, share_mean
 
 D_VAE_MODES = ("detached", "single_mse", "multi_l1")
 
@@ -83,11 +93,13 @@ def thermalgan_serve(nets: nn.ModuleDict, a: torch.Tensor, t_b: torch.Tensor) ->
 class ThermalDraws:
 
     PER_SAMPLE: ClassVar[tuple[str, ...]] = ('dropout_masks',)
+    PER_ROW: ClassVar[tuple[str, ...]] = ('dropout_masks',)  # cut to rows too
     dropout_masks: dict[str, torch.Tensor] | None  # G2's keep-masks; None when deterministic_g
 
 
 class ThermalGANRecipe:
     name = "thermalgan"
+    supports_spatial = True  # every d_vae_mode runs on row shards
 
     def __init__(self, cfg: ExperimentConfig, device):
         self.cfg = cfg
@@ -132,37 +144,41 @@ class ThermalGANRecipe:
         return ThermalDraws(self.G["G2"].draw_dropout_masks(n, h, w, generator))
 
     def _temps(self, t: torch.Tensor) -> torch.Tensor:
-        return t if self.bn_variant else normalized_temps(t)
+        return t if self.bn_variant else normalized_temps(t, active_rows())
 
     def _vae_score(self, img: torch.Tensor, target: float) -> torch.Tensor:
-        out = self.D_vae(img)
+        rows = active_rows()
+        out = self.D_vae(img, rows)
         if self.d_vae_mode == "single_mse":
-            return lsgan_loss(out, target)
-        return multiscale_loss(out, target, loss="l1")
+            return lsgan_loss(out, target, self.D_vae.out_rows(rows))
+        return multiscale_loss(out, target, loss="l1", rows=self.D_vae.out_rows(rows))
 
     def g_loss(self, batch: dict, draws: ThermalDraws) -> tuple[torch.Tensor, dict, dict]:
         a, b = batch["A"], batch["B"]
+        rows = active_rows()
         tbn = self._temps(batch["T_B"])
-        mu, logvar = self.G["E"](b)
-        fake_s = self.G["G1"](a, tbn)
-        real_s = thermal_mask(b)
-        loss_pixel_bic = (fake_s.float() - real_s).abs().mean()
+        mu, logvar = self.G["E"](b, rows)
+        fake_s = self.G["G1"](a, tbn, rows)
+        real_s = thermal_mask(b, rows)
+        loss_pixel_bic = share_mean((fake_s.float() - real_s).abs(), rows)
         mu32, lv32 = mu.float(), logvar.float()
-        loss_kl = 0.5 * (lv32.exp() + mu32 * mu32 - 1.0 - lv32).sum(dim=-1).mean()
+        loss_kl = replicated_share(
+            0.5 * (lv32.exp() + mu32 * mu32 - 1.0 - lv32).sum(dim=-1).mean(), rows)
         if self.d_vae_mode == "detached":
             with torch.no_grad():
                 loss_vae_gan = self._vae_score(fake_s.detach(), 1.0)
         else:
             loss_vae_gan = self._vae_score(fake_s, 1.0)
         t_fake = self._temps(temperature_lut(fake_s, mode=self.cfg.loss.temp_quantize))
-        loss_latent = (tbn - t_fake).abs().mean()
+        loss_latent = share_mean((tbn - t_fake).abs(), rows)
         loss_ge = (loss_vae_gan + self.lambda_kl * loss_kl
                    + self.lambda_pixel_bic * loss_pixel_bic + loss_latent)
 
         # stage 2: G2 over the detached fake_S
-        fake_b = self.G["G2"](fake_s.detach(), draws.dropout_masks)
-        loss_gan_pix = lsgan_loss(self.D["D_pix"](fake_b, a), 1.0)
-        loss_pixel_pix = (fake_b.float() - b).abs().mean()
+        fake_b = self.G["G2"](fake_s.detach(), draws.dropout_masks, rows)
+        d_pix = self.D["D_pix"]
+        loss_gan_pix = lsgan_loss(d_pix(fake_b, a, rows), 1.0, d_pix.out_rows(rows))
+        loss_pixel_pix = share_mean((fake_b.float() - b).abs(), rows)
         loss_g2 = loss_gan_pix + self.lambda_pixel_pix * loss_pixel_pix
 
         total = loss_ge + loss_g2
@@ -175,14 +191,16 @@ class ThermalGANRecipe:
 
     def d_loss(self, batch: dict, aux: dict) -> tuple[torch.Tensor, dict]:
         a, b = batch["A"], batch["B"]
-        pred_real = self.D["D_pix"](b, a)
-        pred_fake = self.D["D_pix"](aux["fake_b"], a)
-        loss = 0.5 * (lsgan_loss(pred_real, 1.0) + lsgan_loss(pred_fake, 0.0))
+        rows, d_pix = active_rows(), self.D["D_pix"]
+        pred_real = d_pix(b, a, rows)
+        pred_fake = d_pix(aux["fake_b"], a, rows)
+        lr = d_pix.out_rows(rows)
+        loss = 0.5 * (lsgan_loss(pred_real, 1.0, lr) + lsgan_loss(pred_fake, 0.0, lr))
         metrics = {"d_pix": loss}
         if self.d_vae_mode != "detached":
             # real + fake, no 0.5: the reference's own Adam on D_VAE is the
             # D Adam here, over a disjoint set of parameters
-            metrics["d_vae"] = (self._vae_score(thermal_mask(b), 1.0)
+            metrics["d_vae"] = (self._vae_score(thermal_mask(b, rows), 1.0)
                                 + self._vae_score(aux["fake_s"], 0.0))
             loss = loss + metrics["d_vae"]
         metrics["loss_D"] = loss

@@ -60,9 +60,9 @@ rows of ``cfg.data.image_size``-row images). Each rank's loss is its share
 the spatial group and averaged over the data group (``all_reduce_mean_``),
 and so are the metrics. A recipe runs there only if it says so (``supports_spatial``:
 the 18 ``tfcgan`` entries of ``GeneratorUNet`` + ``PatchDiscriminator``, the three
-stn entries and the three tfc_diff entries); the other 12 (the seven debiased
-entries, fft_patch_mask, nemar, thermalgan, thermalgan_bn and cyclegan) are
-refused (ROADMAP.md, Queue 1 item 7c). Without a ``mesh``
+stn entries, the three tfc_diff entries, nemar, cyclegan, thermalgan and
+thermalgan_bn); the other 8 (the seven debiased entries and fft_patch_mask)
+are refused (ROADMAP.md, Queue 1 item 7c). Without a ``mesh``
 argument the trainer builds one from ``cfg.mesh`` when it asks for more than
 one process (``num_devices`` > 1, ``tensor`` > 1 or ``spatial`` > 1), as
 the JAX trainer does.
