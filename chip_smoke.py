@@ -8,7 +8,7 @@ chain, on one CUDA card.
     python3 chip_smoke.py [--params g_params.npz] [--init-seed 0]
 
 Phases, one line or more each; any failure raises and exits non-zero (20
-to 24 run after 19, and 18 last):
+to 25 run after 19, and 18 last):
 
 1. environment: torch/CUDA versions, the card, its power limit; TF32 off.
 2. build: g++ builds ``tfcgan_tpu_torch/csrc/fastpair.cpp`` (the pair
@@ -228,7 +228,7 @@ to 24 run after 19, and 18 last):
    the order), 2 epochs, and ``--resume`` from the first epoch's checkpoint:
    weights, replay buffers and Adam states of the two final checkpoints equal
    bit for bit, under ``cudnn.deterministic``.
-18. the result, printed after 24: the seconds each phase took, the card's
+18. the result, printed after 25: the seconds each phase took, the card's
    ``nvidia-smi`` line, one JSON line for the kernels, and last ``{"ok":
    true, "device": {...}}``.
 19. the data and evaluation chain at 256², bf16, on 64 synthetic A|B PNG
@@ -271,13 +271,17 @@ to 24 run after 19, and 18 last):
    ranks on the card (NCCL refuses two ranks on one device), fft_glo and
    thermalgan_bn float32 at global B=32: the first step's metrics and G
    gradients against one process within the CPU tests' bounds (rel 1e-5;
-   1e-4 x max|g|), the replicas' checksums equal after 3 steps, 27 + 23
-   blur-pool launches a fft_glo step on each rank (path ``dp_two_ranks``).
+   1e-4 x max|g|) or 3 x the floor of one process, its step on A moved by
+   one float32 step up and down (``DP_NUDGES``: the ranks' half batches run
+   other cuDNN algorithms than the whole batch, and the rounding that
+   moves shows as the nudges' does), the replicas' checksums equal after 3
+   steps, 27 + 23 blur-pool launches a fft_glo step on each rank (path
+   ``dp_two_ranks``).
 21. the tensor axis (``parallel/tensor.py``), as gloo ranks of the card:
    (a) fft_glo float32 at global B=8, 256², on four ranks as (2 data x 2
    tensor): the first step's metrics and gathered G gradients against one
    process within 3 x the floor of cuDNN's algorithms (one process,
-   benchmarked against deterministic), as phase 20 holds two ranks; the
+   benchmarked against deterministic); the
    step-1 metrics equal on the four ranks; 27 + 23 blur-pool launches a step
    on each rank over 3 steps (path ``tensor_fft_glo``); each rank's bytes of
    G, D and LPIPS parameters and Adam moments against one process's (a
@@ -285,7 +289,8 @@ to 24 run after 19, and 18 last):
    B=8, 128², on two ranks as (1 x 2 tensor): 7 + 7 + 7 flash attention
    launches a step on each rank, all on the tensor cores (path
    ``tensor_tfc_diff``), finite metrics, step 1 within ``TENSOR_DIFF_TOL``
-   of one process's.
+   of one process's. Both legs' ranks run at once, six processes on the
+   card.
 22. the spatial axis (``parallel/spatial.py``): (a) K1's row-edge form
    (``tfcgan_blurpool_fwd`` / ``_bwd`` on a row window) on every shard of the 11
    path shapes (batch 8) split over 2 and 3 ranks, float32 and bfloat16,
@@ -297,8 +302,9 @@ to 24 run after 19, and 18 last):
    global B=4, 256², on two gloo ranks of the card as (1 data x 2 spatial)
    against one process (a process of its own): the first step's metrics and
    reduced G and D gradients within 3 x the floor of cuDNN's algorithms, as
-   phases 20-21, or of A moved by one float32 step where that is larger (the
-   benchmark can pick the deterministic algorithms); metrics equal on both ranks; no layer run on the whole map;
+   phase 21, or of A moved by one float32 step where that is larger (the
+   benchmark can pick the deterministic algorithms); metrics equal on both
+   ranks; no layer run on the whole map;
    27 + 23 blur-pool launches a step on each rank over 2 steps (path
    ``spatial_fft_glo``); step 2's peak memory above what each process held
    before it, a rank against one process, as allocated and without the
@@ -350,6 +356,18 @@ to 24 run after 19, and 18 last):
    (paths ``spatial_cyclegan``, ``spatial_thermalgan_bn``), and
    thermalgan_bn's one layer on the whole map a step; (e) each rank's step
    peak memory against one process's, as phase 22.
+25. the spatial axis for the debiased chain and the saliency mask:
+   fft_patch_debiased (V7: the conditional U-Net's label plane computed
+   whole and cut to the rank's rows, the aux classifier's ethnicity head a
+   row-sharded product summed over the pair, the frozen regional
+   ResNet-18s on the bands of the gathered fake) and fft_patch_mask (G's
+   mask channel from A gathered, the mask term on the gathered images)
+   float32 at 256², global B=4, labelled batches for V7, each on two gloo
+   ranks of the card as (1 data x 2 spatial) against one process, as phase
+   22 (3 x the float32 floor, A moved one step up and down); one bf16 step
+   each on the pair, finite; 27 + 23 blur-pool launches a step on each rank,
+   one process's (paths ``spatial_debiased``, ``spatial_mask``); no layer
+   on the whole map; each rank's step peak memory against one process's.
 
 In the kernels' JSON, ``launches`` is the count of the kernel's main path, the
 last train path driven that runs it (``main_path``: phase 10's three steps for
@@ -3294,10 +3312,14 @@ DP_RATE_STEPS = 5
 DP_NAMES = ("fft_glo", "thermalgan_bn")
 PIPE_BLOCKS, PIPE_BATCH = 9, 8  # the CycleGAN/NeMAR trunk at 256²: 9 x 256 ch at 64²
 # the CPU tests' bounds of world 2 against world 1 (test_torch_parallel_dp.py);
-# on the card at least 3 x the floor that cuDNN's other algorithms give one
-# process (the ranks' half batches run other algorithms than the whole batch)
+# on the card at least 3 x the floor of one process: its step on A moved by
+# one float32 step, up and down (cuDNN's benchmarked algorithms against the
+# deterministic ones, whose search took about a minute a model at B=32, gave
+# the same floor on an NVIDIA H100 80GB HBM3: 0.139 and 0.177 x max|g|
+# against the nudges' 0.139 and 0.176)
 DP_METRIC_TOL = (1e-5, 1e-6)  # rel, abs
 DP_GRAD_TOL = 1e-4            # x max|g| of each tensor
+DP_NUDGES = (np.inf, -np.inf)
 _PLAIN_CLI_LOG: list[dict] = []  # phase 6b's plain fft_glo run, its log records
 
 
@@ -3407,21 +3429,25 @@ def _two_ranks(card: str) -> dict[str, int]:
                     p.join()
         two_s = time.perf_counter() - t0
 
-        # one process, the same first step: with the deterministic algorithms,
-        # and with cuDNN's benchmarked ones (the floor: the same sums in other
-        # algorithms, as the ranks' half batches pick other algorithms too)
+        # one process, the same first step with the deterministic algorithms,
+        # and the floor's runs (``DP_NUDGES``): the same step on A moved by
+        # one float32 step, whose rounding moves the ReLU kinks as the ranks'
+        # half batches' other sums do
         deterministic = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
         device = torch.device("cuda", 0)
         try:
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
             for name in DP_NAMES:
                 cfg = _dp_cfg(name)
                 runs, run_s = [], []
-                for det in (True, False):
+                for nudge in (0.0, *DP_NUDGES):
                     t1 = time.perf_counter()
-                    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det, not det
                     trainer = Trainer(cfg, build_recipe(cfg, device))
                     state = trainer.init_state(0)
-                    m = trainer.step(state, synthetic_batch(DP_BATCH, SIZE, seed=DP_SEED))
+                    batch = synthetic_batch(DP_BATCH, SIZE, seed=DP_SEED)
+                    if nudge:
+                        batch["A"] = np.nextafter(batch["A"], np.float32(nudge)).astype(np.float32)
+                    m = trainer.step(state, batch)
                     runs.append(({k: float(v) for k, v in m.items()}, _dp_grads(state)))
                     del trainer, state
                     torch.cuda.empty_cache()
@@ -3441,23 +3467,25 @@ def _two_ranks(card: str) -> dict[str, int]:
                     num = sum(float((a[k] - b[k]).double().square().sum()) for k in b)
                     return (num / sum(float(b[k].double().square().sum()) for k in b)) ** 0.5
 
-                floor_g = grad_errs(runs[1][1], runs[0][1])
+                floors = []
+                for nudge, (fm, fg) in zip(DP_NUDGES, runs[1:]):
+                    fe = grad_errs(fg, runs[0][1])
+                    floors.append((metric_err(fm, runs[0][0]), max(fe.values()),
+                                   l2(fg, runs[0][1]), nudge, sorted(fe, key=fe.get)[-1]))
+                floor = tuple(max(f[i] for f in floors) for i in range(3))
                 errs = grad_errs(g2, runs[0][1])
-                floor = (metric_err(runs[1][0], runs[0][0]), max(floor_g.values()),
-                         l2(runs[1][1], runs[0][1]))
                 err = (metric_err(two["metrics"][0], runs[0][0]), max(errs.values()),
                        l2(g2, runs[0][1]))
                 bound = (max(DP_METRIC_TOL[0], 3 * floor[0]), max(DP_GRAD_TOL, 3 * floor[1]))
                 worst = sorted(errs, key=errs.get)[-3:]
                 if sorted(two["metrics"][0]) != sorted(runs[0][0]):
                     raise AssertionError(f"{name}: two-rank metrics {sorted(two['metrics'][0])}")
+                named = "; ".join(f"A one step {'up' if n > 0 else 'down'}: {m:.3g}, {g:.3g} "
+                                  f"(worst {k}), {e:.3g} in L2" for m, g, e, n, k in floors)
                 detail = (f"metrics {err[0]:.3g} relative (bound {bound[0]:.3g}), G gradients "
                           f"{err[1]:.3g} x max|g| (bound {bound[1]:.3g}; worst "
-                          f"{ {k: round(errs[k], 6) for k in worst} }), {err[2]:.3g} in L2; one "
-                          f"process with cuDNN's benchmarked algorithms against the "
-                          f"deterministic ones: {floor[0]:.3g}, {floor[1]:.3g} (worst "
-                          f"{ {k: round(floor_g[k], 6) for k in sorted(floor_g, key=floor_g.get)[-3:]} }), "
-                          f"{floor[2]:.3g} in L2")
+                          f"{ {k: round(errs[k], 6) for k in worst} }), {err[2]:.3g} in L2; the "
+                          f"floor, one process against its deterministic step: {named}")
                 if err[0] > bound[0] or err[1] > bound[1]:
                     raise AssertionError(f"{name} two gloo ranks vs one process, float32 "
                                          f"B={DP_BATCH} {SIZE}²: {detail}")
@@ -3472,13 +3500,13 @@ def _two_ranks(card: str) -> dict[str, int]:
                                              f"{got[r][name]['counts']}, want {want}; "
                                              f"{got[r][name]['allreduces']} gradient all-reduces")
                 print(f"parallel {name} two gloo ranks on one card, float32 global B={DP_BATCH} "
-                      f"{SIZE}² (16 a rank), against one process: {detail}; replicas' "
+                      f"{SIZE}² ({DP_BATCH // 2} a rank), against one process: {detail}; replicas' "
                       f"checksums equal after {DP_STEPS} steps "
                       f"({sums[0][-1]:.17g}); {two['allreduces']} gradient all-reduces, flat "
                       f"buffers {{{', '.join(f'{k}: {v / 2**20:.2f} MiB' for k, v in two['bytes'].items())}}}; "
                       f"launches a rank {two['counts']['blurpool_fwd']} / "
                       f"{two['counts']['blurpool_bwd']} K1; the one-process runs took "
-                      f"{run_s[0]:.1f} s (deterministic) and {run_s[1]:.1f} s (benchmarked) "
+                      f"{', '.join(f'{t:.1f}' for t in run_s)} s (the step, then the floor's) "
                       f"with their set-up [{card}]")
         finally:
             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = deterministic
@@ -3721,37 +3749,40 @@ def _tensor_rank(rank: int, world: int, port: int, tmp: str, results, job: str) 
                     torch.save({k: g.float().cpu() for k, g in grads.items()},
                                os.path.join(tmp, "tensor_grads.pt"))
         torch.cuda.synchronize()
-        results.put((rank, {"metrics": metrics, "ms": ms, "counts": counts(),
-                            "bytes": _state_bytes(state),
-                            "coords": (mesh.data_rank, mesh.tensor.rank)}))
+        results.put((job, rank, {"metrics": metrics, "ms": ms, "counts": counts(),
+                                 "bytes": _state_bytes(state),
+                                 "coords": (mesh.data_rank, mesh.tensor.rank)}))
         dist.destroy_process_group()
     except BaseException as e:
         import traceback
 
-        results.put((rank, RuntimeError(traceback.format_exc())))
+        results.put((job, rank, RuntimeError(traceback.format_exc())))
         raise SystemExit(1) from e
 
 
-def _run_tensor_ranks(world: int, tmp: str, job: str) -> tuple[dict, float]:
-    """``world`` gloo ranks of ``_tensor_rank`` on the card; their results
-    and the seconds they took."""
+def _run_tensor_ranks(tmp: str, legs: dict[str, int]) -> tuple[dict, float]:
+    """For each leg (job -> world) ``world`` gloo ranks of ``_tensor_rank``
+    on the card, the legs' process groups all started together; their
+    results, {job: {rank: result}}, and the seconds they took."""
     import multiprocessing as mp
 
     t0 = time.perf_counter()
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
-    port = _free_port()
-    procs = [ctx.Process(target=_tensor_rank, args=(r, world, port, tmp, results, job))
-             for r in range(world)]
+    procs = []
+    for job, world in legs.items():
+        port = _free_port()
+        procs += [ctx.Process(target=_tensor_rank, args=(r, world, port, tmp, results, job))
+                  for r in range(world)]
     for p in procs:
         p.start()
-    got = {}
+    got = {job: {} for job in legs}
     try:
-        while len(got) < world:
-            rank, out = results.get(timeout=600)
+        for _ in range(sum(legs.values())):
+            job, rank, out = results.get(timeout=600)
             if isinstance(out, BaseException):
                 raise AssertionError(f"tensor phase, {job} rank {rank}: {out}")
-            got[rank] = out
+            got[job][rank] = out
     finally:
         for p in procs:
             p.join(timeout=60)
@@ -3761,11 +3792,10 @@ def _run_tensor_ranks(world: int, tmp: str, job: str) -> tuple[dict, float]:
     return got, time.perf_counter() - t0
 
 
-def _tensor_fft_glo(device, tmp: str, card: str) -> dict[str, int]:
+def _tensor_fft_glo(device, tmp: str, card: str, got: dict, seconds: float) -> dict[str, int]:
     """fft_glo float32 at global B=8, 256², on four gloo ranks as (2 data x
-    2 tensor) against one process (deterministic algorithms, and cuDNN's
-    benchmarked ones for the floor, as the two-rank part of phase 20)."""
-    got, seconds = _run_tensor_ranks(4, tmp, "fft_glo")
+    2 tensor) (their results ``got``) against one process (deterministic
+    algorithms, and cuDNN's benchmarked ones for the floor)."""
     cfg = _tensor_cfg("fft_glo")
     batch = _tensor_batches("fft_glo")[0]
     deterministic = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
@@ -3833,15 +3863,15 @@ def _tensor_fft_glo(device, tmp: str, card: str) -> dict[str, int]:
           f"rank / one process, MiB: {mib}, share {share[0]:.4f} (rank 0; "
           f"{ {r: round(v, 4) for r, v in share.items()} }); step ms a rank {ms} (step 1 with "
           f"set-up; the four ranks share the card and move activations through gloo on the "
-          f"host), one process's step 2 {one_ms:.3f} ms; the ranks took {seconds:.1f} s with "
-          f"their start [{card}]")
+          f"host), one process's step 2 {one_ms:.3f} ms; both legs' ranks took {seconds:.1f} s "
+          f"with their start [{card}]")
     return got[0]["counts"]
 
 
-def _tensor_tfc_diff(device, tmp: str, card: str) -> dict[str, int]:
+def _tensor_tfc_diff(device, tmp: str, card: str, got: dict, seconds: float) -> dict[str, int]:
     """tfc_diff bf16 at global B=8, 128², on two gloo ranks as (1 data x 2
-    tensor) against one process from the same init, batches and draws."""
-    got, seconds = _run_tensor_ranks(2, tmp, "tfc_diff")
+    tensor) (their results ``got``) against one process from the same init,
+    batches and draws."""
     cfg = _tensor_cfg("tfc_diff")
     trainer = Trainer(cfg, build_recipe(cfg, device))
     state = trainer.init_state(0)
@@ -3873,8 +3903,8 @@ def _tensor_tfc_diff(device, tmp: str, card: str) -> dict[str, int]:
           f"{two[1]} against {one[1]}; launches a rank "
           f"{ {k: v for k, v in got[0]['counts'].items() if v} } over {TENSOR_DIFF_STEPS} steps "
           f"(7 / 7 / 7 a step, all on the tensor cores); step ms a rank {ms}, one process "
-          f"{[round(t, 3) for t in one_ms]}; the ranks took {seconds:.1f} s with their start "
-          f"[{card}]")
+          f"{[round(t, 3) for t in one_ms]}; both legs' ranks took {seconds:.1f} s with their "
+          f"start [{card}]")
     return got[0]["counts"]
 
 
@@ -3883,9 +3913,13 @@ def phase_tensor(device, card: str) -> dict[str, dict[str, int]]:
     tensor) and tfc_diff on (1 x 2)."""
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        by_path = {"tensor_fft_glo": _tensor_fft_glo(device, tmp, card)}
+        # both legs' ranks at once (six processes on the card)
+        got, seconds = _run_tensor_ranks(tmp, {"fft_glo": 4, "tfc_diff": 2})
+        by_path = {"tensor_fft_glo": _tensor_fft_glo(device, tmp, card, got["fft_glo"],
+                                                     seconds)}
         torch.cuda.empty_cache()
-        by_path["tensor_tfc_diff"] = _tensor_tfc_diff(device, tmp, card)
+        by_path["tensor_tfc_diff"] = _tensor_tfc_diff(device, tmp, card, got["tfc_diff"],
+                                                      seconds)
         torch.cuda.empty_cache()
     print(f"tensor phase: {time.perf_counter() - t0:.1f} s [{card}]")
     return by_path
@@ -4007,7 +4041,9 @@ SPATIAL_JOBS = {"fft_glo": ("fft_glo", SIZE, SPATIAL_BATCH, FFT_GLO_STEP),
                 "tfc_diff": ("tfc_diff", DIFF_SIZE, 8, DIFF_STEP),
                 "nemar": ("nemar", SIZE, 4, NEMAR_STEP),
                 "cyclegan": ("cyclegan", SIZE, 4, {}),
-                "thermalgan_bn": ("thermalgan_bn", SIZE, 4, {})}
+                "thermalgan_bn": ("thermalgan_bn", SIZE, 4, {}),
+                "debiased": ("fft_patch_debiased", SIZE, 4, FFT_GLO_STEP),
+                "mask": ("fft_patch_mask", SIZE, 4, FFT_GLO_STEP)}
 # layers a step that run on the whole map on each rank (fewer rows than
 # ranks): the pix2pix G2's innermost conv, on its 1 x 1 map at 256²
 SPATIAL_REPLICATED = {"thermalgan_bn": 1}
@@ -4029,10 +4065,13 @@ KEY_BIASES = ("key.bias", "to_k.bias")
 # the floor's one-process runs with A moved by one float32 step, up (and down
 # too where that has set the floor: the STN's deep instance norms behind ReLU
 # kinks, and CycleGAN's and ThermalGAN's, make one nudge a small sample of
-# what a rounding difference does; nemar's floor is cuDNN's algorithms')
+# what a rounding difference does; nemar's floor is cuDNN's algorithms'; the
+# saliency mask's batch-wide extremes send their gradient to one pixel each,
+# which a rounding difference moves)
 SPATIAL_NUDGES = {"fft_glo": (np.inf,), "stn": (np.inf, -np.inf), "tfc_diff": (np.inf, -np.inf),
                   "nemar": (np.inf,), "cyclegan": (np.inf, -np.inf),
-                  "thermalgan_bn": (np.inf, -np.inf)}
+                  "thermalgan_bn": (np.inf, -np.inf), "debiased": (np.inf, -np.inf),
+                  "mask": (np.inf, -np.inf)}
 
 
 def _spatial_cfg(dtype: str, job: str = "fft_glo"):
@@ -4042,8 +4081,11 @@ def _spatial_cfg(dtype: str, job: str = "fft_glo"):
 
 
 def _spatial_batches(job: str = "fft_glo") -> list[dict]:
+    """The job's two batches; labelled (``LAB3``) for a conditional entry."""
     _, size, batch, _ = SPATIAL_JOBS[job]
-    return [synthetic_batch(batch, size, seed=SPATIAL_SEED + i) for i in range(2)]
+    labels = _spatial_cfg("float32", job).loss.conditional
+    return [synthetic_batch(batch, size, seed=SPATIAL_SEED + i, with_labels=labels)
+            for i in range(2)]
 
 
 def _save_spatial_modules(job: str, path: str) -> None:
@@ -4057,8 +4099,8 @@ def _save_spatial_modules(job: str, path: str) -> None:
         _random_dtheta_head(recipe.STN, 0)
     if cfg.recipe == "nemar":
         _random_offset_head(recipe.R, 0)
-    torch.save({k: getattr(recipe, k).state_dict() for k in ("G", "D", "lpips")
-                if getattr(recipe, k) is not None}, path)
+    torch.save({k: getattr(recipe, k).state_dict() for k in ("G", "D", "lpips", "cnns")
+                if getattr(recipe, k, None) is not None}, path)
 
 
 def _spatial_trainer(cfg, device, mesh, modules: str):
@@ -4116,14 +4158,50 @@ def _step_memory(trace: list[dict]) -> dict:
     return {"peak": peak, "tensors": kept_peak, "transient": largest}
 
 
-def _spatial_rank(rank: int, world: int, port: int, tmp: str, results, job: str) -> None:
+def _spatial_job(world: int, rank: int, mesh, device, tmp: str, job: str) -> dict:
+    """Two float32 steps of ``job`` from the saved weights (step 1's metrics
+    and reduced G and D gradients, saved to ``tmp``; step 2's peak memory
+    above what was allocated before it, and ``_step_memory`` of its
+    allocator history; the kernel launches of both steps), then one bfloat16
+    step's metrics."""
+    modules = os.path.join(tmp, f"spatial_modules_{job}.pt")
+    trainer, state = _spatial_trainer(_spatial_cfg("float32", job), device, mesh, modules)
+    replicated = spatial.REPLICATED_LAYERS
+    reset_counts()
+    out = {"metrics": [], "ms": []}
+    for i, batch in enumerate(_spatial_batches(job)):
+        torch.cuda.synchronize()
+        if i == 1:
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.memory._record_memory_history(max_entries=1_000_000, stacks="python",
+                                                     clear_history=True)
+        t0 = time.perf_counter()
+        m = trainer.step(state, batch)
+        out["metrics"].append({k: float(v) for k, v in m.items()})  # reads sync
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        if i == 0 and rank == 0:
+            torch.save({"G": _grads_of(state.G), "D": _grads_of(state.D)},
+                       os.path.join(tmp, f"spatial_grads_{job}_{world}.pt"))
+    torch.cuda.synchronize()
+    traced = _step_memory(torch.cuda.memory._snapshot()["device_traces"][0])
+    torch.cuda.memory._record_memory_history(enabled=None)
+    out.update(counts=counts(), replicated=spatial.REPLICATED_LAYERS - replicated,
+               held=before, peak=torch.cuda.max_memory_allocated() - before, traced=traced)
+    del trainer, state
+    torch.cuda.empty_cache()
+    trainer, state = _spatial_trainer(_spatial_cfg("bfloat16", job), device, mesh, modules)
+    out["bf16"] = {k: float(v) for k, v in trainer.step(state, _spatial_batches(job)[0]).items()}
+    del trainer, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def _spatial_rank(rank: int, world: int, port: int, tmp: str, results, jobs: list[str]) -> None:
     """One process on card 0: with ``world`` 2 a gloo rank of a (1 data x 2
-    spatial) mesh, with ``world`` 1 the one process it is held to. Two
-    float32 steps of ``job`` from the saved weights (step 1's metrics and
-    reduced G and D gradients, saved to ``tmp``; step 2's peak memory above
-    what was allocated before it, and ``_step_memory`` of its allocator
-    history; the kernel launches of both steps), then one bfloat16 step's
-    metrics."""
+    spatial) mesh, with ``world`` 1 the one process it is held to; runs
+    ``_spatial_job`` for each of ``jobs`` in turn (one process start and one
+    process group for a phase's jobs)."""
     import datetime
 
     import torch.distributed as dist
@@ -4141,48 +4219,22 @@ def _spatial_rank(rank: int, world: int, port: int, tmp: str, results, job: str)
             dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
                                     world_size=world, timeout=datetime.timedelta(seconds=300))
             mesh = make_mesh(world, spatial=world, device=device)
-        modules = os.path.join(tmp, f"spatial_modules_{job}.pt")
-        trainer, state = _spatial_trainer(_spatial_cfg("float32", job), device, mesh, modules)
-        replicated = spatial.REPLICATED_LAYERS
-        reset_counts()
-        out = {"metrics": [], "ms": []}
-        for i, batch in enumerate(_spatial_batches(job)):
-            torch.cuda.synchronize()
-            if i == 1:
-                before = torch.cuda.memory_allocated()
-                torch.cuda.reset_peak_memory_stats()
-                torch.cuda.memory._record_memory_history(max_entries=1_000_000, stacks="python")
-            t0 = time.perf_counter()
-            m = trainer.step(state, batch)
-            out["metrics"].append({k: float(v) for k, v in m.items()})  # reads sync
-            out["ms"].append((time.perf_counter() - t0) * 1e3)
-            if i == 0 and rank == 0:
-                torch.save({"G": _grads_of(state.G), "D": _grads_of(state.D)},
-                           os.path.join(tmp, f"spatial_grads_{job}_{world}.pt"))
-        torch.cuda.synchronize()
-        traced = _step_memory(torch.cuda.memory._snapshot()["device_traces"][0])
-        torch.cuda.memory._record_memory_history(enabled=None)
-        out.update(counts=counts(), replicated=spatial.REPLICATED_LAYERS - replicated,
-                   held=before, peak=torch.cuda.max_memory_allocated() - before, traced=traced)
-        del trainer, state
-        torch.cuda.empty_cache()
-        trainer, state = _spatial_trainer(_spatial_cfg("bfloat16", job), device, mesh, modules)
-        out["bf16"] = {k: float(v)
-                       for k, v in trainer.step(state, _spatial_batches(job)[0]).items()}
-        results.put((world, rank, out))
+        for job in jobs:
+            results.put((world, rank, job, _spatial_job(world, rank, mesh, device, tmp, job)))
         if mesh is not None:
             dist.destroy_process_group()
     except BaseException as e:
         import traceback
 
-        results.put((world, rank, RuntimeError(traceback.format_exc())))
+        results.put((world, rank, None, RuntimeError(traceback.format_exc())))
         raise SystemExit(1) from e
 
 
-def _run_spatial_ranks(tmp: str, job: str, worlds=(2, 1)) -> tuple[dict, float]:
+def _run_spatial_ranks(tmp: str, jobs: list[str], worlds=(2, 1)) -> tuple[dict, float]:
     """The processes of ``_spatial_rank`` for each world of ``worlds`` (the
     pair and the one process it is held to), all started together on the
-    card; {world: {rank: result}} and the seconds they took."""
+    card, each running ``jobs`` in turn; {job: {world: {rank: result}}} and
+    the seconds they took."""
     import multiprocessing as mp
 
     t0 = time.perf_counter()
@@ -4191,17 +4243,17 @@ def _run_spatial_ranks(tmp: str, job: str, worlds=(2, 1)) -> tuple[dict, float]:
     procs = []
     for world in worlds:
         port = _free_port()
-        procs += [ctx.Process(target=_spatial_rank, args=(r, world, port, tmp, results, job))
+        procs += [ctx.Process(target=_spatial_rank, args=(r, world, port, tmp, results, jobs))
                   for r in range(world)]
     for p in procs:
         p.start()
-    got = {world: {} for world in worlds}
+    got = {job: {world: {} for world in worlds} for job in jobs}
     try:
-        while sum(map(len, got.values())) < sum(worlds):
-            world, rank, out = results.get(timeout=600)
+        for _ in range(len(jobs) * sum(worlds)):
+            world, rank, job, out = results.get(timeout=600)
             if isinstance(out, BaseException):
-                raise AssertionError(f"spatial phase {job}, world {world} rank {rank}: {out}")
-            got[world][rank] = out
+                raise AssertionError(f"spatial phase {jobs}, world {world} rank {rank}: {out}")
+            got[job][world][rank] = out
     finally:
         for p in procs:
             p.join(timeout=60)
@@ -4211,43 +4263,56 @@ def _run_spatial_ranks(tmp: str, job: str, worlds=(2, 1)) -> tuple[dict, float]:
     return got, time.perf_counter() - t0
 
 
-def _spatial_compare(device, card: str, job: str, what: str) -> dict[str, int]:
-    """``job`` float32 at its global batch on two gloo ranks of the card as
-    (1 data x 2 spatial) against one process (a process of its own, for its
-    memory, run beside the pair), within 3 x the float32 floor (one process, benchmarked cuDNN
-    algorithms against deterministic ones, or A moved by one float32 step,
-    whichever moves it more), no layer on the whole map, each rank's kernel
-    launches (one process's a step), each rank's peak step memory against one
-    process's; one bfloat16 step on the pair, finite. Returns rank 0's
-    launches over its two float32 steps."""
-    name, size, batch_size, per_step = SPATIAL_JOBS[job]
+def _spatial_compare(device, card: str, jobs: dict[str, str]) -> dict[str, dict[str, int]]:
+    """Each of ``jobs`` (job -> what its line says of the path) float32 at
+    its global batch on two gloo ranks of the card as (1 data x 2 spatial)
+    against one process (a process of its own, for its memory, run beside
+    the pair; the pair and the process run the jobs in turn,
+    ``_run_spatial_ranks``), each within 3 x the float32 floor (one process,
+    benchmarked cuDNN algorithms against deterministic ones, or A moved by
+    one float32 step, whichever moves it more), no layer on the whole map,
+    each rank's kernel launches (one process's a step), each rank's peak
+    step memory against one process's; one bfloat16 step on the pair,
+    finite. Returns rank 0's launches over its two float32 steps, by job."""
     with tempfile.TemporaryDirectory() as tmp:
-        _save_spatial_modules(job, os.path.join(tmp, f"spatial_modules_{job}.pt"))
-        worlds, seconds = _run_spatial_ranks(tmp, job)
-        pair, one = worlds[2], worlds[1][0]
-        g2 = torch.load(os.path.join(tmp, f"spatial_grads_{job}_2.pt"))
-        g1 = torch.load(os.path.join(tmp, f"spatial_grads_{job}_1.pt"))
-        cfg = _spatial_cfg("float32", job)
-        deterministic = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
-        floor_runs = []
-        try:  # the floor: one process with cuDNN's benchmarked algorithms, and one
-            # with the deterministic ones whose A moved by one float32 step (the
-            # benchmark may pick the deterministic algorithms and show no floor)
-            for nudge in (None, *SPATIAL_NUDGES[job]):
-                benchmark = nudge is None
-                torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
-                    not benchmark, benchmark)
-                trainer, state = _spatial_trainer(
-                    cfg, device, None, os.path.join(tmp, f"spatial_modules_{job}.pt"))
-                batch = _spatial_batches(job)[0]
-                if not benchmark:
-                    batch["A"] = np.nextafter(batch["A"], np.float32(nudge)).astype(np.float32)
-                floor_runs.append(({k: float(v) for k, v in trainer.step(state, batch).items()},
-                                   {"G": _grads_of(state.G), "D": _grads_of(state.D)}))
-                del trainer, state
-                torch.cuda.empty_cache()
-        finally:
-            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = deterministic
+        for job in jobs:
+            _save_spatial_modules(job, os.path.join(tmp, f"spatial_modules_{job}.pt"))
+        got, seconds = _run_spatial_ranks(tmp, list(jobs))
+        print(f"spatial jobs {list(jobs)}: the three processes took {seconds:.1f} s with their "
+              f"start [{card}]")
+        return {job: _spatial_check(device, card, job, what, got[job], tmp)
+                for job, what in jobs.items()}
+
+
+def _spatial_check(device, card: str, job: str, what: str, worlds: dict, tmp: str
+                   ) -> dict[str, int]:
+    """``_spatial_compare``'s checks of one job from its processes' results
+    ``worlds`` and the gradients they saved in ``tmp``."""
+    name, size, batch_size, per_step = SPATIAL_JOBS[job]
+    pair, one = worlds[2], worlds[1][0]
+    g2 = torch.load(os.path.join(tmp, f"spatial_grads_{job}_2.pt"))
+    g1 = torch.load(os.path.join(tmp, f"spatial_grads_{job}_1.pt"))
+    cfg = _spatial_cfg("float32", job)
+    deterministic = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    floor_runs = []
+    try:  # the floor: one process with cuDNN's benchmarked algorithms, and one
+        # with the deterministic ones whose A moved by one float32 step (the
+        # benchmark may pick the deterministic algorithms and show no floor)
+        for nudge in (None, *SPATIAL_NUDGES[job]):
+            benchmark = nudge is None
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+                not benchmark, benchmark)
+            trainer, state = _spatial_trainer(
+                cfg, device, None, os.path.join(tmp, f"spatial_modules_{job}.pt"))
+            batch = _spatial_batches(job)[0]
+            if not benchmark:
+                batch["A"] = np.nextafter(batch["A"], np.float32(nudge)).astype(np.float32)
+            floor_runs.append(({k: float(v) for k, v in trainer.step(state, batch).items()},
+                               {"G": _grads_of(state.G), "D": _grads_of(state.D)}))
+            del trainer, state
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = deterministic
 
     def metric_err(a, b):
         return max(abs(a[k] - b[k]) / max(abs(b[k]), DP_METRIC_TOL[1] / DP_METRIC_TOL[0])
@@ -4325,8 +4390,8 @@ def _spatial_compare(device, card: str, job: str, what: str) -> dict[str, int]:
           f"{ {r: [round(t, 3) for t in pair[r]['ms']] for r in pair} } (step 1 with set-up; "
           f"the halos and gathers through gloo on the host), one process beside them "
           f"{[round(t, 3) for t in one['ms']]}; bf16 step on the pair {bf16}, one process's "
-          f"{bf16_one} (relative {max(bf16_err.values()):.3g}, bound {TENSOR_DIFF_TOL}); the "
-          f"three processes took {seconds:.1f} s with their start [{card}]")
+          f"{bf16_one} (relative {max(bf16_err.values()):.3g}, bound {TENSOR_DIFF_TOL}) "
+          f"[{card}]")
     return pair[0]["counts"]
 
 
@@ -4337,9 +4402,9 @@ def phase_spatial(device, card: str, results: dict) -> dict[str, dict[str, int]]
     (c) one bfloat16 step on the pair, finite."""
     t0 = time.perf_counter()
     phase_spatial_kernels(device, card, results)
-    run = _spatial_compare(device, card, "fft_glo", "no layer reads beyond its halo")
+    run = _spatial_compare(device, card, {"fft_glo": "no layer reads beyond its halo"})
     print(f"spatial phase 22: {time.perf_counter() - t0:.1f} s [{card}]")
-    return {"spatial_fft_glo": run}
+    return {"spatial_fft_glo": run["fft_glo"]}
 
 
 # --------------------------------------------- 23. spatial: the STN and TFC-Diff
@@ -4478,12 +4543,12 @@ def phase_spatial_families(device, card: str, results: dict) -> dict[str, dict[s
     _spatial_flash(device, card, gen, results)
     _spatial_warp_windows(device, card, gen, results)
     torch.cuda.empty_cache()
-    by_path = {"spatial_stn": _spatial_compare(
-        device, card, "stn", "the localizer on the gathered (A, fake_A1) pair; the warp's "
-        "intermediate gathered, K2's y-pass on the rank's rows")}
-    by_path["spatial_tfc_diff"] = _spatial_compare(
-        device, card, "tfc_diff", "the attention's normed map gathered, K4 with the rank's "
-        "queries against every key")
+    runs = _spatial_compare(device, card, {
+        "stn": "the localizer on the gathered (A, fake_A1) pair; the warp's intermediate "
+               "gathered, K2's y-pass on the rank's rows",
+        "tfc_diff": "the attention's normed map gathered, K4 with the rank's queries against "
+                    "every key"})
+    by_path = {f"spatial_{job}": run for job, run in runs.items()}
     print(f"spatial phase 23: {time.perf_counter() - t0:.1f} s [{card}]")
     return by_path
 
@@ -4590,14 +4655,36 @@ def phase_spatial_baselines(device, card: str, results: dict) -> dict[str, dict[
     gen = torch.Generator(device=device).manual_seed(SPATIAL_SEED + 4)
     _spatial_k3_windows(device, card, gen, results)
     torch.cuda.empty_cache()
-    by_path = {"spatial_nemar": _spatial_compare(
-        device, card, "nemar", "the STN's targets gathered, K3 at the rank's grid rows")}
-    by_path["spatial_cyclegan"] = _spatial_compare(
-        device, card, "cyclegan", "the replay buffers whole on both ranks")
-    by_path["spatial_thermalgan_bn"] = _spatial_compare(
-        device, card, "thermalgan_bn", "the batch norms' moments over the group; the "
-        "Encoder's 2 x 2 map gathered")
+    runs = _spatial_compare(device, card, {
+        "nemar": "the STN's targets gathered, K3 at the rank's grid rows",
+        "cyclegan": "the replay buffers whole on both ranks",
+        "thermalgan_bn": "the batch norms' moments over the group; the Encoder's 2 x 2 map "
+                         "gathered"})
+    by_path = {f"spatial_{job}": run for job, run in runs.items()}
     print(f"spatial phase 24: {time.perf_counter() - t0:.1f} s [{card}]")
+    return by_path
+
+
+# ---------------------- 25. spatial: the debiased chain and the saliency mask
+def phase_spatial_debiased(device, card: str) -> dict[str, dict[str, int]]:
+    """The spatial axis for the debiased chain and the saliency-mask entry:
+    fft_patch_debiased (V7: the conditional U-Net's label plane whole, then
+    cut; the aux classifier's head a row-sharded product summed over the
+    pair; the frozen regional ResNet-18s on the bands of the gathered fake)
+    and fft_patch_mask (the mask of A gathered, cut to the rank's rows; the
+    mask term on the gathered images) float32 at 256², global B=4, each on
+    two gloo ranks of the card as (1 data x 2 spatial) against one process,
+    with one bf16 step each, each rank's K1 launches (one process's: 27 + 23
+    a step) and its peak step memory (``_spatial_compare``). No kernel is
+    new on these paths: K1's row-edge form runs in every U-Net and PatchGAN
+    block."""
+    t0 = time.perf_counter()
+    runs = _spatial_compare(device, card, {
+        "debiased": "the label plane cut, the aux head's partial products summed, the "
+                    "regional CNNs on the gathered fake",
+        "mask": "the saliency mask of the gathered images"})
+    by_path = {f"spatial_{job}": run for job, run in runs.items()}
+    print(f"spatial phase 25: {time.perf_counter() - t0:.1f} s [{card}]")
     return by_path
 
 
@@ -4853,6 +4940,12 @@ def main(argv=None) -> int:
     by_path.update(phase_spatial_baselines(device, card, results))
 
     mark("24")
+
+    # 25. the spatial axis for the debiased chain and the saliency mask: both
+    # entries on row shards over gloo ranks of the card
+    by_path.update(phase_spatial_debiased(device, card))
+
+    mark("25")
 
     # 18. result
     print(f"chip_smoke: seconds by phase {phase_s}")

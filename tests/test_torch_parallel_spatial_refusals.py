@@ -1,14 +1,10 @@
-"""The recipes that do not run on row shards refuse the port's spatial
-axis: the seven debiased entries and the saliency mask (8) raise
-``NotImplementedError`` in ``Trainer`` on a (1 data x 2 spatial) mesh,
-naming ROADMAP.md 7c; the 28 that run there are the 18 of the tfcgan recipe
-docstring's list, the three stn and three tfc_diff entries, nemar,
-cyclegan, thermalgan and thermalgan_bn, each of which says
-``supports_spatial`` and is accepted by ``Trainer`` on that mesh. A device
-batch whose rows are not this rank's share of ``cfg.data.image_size``-row
-images is refused too, and
+"""Every registry entry runs on the port's spatial axis: ``Trainer`` builds
+each of the 36 on a (1 data x 2 spatial) mesh, and no recipe carries a
+``supports_spatial`` switch; the recipe docstring of the tfcgan family
+names each of its 26 entries. What is still refused: a device batch whose
+rows are not this rank's share of ``cfg.data.image_size``-row images. And
 ``--spatial`` and ``--tensor`` set the experiment's ``cfg.mesh`` alike. The
-mesh record is made by hand (no process group: the refusal comes before any
+mesh record is made by hand (no process group: the checks come before any
 collective) and the recipes are built on the meta device.
 """
 
@@ -22,15 +18,12 @@ from tfcgan_tpu_torch import cli
 from tfcgan_tpu_torch.config import EXPERIMENTS
 from tfcgan_tpu_torch.parallel.mesh import Mesh
 from tfcgan_tpu_torch.parallel.spatial import SpatialAxis
+from tfcgan_tpu_torch import recipes
 from tfcgan_tpu_torch.recipes import build_recipe
 from tfcgan_tpu_torch.recipes import tfcgan
 from tfcgan_tpu_torch.train.trainer import Trainer
 
-# the tfcgan entries that build ConditionalGeneratorUNet (the debiased chain)
-# or the saliency mask
-REFUSED = sorted(n for n, c in EXPERIMENTS.items()
-                 if c.recipe == "tfcgan" and (c.loss.conditional or c.loss.use_mask))
-ROW_SHARD_FAMILIES = sorted(n for n, c in EXPERIMENTS.items() if c.recipe != "tfcgan")
+ENTRIES = sorted(EXPERIMENTS)
 
 
 def _spatial_pair() -> Mesh:
@@ -38,31 +31,24 @@ def _spatial_pair() -> Mesh:
                 torch.device("cpu"), 0, 1, None, None, SpatialAxis(None, 0, 2), None)
 
 
-@pytest.mark.parametrize("name", REFUSED)
-def test_recipes_without_row_shards_refuse_a_spatial_mesh(name):
-    cfg = EXPERIMENTS[name]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 7c"):
-        Trainer(cfg, build_recipe(cfg, "meta"), mesh=_spatial_pair())
-
-
-@pytest.mark.parametrize("name", ROW_SHARD_FAMILIES)
+@pytest.mark.parametrize("name", ENTRIES)
 def test_the_stn_and_diffusion_entries_run_on_a_spatial_mesh(name):
-    """Every entry of the families other than tfcgan (stn, diffusion, nemar,
-    cyclegan, thermalgan) runs on a spatial mesh."""
+    """Every entry of the registry (the stn, diffusion, nemar, cyclegan and
+    thermalgan families' and the 26 tfcgan ones, the debiased chain and the
+    saliency mask among them) runs on a spatial mesh."""
     cfg = EXPERIMENTS[name]
-    recipe = build_recipe(cfg, "meta")
-    assert recipe.supports_spatial, name
-    trainer = Trainer(cfg, recipe, mesh=_spatial_pair())
+    trainer = Trainer(cfg, build_recipe(cfg, "meta"), mesh=_spatial_pair())
     assert trainer.mesh.spatial.size == 2
 
 
 def test_the_row_shard_entries_are_the_recipe_docstrings_list():
-    running = sorted(set(EXPERIMENTS) - set(REFUSED))
-    assert len(REFUSED) == 8 and len(running) == 28 and len(ROW_SHARD_FAMILIES) == 10
-    for name in running:
-        if EXPERIMENTS[name].recipe == "tfcgan":
-            assert re.search(rf"\b{name}\b", tfcgan.__doc__), name
-        assert build_recipe(EXPERIMENTS[name], "meta").supports_spatial, name
+    tfcgan_entries = sorted(n for n in ENTRIES if EXPERIMENTS[n].recipe == "tfcgan")
+    assert len(ENTRIES) == 36 and len(tfcgan_entries) == 26
+    for name in tfcgan_entries:
+        assert re.search(rf"\b{name}\b", tfcgan.__doc__), name
+    assert {EXPERIMENTS[n].recipe for n in ENTRIES} == set(recipes._RECIPES)
+    for recipe in recipes._RECIPES.values():
+        assert not hasattr(recipe, "supports_spatial"), recipe
 
 
 def test_a_device_batch_of_another_height_is_refused():

@@ -29,6 +29,29 @@ import torch
 import torch.distributed as dist
 
 
+def shared(tmp_path_factory, key: str, fn):
+    """``fn(tmp)`` computed once for the whole test run, ``tmp`` a fresh
+    directory: under pytest-xdist the first worker that asks computes it
+    under a lock and saves it beside the workers' temporary directories
+    (pytest-xdist's documented ``FileLock`` recipe), and the others load it,
+    so that a module-scoped fixture whose tests went to several workers
+    spawns its ranks once."""
+    import os
+
+    from filelock import FileLock
+
+    tmp = tmp_path_factory.mktemp(key)
+    if "PYTEST_XDIST_WORKER" not in os.environ:
+        return fn(tmp)
+    path = tmp_path_factory.getbasetemp().parent / f"{key}.pt"
+    with FileLock(str(path) + ".lock"):
+        if path.is_file():
+            return torch.load(path, weights_only=False)
+        out = fn(tmp)
+        torch.save(out, path)
+    return out
+
+
 def _main(name, rank, world, store, results, kw):
     try:
         torch.set_num_threads(1)
@@ -686,18 +709,18 @@ def spatial_readers(rank, world, cases):
 
 def family_spatial_steps(rank, world, cfg, modules, draws=None, spatial=1, tmp=None,
                          float64=False, seed=0, prefix=""):
-    """One step of an stn or diffusion ``cfg`` from the modules in the file
-    ``modules`` (a torch.save of the recipe's G, D[, lpips] state dicts) on
+    """One step of ``cfg`` from the modules in the file ``modules`` (a
+    torch.save of the recipe's G, D[, lpips][, cnns] state dicts) on
     ``synthetic_batch(seed=seed, with_labels=True)``: with ``world`` > 1 on a
-    (data x ``spatial``) mesh. ``draws`` (a numpy dict of the diffusion
-    step's global noise and timesteps) replaces the recipe's draws. Rank 0
-    saves the reduced G gradients to ``tmp``/g_grads_{world}[_f64].pt;
+    (data x ``spatial``) mesh. ``draws`` (the global step's draws as numpy,
+    ``step_draws``) replaces the recipe's draws. Rank 0 saves the reduced G
+    gradients to ``tmp``/g_grads_{world}[_f64].pt (D's and the regional
+    heads' to d_ and c_grads);
     ``float64`` as in ``fftglo_steps``; ``prefix`` starts the files' names.
     Returns the metrics and the count of layers that ran on the whole map."""
     from tfcgan_tpu_torch.data.synth import synthetic_batch
     from tfcgan_tpu_torch.parallel import place_state, spatial as spatial_axis
     from tfcgan_tpu_torch.recipes import build_recipe
-    from tfcgan_tpu_torch.recipes.diffusion import DiffusionStepDraws
     from tfcgan_tpu_torch.train.trainer import Trainer
 
     if float64:
@@ -710,8 +733,7 @@ def family_spatial_steps(rank, world, cfg, modules, draws=None, spatial=1, tmp=N
     if draws is not None:
         def draw_fn(state, batch):
             assert batch["A"].shape[0] == cfg.data.batch_size  # the global batch's shape
-            return DiffusionStepDraws(torch.from_numpy(draws["noise"]),
-                                      torch.from_numpy(draws["t"]).long(), None)
+            return step_draws(cfg, draws)
     trainer = Trainer(cfg, recipe, draw_fn=draw_fn, mesh=mesh)
     state = trainer.init_state(0, draw=False)
     _load_modules(recipe, modules)
@@ -726,7 +748,26 @@ def family_spatial_steps(rank, world, cfg, modules, draws=None, spatial=1, tmp=N
         torch.save(_grads(state.G), f"{tmp}/{prefix}g_grads_{tag}.pt")
         if any(True for _ in state.D.parameters()):
             torch.save(_grads(state.D), f"{tmp}/{prefix}d_grads_{tag}.pt")
+        if state.cnns is not None and _grads(state.cnns):  # the V4-V6 regional heads
+            torch.save(_grads(state.cnns), f"{tmp}/{prefix}c_grads_{tag}.pt")
     return {"metrics": metrics, "replicated": spatial_axis.REPLICATED_LAYERS - replicated}
+
+
+def step_draws(cfg, draws):
+    """The step draws of ``cfg``'s recipe from their numpy form: a diffusion
+    step's noise and timesteps, or a tfcgan step's patch negatives
+    (``neg``), jitter ``factors`` and ``order`` and the debiased family's
+    label and FFT-triplet draws where present (G without dropout)."""
+    from tfcgan_tpu_torch.recipes.diffusion import DiffusionStepDraws
+    from tfcgan_tpu_torch.recipes.tfcgan import StepDraws
+
+    if cfg.recipe == "diffusion":
+        return DiffusionStepDraws(torch.from_numpy(draws["noise"]),
+                                  torch.from_numpy(draws["t"]).long(), None)
+    ints = {k: torch.from_numpy(draws[k]).long() for k in ("g_labels", "d_fake_labels", "fft_neg")
+            if draws.get(k) is not None}
+    return StepDraws(torch.from_numpy(draws["neg"]).long(), torch.from_numpy(draws["factors"]),
+                     list(draws["order"]), None, **ints)
 
 
 # ------------------------------- spatial axis: NeMAR, CycleGAN and ThermalGAN
@@ -945,5 +986,107 @@ def cyclegan_spatial(rank, world, cfg, tmp, spatial=1, other=None, seed=4, prefi
         if rank == 0:
             torch.save(_grads(state.G), f"{tmp}/cyc_g_grads_{world}_f64.pt")
             torch.save(_grads(state.D), f"{tmp}/cyc_d_grads_{world}_f64.pt")
+    return out
+
+
+
+# ------------------------------ spatial axis: the debiased chain's pieces
+# the pieces' outputs: row shards ("rows") or whole on every rank ("whole")
+DEBIASED_OUTPUTS = {"plane": ("rows",), "aux3": ("rows", "whole", "whole", "whole"),
+                    "aux1": ("rows", "whole")}
+
+
+def debiased_op(name: str, h: int, seed: int = 0):
+    """One row-aware piece of the debiased path for h x h images, float64,
+    weights drawn from ``seed``: ``ConditionalGeneratorUNet``'s label plane
+    (``plane``; only ``label_fc`` is drawn: the inner U-Net is allocated and
+    not used) or the ``AuxClassifierDiscriminator`` with three heads
+    (``aux3``, V1-V5) or the ethnicity head alone (``aux1``, V6/V7). Returns
+    (fn(x, labels, rows) -> outputs, the modules whose gradients count, the
+    input's channels)."""
+    from tfcgan_tpu_torch.models.discriminator import AuxClassifierDiscriminator
+    from tfcgan_tpu_torch.models.layers import without_draws
+    from tfcgan_tpu_torch.models.unet import ConditionalGeneratorUNet
+
+    gen = torch.Generator().manual_seed(seed)
+    f64 = dict(dtype=torch.float64)
+    if name == "plane":
+        with without_draws():
+            g = ConditionalGeneratorUNet(3, 3, h, **f64)
+        with torch.no_grad():
+            for p in g.label_fc.parameters():
+                p.copy_(torch.randn(p.shape, generator=gen, dtype=p.dtype))
+
+        def fn(x, labels, rows):
+            return (g.label_plane(labels, x.shape[0], h, x.shape[2], rows),)
+        return fn, g.label_fc, 3
+    heads = (2, 3) if name == "aux3" else (0, 0)
+    d = AuxClassifierDiscriminator(6, h, 4, *heads, generator=gen, **f64)
+    with torch.no_grad():  # live biases, as a trained D has
+        for p in d.parameters():
+            if p.dim() == 1:
+                p.copy_(0.1 * torch.randn(p.shape, generator=gen, dtype=p.dtype))
+
+    def fn(x, labels, rows):
+        logits, probs = d(x[..., :3], x[..., 3:], rows)
+        return (logits, *(probs if isinstance(probs, tuple) else (probs,)))
+    return fn, d, 6
+
+
+def debiased_op_inputs(name: str, h: int, seed: int = 1):
+    """The whole inputs of ``debiased_op(name, h)``: images (2, h, h, C) and
+    (2, 3) labels, float64, and a cotangent for each output."""
+    fn, _, c = debiased_op(name, h)
+    rng = np.random.RandomState(seed + h)
+    x = torch.from_numpy(rng.uniform(-1, 1, (2, h, h, c)))
+    labels = torch.from_numpy(rng.randint(0, 4, (2, 3)).astype(np.float64))
+    with torch.no_grad():
+        ys = fn(x, labels, None)
+    cots = [torch.from_numpy(rng.uniform(-1, 1, tuple(y.shape))) for y in ys]
+    return x, labels, cots
+
+
+def debiased_op_run(name: str, h: int, rows=None, tensor=None):
+    """The piece on this rank's rows of the inputs (the whole map without
+    ``rows``), its modules sharded over the tensor axis ``tensor`` if given:
+    the outputs (the row outputs this rank's rows), and the gradients of
+    sum(y * cot), each whole output's term counted 1 / S a rank (the axis's
+    rule), to the images' rows and to the weights (sharded ones gathered),
+    and the shapes of the weights this rank holds."""
+    from tfcgan_tpu_torch.parallel.spatial import replicated_share
+    from tfcgan_tpu_torch.parallel.tensor import full_tensors, shard_params
+
+    fn, module, _ = debiased_op(name, h)
+    x, labels, cots = debiased_op_inputs(name, h)
+    if tensor is not None:
+        shard_params([module], tensor)
+    if rows is not None:
+        x = rows.cut(x)
+    x = x.clone().requires_grad_(True)
+    ys = fn(x, labels, rows)
+    loss = 0.0
+    for y, cot, kind in zip(ys, cots, DEBIASED_OUTPUTS[name]):
+        if kind == "rows":
+            loss = loss + (y * (cot if rows is None else rows.of(cot.shape[1]).cut(cot))).sum()
+        else:
+            loss = loss + replicated_share((y * cot).sum(), rows)
+    loss.backward()
+    grads = full_tensors(module, {k: p.grad for k, p in module.named_parameters()})
+    gx = torch.zeros_like(x) if x.grad is None else x.grad  # the plane reads no image
+    return ([y.detach() for y in ys], gx, {k: v.clone() for k, v in grads.items()},
+            {k: tuple(p.shape) for k, p in module.named_parameters()})
+
+
+def debiased_ops(rank, world, cases, tensor=1):
+    """Each (piece, h) of ``cases`` on a (1 data x world / ``tensor``
+    spatial x ``tensor``) mesh: this rank's outputs, input and weight
+    gradients (``debiased_op_run``), as numpy."""
+    mesh = _mesh(tensor=tensor, spatial=world // tensor)
+    out = {}
+    with _float64():
+        for name, h in cases:
+            ys, gx, gw, shapes = debiased_op_run(name, h, mesh.image_rows(h), mesh.tensor)
+            out[name, h] = {"ys": [y.numpy() for y in ys], "gx": gx.numpy(),
+                            "gw": {k: v.numpy() for k, v in gw.items()}, "shapes": shapes}
     return out
 

@@ -23,7 +23,13 @@ their halo rows, their instance norms sum over the spatial group) and
 ``MultiDiscriminator``, whose 2x average pool between the scales runs on
 rows too (``ops.resize.avg_pool_2x``) and whose ``out_rows`` is a list, one
 record a scale; ``lsgan_loss`` and ``multiscale_loss`` then take those
-records and give this rank's share of their means.
+records and give this rank's share of their means. ``AuxClassifierDiscriminator``
+runs its ``patch`` on rows as well, and each of its heads as a row-sharded
+product: a rank's rows of the flattened input are the contiguous
+in-features [lo W 2C, hi W 2C) of the NHWC order, which it multiplies by
+those columns of the head's weight; the partials, kept in float32 (or
+wider), are summed over the spatial group (``spatial_sum``), and the bias is
+added once, after the sum. Every rank then holds the same probabilities.
 """
 
 from __future__ import annotations
@@ -38,7 +44,8 @@ from tfcgan_tpu_torch.ops.blurpool import blur_pool
 from tfcgan_tpu_torch.ops.norm import instance_norm
 from tfcgan_tpu_torch.ops.resize import avg_pool_2x, avg_pool_height
 from tfcgan_tpu_torch.ops.kernels.blurpool import out_len
-from tfcgan_tpu_torch.parallel.spatial import Rows, share_mean
+from tfcgan_tpu_torch.parallel.spatial import Rows, share_mean, spatial_sum
+from tfcgan_tpu_torch.parallel.tensor import column_parallel
 
 WIDTHS = (64, 128, 256, 512)
 
@@ -101,7 +108,9 @@ class AuxClassifierDiscriminator(nn.Module):
     JAX module flattens it. With ``num_gender`` > 0 (V1-V5) probs is the
     (gender, ethnicity, age) tuple of the ``aux_gender``, ``aux_ethn`` and
     ``aux_age`` heads, in the reference's head order; else (V6, V7) the
-    ethnicity head's alone."""
+    ethnicity head's alone. With ``rows`` (the spatial axis) the images are
+    this rank's rows, the logits its rows of the patch logits (record
+    ``out_rows``) and the probabilities whole (see the module docstring)."""
 
     def __init__(self, in_channels: int = 6, image_size: int = 256, num_classes: int = 4,
                  num_gender: int = 0, num_age: int = 0, dtype: torch.dtype = torch.float32,
@@ -129,11 +138,36 @@ class AuxClassifierDiscriminator(nn.Module):
         return [self.aux_gender, self.aux_ethn, self.aux_age] if self.multi_head \
             else [self.aux_ethn]
 
-    def forward(self, img_a: torch.Tensor, img_b: torch.Tensor):
-        logits = self.patch(img_a, img_b)
+    def out_rows(self, rows: Rows | None) -> Rows | None:
+        """The record of the patch logits for images of record ``rows``."""
+        return self.patch.out_rows(rows)
+
+    def forward(self, img_a: torch.Tensor, img_b: torch.Tensor, rows: Rows | None = None):
+        logits = self.patch(img_a, img_b, rows)
         flat = torch.cat([img_a, img_b], dim=-1).reshape(img_a.shape[0], -1).to(self.dtype)
-        probs = [torch.softmax(head(flat), dim=-1) for head in self.heads()]
+        probs = [torch.softmax(head(flat) if rows is None else row_sharded_dense(head, flat, rows),
+                               dim=-1) for head in self.heads()]
         return logits, (tuple(probs) if self.multi_head else probs[0])
+
+
+def row_sharded_dense(head: Dense, flat: torch.Tensor, rows: Rows) -> torch.Tensor:
+    """``head(x)`` for the flattened NHWC images x of which ``flat`` holds
+    this rank's rows (record ``rows``): the product of ``flat`` with its
+    columns of the weight, in float32 (or the compute dtype where that is
+    wider), summed over the spatial group, then the bias, then the compute
+    dtype; column-parallel over a tensor group where ``head`` is sharded."""
+    per_row = head.weight.shape[1] // rows.h
+    lo, hi = rows.lo * per_row, rows.hi * per_row
+    acc = torch.promote_types(head.dtype, torch.float32)
+
+    def compute(x, weight, bias):
+        part = x.to(head.dtype).to(acc) @ weight[:, lo:hi].to(head.dtype).to(acc).t()
+        y = spatial_sum(part, rows)
+        return (y if bias is None else y + bias.to(acc)).to(head.dtype)
+
+    if head.tensor_axis is not None:
+        return column_parallel(head, flat, compute)
+    return compute(flat, head.weight, head.bias)
 
 
 class NLayerDiscriminator(nn.Module):

@@ -14,7 +14,12 @@ mode the forward refuses to run without them. Eval mode runs no dropout.
 
 ``GeneratorUNet(x, masks, rows=...)`` runs on row shards (the spatial mesh
 axis): x is this rank's rows of images of ``rows.h`` rows, the keep-masks
-are cut to the blocks' rows, and so is the output.
+are cut to the blocks' rows, and so is the output. So does
+``ConditionalGeneratorUNet(x, labels, masks, rows=...)``: its label plane is
+N x H x W values, computed whole on every rank (under the tensor axis
+``label_fc`` is column-parallel and gathers its outputs anyway) and cut to
+this rank's rows (``split_rows``), so that ``label_fc``'s gradient on a rank
+comes from its rows of the plane and the group's sum makes it whole.
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ import torch.nn as nn
 from tfcgan_tpu_torch.models.layers import UNetDown, UNetUp, Upsample2xConv, init_normal_
 from tfcgan_tpu_torch.models.vit import Dense, lecun_normal_
 from tfcgan_tpu_torch.ops.kernels.blurpool import out_len
-from tfcgan_tpu_torch.parallel.spatial import Rows
+from tfcgan_tpu_torch.parallel.spatial import Rows, split_rows
 
 
 class GeneratorUNet(nn.Module):
@@ -132,7 +137,16 @@ class ConditionalGeneratorUNet(nn.Module):
         return self.unet.draw_dropout_masks(n, h, w, generator)
 
     def forward(self, x: torch.Tensor, labels: torch.Tensor,
-                dropout_masks: dict[str, torch.Tensor] | None = None) -> torch.Tensor:
+                dropout_masks: dict[str, torch.Tensor] | None = None,
+                rows: Rows | None = None) -> torch.Tensor:
+        """With ``rows`` x is a row shard of images of ``rows.h`` rows (see
+        the module docstring)."""
         n, h, w, _ = x.shape
-        plane = self.label_fc(labels.to(self.dtype)).reshape(n, h, w, 1)
-        return self.unet(torch.cat([x.to(self.dtype), plane], dim=-1), dropout_masks)
+        plane = self.label_plane(labels, n, h if rows is None else rows.h, w, rows)
+        return self.unet(torch.cat([x.to(self.dtype), plane], dim=-1), dropout_masks, rows)
+
+    def label_plane(self, labels: torch.Tensor, n: int, h: int, w: int,
+                    rows: Rows | None = None) -> torch.Tensor:
+        """The (N, H, W, 1) plane of the labels, or with ``rows`` this rank's
+        rows of it."""
+        return split_rows(self.label_fc(labels.to(self.dtype)).reshape(n, h, w, 1), rows)

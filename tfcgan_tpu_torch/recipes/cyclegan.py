@@ -19,7 +19,7 @@ Adams over disjoint parameters are one Adam over the sum), reported as
 slots, are a ``CycleDraws``.
 
 On a spatial mesh (``parallel.spatial``; the step's image rows in
-``active_rows()``) the recipe runs on row shards (``supports_spatial``):
+``active_rows()``) the recipe runs on row shards:
 G_AB, G_BA, D_A and D_B on this rank's rows, the L1 and GAN terms its shares
 of their means. The buffers stay whole on every rank: ``pre_d`` pushes the
 step's fakes gathered over the data and the spatial groups, and each rank
@@ -120,7 +120,6 @@ def build_generators(cfg: ExperimentConfig, device,
 
 class CycleGANRecipe:
     name = "cyclegan"
-    supports_spatial = True  # G, D and the losses on row shards, the buffers whole
 
     def __init__(self, cfg: ExperimentConfig, device):
         self.cfg = cfg

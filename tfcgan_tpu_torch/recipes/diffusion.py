@@ -20,16 +20,15 @@ one ``DiffusionStepDraws``. ``sample`` runs the whole ancestral chain on the
 device (``models.diffusion.sample``).
 
 On a spatial mesh (``parallel.spatial``; the step's image rows in
-``active_rows()``) all three variants run on row shards
-(``supports_spatial``): the noise draw is cut to this rank's rows with the
-images (``PER_ROW``), the U-Net runs on them (``CondUNet(rows=)``), the
-condition planes (gray(A), or the class embedding broadcast over A's pixels)
-are this rank's rows by construction, and the noise MSE is this rank's share
-of the whole mean (``share_mean``). The hybrid's G and LPIPS run on rows as
-in the ``tfcgan`` recipes, its keep-masks cut to the blocks' rows; a layer
-whose maps have fewer rows than the group can serve from adjacent shards
-(G's 1-row maps at 64²) runs on the whole map
-(``parallel.spatial.REPLICATED_LAYERS``).
+``active_rows()``) all three variants run on row shards: the noise draw is
+cut to this rank's rows with the images (``PER_ROW``), the U-Net runs on
+them (``CondUNet(rows=)``), the condition planes (gray(A), or the class
+embedding broadcast over A's pixels) are this rank's rows by construction,
+and the noise MSE is this rank's share of the whole mean (``share_mean``).
+The hybrid's G and LPIPS run on rows as in the ``tfcgan`` recipes, its
+keep-masks cut to the blocks' rows; a layer whose maps have fewer rows than
+the group can serve from adjacent shards (G's 1-row maps at 64²) runs on the
+whole map (``parallel.spatial.REPLICATED_LAYERS``).
 """
 
 from __future__ import annotations
@@ -164,7 +163,6 @@ class DiffusionRecipe:
             self.lpips = LPIPS(dtype=_dtype(cfg), device=device, generator=generator)
 
     unet = property(lambda self: self.G.unet)
-    supports_spatial = True  # every variant runs on row shards
 
     def init(self, generator: torch.Generator) -> None:
         """Draw every module's weights from ``generator``."""

@@ -23,14 +23,14 @@ Adam (the container ``G``), the discriminators the other (``D``). The step
 has no random draw.
 
 On a spatial mesh (``parallel.spatial``; the step's image rows in
-``active_rows()``) both ``stn_type``s run on row shards
-(``supports_spatial``): T, R and the discriminators on this rank's rows; R
-samples the targets gathered once at its rows of the grid (K3 on a card).
-The L1 and GAN terms are this rank's shares of their means, ``reg`` is the
-smoothness term's share or the conv-affine STN's mean |dtheta| counted once
-over the group (``replicated_share``). The multi-resolution
-discriminators' inputs are downscaled from the images gathered once and cut
-back to the rank's rows (``split_rows``).
+``active_rows()``) both ``stn_type``s run on row shards: T, R and the
+discriminators on this rank's rows; R samples the targets gathered once at
+its rows of the grid (K3 on a card). The L1 and GAN terms are this rank's
+shares of their means, ``reg`` is the smoothness term's share or the
+conv-affine STN's mean |dtheta| counted once over the group
+(``replicated_share``). The multi-resolution discriminators' inputs are
+downscaled from the images gathered once and cut back to the rank's rows
+(``split_rows``).
 """
 
 from __future__ import annotations
@@ -96,7 +96,6 @@ def _downscale(x: torch.Tensor, side: int) -> torch.Tensor:
 class NeMARRecipe:
     name = "nemar"
     update_order = "d_first"
-    supports_spatial = True  # both stn_types run on row shards
 
     def __init__(self, cfg: ExperimentConfig, device, generator: torch.Generator | None = None):
         self.cfg = cfg

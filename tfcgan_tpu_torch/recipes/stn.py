@@ -24,16 +24,16 @@ them as the containers ``G`` and ``D``. The perceptual term is the fixed
 msrecon anchor unless converted LPIPS weights exist (``perceptual="auto"``).
 
 On a spatial mesh (``parallel.spatial``; the step's image rows in
-``active_rows()``) all three variants run on row shards
-(``supports_spatial``): G1, G2, D1, D2 and LPIPS on this rank's rows, their
-keep-masks cut to the blocks' rows (``PER_ROW``); the localizer on the
-(A, condition) pair gathered once (``AffineSTN.theta(rows=)``), so theta is
-the same on every rank; the warp reads the whole source and writes this
-rank's rows (``warp_src(rows=)``). The adversarial, L1 and LPIPS terms are
-this rank's shares of their whole means; the terms that read whole images
-(the morph triplet, the msrecon pyramid, the FFT terms) take the images
-gathered once, are computed whole on every rank and counted once (each
-rank's share 1 / S, ``replicated_share``), and so is ``theta_t``.
+``active_rows()``) all three variants run on row shards: G1, G2, D1, D2 and
+LPIPS on this rank's rows, their keep-masks cut to the blocks' rows
+(``PER_ROW``); the localizer on the (A, condition) pair gathered once
+(``AffineSTN.theta(rows=)``), so theta is the same on every rank; the warp
+reads the whole source and writes this rank's rows (``warp_src(rows=)``).
+The adversarial, L1 and LPIPS terms are this rank's shares of their whole
+means; the terms that read whole images (the morph triplet, the msrecon
+pyramid, the FFT terms) take the images gathered once, are computed whole on
+every rank and counted once (each rank's share 1 / S, ``replicated_share``),
+and so is ``theta_t``.
 """
 
 from __future__ import annotations
@@ -177,7 +177,6 @@ class STNRecipe:
     G1 = property(lambda self: self.G["G1"])
     G2 = property(lambda self: self.G["G2"])
     STN = property(lambda self: self.G["STN"])
-    supports_spatial = True  # every variant runs on row shards
 
     def init(self, generator: torch.Generator) -> None:
         """Draw every module's weights (and the spectral u/v) from ``generator``."""

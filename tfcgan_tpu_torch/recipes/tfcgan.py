@@ -23,22 +23,29 @@ backbones, with the classifier heads trained by G's Adam in V4-V6 and frozen
 in V7. Every random draw of a step is a field of ``StepDraws``.
 
 On a spatial mesh (``parallel.spatial``; the step's image rows in
-``active_rows()``) the 18 entries that build ``GeneratorUNet`` +
-``PatchDiscriminator`` run on row shards: fft_glo, fft_glo_16p, fft_patch_4,
-fft_patch_16, fft_patch_region, fft_patch_region_kl, original_16p,
-triptemp_base, triptemp_16p, favtgan_l1, favtgan_tempmap, triptemp_ed,
-triptemp_ea, triptemp_ed_16p, triptemp_ea_16p, ablation_nopatch,
-ablation_noperc and ablation_notemp. G, D and LPIPS run on this rank's rows,
-and the adversarial and LPIPS terms are this rank's shares; the 3-channel
-fake and real images (and T_B) are gathered over the spatial group once, and
-the terms that read whole images (the patch triplet, whose negatives are
-other patches' rows; the temperature terms, whose ColorJitter contrast uses
-each image's mean; the FFT, region and msrecon terms) are computed whole on
-every rank and counted once (each rank's share 1 / S: the axis's gradient
-rule). The debiased entries (``ConditionalGeneratorUNet``, the aux
-classifier's Dense over flattened features, the regional ResNet-18s) and
-``fft_patch_mask`` (the saliency mask) refuse a spatial mesh
-(``supports_spatial``; ROADMAP.md Queue 1 item 7c).
+``active_rows()``) all 26 entries run on row shards: the 18 that build
+``GeneratorUNet`` + ``PatchDiscriminator`` (fft_glo, fft_glo_16p,
+fft_patch_4, fft_patch_16, fft_patch_region, fft_patch_region_kl,
+original_16p, triptemp_base, triptemp_16p, favtgan_l1, favtgan_tempmap,
+triptemp_ed, triptemp_ea, triptemp_ed_16p, triptemp_ea_16p,
+ablation_nopatch, ablation_noperc and ablation_notemp), the saliency-mask
+entry fft_patch_mask, and the seven debiased ones (fft_patch_debiased_v1,
+fft_patch_debiased_v2, fft_patch_debiased_v3, fft_patch_debiased_v4,
+fft_patch_debiased_v5, fft_patch_debiased_v6 and fft_patch_debiased, V7). G,
+D and LPIPS run on this rank's rows, and the adversarial and LPIPS terms are
+this rank's shares; the 3-channel fake and real images (and T_B) are
+gathered over the spatial group once, and the terms that read whole images
+(the patch triplet, whose negatives are other patches' rows; the temperature
+terms, whose ColorJitter contrast uses each image's mean; the FFT, the V4/V5
+FFT triplet, region and msrecon terms; the saliency-mask L1) are computed
+whole on every rank and counted once (each rank's share 1 / S: the axis's
+gradient rule). The saliency mask is normalised by extremes over whole
+images: G's mask channel is the mask of A gathered once, cut to this rank's
+rows (``g_input``). The conditional G computes its label plane whole and
+keeps its rows; the aux classifier's heads are row-sharded products summed
+over the group, so every rank holds the same probabilities, and the label
+cross-entropies that read them, and the regional ResNet-18s' on the bands of
+the gathered fake, are counted once too.
 """
 
 from __future__ import annotations
@@ -69,7 +76,8 @@ from tfcgan_tpu_torch.ops.saliency import saliency_mask
 from tfcgan_tpu_torch.ops.temperature import temperature_lut
 from tfcgan_tpu_torch.ops.triplet import triplet_margin_loss
 from tfcgan_tpu_torch.parallel.mesh import active_mesh, all_gather_batch
-from tfcgan_tpu_torch.parallel.spatial import active_rows, gather_spatial, replicated_share
+from tfcgan_tpu_torch.parallel.spatial import (Rows, active_rows, gather_spatial,
+                                               replicated_share, split_rows)
 
 
 def _dtype(cfg: ExperimentConfig) -> torch.dtype:
@@ -98,10 +106,13 @@ def build_generator(cfg: ExperimentConfig, device, generator: torch.Generator | 
     return g.eval()
 
 
-def g_input(cfg: ExperimentConfig, a: torch.Tensor) -> torch.Tensor:
-    """G's image input: A, with its saliency mask as a 4th channel under ``use_mask``."""
+def g_input(cfg: ExperimentConfig, a: torch.Tensor, rows: Rows | None = None) -> torch.Tensor:
+    """G's image input: A, with its saliency mask as a 4th channel under
+    ``use_mask``. With ``rows`` A is this rank's rows: the mask of the whole
+    images (gathered once), cut to them."""
     if cfg.loss.use_mask:
-        return torch.cat([a, saliency_mask(a).to(a.dtype)], dim=-1)
+        mask = split_rows(saliency_mask(gather_spatial(a, rows)), rows)
+        return torch.cat([a, mask.to(a.dtype)], dim=-1)
     return a
 
 
@@ -314,12 +325,6 @@ class TFCGANRecipe:
         if self.perceptual == "lpips":
             self.lpips = LPIPS(dtype=dtype, device=device)
 
-    @property
-    def supports_spatial(self) -> bool:
-        """Whether the entry runs on a spatial mesh: not the debiased
-        (conditional) entries nor the saliency mask (ROADMAP.md, 7c)."""
-        return not (self.cfg.loss.conditional or self.cfg.loss.use_mask)
-
     def init(self, generator: torch.Generator) -> None:
         """Draw G, D (with spectral u/v), LPIPS and the regional CNNs from
         ``generator``; where converted weights resolve, LPIPS and the CNNs'
@@ -397,15 +402,18 @@ class TFCGANRecipe:
                  ) -> torch.Tensor:
         """G's output on the batch (``labels``: the conditional G's (N, 3)
         labels); on a spatial mesh, this rank's rows of it."""
-        if self.cfg.loss.conditional:
-            return self.G(batch["A"], labels.float(), draws.dropout_masks)
         rows = active_rows()
+        if self.cfg.loss.conditional:
+            if rows is None:
+                return self.G(batch["A"], labels.float(), draws.dropout_masks)
+            return self.G(batch["A"], labels.float(), draws.dropout_masks, rows)
         if rows is None:
             return self.G(g_input(self.cfg, batch["A"]), draws.dropout_masks)
-        return self.G(g_input(self.cfg, batch["A"]), draws.dropout_masks, rows)
+        return self.G(g_input(self.cfg, batch["A"], rows), draws.dropout_masks, rows)
 
     def _label_ce(self, probs_f, g3: torch.Tensor, fake: torch.Tensor) -> torch.Tensor:
-        """G's label loss against the labels G was conditioned on."""
+        """G's label loss against the labels G was conditioned on; ``fake``
+        whole images (on a spatial mesh, gathered)."""
         ax = self.axes
         gender, ethn, age = g3[:, 0], g3[:, 1], g3[:, 2]
         pg_f, pe_f, pa_f = probs_f if ax["multi_head"] else (None, probs_f, None)
@@ -471,7 +479,7 @@ class TFCGANRecipe:
             total = total + lc.lpips_weight * metrics["g_lpips"]
         if lc.fft_mode != "off":
             if lc.conditional and self.axes["fft_triplet"]:
-                metrics["g_fft"] = fft_triplet_loss(fake, b, draws.fft_neg, lc)
+                metrics["g_fft"] = whole(fft_triplet_loss(whole_fake, whole_b, draws.fft_neg, lc))
             else:
                 metrics["g_fft"] = whole(fft_loss(whole_fake, whole_b, lc))
             total = total + lc.fft_weight * metrics["g_fft"]
@@ -479,10 +487,11 @@ class TFCGANRecipe:
             metrics["g_region_fft"] = whole(regional_fft_loss(whole_fake, whole_b, lc))
             total = total + lc.region_fft_weight * metrics["g_region_fft"]
         if lc.use_mask:
-            metrics["g_mask"] = (saliency_mask(fake) - saliency_mask(b)).abs().mean()
+            metrics["g_mask"] = whole((saliency_mask(whole_fake)
+                                       - saliency_mask(whole_b)).abs().mean())
             total = total + lc.mask_weight * metrics["g_mask"]
         if lc.conditional:
-            metrics["g_ce"] = self._label_ce(probs_f, g3, fake)
+            metrics["g_ce"] = whole(self._label_ce(probs_f, g3, whole_fake))
             total = total + lc.ce_weight * metrics["g_ce"]
         metrics["loss_G"] = total
         aux["fake_b"] = fake.detach()
@@ -498,7 +507,8 @@ class TFCGANRecipe:
             return loss, {"loss_D": loss}
         pred_real, probs_r = self._disc(b, a)
         pred_fake, probs_f = self._disc(aux["fake_b"], a)
-        loss = relativistic_d_loss(pred_real, pred_fake, lc.label_smooth, lc.d_loss_weight)
+        loss = relativistic_d_loss(pred_real, pred_fake, lc.label_smooth, lc.d_loss_weight,
+                                   self._logit_rows())
         ax = self.axes
 
         def label_ce(probs, t3):
@@ -508,8 +518,9 @@ class TFCGANRecipe:
             return cross_entropy(probs, t3[:, 1], True)
 
         # real targets the annotations, fake targets the step's draws (V1:
-        # the labels G was conditioned on)
-        ce = 0.5 * (label_ce(probs_r, batch["LAB3"].long())
-                    + label_ce(probs_f, aux["d_fake_labels"]))
+        # the labels G was conditioned on); every spatial rank holds the
+        # same probabilities, so the term is counted once over the group
+        ce = replicated_share(0.5 * (label_ce(probs_r, batch["LAB3"].long())
+                                     + label_ce(probs_f, aux["d_fake_labels"])), active_rows())
         loss = loss + ce
         return loss, {"loss_D": loss, "d_ce": ce}

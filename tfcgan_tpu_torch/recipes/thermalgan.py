@@ -32,8 +32,8 @@ reference's separate updates. G2's dropout keep-masks are the step's draws
 (``ThermalDraws``); ``extra["deterministic_g"]`` runs G2 in eval mode.
 
 On a spatial mesh (``parallel.spatial``; the step's image rows in
-``active_rows()``) both entries run on row shards in every ``d_vae_mode``
-(``supports_spatial``): G1, E, G2 and the discriminators on this rank's
+``active_rows()``) both entries run on row shards in every ``d_vae_mode``:
+G1, E, G2 and the discriminators on this rank's
 rows (the temperature plane comes cut with the images, G2's keep-masks cut
 to its blocks' rows, ``PER_ROW``), the batch norms' moments over the data
 and spatial groups. The L1, latent and GAN terms are this rank's shares of
@@ -99,7 +99,6 @@ class ThermalDraws:
 
 class ThermalGANRecipe:
     name = "thermalgan"
-    supports_spatial = True  # every d_vae_mode runs on row shards
 
     def __init__(self, cfg: ExperimentConfig, device):
         self.cfg = cfg

@@ -58,11 +58,7 @@ images' global height (read from the host batch; a device batch holds
 rows of ``cfg.data.image_size``-row images). Each rank's loss is its share
 (the axis's rule, ``parallel.spatial``), so each gradient is summed over
 the spatial group and averaged over the data group (``all_reduce_mean_``),
-and so are the metrics. A recipe runs there only if it says so (``supports_spatial``:
-the 18 ``tfcgan`` entries of ``GeneratorUNet`` + ``PatchDiscriminator``, the three
-stn entries, the three tfc_diff entries, nemar, cyclegan, thermalgan and
-thermalgan_bn); the other 8 (the seven debiased entries and fft_patch_mask)
-are refused (ROADMAP.md, Queue 1 item 7c). Without a ``mesh``
+and so are the metrics. Every registry entry runs there. Without a ``mesh``
 argument the trainer builds one from ``cfg.mesh`` when it asks for more than
 one process (``num_devices`` > 1, ``tensor`` > 1 or ``spatial`` > 1), as
 the JAX trainer does.
@@ -229,11 +225,6 @@ class Trainer:
         if mesh is None and ((m.num_devices or 1) > 1 or m.tensor > 1 or m.spatial > 1):
             mesh = make_mesh(m.num_devices, spatial=m.spatial, tensor=m.tensor,
                              device=recipe.device)
-        if mesh is not None and mesh.spatial is not None and not getattr(
-                recipe, "supports_spatial", False):
-            raise NotImplementedError(
-                f"experiment {cfg.name!r} (recipe {getattr(recipe, 'name', recipe)!r}) does not "
-                "run on a spatial mesh yet: ROADMAP.md, Queue 1 item 7c")
         self.cfg, self.recipe, self.logger, self.mesh = cfg, recipe, logger, mesh
         self.draw_fn = draw_fn or (lambda state, batch: recipe.draw(state.generator, batch))
         self.stats = CollectiveStats()
