@@ -8,7 +8,7 @@ chain, on one CUDA card.
     python3 chip_smoke.py [--params g_params.npz] [--init-seed 0]
 
 Phases, one line or more each; any failure raises and exits non-zero (20
-to 25 run after 19, and 18 last):
+to 26 run after 19, and 18 last):
 
 1. environment: torch/CUDA versions, the card, its power limit; TF32 off.
 2. build: g++ builds ``tfcgan_tpu_torch/csrc/fastpair.cpp`` (the pair
@@ -228,7 +228,7 @@ to 25 run after 19, and 18 last):
    the order), 2 epochs, and ``--resume`` from the first epoch's checkpoint:
    weights, replay buffers and Adam states of the two final checkpoints equal
    bit for bit, under ``cudnn.deterministic``.
-18. the result, printed after 25: the seconds each phase took, the card's
+18. the result, printed after 26: the seconds each phase took, the card's
    ``nvidia-smi`` line, one JSON line for the kernels, and last ``{"ok":
    true, "device": {...}}``.
 19. the data and evaluation chain at 256², bf16, on 64 synthetic A|B PNG
@@ -368,6 +368,18 @@ to 25 run after 19, and 18 last):
    each on the pair, finite; 27 + 23 blur-pool launches a step on each rank,
    one process's (paths ``spatial_debiased``, ``spatial_mask``); no layer
    on the whole map; each rank's step peak memory against one process's.
+26. two learning journeys (``tools/family_journey_torch.py``'s
+   ``run_journey``, bf16, 128², B=16, weights from seed 0): nemar for 200
+   steps on misaligned face pairs and tfc_diff for 250 steps on labelled
+   pairs, each evaluated on its held-out batch at step 1 and every 50
+   steps. The last evaluation must pass ``JOURNEY_THRESHOLDS`` (nemar:
+   reg_ncc_gt - reg_ncc_init >= 0.02 and fakeTRB_psnr >= 25 dB; tfc_diff:
+   held_noise_mse <= 0.1) and step 1 must fail them; loss_G must end below
+   step 1's. The launches are read and reset after every step (1 K3 forward
+   and 1 backward a nemar step; 7 + 7 + 7 K4 launches a tfc_diff step, all
+   on the tensor cores) and every evaluation (1 K3 forward; 7 K4 forward):
+   paths ``nemar_journey`` and ``tfc_diff_journey``. One JSON line a family
+   (``{"journey": ...}``: step-1 and final metrics, ms a step, launches).
 
 In the kernels' JSON, ``launches`` is the count of the kernel's main path, the
 last train path driven that runs it (``main_path``: phase 10's three steps for
@@ -424,6 +436,7 @@ import argparse
 import contextlib
 import csv
 import dataclasses
+import importlib.util
 import json
 import os
 import re
@@ -480,6 +493,18 @@ from tfcgan_tpu_torch.train.checkpoint import (STATE_FILE, AsyncCheckpointManage
 from tfcgan_tpu_torch.train.profiling import count_params
 from tfcgan_tpu_torch.train.trainer import Trainer
 from tfcgan_tpu_torch.parallel import place_state, spatial
+
+
+def _load_tool(name: str):
+    """A tool of tools/ beside this script, loaded by its path."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+journeys = _load_tool("family_journey_torch")  # the learning journeys' functions
 
 STRIDE2_SHAPES = [(8, 255, 255, 64), (8, 127, 127, 128), (8, 63, 63, 256), (8, 31, 31, 512),
                   (8, 15, 15, 512), (8, 7, 7, 512)]
@@ -4688,6 +4713,78 @@ def phase_spatial_debiased(device, card: str) -> dict[str, dict[str, int]]:
     return by_path
 
 
+# Phase 26: two short learning journeys at the journey shapes (128², B=16,
+# bf16; tools/family_journey_torch.py), steps and the thresholds each
+# family's last evaluation must pass and its first (step 1) must fail. The
+# TPU trajectories of the JAX package (tools/artifacts/*_journey.json) reached
+# at these steps: nemar reg_ncc_gt 0.9678 from reg_ncc_init 0.9281 (+0.040)
+# and fakeTRB_psnr 30.05 dB (11.19 at step 1); tfc_diff held_noise_mse 0.0376
+# (0.971 at step 1).
+JOURNEY_STEPS = {"nemar": 200, "tfc_diff": 250}
+JOURNEY_THRESHOLDS = {
+    "nemar": (("reg_ncc_gain", ">=", 0.02), ("fakeTRB_psnr", ">=", 25.0)),
+    "tfc_diff": (("held_noise_mse", "<=", 0.1),)}
+# launches a train step and an evaluation of the held-out batch: nemar's task
+# runs T and R once (one K3 forward), tfc_diff's one U-Net forward in bf16
+JOURNEY_LAUNCHES = {"nemar": (NEMAR_STEP, NEMAR_SERVE_BATCH),
+                    "tfc_diff": (DIFF_STEP_BF16, DIFF_FORWARD)}
+
+
+def _journey_passes(row: dict, checks) -> bool:
+    values = {**row, "reg_ncc_gain": row.get("reg_ncc_gt", 0.0) - row.get("reg_ncc_init", 0.0)}
+    return all(values[k] >= v if op == ">=" else values[k] <= v for k, op, v in checks)
+
+
+def phase_journeys(device, card: str) -> dict[str, dict[str, int]]:
+    """Short learning journeys through ``run_journey`` of
+    tools/family_journey_torch.py: nemar 200 steps and tfc_diff 250 steps at
+    128², B=16, bf16, from seed 0, on the tool's face-scene (nemar,
+    misaligned) and labelled pools. Every step's and every evaluation's
+    kernel launches are read and reset as they happen (K3 forward and
+    backward a nemar step, K3 forward an evaluation; K4 forward, dq and dk/dv
+    a tfc_diff step, all on the tensor cores, and 7 forward launches an
+    evaluation); the last evaluation must pass ``JOURNEY_THRESHOLDS``, the
+    first (step 1) must not, and loss_G must end below step 1's. One JSON
+    line a family: step-1 and final metrics, ms a step, launches."""
+    by_path = {}
+    for family, steps in JOURNEY_STEPS.items():
+        per_step, per_eval = JOURNEY_LAUNCHES[family]
+        total = dict.fromkeys(COUNTED, 0)
+
+        def on_event(kind: str, step: int) -> None:
+            got, want = counts(), scaled(per_step if kind == "step" else per_eval, 1)
+            if got != want:
+                raise AssertionError(f"{family} journey {kind} {step}: launches {got}, "
+                                     f"want {want}")
+            for k, n in got.items():
+                total[k] += n
+            reset_counts()
+
+        reset_counts()
+        rec = journeys.run_journey(family, device, steps=steps, on_event=on_event,
+                                   log=lambda msg: None)
+        first, last = rec["history"][0], rec["history"][-1]
+        checks = JOURNEY_THRESHOLDS[family]
+        if _journey_passes(first, checks) or not _journey_passes(last, checks):
+            raise AssertionError(f"{family} journey: step 1 {first}, step {last['step']} "
+                                 f"{last}; the last must pass {checks} and step 1 must not")
+        if not last["loss_G"] < first["loss_G"]:
+            raise AssertionError(f"{family} journey: loss_G {first['loss_G']} -> "
+                                 f"{last['loss_G']}")
+        evals = len(rec["history"])
+        want = {k: per_step.get(k, 0) * steps + per_eval.get(k, 0) * evals for k in COUNTED}
+        if total != want:
+            raise AssertionError(f"{family} journey: launches {total}, want {want}")
+        by_path[f"{family}_journey"] = total
+        print(json.dumps({"journey": family, "steps": steps, "step_1": first, "final": last,
+                          "thresholds": checks, "ms_per_step": rec["ms_per_step"],
+                          "first_step_s": rec["first_step_s"], "seconds": rec["seconds"],
+                          "launches": {k: n for k, n in total.items() if n},
+                          "card": card}))
+        torch.cuda.empty_cache()
+    return by_path
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--params", default=None, help="g_params.npz (tools/export_g_params.py)")
@@ -4946,6 +5043,11 @@ def main(argv=None) -> int:
     by_path.update(phase_spatial_debiased(device, card))
 
     mark("25")
+
+    # 26. two learning journeys: nemar and tfc_diff for 200 and 250 bf16 steps
+    by_path.update(phase_journeys(device, card))
+
+    mark("26")
 
     # 18. result
     print(f"chip_smoke: seconds by phase {phase_s}")

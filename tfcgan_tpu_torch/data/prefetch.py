@@ -12,7 +12,8 @@
   ``via_uint8`` the uint8 batches of ``PrefetchLoader(raw=True)`` cross
   (4x fewer bytes) and are normalised on the device (``pool.finish_uint8``,
   bit for bit the host path's values); class labels pass through as they are.
-- ``is_device_batch``: ``Trainer.step`` uses such a batch as it is.
+- ``is_device_batch``: ``Trainer.step`` uses such a batch as it is;
+  ``stage_batch`` places any other (a host batch) on the device.
 
 In a data-parallel run each rank's ``PrefetchLoader(mesh=...)`` shuffles with
 the same seed and decodes only its share of each global batch (by its data
@@ -105,6 +106,17 @@ def is_device_batch(batch: dict, device) -> bool:
     device = torch.device(device)
     return all(isinstance(v, torch.Tensor) and v.device.type == device.type
                and device.index in (None, v.device.index) for v in batch.values())
+
+
+def stage_batch(batch: dict, device) -> dict[str, torch.Tensor]:
+    """A host batch on ``device`` as a step takes it: the images (A, B, T_B)
+    float32 and the class labels (LAB, LAB3) int64, each contiguous; other
+    keys are dropped."""
+    images = {k: torch.as_tensor(v).to(device, torch.float32).contiguous()
+              for k, v in batch.items() if k in ("A", "B", "T_B")}
+    labels = {k: torch.as_tensor(v).to(device, torch.int64).contiguous()
+              for k, v in batch.items() if k in ("LAB", "LAB3")}
+    return {**images, **labels}
 
 
 def device_prefetch(batches: Iterable[dict], device, via_uint8: bool = False

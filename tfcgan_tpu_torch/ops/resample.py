@@ -154,7 +154,8 @@ def warp_affine_separable(src: torch.Tensor, theta: torch.Tensor, mode: str = "b
                           ) -> torch.Tensor:
     """Two-pass separable affine warp, differentiable in src and theta.
 
-    src: (N, H, W, C) contiguous; theta: (N, 2, 3), normalized,
+    src: (N, H, W, C), any strides (a non-contiguous one is copied once);
+    theta: (N, 2, 3), normalized,
     align_corners=True; needs theta[:, 1, 1] != 0. ``padding_mode="zeros"``
     masks the border-clamped result where the direct warp would sample outside
     the image. With ``rows`` src is this rank's rows of images of ``rows.h``
@@ -172,7 +173,7 @@ def warp_affine_separable(src: torch.Tensor, theta: torch.Tensor, mode: str = "b
     r_eff = R - Q * R2 / Q2
     p1 = p_eff[:, None].expand(n, nl).reshape(n * nl, 1)
     q1 = (q_eff[:, None] * ys[None, :] + r_eff[:, None]).reshape(n * nl, 1)
-    tmp = resample_axis(src.view(n * nl, w, c), p1, q1, w, kmode, True, c)
+    tmp = resample_axis(src.reshape(n * nl, w, c), p1, q1, w, kmode, True, c)
 
     # y-pass: the float32 intermediate as (N, H, W*C), one line per column;
     # on row shards the whole intermediate, and this rank's output rows

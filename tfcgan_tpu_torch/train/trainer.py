@@ -75,7 +75,7 @@ import torch
 import torch.nn as nn
 
 from tfcgan_tpu_torch.config import ExperimentConfig
-from tfcgan_tpu_torch.data.prefetch import is_device_batch
+from tfcgan_tpu_torch.data.prefetch import is_device_batch, stage_batch
 from tfcgan_tpu_torch.models.layers import spectral_power_iteration
 from tfcgan_tpu_torch.parallel.mesh import (SPATIAL_KEYS, Mesh, all_reduce_mean_, loss_mesh,
                                             make_mesh, place_state, shard_batch, shard_draws)
@@ -255,11 +255,7 @@ class Trainer:
                 if mesh.spatial is not None:
                     rows = mesh.image_rows(int(batch["A"].shape[1]))
                 batch = shard_batch(batch, mesh)
-            images = {k: torch.as_tensor(v).to(dev, torch.float32) for k, v in batch.items()
-                      if k in ("A", "B", "T_B")}
-            labels = {k: torch.as_tensor(v).to(dev, torch.int64) for k, v in batch.items()
-                      if k in ("LAB", "LAB3")}
-            batch = {**images, **labels}
+            batch = stage_batch(batch, dev)
         elif mesh is not None and mesh.spatial is not None:
             # a device batch (the pool's, the prefetcher's) holds this rank's
             # rows of images of the run's size: no collective to learn it
