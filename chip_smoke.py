@@ -8,7 +8,7 @@ chain, on one CUDA card.
     python3 chip_smoke.py [--params g_params.npz] [--init-seed 0]
 
 Phases, one line or more each; any failure raises and exits non-zero (20
-to 26 run after 19, and 18 last):
+to 27 run after 19, and 18 last):
 
 1. environment: torch/CUDA versions, the card, its power limit; TF32 off.
 2. build: g++ builds ``tfcgan_tpu_torch/csrc/fastpair.cpp`` (the pair
@@ -169,9 +169,9 @@ to 26 run after 19, and 18 last):
    ``F.scaled_dot_product_attention`` times, forward and backward, at (256, 8,
    4096) and (256, 8, 1024) bfloat16.
 14. tfc_diff serve at full width (the UNet2DModel denoiser, bf16, 128², the
-   config's size): ``Inferencer`` on 2 synthetic batches of 8 over the whole
-   500-step chain and ``cli gen --config tfc_diff`` over 8 A|B PNG pairs (batch
-   4): outputs finite and in [-1, 1], exactly 7 flash attention forward
+   config's size): ``Inferencer`` on a synthetic batch of 8 over the whole
+   500-step chain and ``cli gen --config tfc_diff`` over 4 A|B PNG pairs (one
+   chain at batch 4): outputs finite and in [-1, 1], exactly 7 flash attention forward
    launches a U-Net forward (3500 a chain), all 7 on the tensor cores, no
    backward launch and none of the other kernels; U-Net forwards/s at batch 8
    and 32 and the sampled images/s they give. In float32: one U-Net forward
@@ -199,7 +199,7 @@ to 26 run after 19, and 18 last):
    the plain path (loss terms rtol 1e-4; every gradient within
    ``DEBIASED_TOL`` / ``MASK_TOL``, about three times what two identical runs
    differ by, see ``main``); V7 and V4 train-step
-   images/s over 20 steps at batch 32 (CUDA events around every step:
+   images/s over 10 steps at batch 32 (CUDA events around every step:
    median, min, max) and peak memory; the conditional G served by
    ``Inferencer`` with LAB3 at batch 8 and 32 (11 forward launches a batch,
    images/s, float32 kernel path against plain path, atol 1e-4); ``cli train
@@ -219,7 +219,7 @@ to 26 run after 19, and 18 last):
    draws (loss terms rtol 1e-4; every gradient within ``BASELINE_TOL``: the
    card's convs round otherwise than the CPU's, and the G chains' ReLU kinks
    turn that into gradient differences, see ``main``); train-step images/s
-   over 20 steps after 3 warm-up steps (CUDA events around every step:
+   over 10 steps after 3 warm-up steps (CUDA events around every step:
    median, min, max) and peak memory, ``thermalgan`` at batch 32 and 128,
    ``thermalgan_bn`` at 32, ``cyclegan`` at 16; ``Inferencer`` images/s at
    batch 8 and 32 for both families and ``cli test`` writing their stacks
@@ -380,6 +380,18 @@ to 26 run after 19, and 18 last):
    on the tensor cores) and every evaluation (1 K3 forward; 7 K4 forward):
    paths ``nemar_journey`` and ``tfc_diff_journey``. One JSON line a family
    (``{"journey": ...}``: step-1 and final metrics, ms a step, launches).
+27. nemar through the CLI, tools/run_e2e_nemar_journey_torch.sh cut to 2
+   epochs: 32 face pairs whose B is misaligned (rotation +-4 degrees,
+   translation +-6 px) at 128² through ``tools/make_e2e_dataset_torch.py``,
+   ``cli train --experiment nemar`` (batch 16, bf16, a checkpoint every
+   epoch: 5 steps), ``cli test`` from the last checkpoint (8 pairs, the
+   6-image stacks), the 6-role ``prep-crop``, ``eval-reg`` over (real_B,
+   real_A, reg_A) and ``eval --iqa niqe`` of fake_TR_B against real_B. The
+   launches are read and reset after every train step (1 K3 forward and 1
+   backward) and every served batch (1 K3 forward): path ``nemar_cli``. The
+   metric CSVs must have their columns and every value finite. One JSON line
+   (``{"nemar_cli": ...}``: steps, served batches, the metric means,
+   launches, seconds).
 
 In the kernels' JSON, ``launches`` is the count of the kernel's main path, the
 last train path driven that runs it (``main_path``: phase 10's three steps for
@@ -2426,6 +2438,10 @@ def _diff_cfg(name: str, dtype: str, timesteps: int | None = None):
     return cfg.replace(extra={**cfg.extra, "timesteps": timesteps}) if timesteps else cfg
 
 
+DIFF_CHAINS = 1     # 500-step chains at B=8 through Inferencer
+DIFF_GEN_PAIRS = 4  # test pairs of cli gen: one chain at its batch of 4
+
+
 def phase_diff_serve(device, args, card: str) -> dict[str, int]:
     """The full-width tfc_diff serve path (the whole ancestral chain on the
     card) through ``Inferencer`` and ``cli gen``; returns the run's launch
@@ -2438,7 +2454,8 @@ def phase_diff_serve(device, args, card: str) -> dict[str, int]:
                                              torch.Generator().manual_seed(args.init_seed))
     n_params = sum(p.numel() for p in nets.parameters())
     inf = Inferencer(cfg, nets)
-    batches = [synthetic_batch(batch_size=8, image_size=DIFF_SIZE, seed=70 + i) for i in range(2)]
+    batches = [synthetic_batch(batch_size=8, image_size=DIFF_SIZE, seed=70 + i)
+               for i in range(DIFF_CHAINS)]
     reset_counts()
     t0 = time.perf_counter()
     chains = 0
@@ -2456,24 +2473,26 @@ def phase_diff_serve(device, args, card: str) -> dict[str, int]:
     chain_s = (time.perf_counter() - t0) / chains
     with tempfile.TemporaryDirectory() as tmp:
         data, out_dir = os.path.join(tmp, "data"), os.path.join(tmp, "out")
-        pairs = synthetic_batch(batch_size=8, image_size=DIFF_SIZE, seed=13)
-        for i in range(8):
+        pairs = synthetic_batch(batch_size=DIFF_GEN_PAIRS, image_size=DIFF_SIZE, seed=13)
+        for i in range(DIFF_GEN_PAIRS):
             save_image_grid([pairs["A"][i], pairs["B"][i]],
                             os.path.join(data, "test", f"{i:03d}.png"), axis=1)
         cli.main(["gen", "--config", "tfc_diff", "--data-root", data, "--image-size",
                   str(DIFF_SIZE), "--dtype", "bfloat16", "--out-dir", out_dir,
                   "--init-seed", str(args.init_seed), "--seed", "3", "--device", "cuda"])
-        chains += 2  # batch 4 by default
+        gen_chains = -(-DIFF_GEN_PAIRS // 4)  # batch 4 by default
+        chains += gen_chains
         stacks = sorted(f for f in os.listdir(out_dir) if f.endswith(".png"))
         with Image.open(os.path.join(out_dir, stacks[0])) as img:
             size = img.size
     seconds = time.perf_counter() - t0
-    if len(stacks) != 8 or size != (DIFF_SIZE, 2 * DIFF_SIZE):
+    if len(stacks) != DIFF_GEN_PAIRS or size != (DIFF_SIZE, 2 * DIFF_SIZE):
         raise AssertionError(f"cli gen wrote {len(stacks)} stacks of size {size}")
     run = expect_counts("tfc_diff serve", DIFF_FORWARD, chains * steps)
     print(f"tfc_diff serve: CondUNet {n_params:,} parameters, bf16, {DIFF_SIZE}²; {chains} chains "
-          f"of {steps} steps (2 x 8 images through Inferencer, {chain_s:.2f} s a chain = "
-          f"{8 / chain_s:.2f} sampled img/s; 2 x 4 through cli gen) in {seconds:.2f} s: samples "
+          f"of {steps} steps ({DIFF_CHAINS} x 8 images through Inferencer, {chain_s:.2f} s a "
+          f"chain = {8 / chain_s:.2f} sampled img/s; {gen_chains} x 4 through cli gen) in "
+          f"{seconds:.2f} s: samples "
           f"finite and in [-1, 1], {len(stacks)} real_A | sample stacks of {size[0]}x{size[1]}; "
           f"launches a U-Net forward {DIFF_FORWARD}, {run['flashattn_fwd']} in all, no backward "
           f"launch, no other kernel [{card}]")
@@ -2541,7 +2560,7 @@ DEBIASED_TERMS = ("g_adv", "g_triplet", "g_temp", "g_lpips", "g_fft", "g_ce", "l
 MASK_TERMS = TRAIN_TERMS + ("g_mask",)
 # their float32 steps at B=4 against a reference: elementwise x max|g|, and L2 (see main)
 DEBIASED_TOL, MASK_TOL = (3e-2, 1.2e-2), (7e-1, 4e-1)
-FAMILY_RATE_STEPS = 20  # timed steps a variant, after 3 warm-up steps
+FAMILY_RATE_STEPS = 10  # timed steps a variant, after 3 warm-up steps
 FAMILY_SERVE_BATCHES = (8, 32)
 FAMILY_CLI_PAIRS = 64   # cli train --annots at batch 32: 2 steps an epoch
 
@@ -2731,7 +2750,7 @@ BASELINES = {"thermalgan": THERMAL_TERMS, "thermalgan_bn": THERMAL_TERMS + ("d_v
              "cyclegan": ("loss_G", "g_adv", "g_cycle", "g_id", "loss_D", "d_A", "d_B")}
 BASELINE_RATES = (("thermalgan", 32), ("thermalgan", 128), ("thermalgan_bn", 32),
                   ("cyclegan", 16))
-BASELINE_RATE_STEPS = 20
+BASELINE_RATE_STEPS = 10
 # their float32 step on the card against the CPU: (L2, elementwise x max|g|), see main
 BASELINE_TOL = (3e-2, 0.3)
 BASELINE_CLI_BATCH = 8
@@ -4785,6 +4804,113 @@ def phase_journeys(device, card: str) -> dict[str, dict[str, int]]:
     return by_path
 
 
+NEMAR_CLI = {"pairs": 32, "test": 8, "size": 128, "batch": 16, "epochs": 2}
+REG_COLUMNS = ("ssim_before", "ssim_after", "ncc_before", "ncc_after", "mi_before", "mi_after")
+PAIR_COLUMNS = ("psnr", "ssim", "ssim_gray", "bhatt", "fft_mag_mse", "fft_mag_mae",
+                "niqe_fake", "niqe_real")
+
+
+def _csv_columns(path: str, want) -> list[dict]:
+    """The rows of ``path``, whose columns must be file + ``want``, all finite."""
+    with open(path, newline="") as f:
+        rows = list(csv.DictReader(f))
+    if not rows or list(rows[0]) != ["file", *want]:
+        raise AssertionError(f"{path}: {len(rows)} rows, columns {list(rows[0]) if rows else []}")
+    if not all(np.isfinite(float(r[k])) for r in rows for k in want):
+        raise AssertionError(f"{path}: a value is not finite")
+    return rows
+
+
+def phase_nemar_cli(device, card: str) -> dict[str, dict[str, int]]:
+    """nemar through the user's commands (tools/run_e2e_nemar_journey_torch.sh
+    cut to 2 epochs): 32 face pairs whose B is misaligned, at 128²
+    (tools/make_e2e_dataset_torch.py --scene face --warp-b), ``cli train``
+    (batch 16, bf16, a checkpoint every epoch), ``cli test`` from the last
+    checkpoint, the 6-role ``prep-crop``, ``eval-reg`` over (real_B, real_A,
+    reg_A) and ``eval --iqa niqe`` of fake_TR_B against real_B. K3's launches
+    are read and reset after every train step (forward and backward once
+    each, in both STN warps' one sampling call) and every served batch (one
+    forward); the metric CSVs must have their columns, every value finite."""
+    t0 = time.perf_counter()
+    spec = NEMAR_CLI
+    total = dict.fromkeys(COUNTED, 0)
+    events = {"step": 0, "batch": 0}
+
+    def check(kind: str, per_unit: dict[str, int]) -> None:
+        events[kind] += 1
+        got = counts()
+        if got != scaled(per_unit, 1):
+            raise AssertionError(f"nemar cli {kind} {events[kind]}: launches {got}, "
+                                 f"want {per_unit}")
+        for k, n in got.items():
+            total[k] += n
+        reset_counts()
+
+    step, serve = Trainer.step, Inferencer.__call__
+
+    def counted_step(self, state, batch):
+        out = step(self, state, batch)
+        check("step", NEMAR_STEP)
+        return out
+
+    def counted_serve(self, batch):
+        out = serve(self, batch)
+        check("batch", NEMAR_SERVE_BATCH)
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data, runs, out = (os.path.join(tmp, d) for d in ("data", "runs", "eval"))
+        _load_tool("make_e2e_dataset_torch").main(
+            ["--root", data, "--scene", "face", "--warp-b", "--n", str(spec["pairs"]),
+             "--test", str(spec["test"]), "--size", str(spec["size"])])
+        common = ["--experiment", "nemar", "--data-root", data, "--image-size",
+                  str(spec["size"]), "--batch-size", str(spec["batch"]), "--dtype", "bfloat16",
+                  "--device", "cuda"]
+        reset_counts()
+        with mock.patch.object(Trainer, "step", counted_step), \
+                mock.patch.object(Inferencer, "__call__", counted_serve):
+            cli.main(["train", *common, "--n-epochs", str(spec["epochs"]),
+                      "--checkpoint-interval", "1", "--out-dir", runs])
+            steps = events["step"]
+            ckpt = latest_checkpoint(runs)
+            cli.main(["test", *common, "--checkpoint", ckpt, "--out-dir",
+                      os.path.join(out, "stacks")])
+        batches = events["batch"]
+        cli.main(["prep-crop", "--device", "cpu", "--stack-dir", os.path.join(out, "stacks"),
+                  "--out-root", out, "--roles", NEMAR_ROLES])
+        reg_csv, pair_csv = os.path.join(out, "reg_metrics.csv"), os.path.join(out, "pair.csv")
+        cli.main(["eval-reg", "--device", "cpu", "--real-a-dir", os.path.join(out, "real_B"),
+                  "--real-b-dir", os.path.join(out, "real_A"), "--reg-b-dir",
+                  os.path.join(out, "reg_A"), "--out-csv", reg_csv])
+        cli.main(["eval", "--device", "cpu", "--fake-dir", os.path.join(out, "fake_TR_B"),
+                  "--real-dir", os.path.join(out, "real_B"), "--out-csv", pair_csv,
+                  "--iqa", "niqe"])
+        reg = _csv_columns(reg_csv, REG_COLUMNS)
+        pair = _csv_columns(pair_csv, PAIR_COLUMNS)
+        rows = _log_rows(os.path.join(runs, "logs", "nemar.jsonl"))
+    spe = spec["pairs"] // spec["batch"]
+    want_steps, want_batches = 1 + spec["epochs"] * spe, -(-spec["test"] // spec["batch"])
+    if steps != want_steps or batches != want_batches or not len(reg) == len(pair) == spec["test"]:
+        raise AssertionError(f"nemar cli: {steps} steps (want {want_steps}), {batches} served "
+                             f"batches (want {want_batches}), {len(reg)} / {len(pair)} rows")
+    if os.path.basename(ckpt) != f"step_{want_steps:08d}":
+        raise AssertionError(f"nemar cli: last checkpoint {ckpt}")
+    want = {k: NEMAR_STEP.get(k, 0) * steps + NEMAR_SERVE_BATCH.get(k, 0) * batches
+            for k in COUNTED}
+    if total != want:
+        raise AssertionError(f"nemar cli: launches {total}, want {want}")
+    means = {k: float(np.mean([float(r[k]) for r in tab])) for tab, cols in
+             ((reg, REG_COLUMNS), (pair, PAIR_COLUMNS)) for k in cols}
+    print(json.dumps({"nemar_cli": {"pairs": spec["pairs"], "size": spec["size"],
+                                    "batch": spec["batch"], "steps": steps,
+                                    "served_batches": batches, "log_rows": len(rows),
+                                    "means": means,
+                                    "launches": {k: n for k, n in total.items() if n},
+                                    "seconds": round(time.perf_counter() - t0, 1),
+                                    "card": card}}))
+    return {"nemar_cli": total}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--params", default=None, help="g_params.npz (tools/export_g_params.py)")
@@ -5048,6 +5174,11 @@ def main(argv=None) -> int:
     by_path.update(phase_journeys(device, card))
 
     mark("26")
+
+    # 27. nemar through the CLI: train, test, prep-crop, eval-reg, eval --iqa niqe
+    by_path.update(phase_nemar_cli(device, card))
+
+    mark("27")
 
     # 18. result
     print(f"chip_smoke: seconds by phase {phase_s}")

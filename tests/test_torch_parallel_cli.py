@@ -20,6 +20,7 @@ import glob
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
 
@@ -32,16 +33,45 @@ from tfcgan_tpu_torch.evaluation.suite import _read_rgb
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+class Torchrun:
+    """``cli`` under torchrun, 2 ranks, started at once: the caller computes
+    while it runs, and ``wait()`` returns its standard output. Killed with its
+    ranks on overrun, or when the caller's block raises."""
+
+    def __init__(self, args, timeout=240):
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", "2", "-m", "tfcgan_tpu_torch.cli", *args]
+        env = {**os.environ, "OMP_NUM_THREADS": "1",
+               "PYTHONPATH": os.pathsep.join([REPO, os.environ.get("PYTHONPATH", "")])}
+        self.timeout = timeout
+        self.proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                     text=True, cwd=REPO, env=env, start_new_session=True)
+
+    def wait(self) -> str:
+        try:
+            out, err = self.proc.communicate(timeout=self.timeout)
+        except subprocess.TimeoutExpired:
+            self.kill()
+            raise
+        assert self.proc.returncode == 0, f"{out[-3000:]}\n{err[-6000:]}"
+        return out
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            os.killpg(self.proc.pid, signal.SIGKILL)  # torchrun and its ranks
+            self.proc.communicate()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if exc[0] is not None:
+            self.kill()
+
+
 def _torchrun(args, timeout=240):
     """``cli`` under torchrun, 2 ranks; killed with its ranks on overrun."""
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
-           "2", "-m", "tfcgan_tpu_torch.cli", *args]
-    env = {**os.environ, "OMP_NUM_THREADS": "1",
-           "PYTHONPATH": os.pathsep.join([REPO, os.environ.get("PYTHONPATH", "")])}
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout, cwd=REPO,
-                          env=env)
-    assert proc.returncode == 0, f"{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}"
-    return proc.stdout
+    return Torchrun(args, timeout).wait()
 
 
 def _log(out):

@@ -75,30 +75,36 @@ def test_fft_glo_spatial_mesh_matches_world_one_and_the_jax_spatial_mesh(tmp_pat
     draws = {"neg": d.patch_neg.numpy(), "factors": d.jitter_factors.numpy(),
              "order": list(d.jitter_order)}
     kw = dict(cfg=cfg, modules=str(modules), draws=draws, steps=1)
-    w4 = ranks.spawn("fftglo_steps", 4, tmp_path, spatial=2, **kw)
-    w1 = ranks.fftglo_steps(0, 1, **kw)
+    kw64 = dict(kw, tmp=str(tmp_path), float64=True)
+    # the ranks' float32 and float64 steps in one spawn, world 1's in another;
+    # the JAX Trainer's step on its (data 4 x spatial 2) mesh, from the same
+    # state, runs here meanwhile
+    with ranks.start("calls", 4, tmp_path, deadline=300.0,
+                     jobs=[("fftglo_steps", dict(kw, spatial=2)),
+                           ("fftglo_steps", dict(kw64, spatial=2))]) as job, \
+            ranks.start("calls", 1, tmp_path, deadline=300.0,
+                        jobs=[("fftglo_steps", kw), ("fftglo_steps", kw64)]) as one:
+        c = cfg.replace(mesh=cfg.mesh.__class__(num_devices=8, spatial=2))
+        mesh = jax_make_mesh(8, spatial=2)
+        trainer = JaxTrainer(c, recipe, mesh=mesh)
+        assert trainer.mesh.axis_names == ("data", "spatial")
+        jstate = jax_place_state(state, mesh)
+        _, m = trainer.compiled_step()(jstate, jax_shard_batch(synthetic_batch(8, 64, seed=0),
+                                                               mesh))
+        want = {k: float(v) for k, v in jax.device_get(m).items()}
+        w4 = [r[0] for r in job.join()]
+        w1 = one.join()[0][0]
     assert all(w["metrics"] == w4[0]["metrics"] and w["sums"] == w4[0]["sums"] for w in w4)
     assert all(w["replicated"] == 2 for w in w4), [w["replicated"] for w in w4]
     assert w4[0]["allreduces"] == 2 and set(w4[0]["bytes"]) == {"G", "D"}
     _close_metrics(w4[0]["metrics"][0], w1["metrics"][0], 1e-5, 1e-6)
     assert sorted(w4[0]["metrics"][0]) == sorted(w1["metrics"][0])
-    kw64 = dict(kw, tmp=str(tmp_path), float64=True)
-    ranks.spawn("fftglo_steps", 4, tmp_path, spatial=2, **kw64)
-    ranks.fftglo_steps(0, 1, **kw64)
     grads = {f"{m}{w}": torch.load(tmp_path / f"{m}_grads_{w}_f64.pt") for m in "gd" for w in "41"}
     for name in ("modules.pt", *(f"{m}_grads_{w}_f64.pt" for m in "gd" for w in "41")):
         (tmp_path / name).unlink()
     for m in "gd":
         _close_grads(grads[m + "4"], grads[m + "1"], m.upper())
 
-    # the JAX Trainer's step on its (data 4 x spatial 2) mesh, from the same state
-    c = cfg.replace(mesh=cfg.mesh.__class__(num_devices=8, spatial=2))
-    mesh = jax_make_mesh(8, spatial=2)
-    trainer = JaxTrainer(c, recipe, mesh=mesh)
-    assert trainer.mesh.axis_names == ("data", "spatial")
-    jstate = jax_place_state(state, mesh)
-    _, m = trainer.compiled_step()(jstate, jax_shard_batch(synthetic_batch(8, 64, seed=0), mesh))
-    want = {k: float(v) for k, v in jax.device_get(m).items()}
     got = w4[0]["metrics"][0]
     _close_metrics(got, want, 2e-4, 0.0, keys=("loss_G", "loss_D", "g_fft"))
     _close_metrics(got, want, 2e-3, 1e-5)

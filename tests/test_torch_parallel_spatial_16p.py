@@ -1,8 +1,8 @@
 """The port's spatial axis on the CPU beyond fft_glo's (2 data x 2 spatial)
 step: ``original_16p`` (the contract of
 ``tests/test_train.py::TestSpatialMesh::test_dp_x_spatial_step``) and the
-spatial axis composed with the tensor axis. Four gloo ranks each, spawned
-by ``torch_dist_ranks.spawn``, one step at 64², float32, from the port's
+spatial axis composed with the tensor axis. Four gloo ranks each, started
+by ``torch_dist_ranks.start``, one step at 64², float32, from the port's
 init (seed 1), against one process:
 
 - ``original_16p``, global B=4, on (2 data x 2 spatial), with the recipe's
@@ -45,17 +45,20 @@ def test_spatial_steps_match_one_process(tmp_path, case):
     else:
         cfg, axes = fftglo_cfg(64, 4), dict(spatial=2, tensor=2)
     kw = dict(cfg=cfg, steps=1)
-    w4 = ranks.spawn("fftglo_steps", 4, tmp_path, **axes, **kw)
-    w1 = ranks.fftglo_steps(0, 1, **kw)
+    kw64 = dict(kw, tmp=str(tmp_path), float64=True)
+    # the ranks' float32 and float64 steps in one spawn, one process's in another
+    jobs = [("fftglo_steps", kw), ("fftglo_steps", kw64)]
+    with ranks.start("calls", 4, tmp_path, deadline=300.0,
+                     jobs=[(name, dict(k, **axes)) for name, k in jobs]) as job, \
+            ranks.start("calls", 1, tmp_path, deadline=300.0, jobs=jobs) as one:
+        w4 = [r[0] for r in job.join()]
+        w1 = one.join()[0][0]
     m4, m1 = w4[0]["metrics"][0], w1["metrics"][0]
     assert all(w["metrics"] == w4[0]["metrics"] for w in w4)
     assert np.isfinite(m4["loss_G"]) and np.isfinite(m4["loss_D"])
     assert sorted(m4) == sorted(m1)
     for k in m1:
         assert m4[k] == pytest.approx(m1[k], rel=1e-5, abs=1e-6), (k, m4[k], m1[k])
-    kw64 = dict(kw, tmp=str(tmp_path), float64=True)
-    ranks.spawn("fftglo_steps", 4, tmp_path, **axes, **kw64)
-    ranks.fftglo_steps(0, 1, **kw64)
     for m in "gd":
         got, want = (torch.load(tmp_path / f"{m}_grads_{w}_f64.pt") for w in "41")
         assert sorted(got) == sorted(want)

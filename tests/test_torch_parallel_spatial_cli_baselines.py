@@ -27,7 +27,7 @@ import os
 import shutil
 
 from test_torch_cli_train import _write_pairs
-from test_torch_parallel_cli import _torchrun
+from test_torch_parallel_cli import Torchrun
 from test_torch_parallel_spatial_nemar import BEFORE_D_UPDATE
 from tfcgan_tpu_torch import cli
 
@@ -53,10 +53,14 @@ def _train_args(tmp_path, experiment, size, extra=()):
             "--n-epochs", "1", "--sample-interval", "100", *extra]
 
 
-def _spatial_run(train, out, *extra):
-    """``train`` on the spatial pair under torchrun; checks its summary line."""
-    stdout = _torchrun([*train, "--staging", "pool", "--spatial", "2", "--out-dir", out,
-                        *extra])
+def _spatial_run(train, out, *extra, meanwhile=None):
+    """``train`` on the spatial pair under torchrun, ``meanwhile()`` here while
+    it runs; checks its summary line."""
+    with Torchrun([*train, "--staging", "pool", "--spatial", "2", "--out-dir", out,
+                   *extra]) as run:
+        if meanwhile is not None:
+            meanwhile()
+        stdout = run.wait()
     summary = [line for line in stdout.splitlines() if line.startswith("data-parallel run: ")]
     assert len(summary) == 1, stdout[-2000:]
     run = json.loads(summary[0].split(": ", 1)[1])
@@ -66,8 +70,7 @@ def _spatial_run(train, out, *extra):
 def test_nemar_train_on_a_spatial_pair_matches_one_process(tmp_path):
     train = _train_args(tmp_path, "nemar", 128, ["--checkpoint-interval", "0"])
     one, two = str(tmp_path / "one"), str(tmp_path / "two")
-    cli.main([*train, "--out-dir", one])
-    _spatial_run(train, two)
+    _spatial_run(train, two, meanwhile=lambda: cli.main([*train, "--out-dir", one]))
     w1, w2 = _log(one, "nemar"), _log(two, "nemar")
     assert [r["step"] for r in w1] == [r["step"] for r in w2] == [1, 2]
     assert sorted(w1[0]) == sorted(w2[0])
@@ -85,8 +88,8 @@ def test_cyclegan_train_and_resume_on_a_spatial_pair(tmp_path):
     assert [r["step"] for r in _log(two, "cyclegan")] == [1, 2]
     ckpt = os.path.join(two, "step_00000002")
     resumed = [str(tmp_path / "resumed_two"), str(tmp_path / "resumed_one")]
-    _spatial_run(train, resumed[0], "--resume", ckpt)
-    cli.main([*train, "--out-dir", resumed[1], "--resume", ckpt])
+    _spatial_run(train, resumed[0], "--resume", ckpt,
+                 meanwhile=lambda: cli.main([*train, "--out-dir", resumed[1], "--resume", ckpt]))
     got, want = (_log(r, "cyclegan") for r in resumed)
     assert [r["step"] for r in got] == [r["step"] for r in want] == [3]
     assert sorted(got[0]) == sorted(want[0])

@@ -41,14 +41,12 @@ import torch
 import torch_dist_ranks as ranks
 from test_torch_cyclegan import _cfg as cyclegan_cfg
 from test_torch_parallel_spatial import _close_metrics
-from test_torch_parallel_spatial_stn import close_grads
+from test_torch_parallel_spatial_stn import grad_failures
 
 LOCKSTEP = (3e-3, 1e-4)
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    tmp = tmp_path_factory.mktemp("cyclegan_spatial")
+def _runs(tmp):
     cfg = cyclegan_cfg()
     one = ranks.cyclegan_spatial(0, 1, cfg, str(tmp), resume=False)
     pair = ranks.spawn("cyclegan_spatial", 2, tmp, deadline=240.0, cfg=cfg, tmp=str(tmp),
@@ -60,11 +58,18 @@ def runs(tmp_path_factory):
         shutil.rmtree(tmp / f"ckpt_{w}")
         for m in "gd":
             (tmp / f"cyc_{m}_grads_{w}_f64.pt").unlink()
-    return one, pair, back, grads
+    return one, pair, back, grad_failures({m: (grads[m, 2], grads[m, 1], m.upper())
+                                            for m in "gd"})
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Computed once for the file, whichever workers its tests land on."""
+    return ranks.shared(tmp_path_factory, "cyclegan_spatial", _runs)
 
 
 def test_cyclegan_spatial_pair_matches_world_one(runs):
-    one, pair, _, grads = runs
+    one, pair, _, failures = runs
     for i, want in enumerate(one["steps"]):
         got = pair[0]["steps"][i]
         assert got["metrics"] == pair[1]["steps"][i]["metrics"]
@@ -72,8 +77,7 @@ def test_cyclegan_spatial_pair_matches_world_one(runs):
         _close_metrics(got["metrics"], want["metrics"], *((1e-5, 1e-6) if i == 0 else LOCKSTEP))
     assert pair[0]["f64"]["metrics"] == pair[1]["f64"]["metrics"]
     _close_metrics(pair[0]["f64"]["metrics"], one["f64"]["metrics"], 1e-5, 1e-6)
-    for m in "gd":
-        close_grads(grads[m, 2], grads[m, 1], m.upper())
+    assert failures == {"g": "", "d": ""}, failures
 
 
 def test_cyclegan_buffers_are_whole_and_equal_on_every_rank(runs):

@@ -55,11 +55,14 @@ def spatial_against_world_one(cfg, tmp_path, draws=None):
     pair whose G gradients are compared here."""
     modules = tmp_path / "modules.pt"
     kw = dict(cfg=cfg, modules=str(modules), draws=draws)
-    w4 = ranks.spawn("family_spatial_steps", 4, tmp_path, spatial=2, **kw)
-    w1 = ranks.family_spatial_steps(0, 1, **kw)
     kw64 = dict(kw, tmp=str(tmp_path), float64=True)
-    ranks.spawn("family_spatial_steps", 4, tmp_path, spatial=2, **kw64)
-    ranks.family_spatial_steps(0, 1, **kw64)
+    # the ranks' float32 and float64 steps in one spawn, world 1's here meanwhile
+    with ranks.start("calls", 4, tmp_path, deadline=300.0,
+                     jobs=[("family_spatial_steps", dict(kw, spatial=2)),
+                           ("family_spatial_steps", dict(kw64, spatial=2))]) as job:
+        w1 = ranks.family_spatial_steps(0, 1, **kw)
+        ranks.family_spatial_steps(0, 1, **kw64)
+        w4 = [r[0] for r in job.join()]
     grads = {w: torch.load(tmp_path / f"g_grads_{w}_f64.pt") for w in "41"}
     for name in ("modules.pt", "g_grads_4_f64.pt", "g_grads_1_f64.pt"):
         (tmp_path / name).unlink()

@@ -47,7 +47,7 @@ import torch_dist_ranks as ranks
 from test_torch_nemar import _cfg as nemar_cfg
 from test_torch_nemar import _jax_state
 from test_torch_parallel_spatial import _close_metrics
-from test_torch_parallel_spatial_stn import close_grads
+from test_torch_parallel_spatial_stn import grad_failures
 from tfcgan_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from tfcgan_tpu.parallel.mesh import place_state as jax_place_state
 from tfcgan_tpu.parallel.mesh import shard_batch as jax_shard_batch
@@ -82,18 +82,22 @@ def _jax_metrics(cfg, recipe, state):
     return {k: float(v) for k, v in jax.device_get(m).items()}
 
 
-def pair_and_one(tmp, jobs, spatial=2, float32=None):
+def pair_and_one(tmp, jobs, spatial=2, float32=None, meanwhile=None):
     """``jobs`` (name -> config) on the spatial pair and on world 1 in
     float64, and those named in ``float32`` (default: all) in float32 too:
     the metrics of each run (float64 runs under name + "_64"), and the
-    float64 gradients (each file deleted once read)."""
+    float64 gradients (each file deleted once read). World 1 and
+    ``meanwhile()`` run here while the pair runs."""
     float32 = jobs if float32 is None else float32
     specs = [dict(name=f"{n}{'_64' if f64 else ''}", cfg=c, modules=str(tmp / f"{n}.pt"),
                   float64=f64) for n, c in jobs.items() for f64 in (False, True)
              if f64 or n in float32]
-    pair = ranks.spawn("spatial_jobs", spatial, tmp, deadline=240.0, jobs=specs,
-                       spatial=spatial, tmp=str(tmp))
-    one = ranks.spatial_jobs(0, 1, specs, tmp=str(tmp))
+    with ranks.start("spatial_jobs", spatial, tmp, deadline=240.0, jobs=specs,
+                     spatial=spatial, tmp=str(tmp)) as run:
+        one = ranks.spatial_jobs(0, 1, specs, tmp=str(tmp))
+        if meanwhile is not None:
+            meanwhile()
+        pair = run.join()
     grads = {}
     for name in jobs:
         for m in "gd":
@@ -104,10 +108,15 @@ def pair_and_one(tmp, jobs, spatial=2, float32=None):
     return pair, one, grads
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    tmp = tmp_path_factory.mktemp("nemar_spatial")
-    jobs, states = {}, {}
+def pair_failures(grads, name) -> dict:
+    """``grad_failures`` of run ``name``'s float64 G and D gradients of
+    ``pair_and_one``, the pair's against one process's, keyed (name, part)."""
+    return grad_failures({(name, m): (grads[name, m, 2], grads[name, m, 1],
+                                      f"{name} {m.upper()}") for m in "gd"})
+
+
+def _runs(tmp):
+    jobs, states, want = {}, {}, {}
     for stn_type in STN_TYPES:
         # the conv-affine run also takes a second discriminator on 64² inputs,
         # downscaled from the images gathered once
@@ -115,15 +124,24 @@ def runs(tmp_path_factory):
         cfg = nemar_cfg(128, 1, lambda_smooth=0.5, stn_type=stn_type, **extra)
         jobs[stn_type] = cfg
         states[stn_type] = port_modules(cfg, tmp / f"{stn_type}.pt", _jax_state)
-    pair, one, grads = pair_and_one(tmp, jobs, float32=("deformable",))
+    pair, one, grads = pair_and_one(
+        tmp, jobs, float32=("deformable",),
+        meanwhile=lambda: want.update(_jax_metrics(jobs["deformable"], *states["deformable"])))
     for stn_type in STN_TYPES:
         (tmp / f"{stn_type}.pt").unlink()
-    return jobs, states, pair, one, grads
+    return want, pair, one, {k: v for t in STN_TYPES for k, v in pair_failures(grads, t).items()}
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Computed once for the file (the JAX step while the pair runs),
+    whichever workers its tests land on."""
+    return ranks.shared(tmp_path_factory, "nemar_spatial", _runs)
 
 
 @pytest.mark.parametrize("stn_type", STN_TYPES)
 def test_nemar_spatial_pair_matches_world_one(runs, stn_type):
-    _, _, pair, one, grads = runs
+    _, pair, one, failures = runs
     if stn_type in pair[0]:
         got = [p[stn_type] for p in pair]
         assert got[0]["metrics"] == got[1]["metrics"]
@@ -139,12 +157,11 @@ def test_nemar_spatial_pair_matches_world_one(runs, stn_type):
     assert [g["replicated"] for g in got] == [REPLICATED[stn_type]] * 2
     assert one[stn_type + "_64"]["replicated"] == 0
     for m in "gd":
-        close_grads(grads[stn_type, m, 2], grads[stn_type, m, 1], f"{stn_type} {m.upper()}")
+        assert failures[stn_type, m] == "", failures[stn_type, m]
 
 
 def test_nemar_spatial_pair_matches_the_jax_trainer(runs):
-    jobs, states, pair, _, _ = runs
-    want = _jax_metrics(jobs["deformable"], *states["deformable"])
+    want, pair, _, _ = runs
     got = pair[0]["deformable"]["metrics"]
     assert sorted(got) == sorted(want)
     _close_metrics(got, want, 2e-4, 0.0, keys=("loss_G", "loss_D"))

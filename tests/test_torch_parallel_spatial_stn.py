@@ -77,33 +77,53 @@ def close_grads(got, want, what):
                                    atol=GRAD_TOL, err_msg=f"{what} {k}")
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    tmp = tmp_path_factory.mktemp("stn_spatial")
+def _runs(tmp):
     cfg = stn_cfg("stn_newmodel3", 64, 8)
     modules = tmp / "modules.pt"
     stn_modules(cfg, modules)
     kw = dict(cfg=cfg, modules=str(modules))
-    w4 = ranks.spawn("family_spatial_steps", 4, tmp, spatial=2, **kw)
-    w1 = ranks.family_spatial_steps(0, 1, **kw)
     kw64 = dict(kw, tmp=str(tmp), float64=True)
-    ranks.spawn("family_spatial_steps", 4, tmp, spatial=2, **kw64)
-    ranks.family_spatial_steps(0, 1, **kw64)
+    # the ranks' float32 and float64 steps in one spawn, world 1's here meanwhile
+    with ranks.start("calls", 4, tmp, deadline=300.0,
+                     jobs=[("family_spatial_steps", dict(kw, spatial=2)),
+                           ("family_spatial_steps", dict(kw64, spatial=2))]) as job:
+        w1 = ranks.family_spatial_steps(0, 1, **kw)
+        ranks.family_spatial_steps(0, 1, **kw64)
+        w4 = [r[0] for r in job.join()]
     grads = {f"{m}{w}": torch.load(tmp / f"{m}_grads_{w}_f64.pt") for m in "gd" for w in "41"}
     for name in ("modules.pt", *(f"{m}_grads_{w}_f64.pt" for m in "gd" for w in "41")):
         (tmp / name).unlink()
-    return w4, w1, grads
+    return w4, w1, grad_failures({m: (grads[m + "4"], grads[m + "1"], m.upper()) for m in "gd"})
+
+
+def grad_failures(cases: dict) -> dict:
+    """``close_grads(got, want, what)`` of each case (key -> the three): ""
+    where it holds, else its failure; a result shared between workers
+    carries these and not the gradients, which are large."""
+    out = {}
+    for key, (got, want, what) in cases.items():
+        try:
+            close_grads(got, want, what)
+            out[key] = ""
+        except AssertionError as e:
+            out[key] = str(e)
+    return out
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Computed once for the file, whichever workers its tests land on."""
+    return ranks.shared(tmp_path_factory, "stn_spatial", _runs)
 
 
 def test_stn_spatial_mesh_matches_world_one(runs):
-    w4, w1, grads = runs
+    w4, w1, failures = runs
     assert all(w["metrics"] == w4[0]["metrics"] for w in w4)
     assert sorted(w4[0]["metrics"]) == sorted(w1["metrics"])
     _close_metrics(w4[0]["metrics"], w1["metrics"], 1e-5, 1e-6)
     assert all(w["replicated"] == 6 for w in w4), [w["replicated"] for w in w4]
     assert w1["replicated"] == 0
-    for m in "gd":
-        close_grads(grads[m + "4"], grads[m + "1"], m.upper())
+    assert failures == {"g": "", "d": ""}, failures
 
 
 def test_stn_morph_term_is_finite_on_the_spatial_mesh(runs):

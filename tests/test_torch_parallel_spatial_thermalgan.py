@@ -34,9 +34,11 @@ import dataclasses
 
 import pytest
 
+import torch_dist_ranks as ranks
+
 from test_torch_parallel_spatial import _close_metrics
-from test_torch_parallel_spatial_nemar import _jax_metrics, pair_and_one, port_modules
-from test_torch_parallel_spatial_stn import close_grads
+from test_torch_parallel_spatial_nemar import (_jax_metrics, pair_and_one, pair_failures,
+                                               port_modules)
 from test_torch_thermalgan_recipe import _cfg, _jax_state
 
 
@@ -45,9 +47,9 @@ def thermal_cfg(name, batch=1, **extra):
     return cfg.replace(data=dataclasses.replace(cfg.data, batch_size=batch))
 
 
-def check_pair(pair, one, grads, name, replicated=1):
+def check_pair(pair, one, failures, name, replicated=1):
     """The runs of ``name`` (float32 where it ran, and float64) against
-    world 1's, and its float64 gradients."""
+    world 1's, and its float64 gradients' comparison (``pair_failures``)."""
     for run in (name, name + "_64"):
         if run not in pair[0]:
             continue
@@ -57,27 +59,33 @@ def check_pair(pair, one, grads, name, replicated=1):
         _close_metrics(got[0]["metrics"], one[run]["metrics"], 1e-5, 1e-6)
         assert [g["replicated"] for g in got] == [replicated] * 2 and one[run]["replicated"] == 0
     for m in "gd":
-        close_grads(grads[name, m, 2], grads[name, m, 1], f"{name} {m.upper()}")
+        assert failures[name, m] == "", failures[name, m]
+
+
+def _runs(tmp):
+    cfg = thermal_cfg("thermalgan_bn")
+    state = port_modules(cfg, tmp / "bn.pt", _jax_state)
+    want = {}
+    pair, one, grads = pair_and_one(tmp, {"bn": cfg},
+                                    meanwhile=lambda: want.update(_jax_metrics(cfg, *state)))
+    (tmp / "bn.pt").unlink()
+    return want, pair, one, pair_failures(grads, "bn")
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    tmp = tmp_path_factory.mktemp("thermalgan_spatial")
-    cfg = thermal_cfg("thermalgan_bn")
-    state = port_modules(cfg, tmp / "bn.pt", _jax_state)
-    pair, one, grads = pair_and_one(tmp, {"bn": cfg})
-    (tmp / "bn.pt").unlink()
-    return cfg, state, pair, one, grads
+    """Computed once for the file (the JAX step while the pair runs),
+    whichever workers its tests land on."""
+    return ranks.shared(tmp_path_factory, "thermalgan_spatial", _runs)
 
 
 def test_thermalgan_bn_spatial_pair_matches_world_one(runs):
-    _, _, pair, one, grads = runs
-    check_pair(pair, one, grads, "bn")
+    _, pair, one, failures = runs
+    check_pair(pair, one, failures, "bn")
 
 
 def test_thermalgan_bn_spatial_pair_matches_the_jax_trainer(runs):
-    cfg, state, pair, _, _ = runs
-    want = _jax_metrics(cfg, *state)
+    want, pair, _, _ = runs
     got = pair[0]["bn"]["metrics"]
     assert sorted(got) == sorted(want)
     _close_metrics(got, want, 2e-4, 0.0, keys=("loss_G", "loss_D"))

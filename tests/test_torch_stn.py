@@ -3,7 +3,9 @@ morphology, the msrecon anchor, the ViT and the affine STN, float32 on the
 CPU, the same numpy inputs and the JAX weights carried over by the bridge.
 
 Tolerances: morphology and msrecon are a few float32 operations (atol 1e-6 /
-rtol 1e-5); ViT tokens atol 2e-5 (LayerNorm + matmuls through 2 blocks);
+rtol 1e-5); ViT tokens atol 2e-5 (LayerNorm + matmuls through 2 blocks), in
+bfloat16 a relative L2 of 2e-2 against JAX's bfloat16 tokens (each side's
+rounding: about 5e-3 from JAX's float32 ones);
 theta atol 2e-5, warped images 5e-5 (theta's own 1e-5 moves a sample by up to
 3e-4 pixel at 64², times the image's slope; with one theta both warps agree to
 2e-5, test_torch_resample.py and test_torch_warp.py); parameter gradients atol 2e-4 x the tensor's
@@ -142,6 +144,27 @@ def test_vit_matches_jax_with_bridged_weights(patch, size):
     np.testing.assert_allclose(got.detach().numpy(), want, atol=2e-5)
     (got * torch.from_numpy(ct)).sum().backward()
     _assert_grads(vit, want_g, vit_from_flax)
+
+
+@pytest.mark.parametrize("patch,size", [(64, 128), (16, 64)])
+def test_vit_in_bfloat16_matches_jax(patch, size):
+    """The bfloat16 tokens against the JAX ViT's in bfloat16 on the same
+    weights and input: 5.6e-3 and 5.4e-3 (JAX's bfloat16 tokens are 5.9e-3
+    and 5.6e-3 from its float32 ones). The patch embedding as a bfloat16
+    conv on the CPU put them 1.32 and 1.38 off."""
+    jax_vit = JaxViT(patch_size=patch, dim=SMALL["dim"], depth=SMALL["depth"],
+                     heads=SMALL["heads"], mlp_dim=SMALL["mlp_dim"], dtype=jnp.bfloat16)
+    x = np.tanh(np.random.RandomState(3).randn(2, size, size, 6)).astype(np.float32)
+    shapes = jax.eval_shape(jax_vit.init, jax.random.PRNGKey(0), jnp.asarray(x))["params"]
+    params = _np_params(shapes, seed=4)
+    want = np.asarray(jax_vit.apply({"params": params}, jnp.asarray(x)), np.float32)
+    vit = ViT(size, in_channels=6, patch_size=patch, dtype=torch.bfloat16, **SMALL)
+    vit.load_state_dict(vit_from_flax(params))
+    with torch.no_grad():
+        got = vit(torch.from_numpy(x))
+    assert got.dtype == torch.bfloat16
+    rel = np.linalg.norm(got.float().numpy() - want) / np.linalg.norm(want)
+    assert rel < 2e-2, rel
 
 
 def test_vit_refuses_another_image_size():

@@ -1,14 +1,10 @@
 """The port's fft_glo train step against the JAX package's, float32 on the CPU.
 
-The JAX state is built from numpy draws (G and D kernels normal(0, 0.02),
-spectral u/v after 5 power iterations, LPIPS lecun-scaled normal convs and
-uniform(0, 0.1) lin weights) and carried into the port by
-``bridge.train_state_from_flax``. The port's step draws are rebuilt from the
-JAX key as the JAX step draws them: ``fold_in(rng, step)`` -> ``split`` ->
-``split(g_rng, 5)`` -> ``randint`` (patch negatives) and the ColorJitter
-draws of ``ops/color.py``. G dropout is off (``deterministic_g``): flax's
-dropout masks are not rebuilt here, and the U-Net blocks' masks are tested
-in test_torch_models.py.
+Both sides start from one JAX state of numpy draws, carried into the port by
+``bridge.train_state_from_flax``, and the port's step draws are rebuilt from
+the JAX key (``torch_jax_lockstep``, shared with the drift test). G dropout
+is off (``deterministic_g``): flax's dropout masks are not rebuilt here, and
+the U-Net blocks' masks are tested in test_torch_models.py.
 
 Tolerances: (a) at fixed weights every loss term rtol 1e-4 and every
 gradient atol 2e-4 x its tensor's max|g|; (b)-(d) over whole steps, loss
@@ -16,108 +12,18 @@ terms rtol 3e-3 / atol 1e-4, the early-step window of
 test_parity_trajectory.py (float32 noise compounds through the Adam steps).
 """
 
-import dataclasses
-
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from test_torch_losses import jax_jitter_draws
-from tfcgan_tpu.config import get_experiment
 from tfcgan_tpu.models.layers import spectral_power_iteration as jax_power_iteration
-from tfcgan_tpu.parallel.mesh import make_mesh, place_state, shard_batch
-from tfcgan_tpu.recipes import build_recipe as jax_build_recipe
-from tfcgan_tpu.train.state import GANTrainState, make_optimizers as jax_make_optimizers
-from tfcgan_tpu.train.trainer import Trainer as JaxTrainer
 from tfcgan_tpu_torch.bridge import discriminator_from_flax, generator_from_flax
 from tfcgan_tpu_torch.bridge import train_state_from_flax
-from tfcgan_tpu_torch.data.synth import synthetic_batch
 from tfcgan_tpu_torch.models.layers import spectral_power_iteration
 from tfcgan_tpu_torch.recipes import build_recipe
-from tfcgan_tpu_torch.recipes.tfcgan import StepDraws
 from tfcgan_tpu_torch.train.trainer import Trainer, _frozen
-
-TERMS = ("g_adv", "g_triplet", "g_temp", "g_lpips", "g_fft", "loss_G", "loss_D")
-
-
-def _cfg(size, batch, **extra):
-    cfg = get_experiment("fft_glo")
-    return cfg.replace(data=dataclasses.replace(cfg.data, batch_size=batch, image_size=size),
-                       train=dataclasses.replace(cfg.train, compute_dtype="float32"),
-                       extra={"deterministic_g": True, **extra})
-
-
-def _jax_state(cfg, seed=0):
-    """A JAX GANTrainState at step 0 from numpy draws (no flax init run)."""
-    recipe = jax_build_recipe(cfg)
-    key = jax.random.PRNGKey(seed)
-    batch = synthetic_batch(cfg.data.batch_size, cfg.data.image_size)
-    shapes = jax.eval_shape(recipe.init, key, batch)
-    rng = np.random.RandomState(seed)
-
-    def draw(path, s):
-        name = jax.tree_util.keystr(path)
-        if "lin" in name:
-            return rng.uniform(0, 0.1, s.shape).astype(np.float32)
-        if "bias" in name:
-            return np.zeros(s.shape, np.float32)
-        if "lpips" in name:
-            return (rng.randn(*s.shape) / np.sqrt(np.prod(s.shape[:3]))).astype(np.float32)
-        return (rng.randn(*s.shape) * 0.02).astype(np.float32)
-
-    def unit(s):
-        v = rng.randn(*s.shape)
-        return (v / np.linalg.norm(v)).astype(np.float32)
-
-    pieces = {k: jax.tree_util.tree_map_with_path(draw, shapes[k])
-              for k in ("g_params", "d_params", "frozen")}
-    spectral = jax.tree.map(unit, shapes["spectral"])
-    for _ in range(5):
-        spectral = jax_power_iteration(pieces["d_params"], spectral)
-    g_tx, d_tx = jax_make_optimizers(cfg)
-    state = GANTrainState(step=jnp.zeros((), jnp.int32), rng=jax.random.split(key)[1],
-                          g_params=pieces["g_params"], d_params=pieces["d_params"],
-                          spectral=jax.device_get(spectral), frozen=pieces["frozen"],
-                          g_opt_state=g_tx.init(pieces["g_params"]),
-                          d_opt_state=d_tx.init(pieces["d_params"]))
-    return recipe, state
-
-
-def jax_step_draws(rng, step: int, grid: int) -> StepDraws:
-    """The patch negatives and ColorJitter draws of the JAX step ``step``."""
-    g_rng, _ = jax.random.split(jax.random.fold_in(rng, step))
-    _, k_patch, k_temp, _, _ = jax.random.split(g_rng, 5)
-    neg = np.array(jax.random.randint(k_patch, (grid * grid,), 0, grid * grid))
-    factors, order = jax_jitter_draws(k_temp)
-    return StepDraws(torch.from_numpy(neg).long(), torch.from_numpy(factors), order, None)
-
-
-def _batches(cfg, steps):
-    return [synthetic_batch(cfg.data.batch_size, cfg.data.image_size, seed=s)
-            for s in range(steps)]
-
-
-def _lockstep(cfg, steps):
-    """``steps`` steps of the JAX Trainer's compiled step and of the port's
-    Trainer from one state, on the same batches and draws."""
-    recipe, state = _jax_state(cfg)
-    jax_trainer = JaxTrainer(cfg, recipe, mesh=make_mesh(1))
-    port_recipe = build_recipe(cfg, "cpu")
-    port_state = train_state_from_flax(state, port_recipe, torch.Generator())
-    jax_rng = np.asarray(state.rng)  # a host copy: the compiled step donates the state
-    trainer = Trainer(cfg, port_recipe, draw_fn=lambda s, b: jax_step_draws(
-        jax_rng, s.step, cfg.loss.patch_grid))
-    state = place_state(state, jax_trainer.mesh)
-    step_fn = jax_trainer.compiled_step()
-    jax_hist, port_hist = [], []
-    for batch in _batches(cfg, steps):
-        state, m = step_fn(state, shard_batch(batch, jax_trainer.mesh))
-        jax_hist.append([float(m[k]) for k in TERMS])
-        mp = trainer.step(port_state, batch)
-        port_hist.append([float(mp[k]) for k in TERMS])
-    return state, port_state, np.asarray(jax_hist), np.asarray(port_hist)
+from torch_jax_lockstep import TERMS, _batches, _cfg, _jax_state, _lockstep, jax_step_draws
 
 
 @pytest.fixture(scope="module")

@@ -8,7 +8,10 @@ results come back in rank order. A group times out after 60 s, and the
 parent kills every rank that outlives its deadline, so a hung collective
 fails its test instead of stopping the suite. A rank's error is raised in
 the parent with its traceback. Each spawn runs several checks, so that the
-start-up is paid once.
+start-up is paid once (``calls`` runs several workers in one spawn), and
+``start`` returns at once, so that a test runs its ranks, its one-process
+reference (in its own process or a spawn of world 1) and its JAX oracle
+side by side.
 
 This module imports no JAX: the ranks run the port only.
 """
@@ -65,42 +68,72 @@ def _main(name, rank, world, store, results, kw):
             dist.destroy_process_group()
 
 
-def spawn(name: str, world: int, tmp_path, deadline: float = 150.0, **kw) -> list:
-    ctx = mp.get_context("spawn")
-    results = ctx.Queue()
-    # a store file of its own for every spawn: a second spawn of one name in
-    # one test must not read the first's keys, which a rank killed at its
-    # deadline leaves behind
-    store = tmp_path / f"store_{name}_{world}_{time.monotonic_ns()}"
-    procs = [ctx.Process(target=_main, args=(name, r, world, str(store), results, kw),
-                         daemon=True) for r in range(world)]
-    for p in procs:
-        p.start()
-    got = {}
-    end = time.monotonic() + deadline
-    try:
-        while len(got) < world:
-            try:
-                rank, status, out = results.get(timeout=1.0)
-            except queue.Empty:
-                dead = [r for r, p in enumerate(procs) if r not in got and p.exitcode is not None]
-                if dead:
-                    raise RuntimeError(f"{name}: rank(s) {dead} exited with "
-                                       f"{[procs[r].exitcode for r in dead]} and no result")
-                if time.monotonic() > end:
-                    raise TimeoutError(f"{name}: {world - len(got)} rank(s) still running "
-                                       f"after {deadline} s") from None
-                continue
-            if status == "error":
-                raise RuntimeError(f"{name}: rank {rank} failed:\n{out}")
-            got[rank] = out
-    finally:
-        for p in procs:
-            p.join(timeout=max(0.1, min(10.0, end - time.monotonic())))
+class Ranks:
+    """``world`` ranks running ``name`` (``start``): the caller computes while
+    they run, and ``join()`` returns their results in rank order. As a
+    context manager it kills the ranks still running when the block raises."""
+
+    def __init__(self, name: str, world: int, tmp_path, deadline: float, kw: dict):
+        ctx = mp.get_context("spawn")
+        self.name, self.world = name, world
+        self.results = ctx.Queue()
+        # a store file of its own for every spawn: a second spawn of one name in
+        # one test must not read the first's keys, which a rank killed at its
+        # deadline leaves behind
+        store = tmp_path / f"store_{name}_{world}_{time.monotonic_ns()}"
+        self.procs = [ctx.Process(target=_main,
+                                  args=(name, r, world, str(store), self.results, kw),
+                                  daemon=True) for r in range(world)]
+        for p in self.procs:
+            p.start()
+        self.deadline, self.end = deadline, time.monotonic() + deadline
+
+    def join(self) -> list:
+        name, world, procs, got = self.name, self.world, self.procs, {}
+        try:
+            while len(got) < world:
+                try:
+                    rank, status, out = self.results.get(timeout=1.0)
+                except queue.Empty:
+                    dead = [r for r, p in enumerate(procs)
+                            if r not in got and p.exitcode is not None]
+                    if dead:
+                        raise RuntimeError(f"{name}: rank(s) {dead} exited with "
+                                           f"{[procs[r].exitcode for r in dead]} and no result")
+                    if time.monotonic() > self.end:
+                        raise TimeoutError(f"{name}: {world - len(got)} rank(s) still running "
+                                           f"after {self.deadline} s") from None
+                    continue
+                if status == "error":
+                    raise RuntimeError(f"{name}: rank {rank} failed:\n{out}")
+                got[rank] = out
+        finally:
+            self._stop()
+        return [got[r] for r in range(world)]
+
+    def _stop(self) -> None:
+        for p in self.procs:
+            p.join(timeout=max(0.1, min(10.0, self.end - time.monotonic())))
             if p.is_alive():
                 p.kill()
                 p.join()
-    return [got[r] for r in range(world)]
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if exc[0] is not None:
+            self.end = time.monotonic()  # no wait: kill what still runs
+            self._stop()
+
+
+def start(name: str, world: int, tmp_path, deadline: float = 150.0, **kw) -> Ranks:
+    """``spawn`` without the wait: see ``Ranks``."""
+    return Ranks(name, world, tmp_path, deadline, kw)
+
+
+def spawn(name: str, world: int, tmp_path, deadline: float = 150.0, **kw) -> list:
+    return start(name, world, tmp_path, deadline, **kw).join()
 
 
 # ------------------------------------------------------------------ helpers
@@ -879,6 +912,12 @@ def baseline_ops(rank, world, cases):
                         "gw": {k: v.numpy() for k, v in gw.items()},
                         "replicated": spatial.REPLICATED_LAYERS - before}
     return out
+
+
+def calls(rank, world, jobs):
+    """Several workers of this module in one spawn: ``jobs`` a list of (name,
+    keyword arguments); their results in that order."""
+    return [globals()[name](rank, world, **kw) for name, kw in jobs]
 
 
 def spatial_jobs(rank, world, jobs, spatial=1, tmp=None):

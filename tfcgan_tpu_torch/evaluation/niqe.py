@@ -14,8 +14,9 @@ it (through IQA-PyTorch). Mittal, Soundararajan, Bovik, "Making a
    Gaussian of the image's patches and the pristine model's.
 
 As in the JAX package: the pristine model is the one fitted on the repo's
-synthetic clean scenes (``tools/fit_niqe_pristine.py``), kept here as the
-port's own copy of ``niqe_pristine.npz``, not the authors' 125-image model
+synthetic clean scenes (``tools/fit_niqe_pristine_torch.py`` refits it, byte
+for byte the JAX package's file), kept here as the port's own copy of
+``niqe_pristine.npz``, not the authors' 125-image model
 (a converted one at ``weights/niqe_pristine.npz`` takes its place), so
 scores compare within this model only; the second scale is 2x2 mean pooling,
 not matlab's bicubic ``imresize(0.5)``.

@@ -2,6 +2,12 @@
 ``tfcgan_tpu.models.vit``: conv patch embedding, CLS token, learned positional
 embedding, pre-LN transformer blocks, a final LayerNorm; returns every token.
 
+The patch embedding, a conv whose stride is its kernel, runs as one product
+of the flattened patches with the flattened kernel: the same sum. The CPU's
+bfloat16 conv gets it wrong at 64 or more out-channels with a 16 x 16 or
+64 x 64 kernel (relative error about 1, where the float32 sum rounded once
+is off by 1e-3), and the localizer's bfloat16 tokens with it.
+
 Flax's defaults are kept: LayerNorm eps 1e-6, the tanh approximation of GELU,
 q scaled by 1/sqrt(head_dim). Parameters are float32 and cast to the compute
 dtype where they are used. The attention runs over 17 tokens at 256² with
@@ -165,18 +171,21 @@ class ViT(nn.Module):
                 m.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        n = x.shape[0]
-        xc = x.to(self.dtype).permute(0, 3, 1, 2)
+        p = self.patch_embed.stride[0]
+        n, h, w, c = x.shape
+        h, w = h // p * p, w // p * p  # a VALID conv's whole patches
+        # (N, H/p, W/p, C p p): each patch flattened in the conv kernel's order
+        patches = (x[:, :h, :w].to(self.dtype).reshape(n, h // p, p, w // p, p, c)
+                   .permute(0, 1, 3, 5, 2, 4).reshape(n, h // p, w // p, c * p * p))
 
-        def embed(xc, w, b):
-            b = None if b is None else b.to(self.dtype)
-            return F.conv2d(xc, w.to(self.dtype), b,
-                            stride=self.patch_embed.stride).permute(0, 2, 3, 1)
+        def embed(patches, weight, bias):
+            return F.linear(patches, weight.to(self.dtype).reshape(weight.shape[0], -1),
+                            None if bias is None else bias.to(self.dtype))
 
         if getattr(self.patch_embed, "tensor_axis", None) is not None:
-            tokens = column_parallel(self.patch_embed, xc, embed)
+            tokens = column_parallel(self.patch_embed, patches, embed)
         else:
-            tokens = embed(xc, self.patch_embed.weight, self.patch_embed.bias)
+            tokens = embed(patches, self.patch_embed.weight, self.patch_embed.bias)
         tokens = tokens.reshape(n, -1, self.dim)
         if tokens.shape[1] + 1 != self.tokens:
             raise ValueError(f"ViT built for {self.tokens - 1} patches got {tokens.shape[1]}: "
